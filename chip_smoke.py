@@ -4,7 +4,8 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the film kernel (tpu_rt_torch/ops/csrc/path_film.cu) with nvcc;
+  2. build the kernels (tpu_rt_torch/ops/csrc/path_film.cu, us_acq.cu),
+     one nvcc per source, started together;
   3. the kernel against its plain PyTorch version on the card: the cbox
      fixture rendered at 64x64, 4 spp, and the raw film planes of one
      main-path launch (512x512, 64 samples);
@@ -14,9 +15,21 @@ Phases (any failure raises and the script exits non-zero):
   5. the main path at full size: tpu_rt_torch.render of the fixture at
      512x512, 256 spp, tent, max_depth 6 — one warm-up, five timed
      renders (CUDA events); the launch counter proves the kernel ran;
-  6. the plain version's time per spp at 512x512 beside the kernel's.
-The line before the last is a JSON record of the kernel; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+  6. the plain version's time per spp at 512x512 beside the kernel's;
+  7. the ultrasound acquisition kernel against its plain version on the
+     card: the full USMain acquisition (20 480 lanes, depth 10, seed 0);
+  8. the ultrasound golden gate: tpu_rt_torch.us_render of USMain at
+     64 rays per pair, seed 0, against tests/golden/us_usmain_rpp64_seed0.npz
+     (tpu_rt's kernel route): axial |RF| profile correlation >= 0.999,
+     total |RF| within 1%, 8x8 B-mode block means within 0.02;
+  9. the ultrasound main path at full width: us_render of USMain at 64
+     rays per pair — one warm-up, five timed runs (CUDA events), the split
+     into acquisition / DAS / envelope + log compression, lanes per
+     second, and the gather DAS beside the matmul DAS.
+Each main path (phases 5 and 9) runs with every launch count set to 0
+just before it and read just after.  The line before the last is a JSON
+record of the kernels; the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 import json
@@ -32,6 +45,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "assets", "cbox", "cbox.xml")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cbox_128_gi_independent.npy")
+US_GOLDEN = os.path.join(ROOT, "tests", "golden", "us_usmain_rpp64_seed0.npz")
+US_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_us_golden.py")
 
 
 def cuda_ms(fn, reps=1):
@@ -53,6 +68,31 @@ def develop_planes(planes, tables):
     film = torch.zeros((4, tables.H, tables.W), dtype=torch.float32, device=planes.device)
     pk.deposit(film, planes, tables)
     return develop(film[:3].permute(1, 2, 0), film[3])
+
+
+def reset_launch_counts():
+    from tpu_rt_torch.ops import path_kernel, us_kernel
+
+    path_kernel.film_trace.launches = 0
+    us_kernel.us_trace.launches = 0
+
+
+def launch_counts():
+    from tpu_rt_torch.ops import path_kernel, us_kernel
+
+    return {"path_film": path_kernel.film_trace.launches,
+            "us_acq": us_kernel.us_trace.launches}
+
+
+def load_us_summarize():
+    """``summarize`` of tests/golden/make_us_golden.py, which made the
+    golden (that module imports JAX only inside its ``main``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_us_golden", US_GOLDEN_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.summarize
 
 
 def main():
@@ -136,13 +176,16 @@ def main():
     # ---- 5. the main path at full size ------------------------------------
     tt.render(sc512, spp=256, seed=123, device="cuda")  # warm-up
     torch.cuda.synchronize()
-    pk.film_trace.launches = 0
+    reset_launch_counts()
     times, rays = [], []
     for rep in range(5):
         ms, img = cuda_ms(lambda: tt.render(sc512, spp=256, seed=rep, device="cuda"))
         times.append(ms)
         rays.append(int(tt.render.last_ray_count))
-    launches = pk.film_trace.launches
+    counts = launch_counts()
+    launches = counts["path_film"]
+    print(f"launch counts over the cbox main path: {counts}")
+    assert counts["us_acq"] == 0
     med = statistics.median(times)
     print(f"main path 512x512 256 spp tent: median {med:.3f} ms "
           f"(min {min(times):.3f}, max {max(times):.3f}, n 5), rays/render "
@@ -158,16 +201,114 @@ def main():
     print(f"ms per spp at 512x512: kernel {kern8 / 8:.4f} (8-spp launch), "
           f"{kernel_ms / 64:.4f} (64-spp launch); plain {plain8 / 8:.2f} (8 spp)")
 
+    us = ultrasound_phases(tt, dev)
+
     print(json.dumps({"kernels": [{
         "name": "path_film", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:2091",
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
+    }, {
+        "name": "us_acq", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/us_acq.cu",
+        "replaces": "tpu_rt/ops/pallas_us.py:388",
+        "launches": us["launches"], "max_abs_err": us["max_abs_err"],
+        "ms": us["ms"], "plain_ms": us["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ultrasound_phases(tt, dev):
+    """Phases 7-9; returns the acquisition kernel's JSON numbers."""
+    from tpu_rt_torch.ops import us_kernel as uk
+    from tpu_rt_torch.sensor.transducer import element_geometry, plane_wave_rays
+    from tpu_rt_torch.us import beamform as bf
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import usmain_desc
+
+    scene = tt.load_dict(usmain_desc(tt.ScalarTransform4f))
+    usc = scene.ultrasound
+    A, E, T, rpp = usc.n_angles, usc.n_elements, usc.time_samples, 64
+
+    # ---- 7. acquisition kernel vs plain version on the card ---------------
+    tables = uk.pack_us_tables(uk.bake_us_scene(scene), 8, dev)
+    base = plane_wave_rays(usc)
+    rays = torch.repeat_interleave(torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]]),
+                                   rpp, dim=1).to(dev)
+    n_lanes = rays.shape[1]
+    rec_k = uk.us_trace(tables, rays, 0)
+    rec_p = uk.us_trace_plain(tables, rays, 0)
+    torch.cuda.synchronize()
+    pk_, pp_ = rec_k[0::3], rec_p[0::3]
+    max_abs_err = (pk_ - pp_).abs().max().item()
+    frac = ((pk_ - pp_).abs() <= 1e-4 * pp_.abs().max()).float().mean().item()
+    nz = (pk_ != 0) & (pp_ != 0)
+    tf_eq = bool((rec_k[1::3][nz] == rec_p[1::3][nz]).all())
+    recv_eq = bool((rec_k[2::3][nz] == rec_p[2::3][nz]).all())
+    uk.us_trace(tables, rays, 0)  # warm-up
+    k_ms, _ = cuda_ms(lambda: uk.us_trace(tables, rays, 0), reps=200)
+    p_ms, _ = cuda_ms(lambda: uk.us_trace_plain(tables, rays, 0), reps=3)
+    print(f"us_acq vs plain, USMain {n_lanes} lanes x depth {usc.max_depth}: pressures "
+          f"within 1e-4 max|p| {frac:.6f}, bit-equal {bool((pk_ == pp_).all())}, max abs err "
+          f"{max_abs_err:.3e}, non-zero pressures {int(nz.sum())}, t_f equal {tf_eq}, "
+          f"recv equal {recv_eq}; kernel {k_ms:.5f} ms, plain {p_ms:.3f} ms; "
+          f"us_trace.launches {uk.us_trace.launches}")
+    assert frac >= 0.99 and tf_eq and recv_eq and int(nz.sum()) > 0, "us_acq disagrees"
+
+    # ---- 8. ultrasound golden gate --------------------------------------------
+    img, ch, _ = tt.us_render(scene, seed=0, rays_per_pair=rpp, device=dev)
+    got = load_us_summarize()(img.cpu().numpy(), ch.cpu().numpy())
+    want = np.load(US_GOLDEN)
+    corr = float(np.corrcoef(got["axial"], want["axial"])[0, 1])
+    tot_rel = abs(got["total_abs"] - want["total_abs"]) / want["total_abs"]
+    blk = float(np.abs(got["blocks"] - want["blocks"]).max())
+    print(f"us golden vs {os.path.basename(US_GOLDEN)}: axial |RF| correlation {corr:.9f} "
+          f"(limit 0.999), total |RF| rel diff {tot_rel:.3e} (limit 0.01), max 8x8 "
+          f"B-mode block-mean diff {blk:.3e} (limit 0.02); image {tuple(img.shape)} mean "
+          f"{img.mean().item():.6f} (golden {float(want['img_mean']):.6f})")
+    assert corr >= 0.999 and tot_rel <= 0.01 and blk <= 0.02, "us golden gate failed"
+
+    # ---- 9. the ultrasound main path at full width ---------------------------
+    tt.us_render(scene, seed=99, rays_per_pair=rpp, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times = []
+    for rep in range(5):
+        ms, (img, ch, tx) = cuda_ms(
+            lambda: tt.us_render(scene, seed=rep + 1, rays_per_pair=rpp, device=dev))
+        times.append(ms)
+    counts = launch_counts()
+    print(f"launch counts over the ultrasound main path: {counts}")
+    assert counts == {"path_film": 0, "us_acq": 5}, counts
+    assert img.shape == (638, 1040) and bool(torch.isfinite(img).all())
+    assert 0.0 <= img.min().item() and img.max().item() <= 1.0
+    med = statistics.median(times)
+
+    # the split, each stage timed alone with the main path's arguments
+    step = float(usc.sound_speed) / float(usc.frequency) / 4.0
+    xg, zg = bf.grid_scan(-0.04, 0.04, 0.001, 0.05, step, step)
+    pos, _ = element_geometry(E, usc.pitch, usc.radius, usc.opening_angle)
+    das_args = (ch, usc.angles, pos[:, 0], usc.sampling_rate, usc.sound_speed, xg, zg)
+    acq_ms, _ = cuda_ms(lambda: uk.simulate_acquisition(scene, seed=7, rays_per_pair=rpp,
+                                                        device=dev), reps=5)
+    das_ms, bfimg = cuda_ms(lambda: bf.das_beamform_matmul(*das_args, elem_z=pos[:, 2]), reps=3)
+    env_ms, _ = cuda_ms(lambda: bf.log_compress(bf.hilbert_envelope(bfimg, axis=1)), reps=5)
+    gather_ms, _ = cuda_ms(lambda: bf.bmode_pipeline(*das_args, method="gather",
+                                                     elem_z=pos[:, 2]), reps=3)
+    matmul_ms, _ = cuda_ms(lambda: bf.bmode_pipeline(*das_args, method="matmul",
+                                                     elem_z=pos[:, 2]), reps=3)
+    print(f"us main path USMain {A}x{E}x{T}, rpp {rpp}, grid {tuple(img.shape)}: median "
+          f"{med:.3f} ms (min {min(times):.3f}, max {max(times):.3f}, n 5); split: "
+          f"acquisition (kernel + deposit) {acq_ms:.3f} ms, DAS matmul {das_ms:.3f} ms, "
+          f"envelope + log {env_ms:.3f} ms; {n_lanes} lanes, lanes/s over the acquisition "
+          f"{n_lanes / (acq_ms / 1e3):.4e}")
+    print(f"bmode_pipeline at the USMain grid: method='matmul' {matmul_ms:.3f} ms, "
+          f"method='gather' {gather_ms:.3f} ms")
+    return dict(launches=counts["us_acq"], max_abs_err=max_abs_err, ms=k_ms, plain_ms=p_ms)
 
 
 if __name__ == "__main__":

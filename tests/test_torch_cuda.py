@@ -1,14 +1,18 @@
-"""The hand-written CUDA film kernel against its plain PyTorch version, on
-the card.  Every test here is marked ``cuda`` and skips without a GPU.
+"""The hand-written CUDA kernels (the film kernel and the ultrasound
+acquisition kernel) against their plain PyTorch versions, on the card.
+Every test here is marked ``cuda`` and skips without a GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-The kernel follows the plain version operation by operation (built with
--fmad=false), so the budget is the same as the CPU parity tests': at least
-99% of entries within rtol 1e-4 / atol 1e-6, plane sums within 1e-3
-relative, the ray count within 1%.
+The kernels follow their plain versions operation by operation (built
+with -fmad=false), so the budgets are the CPU parity tests': for the film
+kernel at least 99% of entries within rtol 1e-4 / atol 1e-6, plane sums
+within 1e-3 relative, the ray count within 1%; for the acquisition kernel
+at least 99% of pressures within 1e-4 of the largest |pressure| (one ulp
+of the echo time moves sin(phase) by up to about 5e-4), time-sample
+indices and receive elements equal wherever both pressures are non-zero.
 """
 
 import os
@@ -18,8 +22,10 @@ import pytest
 import torch
 
 import tpu_rt_torch
-from tpu_rt_torch.ops import path_kernel
-from torch_port_scenes import mixed_desc
+from tpu_rt_torch.ops import path_kernel, us_kernel
+from tpu_rt_torch.sensor.transducer import plane_wave_rays
+from tpu_rt_torch.us.pipeline import us_render
+from torch_port_scenes import mixed_desc, usmain_desc
 
 torch.set_num_threads(1)
 
@@ -81,3 +87,51 @@ def test_render_on_cuda_goes_through_the_kernel():
     assert img.device.type == "cuda" and img.shape == (32, 32, 3)
     assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
     assert tpu_rt_torch.render.last_ray_count.device.type == "cuda"
+
+
+def _us_check(got, want):
+    pw, pg = want[0::3], got[0::3]
+    close = np.abs(pg - pw) <= 1e-4 * np.abs(pw).max()
+    assert close.mean() >= 0.99, f"only {close.mean():.5f} of pressures agree"
+    nz = (pw != 0.0) & (pg != 0.0)
+    assert nz.any()
+    np.testing.assert_array_equal(got[1::3][nz], want[1::3][nz])
+    np.testing.assert_array_equal(got[2::3][nz], want[2::3][nz])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,opening,rpp,seed", [
+    (float("inf"), None, 8, 0), (float("inf"), None, 64, -3), (0.02, None, 8, 5),
+    (0.02, None, 64, 1234), (0.02, 40.0, 64, 77)],
+    ids=["linear-rpp8", "linear-rpp64", "convex-rpp8", "convex-rpp64", "convex-arc-rpp64"])
+def test_us_kernel_matches_plain_version(radius, opening, rpp, seed):
+    """The USMain acquisition (2 560 or 20 480 lanes, depth 10), on a
+    linear array, a convex one, and a convex one spread over an opening
+    angle."""
+    _need_cuda()
+    st = tpu_rt_torch.load_dict(usmain_desc(tpu_rt_torch.ScalarTransform4f, radius=radius,
+                                            opening_angle=opening))
+    tables = us_kernel.pack_us_tables(us_kernel.bake_us_scene(st), 8, "cuda")
+    b = plane_wave_rays(st.ultrasound)
+    rays = torch.repeat_interleave(torch.cat([b["o"].T, b["d"].T, b["tx_delay"][None]]),
+                                   rpp, dim=1).cuda()
+    before = us_kernel.us_trace.launches
+    got = us_kernel.us_trace(tables, rays, seed)
+    torch.cuda.synchronize()
+    assert us_kernel.us_trace.launches == before + 1
+    assert got.shape == (30, 5 * 64 * rpp) and got.device.type == "cuda"
+    _us_check(got.cpu().numpy(), us_kernel.us_trace_plain(tables, rays, seed).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_us_render_on_cuda_goes_through_the_kernel():
+    _need_cuda()
+    st = tpu_rt_torch.load_dict(usmain_desc(tpu_rt_torch.ScalarTransform4f))
+    before = us_kernel.us_trace.launches
+    img, ch, tx = us_render(st, seed=1, rays_per_pair=4, x_bounds=(-0.004, 0.004),
+                            z_bounds=(0.046, 0.054), device="cuda")
+    assert us_kernel.us_trace.launches == before + 1
+    assert img.device.type == ch.device.type == tx.device.type == "cuda"
+    assert ch.shape == (5, 64, 10000) and tx.shape == (5, 64)
+    assert bool(torch.isfinite(img).all()) and 0.0 <= img.min().item() <= img.max().item() <= 1.0
+    assert ch.abs().sum().item() > 0

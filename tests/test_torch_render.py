@@ -85,3 +85,15 @@ def test_render_cuda_raises_without_a_card():
     st = tpu_rt_torch.load_file(CBOX, res=8, spp=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpu_rt_torch.render(st)
+
+
+def test_luminance_pixel_format():
+    """hdrfilm pixel_format="luminance" develops to one BT.709 luminance
+    channel, as tpu_rt's render does."""
+    st = tpu_rt_torch.load_file(CBOX, res=8, spp=1).replace(max_depth=2)
+    rgb = tpu_rt_torch.render(st, seed=4, device="cpu")
+    lum = tpu_rt_torch.render(st.replace(camera=st.camera.replace(pixel_format="luminance")),
+                              seed=4, device="cpu")
+    assert lum.shape == (8, 8, 1)
+    want = rgb[..., 0] * 0.212671 + rgb[..., 1] * 0.715160 + rgb[..., 2] * 0.072169
+    np.testing.assert_array_equal(lum[..., 0].numpy(), want.numpy())

@@ -37,18 +37,28 @@ def tpu_rt_arrays(scene):
                    for k in _tensor_fields(TT.Emitters)})
     for k in ("shape_bsdf", "shape_emitter", "bsdf_type", "bsdf_params"):
         arrays[k] = np.asarray(getattr(scene, k))
-    cam = scene.camera
-    for k in _tensor_fields(TT.Camera):
-        arrays["camera_" + k] = np.asarray(getattr(cam, k))
     meta = dict(
         n_tris=scene.geometry.n_tris, n_analytic=scene.geometry.n_analytic,
         n_area=scene.emitters.n_area, n_point=scene.emitters.n_point,
         has_env=scene.emitters.has_env, has_textures=scene.has_textures,
         integrator=scene.integrator, max_depth=scene.max_depth,
         rr_depth=scene.rr_depth, hide_emitters=scene.hide_emitters,
-        camera=dict(width=cam.width, height=cam.height, filter_type=cam.filter_type,
-                    spp=cam.spp, pixel_format=cam.pixel_format),
     )
+    cam = scene.camera
+    if cam is not None:
+        for k in _tensor_fields(TT.Camera):
+            arrays["camera_" + k] = np.asarray(getattr(cam, k))
+        meta["camera"] = dict(width=cam.width, height=cam.height,
+                              filter_type=cam.filter_type, spp=cam.spp,
+                              pixel_format=cam.pixel_format)
+    us = scene.ultrasound
+    if us is not None:
+        for f in dataclasses.fields(TT.UltrasoundConfig):
+            if f.type == "torch.Tensor":
+                arrays["us_" + f.name] = np.asarray(getattr(us, f.name))
+        meta["ultrasound"] = {f.name: getattr(us, f.name)
+                              for f in dataclasses.fields(TT.UltrasoundConfig)
+                              if f.type != "torch.Tensor"}
     return arrays, meta
 
 

@@ -32,3 +32,64 @@ def mixed_desc(st):
                "intensity": np.array([10.0, 8.0, 6.0])},
         "env": {"type": "constant", "radiance": np.array([0.2, 0.2, 0.3])},
     }
+
+
+def usmain_desc(st, radius=float("inf"), opening_angle=None):
+    """The USMain ultrasound configuration (tools/bench_us_e2e.py:26-78,
+    tests/test_scene_loading.py::test_usmain_dict): 5 plane-wave angles
+    from -15 to 15 degrees, 64 elements at 0.12 mm pitch, 10 000 samples at
+    50 MHz, max_depth 10, a 45-degree plate and a back wall.  ``radius``
+    other than inf makes the array convex; ``opening_angle`` (degrees)
+    adds a transducer emitter that spreads its elements over that arc."""
+    desc = {
+        "type": "scene",
+        "integrator": {
+            "type": "ultrasound_integrator",
+            "max_depth": 10,
+            "sampling_rate": 50e6,
+            "frequency": 5e6,
+            "sound_speed": 1540,
+            "attenuation": 0.2,
+            "wave_cycles": 5,
+            "main_beam_angle": 24,
+            "cutoff_angle": 30,
+            "n_elements": 64,
+            "pitch": 0.00003 * 4,
+            "time_samples": 10000,
+            "angles": np.linspace(-15, 15, 5),
+        },
+        "sensor": {
+            "type": "ultrasound_sensor",
+            "num_elements_lateral": 1280,
+            "elements_width": 0.003,
+            "elements_height": 0.01,
+            "pitch": 0.0003,
+            "radius": radius,
+            "center_frequency": 5e6,
+            "sound_speed": 1540,
+            "directivity": 1.0,
+            "to_world": st().look_at(origin=[0, 0, 0.0], target=[0, 0, 0.03],
+                                     up=[0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": 512, "height": 512,
+                     "pixel_format": "luminance"},
+        },
+        "flat_plate": {
+            "type": "rectangle",
+            "to_world": (st().translate([0, 0, 0.05])
+                         @ st().rotate([0, 1, 0], 45)
+                         @ st().scale([0.17, 0.17, 0.14])),
+            "bsdf": {"type": "ultrasound_bsdf", "impedance": 7.8,
+                     "roughness": 0.7},
+        },
+        "wall_back": {
+            "type": "rectangle",
+            "to_world": (st().translate([0, 0, 1])
+                         @ st().rotate([0, 1, 0], 180)
+                         @ st().scale([0.05, 0.05, 1])),
+            "bsdf": {"type": "ultrasound_bsdf", "impedance": 7.8,
+                     "roughness": 0.7},
+        },
+    }
+    if opening_angle is not None:
+        desc["probe"] = {"type": "ultraray", "opening_angle": opening_angle}
+    return desc

@@ -1,9 +1,13 @@
 """Integrator dispatch (Mitsuba's integrator plugin factory).
 
 Counterpart of ``tpu_rt/integrator/__init__.py``.  A ``path`` scene inside
-the film kernel's scope renders through ``ops/path_kernel.py``; every other
-scene raises ``NotImplementedError`` naming the ROADMAP.md item that will
-port its route.
+the film kernel's scope renders through ``ops/path_kernel.py``; an
+ultrasound scene returns the B-mode image of ``us.pipeline.us_render``,
+whose acquisition runs through the ultrasound kernel (tpu_rt's ``render``
+sends it through its XLA tracer instead: both estimate the same integrals
+with different random streams).  Every other scene raises
+``NotImplementedError`` naming the ROADMAP.md item that will port its
+route.
 """
 
 from __future__ import annotations
@@ -21,7 +25,6 @@ from tpu_rt_torch.scene.types import (
 _LATER = {
     INTEGRATOR_DIRECT: "A4 (wavefront path tracer) and A5 (mesh direct kernel K9)",
     INTEGRATOR_STOKES: "A6 (polarized transport)",
-    INTEGRATOR_ULTRASOUND: "A3 (ultrasound)",
 }
 
 
@@ -36,26 +39,33 @@ def _check_device(device):
 
 
 def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
-           tile_rows=16):
+           tile_rows=16, **us_kwargs):
     """Render a scene with its integrator (``mi.render`` equivalent).
 
-    Returns an (H, W, 3) float32 tensor on ``device`` and sets
+    A path scene gives an (H, W, 3) float32 tensor on ``device`` and sets
     ``render.last_ray_count`` (a 0-d int64 tensor on ``device``: path
     segments plus shadow rays).  ``seed`` keys the kernel's counter RNG;
     ``tile_rows`` only keys that RNG (tile = pixel // (tile_rows * 128)),
     so ``tile_rows=16`` reproduces the JAX package's TPU render and
-    ``tile_rows=8`` its interpret-mode render."""
+    ``tile_rows=8`` its interpret-mode render.  An hdrfilm with
+    ``pixel_format="luminance"`` gives (H, W, 1).
+
+    An ultrasound scene gives the B-mode display image [Nz, Nx] of
+    ``us_render(scene, seed, device=device, **us_kwargs)`` (e.g.
+    ``rays_per_pair``, ``x_bounds``, ``z_bounds``)."""
     from tpu_rt_torch.ops import path_kernel
 
     device = _check_device(device)
+    if scene.integrator == INTEGRATOR_ULTRASOUND:
+        from tpu_rt_torch.us.pipeline import us_render
+
+        return us_render(scene, seed=seed, device=device, **us_kwargs)[0]
+    if us_kwargs:
+        raise TypeError(f"render got unexpected arguments {sorted(us_kwargs)}")
     if scene.integrator != INTEGRATOR_PATH:
         raise NotImplementedError(
             f"integrator {scene.integrator} is not ported to tpu_rt_torch yet "
             f"(ROADMAP.md {_LATER.get(scene.integrator, 'A4')})")
-    if scene.camera.pixel_format != "rgb":
-        raise NotImplementedError(
-            f"hdrfilm pixel_format {scene.camera.pixel_format!r} is not ported "
-            "yet (ROADMAP.md A3 (ultrasound))")
     baked = path_kernel.bake_scene(scene)
     if baked is None:
         raise NotImplementedError(
@@ -66,6 +76,10 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
         scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
         tile_rows=tile_rows, baked=baked)
     render.last_ray_count = n_rays
+    if scene.camera.pixel_format == "luminance":
+        # develop-time conversion to one ITU-R BT.709 luminance channel
+        img = (img[..., 0] * 0.212671 + img[..., 1] * 0.715160
+               + img[..., 2] * 0.072169)[..., None]
     return img
 
 

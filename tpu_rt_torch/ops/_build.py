@@ -1,10 +1,12 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
-The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
-so one ``nvcc`` call builds them in seconds.  The shared library goes to
+The sources under ``csrc/`` have a plain C interface (no PyTorch headers).
+Each ``.cu`` file is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library in
 ``build/tpu_rt_torch/`` at the repository root, named after a hash of the
-sources and flags: an edit forces a rebuild.  A failed build raises with
-nvcc's output; nothing falls back to another implementation.
+sources, the shared header and the flags: an edit forces a rebuild.  A
+failed build raises with nvcc's output; nothing falls back to another
+implementation.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and ``-fmad=false`` so
 that the kernel rounds each multiply and add as the plain PyTorch version
@@ -24,10 +26,11 @@ import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("path_film.cu",)
+_SOURCES = ("path_film.cu", "us_acq.cu")
+_HEADERS = ("common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_rt_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc():
@@ -44,7 +47,7 @@ def _nvcc():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update((_CSRC / name).read_bytes())
     return _BUILD_DIR / f"tpu_rt_torch_kernels_{h.hexdigest()[:16]}.so"
 
@@ -57,15 +60,23 @@ def build() -> Path:
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(_CSRC / s) for s in _SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src + ".o") for src in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, text in zip(_SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{text}")
+        tmp = os.path.join(tmpdir, out.name)
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        out.with_suffix(".log").write_text("".join(logs) + link.stdout + link.stderr)
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out
 
 
@@ -75,6 +86,9 @@ def load_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.path_film_launch.argtypes = [p, i, p, i, p, i, i, i, i, p]
     lib.path_film_launch.restype = i
-    lib.path_film_error_string.argtypes = [i]
-    lib.path_film_error_string.restype = ctypes.c_char_p
+    lib.us_acq_launch.argtypes = [p, i, p, i, p, p, i, i, p]
+    lib.us_acq_launch.restype = i
+    for name in ("path_film_error_string", "us_acq_error_string"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,164 @@
+// Device helpers shared by the film kernel (path_film.cu) and the
+// ultrasound acquisition kernel (us_acq.cu): float3 arithmetic, the
+// SplitMix32 random streams of tpu_rt's Pallas kernels, the shading frame,
+// and the closest-hit / any-hit sweep over the packed prim records.
+//
+// The prim record layout (PRIM_STRIDE floats: kind, bsdf, emitter, pad,
+// then the shape's data) is written by path_kernel.py::pack_prims.
+// Arithmetic follows the plain PyTorch versions operation by operation;
+// build with -fmad=false to keep multiplies and adds separately rounded.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+enum { PRIM_STRIDE = 20 };
+enum { KIND_TRI = 0, KIND_SPHERE = 1, KIND_RECT = 2 };
+constexpr double kPi = 3.14159265358979323846;
+constexpr float kBig = 1e8f;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 scale(V3 a, float s) {
+  return {a.x * s, a.y * s, a.z * s};
+}
+__device__ __forceinline__ V3 add(V3 a, V3 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ V3 normalize(V3 a) {
+  return scale(a, 1.0f / sqrtf(fmaxf(dot(a, a), 1e-24f)));
+}
+__device__ __forceinline__ float safe_sqrt(float x) {
+  return sqrtf(fmaxf(x, 1e-20f));
+}
+__device__ __forceinline__ float clamp_abs(float x, float eps) {
+  return fabsf(x) < eps ? (x < 0.0f ? -eps : eps) : x;
+}
+
+// Duff et al. branchless orthonormal basis (s, t) around the unit normal n.
+__device__ __forceinline__ void frame(V3 n, V3& s, V3& t) {
+  float sign = n.z >= 0.0f ? 1.0f : -1.0f;
+  float a = -(1.0f / (sign + n.z));
+  float b = n.x * n.y * a;
+  s = {1.0f + sign * n.x * n.x * a, sign * b, -sign * n.x};
+  t = {b, sign + n.y * n.y * a, -n.y};
+}
+// Local (s, t, n) coordinates to world.
+__device__ __forceinline__ V3 to_world(V3 n, V3 s, V3 t, V3 v) {
+  return {s.x * v.x + t.x * v.y + n.x * v.z, s.y * v.x + t.y * v.y + n.y * v.z,
+          s.z * v.x + t.z * v.y + n.z * v.z};
+}
+
+// SplitMix32 (tpu_rt/ops/pallas_path.py::_rng_init / _rng_next)
+__device__ __forceinline__ uint32_t rng_init(uint32_t seed, uint32_t tile,
+                                             uint32_t lane) {
+  uint32_t s = seed * 0x9E3779B9u + tile * 0x85EBCA6Bu + lane * 0xC2B2AE35u +
+               0x165667B1u;
+  s = (s ^ (s >> 16)) * 0x7FEB352Du;
+  s = (s ^ (s >> 15)) * 0x846CA68Bu;
+  s = s ^ (s >> 16);
+  return s | 1u;
+}
+__device__ __forceinline__ float rng_next(uint32_t& state) {
+  state += 0x9E3779B9u;
+  uint32_t z = state;
+  z = (z ^ (z >> 16)) * 0x21F0AAADu;
+  z = (z ^ (z >> 15)) * 0x735A2D97u;
+  z = z ^ (z >> 15);
+  return __uint_as_float((z >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// One prim's intersection test: hit or not, and the hit distance t.
+__device__ __forceinline__ bool intersect(const float* rec, V3 o, V3 d,
+                                          float tmin, float tmax, float& t) {
+  const float* q = rec + 4;
+  int kind = (int)rec[0];
+  if (kind == KIND_TRI) {
+    V3 p0 = {q[0], q[1], q[2]}, e1 = {q[3], q[4], q[5]}, e2 = {q[6], q[7], q[8]};
+    V3 pv = cross(d, e2);
+    float det = e1.x * pv.x + e1.y * pv.y + e1.z * pv.z;
+    float inv = 1.0f / clamp_abs(det, 1e-9f);
+    V3 tv = {o.x - p0.x, o.y - p0.y, o.z - p0.z};
+    float u = (tv.x * pv.x + tv.y * pv.y + tv.z * pv.z) * inv;
+    V3 qv = cross(tv, e1);
+    float v = dot(d, qv) * inv;
+    t = (e2.x * qv.x + e2.y * qv.y + e2.z * qv.z) * inv;
+    return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < tmax;
+  }
+  if (kind == KIND_SPHERE) {
+    V3 oc = {o.x - q[0], o.y - q[1], o.z - q[2]};
+    float b2 = dot(oc, d);
+    float cc = dot(oc, oc) - q[3];
+    float dd = dot(d, d);
+    float disc = b2 * b2 - cc * dd;
+    float sq = safe_sqrt(disc);
+    float t0 = (-b2 - sq) / dd;
+    float t1 = (-b2 + sq) / dd;
+    t = (t0 > tmin && t0 < tmax) ? t0 : t1;
+    return disc >= 0.0f && t > tmin && t < tmax;
+  }
+  // rectangle: rows m0, m1, m2 of to_object
+  const float* m0 = q;
+  const float* m1 = q + 4;
+  const float* m2 = q + 8;
+  float ozp = m2[0] * o.x + m2[1] * o.y + m2[2] * o.z + m2[3];
+  float dzp = m2[0] * d.x + m2[1] * d.y + m2[2] * d.z;
+  t = -ozp / clamp_abs(dzp, 1e-9f);
+  float oxp = m0[0] * o.x + m0[1] * o.y + m0[2] * o.z + m0[3];
+  float dxp = m0[0] * d.x + m0[1] * d.y + m0[2] * d.z;
+  float oyp = m1[0] * o.x + m1[1] * o.y + m1[2] * o.z + m1[3];
+  float dyp = m1[0] * d.x + m1[1] * d.y + m1[2] * d.z;
+  float xh = oxp + t * dxp;
+  float yh = oyp + t * dyp;
+  return fabsf(dzp) > 1e-12f && t > tmin && t < tmax && fabsf(xh) <= 1.0f &&
+         fabsf(yh) <= 1.0f;
+}
+
+__device__ __forceinline__ V3 prim_normal(const float* rec, V3 o, V3 d, float t) {
+  const float* q = rec + 4;
+  int kind = (int)rec[0];
+  if (kind == KIND_TRI) return {q[9], q[10], q[11]};
+  if (kind == KIND_SPHERE)
+    return {(o.x + t * d.x - q[0]) * q[4], (o.y + t * d.y - q[1]) * q[4],
+            (o.z + t * d.z - q[2]) * q[4]};
+  return {q[12], q[13], q[14]};
+}
+
+// Closest hit: returns the prim index or -1; t and the normal by reference.
+__device__ int closest_hit(const float* prims, int n_prims, V3 o, V3 d,
+                           float& best_t, V3& n) {
+  best_t = kBig;
+  int best = -1;
+  for (int pi = 0; pi < n_prims; ++pi) {
+    float t;
+    if (intersect(prims + pi * PRIM_STRIDE, o, d, 1e-4f, kBig, t) && t < best_t) {
+      best_t = t;
+      best = pi;
+    }
+  }
+  if (best >= 0) n = prim_normal(prims + best * PRIM_STRIDE, o, d, best_t);
+  return best;
+}
+
+__device__ bool any_hit(const float* prims, int n_prims, V3 o, V3 d, float tmax) {
+  for (int pi = 0; pi < n_prims; ++pi) {
+    float t;
+    if (intersect(prims + pi * PRIM_STRIDE, o, d, 1e-4f, tmax, t) && t < kBig)
+      return true;
+  }
+  return false;
+}
+
+}  // namespace

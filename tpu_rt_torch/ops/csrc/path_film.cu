@@ -20,7 +20,9 @@
 // into one float table plus an int header (layout in path_kernel.py), and
 // each block stages the table in shared memory.  The random streams are
 // the JAX kernel's SplitMix32 streams bit for bit, keyed on
-// (seed + sample, pixel // tile_lanes, pixel % tile_lanes).
+// (seed + sample, pixel // tile_lanes, pixel % tile_lanes).  The RNG, the
+// shading frame and the prim sweep live in common.cuh, shared with the
+// ultrasound kernel us_acq.cu.
 //
 // What bounds it.  Per ray the kernel reads a few KB of tables from shared
 // memory and writes nothing until the end, so it is bound by FP32 ALU work
@@ -34,9 +36,7 @@
 // (same association order, IEEE division and square root, no fast math);
 // build with -fmad=false to keep multiplies and adds separately rounded.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -53,64 +53,20 @@ enum {
   G_ORG = 17, G_TFX = 20, G_TFY = 21, G_INVW = 22, G_INVH = 23, G_NEAR = 24,
   G_FAR_NEAR = 25, G_GAUSS_TAIL = 26
 };
-enum { PRIM_STRIDE = 20, BSDF_STRIDE = 16, EM_STRIDE = 32, PT_STRIDE = 8 };
-enum { KIND_TRI = 0, KIND_SPHERE = 1, KIND_RECT = 2 };
+enum { BSDF_STRIDE = 16, EM_STRIDE = 32, PT_STRIDE = 8 };
 enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2 };
 constexpr int kMaxTableFloats = 12 * 1024;
 constexpr int kThreads = 128;
 
-constexpr double kPi = 3.14159265358979323846;
-constexpr float kBig = 1e8f;
 constexpr float kInvPi = (float)(1.0 / kPi);
 constexpr float kPi4 = (float)(kPi / 4.0);
 constexpr float kPi2 = (float)(kPi / 2.0);
 constexpr float kShadowShrink = (float)(1.0 - 1e-3);
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ V3 scale(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
-}
-__device__ __forceinline__ V3 normalize(V3 a) {
-  return scale(a, 1.0f / sqrtf(fmaxf(dot(a, a), 1e-24f)));
-}
-__device__ __forceinline__ float safe_sqrt(float x) {
-  return sqrtf(fmaxf(x, 1e-20f));
-}
-__device__ __forceinline__ float clamp_abs(float x, float eps) {
-  return fabsf(x) < eps ? (x < 0.0f ? -eps : eps) : x;
-}
 __device__ __forceinline__ float mis(float pdf_a, float pdf_b) {
   float a2 = pdf_a * pdf_a;
   float w = a2 / fmaxf(a2 + pdf_b * pdf_b, 1e-20f);
   return pdf_a > 0.0f ? w : 0.0f;
-}
-
-// SplitMix32 (tpu_rt/ops/pallas_path.py::_rng_init / _rng_next)
-__device__ __forceinline__ uint32_t rng_init(uint32_t seed, uint32_t tile,
-                                             uint32_t lane) {
-  uint32_t s = seed * 0x9E3779B9u + tile * 0x85EBCA6Bu + lane * 0xC2B2AE35u +
-               0x165667B1u;
-  s = (s ^ (s >> 16)) * 0x7FEB352Du;
-  s = (s ^ (s >> 15)) * 0x846CA68Bu;
-  s = s ^ (s >> 16);
-  return s | 1u;
-}
-__device__ __forceinline__ float rng_next(uint32_t& state) {
-  state += 0x9E3779B9u;
-  uint32_t z = state;
-  z = (z ^ (z >> 16)) * 0x21F0AAADu;
-  z = (z ^ (z >> 15)) * 0x735A2D97u;
-  z = z ^ (z >> 15);
-  return __uint_as_float((z >> 9) | 0x3F800000u) - 1.0f;
 }
 
 struct Scene {
@@ -122,87 +78,6 @@ struct Scene {
   int n_prims, n_area, n_lights, max_depth, rr_depth, W, tile_lanes;
   bool hide_emitters, has_env, has_far;
 };
-
-// One prim's intersection test: hit or not, and the hit distance t.
-__device__ __forceinline__ bool intersect(const float* rec, V3 o, V3 d,
-                                          float tmin, float tmax, float& t) {
-  const float* q = rec + 4;
-  int kind = (int)rec[0];
-  if (kind == KIND_TRI) {
-    V3 p0 = {q[0], q[1], q[2]}, e1 = {q[3], q[4], q[5]}, e2 = {q[6], q[7], q[8]};
-    V3 pv = cross(d, e2);
-    float det = e1.x * pv.x + e1.y * pv.y + e1.z * pv.z;
-    float inv = 1.0f / clamp_abs(det, 1e-9f);
-    V3 tv = {o.x - p0.x, o.y - p0.y, o.z - p0.z};
-    float u = (tv.x * pv.x + tv.y * pv.y + tv.z * pv.z) * inv;
-    V3 qv = cross(tv, e1);
-    float v = dot(d, qv) * inv;
-    t = (e2.x * qv.x + e2.y * qv.y + e2.z * qv.z) * inv;
-    return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < tmax;
-  }
-  if (kind == KIND_SPHERE) {
-    V3 oc = {o.x - q[0], o.y - q[1], o.z - q[2]};
-    float b2 = dot(oc, d);
-    float cc = dot(oc, oc) - q[3];
-    float dd = dot(d, d);
-    float disc = b2 * b2 - cc * dd;
-    float sq = safe_sqrt(disc);
-    float t0 = (-b2 - sq) / dd;
-    float t1 = (-b2 + sq) / dd;
-    t = (t0 > tmin && t0 < tmax) ? t0 : t1;
-    return disc >= 0.0f && t > tmin && t < tmax;
-  }
-  // rectangle: rows m0, m1, m2 of to_object
-  const float* m0 = q;
-  const float* m1 = q + 4;
-  const float* m2 = q + 8;
-  float ozp = m2[0] * o.x + m2[1] * o.y + m2[2] * o.z + m2[3];
-  float dzp = m2[0] * d.x + m2[1] * d.y + m2[2] * d.z;
-  t = -ozp / clamp_abs(dzp, 1e-9f);
-  float oxp = m0[0] * o.x + m0[1] * o.y + m0[2] * o.z + m0[3];
-  float dxp = m0[0] * d.x + m0[1] * d.y + m0[2] * d.z;
-  float oyp = m1[0] * o.x + m1[1] * o.y + m1[2] * o.z + m1[3];
-  float dyp = m1[0] * d.x + m1[1] * d.y + m1[2] * d.z;
-  float xh = oxp + t * dxp;
-  float yh = oyp + t * dyp;
-  return fabsf(dzp) > 1e-12f && t > tmin && t < tmax && fabsf(xh) <= 1.0f &&
-         fabsf(yh) <= 1.0f;
-}
-
-__device__ __forceinline__ V3 prim_normal(const float* rec, V3 o, V3 d, float t) {
-  const float* q = rec + 4;
-  int kind = (int)rec[0];
-  if (kind == KIND_TRI) return {q[9], q[10], q[11]};
-  if (kind == KIND_SPHERE)
-    return {(o.x + t * d.x - q[0]) * q[4], (o.y + t * d.y - q[1]) * q[4],
-            (o.z + t * d.z - q[2]) * q[4]};
-  return {q[12], q[13], q[14]};
-}
-
-// Closest hit: returns the prim index or -1; t and the normal by reference.
-__device__ int closest_hit(const Scene& sc, V3 o, V3 d, float& best_t, V3& n) {
-  best_t = kBig;
-  int best = -1;
-  for (int pi = 0; pi < sc.n_prims; ++pi) {
-    float t;
-    if (intersect(sc.prims + pi * PRIM_STRIDE, o, d, 1e-4f, kBig, t) &&
-        t < best_t) {
-      best_t = t;
-      best = pi;
-    }
-  }
-  if (best >= 0) n = prim_normal(sc.prims + best * PRIM_STRIDE, o, d, best_t);
-  return best;
-}
-
-__device__ bool any_hit(const Scene& sc, V3 o, V3 d, float tmax) {
-  for (int pi = 0; pi < sc.n_prims; ++pi) {
-    float t;
-    if (intersect(sc.prims + pi * PRIM_STRIDE, o, d, 1e-4f, tmax, t) && t < kBig)
-      return true;
-  }
-  return false;
-}
 
 // Conductor Fresnel at |cos_f| for one channel (mirror -> 1).
 __device__ __forceinline__ float fres_cond(float cos_f, float eta, float k,
@@ -250,7 +125,7 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
   for (int depth = 0; depth < sc.max_depth; ++depth) {
     float t;
     V3 n = {0.0f, 0.0f, 0.0f};
-    int prim = closest_hit(sc, o, d, t, n);
+    int prim = closest_hit(sc.prims, sc.n_prims, o, d, t, n);
     bool hit = prim >= 0;
     if (sc.has_far && depth == 0) {
       // the origin sits at the near plane: the clip length left is
@@ -286,11 +161,8 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
 
     const float* b = sc.bsdfs + (int)prec[1] * BSDF_STRIDE;
     int btype = (int)b[0];
-    float sign = n.z >= 0.0f ? 1.0f : -1.0f;
-    float fa = -(1.0f / (sign + n.z));
-    float fb = n.x * n.y * fa;
-    V3 s_fr = {1.0f + sign * n.x * n.x * fa, sign * fb, -sign * n.x};
-    V3 t_fr = {fb, sign + n.y * n.y * fa, -n.y};
+    V3 s_fr, t_fr;
+    frame(n, s_fr, t_fr);
     V3 wi_l = {dot(wi, s_fr), dot(wi, t_fr), dot(wi, n)};
     float cos_i = wi_l.z;
     float u[9];
@@ -339,7 +211,7 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
         ray_count += 1.0f;
         float off = 1e-4f * (dot(n, wl) >= 0.0f ? 1.0f : -1.0f);
         V3 so = {p.x + n.x * off, p.y + n.y * off, p.z + n.z * off};
-        if (!any_hit(sc, so, wl, dist * kShadowShrink)) {
+        if (!any_hit(sc.prims, sc.n_prims, so, wl, dist * kShadowShrink)) {
           float pdf_nee = is_delta ? g[G_INV_NL]
                                    : pdf_a * dist2 / fmaxf(cos_ll, 1e-6f) * g[G_INV_NL];
           float fs = kInvPi * fmaxf(cos_sl, 0.0f);
@@ -412,9 +284,7 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
       delta = true;
     }
 
-    V3 d_new = normalize({s_fr.x * wo_l.x + t_fr.x * wo_l.y + n.x * wo_l.z,
-                          s_fr.y * wo_l.x + t_fr.y * wo_l.y + n.y * wo_l.z,
-                          s_fr.z * wo_l.x + t_fr.z * wo_l.y + n.z * wo_l.z});
+    V3 d_new = normalize(to_world(n, s_fr, t_fr, wo_l));
     float off = 1e-4f * (dot(n, d_new) >= 0.0f ? 1.0f : -1.0f);
     V3 o_new = {p.x + n.x * off, p.y + n.y * off, p.z + n.z * off};
     V3 thr_new = {thr.x * w_s.x, thr.y * w_s.y, thr.z * w_s.z};

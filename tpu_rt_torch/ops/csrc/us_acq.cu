@@ -1,0 +1,245 @@
+// Ultrasound acquisition kernel for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel tpu_rt/ops/pallas_us.py::simulate_acquisition_pallas
+// (body _build_us_kernel): per ray lane of the plane-wave acquisition
+// (angle x element x rays_per_pair lanes), max_depth bounces of a
+// closest-hit sweep, an echo towards a random receive element with an
+// any-hit occlusion test, attenuation / time of flight / phase, the
+// receive directivity ramp, an acoustic GGX VNDF reflect-or-refract
+// bounce and Russian roulette.  Per bounce it writes three records:
+// pressure, fractional time-sample index and receive element.  The RF
+// deposit (a two-tap scatter into [A, E, T]) stays outside the kernel, in
+// us_kernel.py::deposit_rf, as the TPU kernel leaves it to XLA.
+//
+// Design.  One thread per lane; a depth loop that breaks once the lane
+// misses or dies.  The wrapper zeroes the [3 * max_depth, N] records, so a
+// dead lane's remaining bounces keep zero pressure (their time and element
+// records are don't-cares: the deposit adds zero for them).  The kernel
+// allocates nothing.  Scene prims, acoustic BSDF params and the
+// acquisition constants live in one float table plus an int header
+// (layout in us_kernel.py), staged in shared memory, so no scene is
+// compiled into the code.  The random streams are the JAX kernel's
+// SplitMix32 streams bit for bit (common.cuh), keyed on
+// (seed, lane // tile_lanes, lane % tile_lanes), five draws per bounce in
+// the order u_recv, s1, s2a, s2b, u_rr.
+//
+// What bounds it.  The USMain acquisition has 20 480 lanes: 160 blocks of
+// 128 threads on 132 SMs, one thin wave with most SMs holding a single
+// block.  Each lane does a few hundred FP32 operations per bounce and
+// touches device memory only for its 7 inputs and 3 records per bounce,
+// so the kernel is latency-bound (dependent arithmetic and sinf's range
+// reduction at phases of 1e3 - 1e4 rad), not bandwidth-bound.  This first
+// form accepts that: more lanes per launch, or several acquisitions in one
+// launch, would fill the card, and are left to later work.
+//
+// Arithmetic follows the plain PyTorch version (us_kernel.py::
+// us_trace_plain) operation by operation: IEEE division and square root,
+// no fast math, built with -fmad=false.
+
+#include "common.cuh"
+
+namespace {
+
+// int32 header
+enum {
+  UH_N_PRIMS = 0, UH_N_BSDFS = 1, UH_MAX_DEPTH = 2, UH_N_ELEM = 3,
+  UH_LAYOUT = 4, UH_TILE_LANES = 5, UH_OFF_PRIM = 6, UH_OFF_BSDF = 7,
+  UH_LEN = 8
+};
+// float table: acquisition constants
+enum {
+  UG_ROWS = 0, UG_TN = 9, UG_PITCH = 12, UG_RADIUS = 13, UG_C_LIN = 14,
+  UG_THETA0 = 15, UG_DTHETA = 16, UG_E_HALF = 17, UG_P_OVER_R = 18, UG_E = 19,
+  UG_E_M1 = 20, UG_ATT = 21, UG_DB = 22, UG_INV_C = 23, UG_TWO_PI_F = 24,
+  UG_COS_CUT = 25, UG_INV_RAMP = 26, UG_MAIN = 27, UG_CUT = 28,
+  UG_NUM_RAYS = 29, UG_FS = 30, UG_MAX_PATH = 31
+};
+enum { LAYOUT_LINEAR = 0, LAYOUT_CONVEX_OPEN = 1, LAYOUT_CONVEX_PITCH = 2 };
+enum { US_BSDF_STRIDE = 4 };
+constexpr int kMaxTableFloats = 12 * 1024;
+constexpr int kThreads = 128;
+
+constexpr float kPiF = (float)kPi;
+constexpr float kTwoPi = (float)(2.0 * kPi);
+constexpr float kShadowShrink = (float)(1.0 - 1e-3);
+
+// Abramowitz-Stegun 4.4.45 arccos (the TPU kernel's), x in [-1, 1].
+__device__ __forceinline__ float acos_as(float x) {
+  float xa = fabsf(x);
+  float p = 1.5707288f + xa * (-0.2121144f + xa * (0.0742610f + xa * (-0.0187293f)));
+  float r = safe_sqrt(1.0f - xa) * p;
+  return x >= 0.0f ? r : kPiF - r;
+}
+
+// World position of receive element index r, closed form per layout.
+__device__ __forceinline__ V3 elem_world(const float* g, int layout, float r) {
+  float x, z;
+  if (layout == LAYOUT_LINEAR) {
+    x = g[UG_PITCH] * (r - g[UG_C_LIN]);
+    z = 0.0f;
+  } else {
+    float theta = layout == LAYOUT_CONVEX_OPEN ? g[UG_THETA0] + r * g[UG_DTHETA]
+                                               : (r - g[UG_E_HALF]) * g[UG_P_OVER_R];
+    x = g[UG_RADIUS] * sinf(theta);
+    z = g[UG_RADIUS] * (1.0f - cosf(theta));
+  }
+  const float* m = g + UG_ROWS;
+  return {m[0] * x + m[1] * z + m[2], m[3] * x + m[4] * z + m[5],
+          m[6] * x + m[7] * z + m[8]};
+}
+
+__global__ void __launch_bounds__(kThreads)
+us_acq_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
+              int n_tab, const float* __restrict__ rays, float* __restrict__ out,
+              int n_lanes, int seed) {
+  extern __shared__ float tab[];
+  __shared__ int hdr[UH_LEN];
+  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = tab_g[i];
+  for (int i = threadIdx.x; i < UH_LEN; i += blockDim.x) hdr[i] = hdr_g[i];
+  __syncthreads();
+  int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_lanes) return;
+
+  const float* g = tab;
+  const float* prims = tab + hdr[UH_OFF_PRIM];
+  const float* bsdfs = tab + hdr[UH_OFF_BSDF];
+  const int n_prims = hdr[UH_N_PRIMS];
+  const int max_depth = hdr[UH_MAX_DEPTH];
+  const int layout = hdr[UH_LAYOUT];
+  const int tile_lanes = hdr[UH_TILE_LANES];
+  const size_t N = (size_t)n_lanes;
+
+  uint32_t rng = rng_init((uint32_t)seed, (uint32_t)(p / tile_lanes),
+                          (uint32_t)(p % tile_lanes));
+  V3 o = {rays[p], rays[N + p], rays[2 * N + p]};
+  V3 d = {rays[3 * N + p], rays[4 * N + p], rays[5 * N + p]};
+  const float tx_delay = rays[6 * N + p];
+  const V3 tn = {g[UG_TN], g[UG_TN + 1], g[UG_TN + 2]};
+  float amp = 1.0f, atten = 1.0f, tof = 0.0f, geo_len = 0.0f;
+
+  for (int depth = 0; depth < max_depth; ++depth) {
+    float dist;
+    V3 n = {0.0f, 0.0f, 0.0f};
+    int prim = closest_hit(prims, n_prims, o, d, dist, n);
+    if (prim < 0) break;  // a miss ends the lane
+    V3 p_hit = add(o, scale(d, dist));
+    V3 wi = {-d.x, -d.y, -d.z};
+    float u_recv = rng_next(rng);
+    float s1 = rng_next(rng);
+    float s2a = rng_next(rng);
+    float s2b = rng_next(rng);
+    float u_rr = rng_next(rng);
+
+    // ---- echo towards a random receive element, occlusion any-hit ----
+    float recv_f = fminf(floorf(u_recv * g[UG_E]), g[UG_E_M1]);
+    V3 target = elem_world(g, layout, recv_f);
+    V3 to_recv = {target.x - p_hit.x, target.y - p_hit.y, target.z - p_hit.z};
+    float dist_recv = safe_sqrt(dot(to_recv, to_recv));
+    V3 sec_dir = scale(to_recv, 1.0f / dist_recv);
+    float off = 1e-4f * (dot(n, sec_dir) >= 0.0f ? 1.0f : -1.0f);
+    bool visible = !any_hit(prims, n_prims, add(p_hit, scale(n, off)), sec_dir,
+                            dist_recv * kShadowShrink);
+
+    atten = atten * expf((g[UG_ATT] * dist) / g[UG_DB]);
+    tof = tof + dist * g[UG_INV_C];
+    float total_time = tx_delay + tof + dist_recv * g[UG_INV_C];
+    float phase = g[UG_TWO_PI_F] * total_time;
+
+    // ---- acoustic GGX BSDF of the hit prim ----
+    const float* b = bsdfs + (int)prims[prim * PRIM_STRIDE + 1] * US_BSDF_STRIDE;
+    float z_int = b[0], alpha = b[1], z_ext = b[2];
+    V3 s_fr, t_fr;
+    frame(n, s_fr, t_fr);
+    V3 wi_l = {dot(wi, s_fr), dot(wi, t_fr), dot(wi, n)};
+    float cos_wi = wi_l.z;
+
+    // VNDF sample (Heitz spherical cap; two-sided via flip)
+    float flip = cos_wi >= 0.0f ? 1.0f : -1.0f;
+    V3 wif = scale(wi_l, flip);
+    V3 vh = normalize({alpha * wif.x, alpha * wif.y, wif.z});
+    float lensq = vh.x * vh.x + vh.y * vh.y;
+    float inv_len = 1.0f / sqrtf(fmaxf(lensq, 1e-20f));
+    bool big = lensq > 1e-20f;
+    V3 t1v = {big ? -vh.y * inv_len : 1.0f, big ? vh.x * inv_len : 0.0f, 0.0f};
+    V3 t2v = cross(vh, t1v);
+    float r_h = sqrtf(fmaxf(s2a, 0.0f));
+    float phi_h = kTwoPi * s2b;
+    float p1h = r_h * cosf(phi_h);
+    float p2h = r_h * sinf(phi_h);
+    float s_h = 0.5f * (1.0f + vh.z);
+    p2h = (1.0f - s_h) * safe_sqrt(1.0f - p1h * p1h) + s_h * p2h;
+    V3 nh = add(add(scale(t1v, p1h), scale(t2v, p2h)),
+                scale(vh, safe_sqrt(1.0f - p1h * p1h - p2h * p2h)));
+    V3 mh = scale(normalize({alpha * nh.x, alpha * nh.y, fmaxf(nh.z, 1e-6f)}), flip);
+
+    // impedance Fresnel: reflect or refract
+    float cos_im = dot(wi_l, mh);
+    bool entering = cos_wi > 0.0f;
+    float Z1 = entering ? z_ext : z_int;
+    float Z2 = entering ? z_int : z_ext;
+    float ratio = Z1 / fmaxf(Z2, 1e-6f);
+    float cos_i = fabsf(cos_im);
+    float sin_t_sqr = ratio * ratio * (1.0f - cos_i * cos_i);
+    bool tir = sin_t_sqr > 1.0f;
+    float cos_t = safe_sqrt(1.0f - sin_t_sqr);
+    float denom = Z2 * cos_i + Z1 * cos_t;
+    float R = (Z2 * cos_i - Z1 * cos_t) / fmaxf(denom, 1e-9f);
+    float T = 1.0f + R;
+    float prob_r = tir ? 1.0f : fminf(fmaxf(R * R, 0.05f), 0.95f);
+    bool pick_r = s1 < prob_r || tir;
+    V3 wo_l;
+    if (pick_r) {
+      V3 mh2 = scale(mh, 2.0f * cos_im);
+      wo_l = {mh2.x - wi_l.x, mh2.y - wi_l.y, mh2.z - wi_l.z};
+    } else {
+      wo_l = add(scale(wi_l, -ratio), scale(mh, ratio * cos_i - cos_t));
+    }
+    wo_l = normalize(wo_l);
+    float bs_amp = pick_r ? fabsf(R) / prob_r : fabsf(T) / fmaxf(1.0f - prob_r, 1e-6f);
+    float cos_theta = fabsf(cos_wi);
+    amp = amp * (bs_amp * cos_theta);
+
+    // ---- receive directivity ramp, then the records ----
+    float cos_a = -(sec_dir.x * tn.x + sec_dir.y * tn.y + sec_dir.z * tn.z);
+    float a_ang = fabsf(acos_as(fminf(fmaxf(cos_a, -0.999999f), 0.999999f)));
+    float ramp = (g[UG_CUT] - a_ang) * g[UG_INV_RAMP];
+    float fd_dir = a_ang <= g[UG_MAIN] ? 1.0f : (a_ang <= g[UG_CUT] ? ramp : 0.0f);
+    float fd = (fd_dir * cos_theta) / g[UG_NUM_RAYS];
+    float pressure = atten * amp * fd * sinf(phase);
+    float* rec = out + (size_t)(3 * depth) * N + p;
+    rec[0] = visible ? pressure : 0.0f;
+    rec[N] = total_time * g[UG_FS];
+    rec[2 * N] = recv_f;
+
+    // ---- bounce + Russian roulette ----
+    V3 d_new = normalize(to_world(n, s_fr, t_fr, wo_l));
+    float off2 = 1e-4f * (dot(n, d_new) >= 0.0f ? 1.0f : -1.0f);
+    geo_len = geo_len + dist;
+    float rr_prob = fminf(fmaxf(fabsf(atten * amp), 0.05f), 1.0f);
+    bool survive = u_rr < rr_prob;
+    atten = survive ? atten / rr_prob : 0.0f;
+    bool within = (d_new.x * tn.x + d_new.y * tn.y + d_new.z * tn.z) >= g[UG_COS_CUT];
+    if (!(survive && within && geo_len < g[UG_MAX_PATH])) break;
+    o = add(p_hit, scale(n, off2));
+    d = d_new;
+  }
+}
+
+}  // namespace
+
+extern "C" int us_acq_launch(const void* hdr, int n_hdr, const void* tab, int n_tab,
+                             const void* rays, void* out, int n_lanes, int seed,
+                             void* stream) {
+  if (n_hdr < UH_LEN || n_tab <= 0 || n_tab > kMaxTableFloats || n_lanes <= 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((n_lanes + kThreads - 1) / kThreads);
+  size_t smem = (size_t)n_tab * sizeof(float);
+  us_acq_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)hdr, (const float*)tab, n_tab, (const float*)rays, (float*)out,
+      n_lanes, seed);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* us_acq_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -87,6 +87,58 @@ class BakedScene:
     hide_emitters: bool = False
 
 
+def bake_prims(scene: Scene, with_emitters=True) -> Optional[List[BakedPrim]]:
+    """The scene's triangles, spheres and rectangles as kernel prims, in
+    prim-id order; None when a prim is outside the sweep's scope (another
+    analytic type, or a sphere without a uniform scale).  With
+    ``with_emitters=False`` every prim's emitter is -1."""
+    g = scene.geometry
+    an_type = g.an_type.numpy()
+    if not set(an_type.tolist()) <= {SPHERE, RECTANGLE}:
+        return None
+    shape_bsdf = scene.shape_bsdf.numpy()
+    shape_emitter = scene.shape_emitter.numpy()
+
+    def emitter(sid):
+        return int(shape_emitter[sid]) if with_emitters else -1
+
+    tri_p0 = g.tri_p0.numpy()
+    tri_e1 = g.tri_e1.numpy()
+    tri_e2 = g.tri_e2.numpy()
+    tri_shape = g.tri_shape.numpy()
+    prims = []
+    for i in range(g.n_tris):
+        ng = np.cross(tri_e1[i], tri_e2[i])
+        ng = ng / max(np.linalg.norm(ng), 1e-20)
+        sid = int(tri_shape[i])
+        prims.append(BakedPrim(
+            "tri", (tuple(tri_p0[i]), tuple(tri_e1[i]), tuple(tri_e2[i]), tuple(ng)),
+            int(shape_bsdf[sid]), emitter(sid)))
+    an_to_world = g.an_to_world.numpy()
+    an_to_object = g.an_to_object.numpy()
+    an_shape = g.an_shape.numpy()
+    for i in range(g.n_analytic):
+        sid = int(an_shape[i])
+        if int(an_type[i]) == SPHERE:
+            m = an_to_world[i]
+            sx = np.linalg.norm(m[:3, 0])
+            sy = np.linalg.norm(m[:3, 1])
+            sz = np.linalg.norm(m[:3, 2])
+            if abs(sx - sy) > 1e-5 * sx or abs(sx - sz) > 1e-5 * sx:
+                return None  # the sphere path needs a uniform scale
+            prims.append(BakedPrim("sphere", (tuple(m[:3, 3].tolist()), float(sx)),
+                                   int(shape_bsdf[sid]), emitter(sid)))
+        else:  # rectangle: object transform rows + world normal
+            mo = an_to_object[i]
+            nw = np.linalg.inv(an_to_world[i][:3, :3]).T @ np.array([0.0, 0.0, 1.0])
+            nw = nw / max(np.linalg.norm(nw), 1e-20)
+            prims.append(BakedPrim(
+                "rect", (tuple(mo[0].tolist()), tuple(mo[1].tolist()),
+                         tuple(mo[2].tolist()), tuple(nw.tolist())),
+                int(shape_bsdf[sid]), emitter(sid)))
+    return prims
+
+
 def bake_scene(scene: Scene) -> Optional[BakedScene]:
     """The kernel's constants, or None when the scene is out of scope."""
     g = scene.geometry
@@ -104,46 +156,9 @@ def bake_scene(scene: Scene) -> Optional[BakedScene]:
     btypes = scene.bsdf_type.numpy()
     if not set(btypes.tolist()) <= _SUPPORTED_BSDFS:
         return None
-    an_type = g.an_type.numpy()
-    if not set(an_type.tolist()) <= {SPHERE, RECTANGLE}:
+    prims = bake_prims(scene)
+    if prims is None:
         return None
-
-    shape_bsdf = scene.shape_bsdf.numpy()
-    shape_emitter = scene.shape_emitter.numpy()
-    tri_p0 = g.tri_p0.numpy()
-    tri_e1 = g.tri_e1.numpy()
-    tri_e2 = g.tri_e2.numpy()
-    tri_shape = g.tri_shape.numpy()
-    prims = []
-    for i in range(g.n_tris):
-        ng = np.cross(tri_e1[i], tri_e2[i])
-        ng = ng / max(np.linalg.norm(ng), 1e-20)
-        sid = int(tri_shape[i])
-        prims.append(BakedPrim(
-            "tri", (tuple(tri_p0[i]), tuple(tri_e1[i]), tuple(tri_e2[i]), tuple(ng)),
-            int(shape_bsdf[sid]), int(shape_emitter[sid])))
-    an_to_world = g.an_to_world.numpy()
-    an_to_object = g.an_to_object.numpy()
-    an_shape = g.an_shape.numpy()
-    for i in range(g.n_analytic):
-        sid = int(an_shape[i])
-        if int(an_type[i]) == SPHERE:
-            m = an_to_world[i]
-            sx = np.linalg.norm(m[:3, 0])
-            sy = np.linalg.norm(m[:3, 1])
-            sz = np.linalg.norm(m[:3, 2])
-            if abs(sx - sy) > 1e-5 * sx or abs(sx - sz) > 1e-5 * sx:
-                return None  # the sphere path needs a uniform scale
-            prims.append(BakedPrim("sphere", (tuple(m[:3, 3].tolist()), float(sx)),
-                                   int(shape_bsdf[sid]), int(shape_emitter[sid])))
-        else:  # rectangle: object transform rows + world normal
-            mo = an_to_object[i]
-            nw = np.linalg.inv(an_to_world[i][:3, :3]).T @ np.array([0.0, 0.0, 1.0])
-            nw = nw / max(np.linalg.norm(nw), 1e-20)
-            prims.append(BakedPrim(
-                "rect", (tuple(mo[0].tolist()), tuple(mo[1].tolist()),
-                         tuple(mo[2].tolist()), tuple(nw.tolist())),
-                int(shape_bsdf[sid]), int(shape_emitter[sid])))
 
     bsdf_params = scene.bsdf_params.numpy()
     bsdfs = [(int(t), tuple(bsdf_params[i].tolist())) for i, t in enumerate(btypes)]
@@ -241,6 +256,33 @@ class FilmTables:
         return (2 * self.radius + 1) ** 2 * 4
 
 
+def _f32(x):
+    return float(np.float32(x))
+
+
+def pack_prims(prims: List[BakedPrim]) -> list:
+    """Prim records of PRIM_STRIDE floats: kind, bsdf, emitter, pad, then
+    tri (p0, e1, e2, ng), sphere (center, r*r, 1/r) or rectangle (rows of
+    to_object, world normal).  Constants the JAX kernel derives from
+    Python floats (r*r, 1/r) are derived in float64 and rounded once."""
+    tab = []
+    for p in prims:
+        rec = [0.0] * PRIM_STRIDE
+        rec[1], rec[2] = float(p.bsdf), float(p.emitter)
+        if p.kind == "tri":
+            rec[0] = KIND_TRI
+            rec[4:16] = [_f32(x) for v in p.data for x in v]
+        elif p.kind == "sphere":
+            (c, r) = p.data
+            rec[0] = KIND_SPHERE
+            rec[4:9] = [_f32(c[0]), _f32(c[1]), _f32(c[2]), _f32(r * r), _f32(1.0 / r)]
+        else:
+            rec[0] = KIND_RECT
+            rec[4:19] = [_f32(x) for v in p.data for x in v]
+        tab += rec
+    return tab
+
+
 def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device) -> FilmTables:
     """Pack a baked scene and its camera for the film kernel on ``device``.
     ``tile_rows`` keys the RNG: tile = pixel // (tile_rows * 128)."""
@@ -251,37 +293,21 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device) -> FilmT
     if tile_rows < 1:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
     rg = _make_raygen(camera, n_pix)
-    f32 = lambda x: float(np.float32(x))  # noqa: E731
     n_lights = bs.n_lights
     g = [0.0] * G_LEN
     if bs.env_rgb is not None:
-        g[G_ENV:G_ENV + 3] = [f32(x) for x in bs.env_rgb]
-    g[G_INV_NL] = f32(1.0 / max(n_lights, 1))
-    g[G_NL] = f32(n_lights)
-    g[G_NL_M1] = f32(n_lights - 1)
-    g[G_R:G_R + 9] = [f32(x) for row in rg["R"] for x in row]
-    g[G_ORG:G_ORG + 3] = [f32(x) for x in rg["origin"]]
-    g[G_TFX], g[G_TFY] = f32(rg["tfx"]), f32(rg["tfy"])
-    g[G_INVW], g[G_INVH] = f32(1.0 / W), f32(1.0 / H)
-    g[G_NEAR], g[G_FAR_NEAR] = f32(rg["near"]), f32(rg["far"] - rg["near"])
+        g[G_ENV:G_ENV + 3] = [_f32(x) for x in bs.env_rgb]
+    g[G_INV_NL] = _f32(1.0 / max(n_lights, 1))
+    g[G_NL] = _f32(n_lights)
+    g[G_NL_M1] = _f32(n_lights - 1)
+    g[G_R:G_R + 9] = [_f32(x) for row in rg["R"] for x in row]
+    g[G_ORG:G_ORG + 3] = [_f32(x) for x in rg["origin"]]
+    g[G_TFX], g[G_TFY] = _f32(rg["tfx"]), _f32(rg["tfy"])
+    g[G_INVW], g[G_INVH] = _f32(1.0 / W), _f32(1.0 / H)
+    g[G_NEAR], g[G_FAR_NEAR] = _f32(rg["near"]), _f32(rg["far"] - rg["near"])
     g[G_GAUSS_TAIL] = _GAUSS_TAIL
 
-    prim_tab = []
-    for p in bs.prims:
-        rec = [0.0] * PRIM_STRIDE
-        rec[1], rec[2] = float(p.bsdf), float(p.emitter)
-        if p.kind == "tri":
-            rec[0] = KIND_TRI
-            rec[4:16] = [f32(x) for v in p.data for x in v]
-        elif p.kind == "sphere":
-            (c, r) = p.data
-            rec[0] = KIND_SPHERE
-            rec[4:9] = [f32(c[0]), f32(c[1]), f32(c[2]), f32(r * r), f32(1.0 / r)]
-        else:
-            rec[0] = KIND_RECT
-            rec[4:19] = [f32(x) for v in p.data for x in v]
-        prim_tab += rec
-
+    prim_tab = pack_prims(bs.prims)
     bsdf_tab = []
     for bt, prm in bs.bsdfs:
         rec = [0.0] * BSDF_STRIDE
@@ -290,33 +316,33 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device) -> FilmT
         rec[8:11] = [1.0, 1.0, 1.0]  # conductor k
         rec[12:15] = [1.0, 1.0, 1.0]  # conductor specular_reflectance
         if bt == BSDF_DIFFUSE:
-            rec[1:4] = [f32(x) for x in prm[0:3]]
+            rec[1:4] = [_f32(x) for x in prm[0:3]]
         elif bt == BSDF_DIELECTRIC:
-            rec[4] = f32(prm[0] / max(prm[1], 1e-6))
+            rec[4] = _f32(prm[0] / max(prm[1], 1e-6))
         else:  # conductor
             if prm[0] < 0.0:  # perfect mirror marker
                 rec[11] = 1.0
             else:
-                rec[5:8] = [f32(x) for x in prm[0:3]]
-                rec[8:11] = [f32(x) for x in prm[3:6]]
-            rec[12:15] = [f32(x) for x in prm[6:9]]
+                rec[5:8] = [_f32(x) for x in prm[0:3]]
+                rec[8:11] = [_f32(x) for x in prm[3:6]]
+            rec[12:15] = [_f32(x) for x in prm[6:9]]
         bsdf_tab += rec
 
     em_tab = []
     for e, rad in enumerate(bs.em_radiance):
         rec = [0.0] * EM_STRIDE
-        rec[0:3] = [f32(x) for x in rad]
-        rec[3] = f32(1.0 / bs.em_area[e])
+        rec[0:3] = [_f32(x) for x in rad]
+        rec[3] = _f32(1.0 / bs.em_area[e])
         rec[4] = float(len(bs.em_tris[e]))
         prev_cdf = 0.0
         for j, (tp, cdf_hi) in enumerate(bs.em_tris[e]):
-            rec[5 + 3 * j:8 + 3 * j] = [float(tp), f32(prev_cdf), f32(cdf_hi + 1e-9)]
+            rec[5 + 3 * j:8 + 3 * j] = [float(tp), _f32(prev_cdf), _f32(cdf_hi + 1e-9)]
             prev_cdf = cdf_hi
         em_tab += rec
 
     pt_tab = []
     for pos, inten in bs.point_lights:
-        pt_tab += [f32(x) for x in pos] + [f32(x) for x in inten] + [0.0, 0.0]
+        pt_tab += [_f32(x) for x in pos] + [_f32(x) for x in inten] + [0.0, 0.0]
 
     off_prim = G_LEN
     off_bsdf = off_prim + len(prim_tab)

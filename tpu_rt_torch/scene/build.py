@@ -1,12 +1,14 @@
 """Scene compiler: Mitsuba-style description dict -> ``Scene``.
 
 Counterpart of ``tpu_rt/scene/build.py``, for the subset the cbox class of
-scenes uses: ``perspective`` + ``hdrfilm`` with a box / tent / gaussian
-rfilter, the ``independent`` sampler, the ``path`` and ``direct``
-integrators, ``obj`` / ``sphere`` / ``rectangle`` shapes, ``diffuse`` /
-``dielectric`` / ``conductor`` / ``twosided`` BSDFs and ``area`` /
-``point`` / ``constant`` emitters.  Every other plugin raises
-``ValueError`` naming the ROADMAP.md item that will port it.
+scenes and the ultrasound scenes use: ``perspective`` + ``hdrfilm`` with a
+box / tent / gaussian rfilter, the ``independent`` sampler, the ``path``,
+``direct`` and ``ultrasound_integrator`` integrators, the
+``ultrasound_sensor``, ``obj`` / ``sphere`` / ``rectangle`` shapes,
+``diffuse`` / ``dielectric`` / ``conductor`` / ``ultrasound_bsdf`` /
+``twosided`` BSDFs, ``area`` / ``point`` / ``constant`` emitters and the
+``ultraray`` / ``ultrasound_emitter`` transducer props.  Every other
+plugin raises ``ValueError`` naming the ROADMAP.md item that will port it.
 
 Meshes are transformed to world space and the emitter tables are built
 with the same numpy arithmetic as the JAX package, so both packages bake
@@ -25,13 +27,15 @@ from tpu_rt_torch.scene import types as T
 from tpu_rt_torch.scene.convert import scene_from_arrays
 from tpu_rt_torch.scene.obj import load_obj
 
-_BSDF_TYPES = {"diffuse", "dielectric", "conductor", "twosided"}
-_LATER_BSDFS = {"roughconductor", "null", "polarizer", "ultrasound_bsdf"}
-_EMITTERS_IN_SHAPES = {"area", "ultraray", "ultrasound_emitter"}
+_BSDF_TYPES = {"diffuse", "dielectric", "conductor", "ultrasound_bsdf", "twosided"}
+_LATER_BSDFS = {"roughconductor", "null", "polarizer"}
+_TRANSDUCER_EMITTERS = {"ultraray", "ultrasound_emitter"}
+_EMITTERS_IN_SHAPES = {"area"} | _TRANSDUCER_EMITTERS
 _ANALYTIC_ENUM = {"sphere": T.SPHERE, "rectangle": T.RECTANGLE}
 _FILTERS = {"box": T.FILTER_BOX, "tent": T.FILTER_TENT,
             "gaussian": T.FILTER_GAUSSIAN}
-_INTEGRATORS = {"path": T.INTEGRATOR_PATH, "direct": T.INTEGRATOR_DIRECT}
+_INTEGRATORS = {"path": T.INTEGRATOR_PATH, "direct": T.INTEGRATOR_DIRECT,
+                "ultrasound_integrator": T.INTEGRATOR_ULTRASOUND}
 
 # Plugins of tpu_rt that this package does not load yet -> ROADMAP.md item.
 _LATER = {
@@ -43,15 +47,10 @@ _LATER = {
     "roughconductor": "A10 (bake-scope completions)",
     "null": "A10 (bake-scope completions)",
     "polarizer": "A6 (polarized transport)",
-    "ultrasound_bsdf": "A3 (ultrasound)",
     "envmap": "A7 (textured environment, K5)",
     "bitmap": "A8 (asset readers and textures)",
     "stokes": "A6 (polarized transport)",
     "direct_projective": "A4 (wavefront path tracer)",
-    "ultrasound_integrator": "A3 (ultrasound)",
-    "ultrasound_sensor": "A3 (ultrasound)",
-    "ultraray": "A3 (ultrasound)",
-    "ultrasound_emitter": "A3 (ultrasound)",
 }
 
 # Default IORs of Mitsuba's dielectric plugin.
@@ -99,6 +98,9 @@ class _Builder:
         self.max_depth = -1
         self.rr_depth = 5
         self.hide_emitters = False
+        self.us_int = {}
+        self.us_sensor = {}
+        self.us_emitter = {}
 
     # -- BSDFs ---------------------------------------------------------------
 
@@ -137,6 +139,11 @@ class _Builder:
                 p[0] = -1.0  # marker: perfect mirror (Mitsuba material="none")
             p[6:9] = _rgb(bd.get("specular_reflectance"), 1.0)
             p[9] = float(np.asarray(bd.get("alpha", 0.1)).reshape(-1)[0])
+        elif btype == "ultrasound_bsdf":
+            code = T.BSDF_ULTRASOUND
+            p[0] = float(bd.get("impedance", 1.54))
+            p[1] = float(bd.get("roughness", 0.5))
+            p[2] = float(bd.get("exterior_impedance", 1.2))
         else:
             _not_yet("bsdf", btype)
         idx = len(self.bsdf_rows)
@@ -170,11 +177,20 @@ class _Builder:
         to_world = tf.as_matrix(sd.get("to_world"))
 
         emitter_idx = -1
+        radiance = None
         if emitter is not None:
-            if emitter["type"] != "area":
-                _not_yet("emitter", emitter["type"])
+            if emitter["type"] == "area":
+                radiance = _rgb(emitter.get("radiance"), 1.0)
+            else:
+                # an embedded transducer block: its props configure the
+                # acquisition; for light transport it is an area light of
+                # its intensity, as in tpu_rt
+                self.us_emitter = {k: v for k, v in emitter.items() if k != "type"}
+                if "intensity" in emitter:
+                    radiance = _rgb(emitter.get("intensity"), 1.0)
+        if radiance is not None:
             emitter_idx = len(self.area_radiance)
-            self.area_radiance.append(_rgb(emitter.get("radiance"), 1.0))
+            self.area_radiance.append(radiance)
             self.area_shape.append(shape_id)
 
         tri_range = (0, 0)
@@ -215,10 +231,15 @@ class _Builder:
             self.point_intensity.append(_rgb(ed.get("intensity"), 1.0))
         elif etype == "constant":
             self.env = _rgb(ed.get("radiance"), 1.0).reshape(1, 1, 3)
+        elif etype in _TRANSDUCER_EMITTERS:
+            self.us_emitter = {k: v for k, v in ed.items() if k != "type"}
         else:
             _not_yet("emitter", etype)
 
     def add_sensor(self, sd):
+        if sd.get("type") == "ultrasound_sensor":
+            self.us_sensor = {k: v for k, v in sd.items() if k != "type"}
+            return
         if sd.get("type") != "perspective":
             _not_yet("sensor", sd.get("type"))
         film = sd.get("film", {})
@@ -255,6 +276,10 @@ class _Builder:
         if itype not in _INTEGRATORS:
             _not_yet("integrator", itype)
         self.integrator = _INTEGRATORS[itype]
+        if itype == "ultrasound_integrator":
+            self.us_int = {k: v for k, v in idict.items() if k != "type"}
+            self.max_depth = int(idict.get("max_depth", 2))
+            return
         self.hide_emitters = bool(idict.get("hide_emitters", False))
         if itype == "direct":
             self.max_depth = 2  # direct illumination == two path segments
@@ -302,7 +327,48 @@ class _Builder:
             for k in ("to_world", "tan_fov_x", "tan_fov_y", "near", "far"):
                 arrays["camera_" + k] = np.asarray(cam.pop(k), np.float32)
             meta["camera"] = cam
+        if self.us_int or self.us_sensor or self.us_emitter:
+            us_arrays, meta["ultrasound"] = self._ultrasound()
+            arrays.update({"us_" + k: v for k, v in us_arrays.items()})
         return scene_from_arrays(arrays, meta)
+
+    def _ultrasound(self):
+        """The ultrasound configuration as float32 arrays and static
+        fields, with tpu_rt's prop names, defaults and float32 rounding."""
+        ii, ss, ee = self.us_int, self.us_sensor, self.us_emitter
+        angles = np.asarray(ii.get("angles", np.linspace(-30, 30, 25)), np.float32)
+        radius = ss.get("radius", float("inf"))
+        if isinstance(radius, str):
+            radius = float(radius)
+        f32 = np.float32
+        arrays = dict(
+            frequency=f32(ii.get("frequency", 5e6)),
+            sound_speed=f32(ii.get("sound_speed", 1540.0)),
+            attenuation=f32(ii.get("attenuation", 0.5)),
+            main_beam_angle=f32(ii.get("main_beam_angle", 10.0)),
+            cutoff_angle=f32(ii.get("cutoff_angle", 20.0)),
+            sampling_rate=f32(ii.get("sampling_rate", 50e6)),
+            pitch=f32(ii.get("pitch", 0.00035)),
+            angles=angles,
+            sensor_to_world=tf.as_matrix(ss.get("to_world")),
+            elements_width=f32(ss.get("elements_width", ee.get("element_width", 0.003))),
+            elements_height=f32(ss.get("elements_height", ee.get("element_height", 0.01))),
+            radius=f32(radius),
+            directivity=f32(ss.get("directivity", 1.0)),
+        )
+        static = dict(
+            max_depth=int(ii.get("max_depth", 2)),
+            wave_cycles=int(ii.get("wave_cycles", 5)),
+            n_elements=int(ii.get("n_elements", 128)),
+            time_samples=int(ii.get("time_samples", 3000)),
+            n_angles=int(angles.shape[0]),
+            num_elements_lateral=int(ss.get("num_elements_lateral", 128)),
+            number_of_rays_per_element=int(ee.get("number_of_rays_per_element", 1)),
+            opening_angle=float(ee.get("opening_angle", 0.0)),
+            steering_angle_min=float(ee.get("steering_angle_min", -10.0)),
+            steering_angle_max=float(ee.get("steering_angle_max", 10.0)),
+        )
+        return arrays, static
 
     def _emitter_arrays(self, tri_e1, tri_e2):
         em_offsets, em_tri_prim, em_tri_cdf, area_total = [0], [], [], []
@@ -344,8 +410,7 @@ def build_scene(desc: dict):
         if key == "type" or not isinstance(val, dict):
             continue
         vtype = val.get("type")
-        if vtype in _INTEGRATORS or vtype in ("stokes", "direct_projective",
-                                              "ultrasound_integrator"):
+        if vtype in _INTEGRATORS or vtype in ("stokes", "direct_projective"):
             b.add_integrator(val)
         elif vtype in ("perspective", "ultrasound_sensor"):
             b.add_sensor(val)

@@ -8,11 +8,12 @@ never sees a JAX array.
 
 Array names: the ``Geometry`` and ``Emitters`` tensor fields, ``shape_bsdf``,
 ``shape_emitter``, ``bsdf_type``, ``bsdf_params``, and ``camera_<field>``
-for the camera's tensor fields.  ``meta`` holds the ints and flags:
-``n_tris``, ``n_analytic``, ``n_area``, ``n_point``, ``has_env``,
-``has_textures``, ``integrator``, ``max_depth``, ``rr_depth``,
-``hide_emitters``, and ``camera`` (a dict of the camera's
-static fields, or absent).
+for the camera's tensor fields, ``us_<field>`` for the ultrasound
+configuration's.  ``meta`` holds the ints and flags: ``n_tris``,
+``n_analytic``, ``n_area``, ``n_point``, ``has_env``, ``has_textures``,
+``integrator``, ``max_depth``, ``rr_depth``, ``hide_emitters``, ``camera``
+(a dict of the camera's static fields, or absent) and ``ultrasound`` (a
+dict of the ultrasound configuration's static fields, or absent).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_rt_torch.scene.types import Camera, Emitters, Geometry, Scene
+from tpu_rt_torch.scene.types import Camera, Emitters, Geometry, Scene, UltrasoundConfig
 
 
 def _tensor_fields(cls):
@@ -46,6 +47,11 @@ def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
     if meta.get("camera") is not None:
         camera = Camera(**{k: t("camera_" + k) for k in _tensor_fields(Camera)},
                         **meta["camera"])
+    ultrasound = None
+    if meta.get("ultrasound") is not None:
+        ultrasound = UltrasoundConfig(
+            **{k: t("us_" + k) for k in _tensor_fields(UltrasoundConfig)},
+            **meta["ultrasound"])
     return Scene(
         geometry=geometry,
         emitters=emitters,
@@ -54,6 +60,7 @@ def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
         bsdf_type=t("bsdf_type"),
         bsdf_params=t("bsdf_params"),
         camera=camera,
+        ultrasound=ultrasound,
         has_textures=bool(meta["has_textures"]),
         integrator=int(meta["integrator"]),
         max_depth=int(meta["max_depth"]),

@@ -5,9 +5,9 @@ value it has there, so tables built by either package mean the same
 thing.  The JAX package keeps static fields out of the pytree; here a
 dataclass simply holds tensors beside plain Python ints and flags.
 
-Only what the path-tracing kernel's bake reads is carried: world-space
-triangles, analytic shape transforms, per-shape BSDF/emitter ids, the BSDF
-table, the emitter tables and the camera.
+Only what the kernels' bakes read is carried: world-space triangles,
+analytic shape transforms, per-shape BSDF/emitter ids, the BSDF table, the
+emitter tables, the camera and the ultrasound configuration.
 """
 
 from __future__ import annotations
@@ -105,7 +105,46 @@ class Camera(_Replace):
     height: int = 256
     filter_type: int = FILTER_BOX
     spp: int = 16
-    pixel_format: str = "rgb"  # hdrfilm pixel_format; "luminance" is not ported
+    pixel_format: str = "rgb"  # hdrfilm pixel_format: "rgb" or "luminance"
+
+
+@dataclass(frozen=True)
+class UltrasoundConfig(_Replace):
+    """Transducer + acquisition configuration, with the fields and defaults
+    of ``tpu_rt.scene.types.UltrasoundConfig``: the integrator's props, the
+    sensor's, and the transducer emitter's.  Tensors are float32 scalars
+    except ``angles`` [n_angles] (degrees) and ``sensor_to_world`` [4, 4]."""
+
+    # Integrator props
+    frequency: torch.Tensor  # default 5e6
+    sound_speed: torch.Tensor  # 1540
+    attenuation: torch.Tensor  # 0.5
+    main_beam_angle: torch.Tensor  # 10 deg
+    cutoff_angle: torch.Tensor  # 20 deg
+    sampling_rate: torch.Tensor  # 50e6
+    pitch: torch.Tensor  # 0.00035
+    angles: torch.Tensor  # [n_angles] plane-wave steering angles, degrees
+
+    # Sensor props
+    sensor_to_world: torch.Tensor  # [4, 4]
+    elements_width: torch.Tensor  # 0.003
+    elements_height: torch.Tensor  # 0.01
+    radius: torch.Tensor  # inf => linear array
+    directivity: torch.Tensor  # 1.0
+
+    max_depth: int = 2
+    wave_cycles: int = 5
+    n_elements: int = 128
+    time_samples: int = 3000
+    n_angles: int = 25
+    num_elements_lateral: int = 128
+    # Emitter props
+    number_of_rays_per_element: int = 1
+    opening_angle: float = 0.0
+    steering_angle_min: float = -10.0
+    steering_angle_max: float = 10.0
+    # Hard path-length cutoff
+    max_path_length: float = 0.2
 
 
 @dataclass(frozen=True)
@@ -117,6 +156,7 @@ class Scene(_Replace):
     bsdf_type: torch.Tensor  # [B]
     bsdf_params: torch.Tensor  # [B, 16]
     camera: Optional[Camera] = None
+    ultrasound: Optional[UltrasoundConfig] = None
     has_textures: bool = False
     integrator: int = INTEGRATOR_PATH
     max_depth: int = -1

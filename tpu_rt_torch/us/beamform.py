@@ -1,0 +1,241 @@
+"""Plane-wave delay-and-sum beamforming, envelope detection, B-mode.
+
+Counterpart of ``tpu_rt/us/beamform.py``: the same functions, names and
+maths, in PyTorch on the device of the RF data.  None of these is a
+kernel of the JAX package (no Pallas), so they stay plain PyTorch.
+
+Geometry/time conventions match the acquisition: with per-element transmit
+delays t = x sin(a) / c, the plane wave reaches pixel (x, z) at
+t_tx = (x sin a + z cos a) / c; the echo returns to element (x_e, z_e)
+after t_rx = sqrt((x - x_e)^2 + (z - z_e)^2) / c.
+
+Precision: the window-fetch and hat-weight contractions of
+``das_beamform_matmul`` run in full float32, as the JAX package pins them
+to ``Precision.HIGHEST``: ``_fp32_matmul`` sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` around them (TF32 would
+round the RF trace itself to 10 mantissa bits).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+
+import numpy as np
+import torch
+
+
+def _f32(x, device=None):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+@contextlib.contextmanager
+def _fp32_matmul():
+    """Full-float32 matrix products inside the block (TF32 off)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def grid_scan(x_min, x_max, z_min, z_max, step_lateral, step_axial):
+    """Pixel grid of ultraspy's GridScan: float32 (x [Nx], z [Nz])."""
+    x = np.arange(x_min, x_max + step_lateral, step_lateral, dtype=np.float32)
+    z = np.arange(z_min, z_max + step_axial, step_axial, dtype=np.float32)
+    if x.size == 0:
+        x = np.asarray([x_min], np.float32)
+    if z.size == 0:
+        z = np.asarray([z_min], np.float32)
+    return torch.from_numpy(x), torch.from_numpy(z)
+
+
+def _setup(channel_data, angles_deg, elem_x, elem_z, fs, c):
+    """Float32 tensors on the RF data's device; fs and c as 0-d tensors."""
+    dev = channel_data.device
+    elem_x = _f32(elem_x, dev)
+    elem_z = torch.zeros_like(elem_x) if elem_z is None else _f32(elem_z, dev)
+    angles = _f32(angles_deg, dev) * math.radians(1.0)
+    return elem_x, elem_z, angles, _f32(fs), _f32(c)
+
+
+def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
+                 t_offset=0.0, elem_z=None):
+    """Delay-and-sum beamforming of plane-wave RF data (the gather form).
+
+    Args:
+      channel_data: [A, E, T] RF samples.
+      angles_deg: [A] steering angles (degrees).
+      elem_x: [E] element lateral positions (m).
+      fs: sampling rate (Hz).  c: sound speed (m/s).
+      x_grid: [Nx], z_grid: [Nz] image grid (m).
+      t_offset: acquisition start time t0.
+      elem_z: [E] element axial positions (m), nonzero for convex arrays;
+        None means a linear row at z = 0.
+    Returns the beamformed image [Nx, Nz] (lateral x axial).  Elements are
+    summed in chunks of 16, as the JAX package does."""
+    channel_data = _f32(channel_data)
+    dev = channel_data.device
+    elem_x, elem_z, angles, fs, c = _setup(channel_data, angles_deg, elem_x, elem_z, fs, c)
+    A, E, T = channel_data.shape
+    X, Z = torch.meshgrid(_f32(x_grid, dev), _f32(z_grid, dev), indexing="ij")
+    px, pz = X.reshape(-1), Z.reshape(-1)
+    inv_c = 1.0 / c
+    chunk = min(16, E)
+    out = torch.zeros_like(px)
+    for a in range(A):
+        t_tx = (px * torch.sin(angles[a]) + pz * torch.cos(angles[a])) * inv_c
+        acc_a = torch.zeros_like(px)
+        for e0 in range(0, E, chunk):
+            ex, ez = elem_x[e0:e0 + chunk], elem_z[e0:e0 + chunk]
+            t_rx = torch.sqrt((px[:, None] - ex[None, :]) ** 2
+                              + (pz[:, None] - ez[None, :]) ** 2) * inv_c
+            t_f = (t_tx[:, None] + t_rx - t_offset) * fs  # [P, C]
+            i0f = torch.floor(t_f)
+            w = t_f - i0f
+            i0 = i0f.to(torch.int64)
+            rf = channel_data[a, e0:e0 + chunk]  # [C, T]
+            v0 = torch.gather(rf, 1, torch.clamp(i0, 0, T - 1).T).T
+            v1 = torch.gather(rf, 1, torch.clamp(i0 + 1, 0, T - 1).T).T
+            v0 = torch.where((i0 >= 0) & (i0 < T), v0, 0.0)
+            v1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < T), v1, 0.0)
+            acc_a = acc_a + (v0 * (1.0 - w) + v1 * w).sum(dim=1)
+        out = out + acc_a
+    return out.reshape(X.shape)
+
+
+def pulse_kernel(fs, f0, wave_cycles=5):
+    """Gaussian-enveloped sinusoid excitation pulse of ``wave_cycles``
+    cycles at f0; the Gaussian std makes the envelope decay to about 1% at
+    the ends.  Odd length, float32."""
+    duration = wave_cycles / f0
+    n = max(int(round(duration * fs)) | 1, 3)
+    t = (np.arange(n) - n // 2) / fs
+    sigma = duration / 6.0
+    kernel = np.sin(2 * np.pi * f0 * t) * np.exp(-0.5 * (t / sigma) ** 2)
+    return torch.as_tensor(kernel, dtype=torch.float32)
+
+
+def apply_pulse(channel_data, fs, f0, wave_cycles=5):
+    """Convolve impulse RF data [A, E, T] with the excitation pulse along
+    the time axis (FFT-based, 'same' alignment)."""
+    T = channel_data.shape[-1]
+    k = pulse_kernel(fs, f0, wave_cycles).to(channel_data.device)
+    n = int(k.shape[0])
+    nfft = 1 << (T + n - 2).bit_length()
+    y = torch.fft.irfft(torch.fft.rfft(channel_data, nfft, dim=-1)
+                        * torch.fft.rfft(k, nfft), nfft, dim=-1)
+    start = n // 2
+    return y[..., start:start + T].to(channel_data.dtype)
+
+
+def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
+                        z_grid, t_offset=0.0, elem_z=None):
+    """DAS with the time gathers turned into dense contractions over
+    per-block RF windows, as ``tpu_rt``'s MXU form.
+
+    Pixels are tiled into 8 x 8 blocks; within a block the delay spread
+    is bounded, so each (angle, element, block) reads one contiguous RF
+    window.  Window starts are quantized to Q = 64-sample chunks and every
+    block's window for one (angle, element) is fetched by one one-hot
+    product [n_blk, n_chunks] @ [n_chunks, window] against a
+    strided-overlap view of the RF trace; the 2-tap linear interpolation
+    becomes a hat-weight matrix (block, window) contracted with the window.
+    Both products run in full float32.  The window auto-sizes from the grid
+    pitch to cover the block's delay spread (at least 128 samples);
+    out-of-range pixels add 0."""
+    channel_data = _f32(channel_data)
+    dev = channel_data.device
+    elem_x, elem_z, angles, fs, c = _setup(channel_data, angles_deg, elem_x, elem_z, fs, c)
+    A, E, T = channel_data.shape
+    xs, zs = _f32(x_grid).cpu().numpy(), _f32(z_grid).cpu().numpy()
+    Nx, Nz = xs.shape[0], zs.shape[0]
+    TX = TZ = 8
+
+    # window from the grid pitch, in float32 as the JAX package computes it
+    dx = float(xs[1] - xs[0]) if Nx > 1 else 0.0
+    dz = float(zs[1] - zs[0]) if Nz > 1 else 0.0
+    spread = np.float32(2.0 * TZ * abs(dz) + 2.0 * TX * abs(dx)) / c.numpy() * fs.numpy()
+    needed = int(np.ceil(spread)) + 8
+    window = max(128, ((needed + 127) // 128) * 128)
+    # Q must divide the window; one extra chunk covers the quantized start
+    Q = 64
+    window = ((window + Q + Q - 1) // Q) * Q
+    n_chunks = (max(T - 1, 0) // Q) + 1
+    L = (n_chunks - 1) * Q + window
+    rf_all = torch.cat([channel_data, channel_data.new_zeros((A, E, L - T))], dim=2)
+
+    # far-point padding: pad pixels never drive a block's window start
+    pad_x, pad_z = (-Nx) % TX, (-Nz) % TZ
+    xg = torch.cat([_f32(xs, dev), torch.full((pad_x,), 1e9, device=dev)])
+    zg = torch.cat([_f32(zs, dev), torch.full((pad_z,), 1e9, device=dev)])
+    X, Z = torch.meshgrid(xg, zg, indexing="ij")
+    nbx, nbz = (Nx + pad_x) // TX, (Nz + pad_z) // TZ
+
+    def tile(a):
+        return a.reshape(nbx, TX, nbz, TZ).permute(0, 2, 1, 3).reshape(-1, TX * TZ)
+
+    pxb, pzb = tile(X), tile(Z)
+    inv_c = 1.0 / c
+    iota_w = torch.arange(window, dtype=torch.float32, device=dev)
+    chunk_ids = torch.arange(n_chunks, device=dev)
+    out = torch.zeros_like(pxb)
+    with _fp32_matmul():
+        for a in range(A):
+            t_tx = (pxb * torch.sin(angles[a]) + pzb * torch.cos(angles[a])) * inv_c
+            acc_a = torch.zeros_like(pxb)
+            for e in range(E):
+                t_rx = torch.sqrt((pxb - elem_x[e]) ** 2 + (pzb - elem_z[e]) ** 2) * inv_c
+                t_f = (t_tx + t_rx - t_offset) * fs  # [n_blk, block]
+                s = torch.clamp(torch.floor(t_f.min(dim=1).values).to(torch.int64), 0, T - 1)
+                sq = s // Q  # quantized chunk row, start sq * Q <= s
+                rel = t_f - (sq * Q)[:, None].to(torch.float32)
+                in_rng = (t_f >= 0.0) & (t_f <= T - 1) & (rel <= window - 1)
+                rel = torch.where(in_rng, rel, -2.0)  # hat support is [-1, 1]
+                rows = rf_all[a, e].unfold(0, window, Q)  # rows[r, j] = rf[r*Q + j]
+                onehot = (sq[:, None] == chunk_ids[None, :]).to(torch.float32)
+                wins = onehot @ rows  # exact selection of each block's window
+                w = rel[:, :, None] - iota_w  # hat weights max(0, 1 - |rel - k|)
+                w = w.abs_().neg_().add_(1.0).clamp_(min=0.0)
+                acc_a = acc_a + torch.bmm(w, wins[:, :, None])[..., 0]
+            out = out + acc_a
+    out = out.reshape(nbx, nbz, TX, TZ).permute(0, 2, 1, 3).reshape(Nx + pad_x, Nz + pad_z)
+    return out[:Nx, :Nz]
+
+
+def hilbert_envelope(img, axis=-1):
+    """Envelope via the analytic signal (Hilbert transform along ``axis``),
+    ultraspy's compute_envelope."""
+    n = img.shape[axis]
+    h = np.zeros(n, np.float32)
+    h[0] = 1.0
+    if n % 2 == 0:
+        h[n // 2] = 1.0
+        h[1:n // 2] = 2.0
+    else:
+        h[1:(n + 1) // 2] = 2.0
+    shape = [1] * img.dim()
+    shape[axis] = n
+    Xf = torch.fft.fft(img, dim=axis)
+    analytic = torch.fft.ifft(Xf * torch.from_numpy(h).to(img.device).reshape(shape), dim=axis)
+    return torch.abs(analytic)
+
+
+def log_compress(envelope, dynamic_range=60.0):
+    """20 log10 compression to [0, 1] over ``dynamic_range`` dB."""
+    db = 20.0 * torch.log10(envelope + 1e-12)
+    max_db = db.max()
+    min_db = max_db - dynamic_range
+    return (torch.clamp(db, min_db, max_db) - min_db) / dynamic_range
+
+
+def bmode_pipeline(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
+                   dynamic_range=60.0, method="matmul", elem_z=None):
+    """RF data -> beamform -> axial envelope -> log compression.  Returns
+    the display image [Nz, Nx] (depth down).  ``method``: 'matmul' (the
+    windowed-contraction DAS, default) or 'gather' (the reference form)."""
+    das = das_beamform_matmul if method == "matmul" else das_beamform
+    bf = das(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid, elem_z=elem_z)
+    env = hilbert_envelope(bf, axis=1)  # axial (z) axis
+    return log_compress(env, dynamic_range).T
