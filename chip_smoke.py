@@ -4,8 +4,9 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the kernels (tpu_rt_torch/ops/csrc/path_film.cu, us_acq.cu),
-     one nvcc per source, started together;
+  2. build the kernels (tpu_rt_torch/ops/csrc/path_film.cu, us_acq.cu,
+     mesh_direct.cu), one nvcc per source, started together, and the host
+     BVH builder (tpu_rt_torch/ops/native/bvh_builder.cpp) with g++;
   3. the kernel against its plain PyTorch version on the card: the cbox
      fixture rendered at 64x64, 4 spp, and the raw film planes of one
      main-path launch (512x512, 64 samples);
@@ -25,8 +26,24 @@ Phases (any failure raises and the script exits non-zero):
   9. the ultrasound main path at full width: us_render of USMain at 64
      rays per pair — one warm-up, five timed runs (CUDA events), the split
      into acquisition / DAS / envelope + log compression, lanes per
-     second, and the gather DAS beside the matmul DAS.
-Each main path (phases 5 and 9) runs with every launch count set to 0
+     second, and the gather DAS beside the matmul DAS;
+ 10. the direct mesh kernel (mesh_direct.cu) against its plain version on
+     the card: tests/assets/mesh/simple.xml (the knot under two point
+     lights) at 256x256, one 64-spp pass of the main path on identical
+     rays;
+ 11. the film kernel's clustered-mesh mode against its plain version:
+     tests/assets/mesh/mesh_gi.xml at 64x64, 4 spp, depth 3, and the raw
+     planes of one main-path launch (256x256, 64 samples);
+ 12. the mesh golden gates (tests/golden/make_mesh_golden.py): simple.xml
+     at 64x64, 256 spp, relative RMSE of 8x8 block means <= 1% against
+     tpu_rt's 1024-spp render (other jitter: statistical); mesh_gi.xml at
+     32x32, 16 spp, seed 0, tile_rows 8 (tpu_rt's streams), 8x8 block
+     means within 0.5% of the image mean;
+ 13. the two mesh main paths at full width: render(simple.xml) at
+     256x256, 256 spp and render(mesh_gi.xml) at 256x256, 64 spp, depth 3
+     — each one warm-up, five timed renders (CUDA events), median ms and
+     rays/s.
+Each main path (phases 5, 9 and 13) runs with every launch count set to 0
 just before it and read just after.  The line before the last is a JSON
 record of the kernels; the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -47,6 +64,8 @@ FIXTURE = os.path.join(ROOT, "tests", "assets", "cbox", "cbox.xml")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cbox_128_gi_independent.npy")
 US_GOLDEN = os.path.join(ROOT, "tests", "golden", "us_usmain_rpp64_seed0.npz")
 US_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_us_golden.py")
+MESH_DIR = os.path.join(ROOT, "tests", "assets", "mesh")
+MESH_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_mesh_golden.py")
 
 
 def cuda_ms(fn, reps=1):
@@ -71,28 +90,30 @@ def develop_planes(planes, tables):
 
 
 def reset_launch_counts():
-    from tpu_rt_torch.ops import path_kernel, us_kernel
+    from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 
     path_kernel.film_trace.launches = 0
     us_kernel.us_trace.launches = 0
+    mesh_kernel.direct_trace.launches = 0
 
 
 def launch_counts():
-    from tpu_rt_torch.ops import path_kernel, us_kernel
+    from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 
     return {"path_film": path_kernel.film_trace.launches,
-            "us_acq": us_kernel.us_trace.launches}
+            "us_acq": us_kernel.us_trace.launches,
+            "mesh_direct": mesh_kernel.direct_trace.launches}
 
 
-def load_us_summarize():
-    """``summarize`` of tests/golden/make_us_golden.py, which made the
-    golden (that module imports JAX only inside its ``main``)."""
+def load_golden_module(path):
+    """A golden's provenance script as a module (it imports JAX only in
+    its ``main``), for the summary or gate functions it defines."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location("make_us_golden", US_GOLDEN_SCRIPT)
+    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.summarize
+    return mod
 
 
 def main():
@@ -119,6 +140,9 @@ def main():
     lib_path = _build.build()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({lib_path.name})")
+    t0 = time.perf_counter()
+    bvh_path = _build.host_library("bvh_builder.cpp")
+    print(f"build (g++): {time.perf_counter() - t0:.2f} s ({bvh_path.name})")
     log = lib_path.with_suffix(".log")
     for line in (log.read_text() if log.exists() else "").splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -185,7 +209,7 @@ def main():
     counts = launch_counts()
     launches = counts["path_film"]
     print(f"launch counts over the cbox main path: {counts}")
-    assert counts["us_acq"] == 0
+    assert counts["us_acq"] == counts["mesh_direct"] == 0
     med = statistics.median(times)
     print(f"main path 512x512 256 spp tent: median {med:.3f} ms "
           f"(min {min(times):.3f}, max {max(times):.3f}, n 5), rays/render "
@@ -202,19 +226,30 @@ def main():
           f"{kernel_ms / 64:.4f} (64-spp launch); plain {plain8 / 8:.2f} (8 spp)")
 
     us = ultrasound_phases(tt, dev)
+    mesh = mesh_phases(tt, dev)
 
     print(json.dumps({"kernels": [{
         "name": "path_film", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:2091",
-        "launches": launches, "max_abs_err": max_abs_err,
+        "launches": launches + mesh["gi_launches"],
+        "launches_by_path": {"cbox": launches, "mesh_gi": mesh["gi_launches"]},
+        "max_abs_err": max(max_abs_err, mesh["gi"]["max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms,
+        "mesh_mode": mesh["gi"],
     }, {
         "name": "us_acq", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/us_acq.cu",
         "replaces": "tpu_rt/ops/pallas_us.py:388",
         "launches": us["launches"], "max_abs_err": us["max_abs_err"],
         "ms": us["ms"], "plain_ms": us["plain_ms"],
+    }, {
+        "name": "mesh_direct", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/mesh_direct.cu",
+        "replaces": "tpu_rt/ops/pallas_mesh.py:1416",
+        "launches": mesh["direct_launches"],
+        "max_abs_err": mesh["direct"]["max_abs_err"],
+        "ms": mesh["direct"]["ms"], "plain_ms": mesh["direct"]["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -261,7 +296,8 @@ def ultrasound_phases(tt, dev):
 
     # ---- 8. ultrasound golden gate --------------------------------------------
     img, ch, _ = tt.us_render(scene, seed=0, rays_per_pair=rpp, device=dev)
-    got = load_us_summarize()(img.cpu().numpy(), ch.cpu().numpy())
+    got = load_golden_module(US_GOLDEN_SCRIPT).summarize(img.cpu().numpy(),
+                                                         ch.cpu().numpy())
     want = np.load(US_GOLDEN)
     corr = float(np.corrcoef(got["axial"], want["axial"])[0, 1])
     tot_rel = abs(got["total_abs"] - want["total_abs"]) / want["total_abs"]
@@ -283,7 +319,7 @@ def ultrasound_phases(tt, dev):
         times.append(ms)
     counts = launch_counts()
     print(f"launch counts over the ultrasound main path: {counts}")
-    assert counts == {"path_film": 0, "us_acq": 5}, counts
+    assert counts == {"path_film": 0, "us_acq": 5, "mesh_direct": 0}, counts
     assert img.shape == (638, 1040) and bool(torch.isfinite(img).all())
     assert 0.0 <= img.min().item() and img.max().item() <= 1.0
     med = statistics.median(times)
@@ -309,6 +345,136 @@ def ultrasound_phases(tt, dev):
     print(f"bmode_pipeline at the USMain grid: method='matmul' {matmul_ms:.3f} ms, "
           f"method='gather' {gather_ms:.3f} ms")
     return dict(launches=counts["us_acq"], max_abs_err=max_abs_err, ms=k_ms, plain_ms=p_ms)
+
+
+def timed_main_path(tt, scene, spp, n=5, **kw):
+    """One warm-up, then n renders timed by CUDA events, with the launch
+    counts set to 0 after the warm-up.  Returns (median ms, min, max, the
+    median render's ray count, the counts, the last image)."""
+    tt.render(scene, spp=spp, seed=1000, device="cuda", **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times, rays = [], []
+    for rep in range(n):
+        ms, img = cuda_ms(lambda: tt.render(scene, spp=spp, seed=rep, device="cuda", **kw))
+        times.append(ms)
+        rays.append(int(tt.render.last_ray_count))
+    counts = launch_counts()
+    med = statistics.median(times)
+    return med, min(times), max(times), rays[times.index(med)], counts, img
+
+
+def mesh_phases(tt, dev):
+    """Phases 10-13; returns the mesh kernels' JSON numbers."""
+    from tpu_rt_torch.ops import mesh_kernel as mk
+    from tpu_rt_torch.ops import path_kernel as pk
+    from tpu_rt_torch.sensor import camera as cam
+
+    simple_xml = os.path.join(MESH_DIR, "simple.xml")
+    gi_xml = os.path.join(MESH_DIR, "mesh_gi.xml")
+    gates = load_golden_module(MESH_GOLDEN_SCRIPT)
+
+    # ---- 10. direct mesh kernel vs plain version on identical rays --------
+    simple = tt.load_file(simple_xml)  # 256x256, 256 spp
+    c = simple.camera
+    ds = mk.bake_direct_scene(simple).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ys, xs = torch.meshgrid(torch.arange(c.height, device=dev),
+                            torch.arange(c.width, device=dev), indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    jitter = torch.rand((64, c.height * c.width, 2), generator=gen, device=dev)
+    o, d = cam.sample_ray(c, xy + jitter)
+    rays = torch.cat([o, d], -1).reshape(-1, 6).T.contiguous()
+    out_k = mk.direct_trace(ds, rays)
+    out_p = mk.direct_trace_plain(ds, rays)
+    torch.cuda.synchronize()
+    d_err = (out_k[:3] - out_p[:3]).abs().max().item()
+    d_frac = torch.isclose(out_k[:3], out_p[:3], rtol=1e-4, atol=1e-6).all(0).float().mean().item()
+    n_k, n_p = int(out_k[3].sum().item()), int(out_p[3].sum().item())
+    mk.direct_trace(ds, rays)  # warm-up
+    d_ms, _ = cuda_ms(lambda: mk.direct_trace(ds, rays), reps=10)
+    d_plain_ms, _ = cuda_ms(lambda: mk.direct_trace_plain(ds, rays))
+    lit = (out_p[:3].sum(0) > 0).float().mean().item()
+    print(f"mesh_direct vs plain, simple.xml 256x256 x 64 spp ({rays.shape[1]} rays, "
+          f"{ds.n_clusters} clusters): rays within rtol 1e-4 atol 1e-6 {d_frac:.6f}, "
+          f"bit-equal {bool(torch.equal(out_k, out_p))}, max abs err {d_err:.3e}, rays cast "
+          f"{n_k} vs {n_p}, lit share {lit:.4f}; kernel {d_ms:.3f} ms, plain {d_plain_ms:.1f} ms")
+    assert d_frac >= 0.999 and n_k == n_p and lit > 0.05, "mesh_direct disagrees"
+
+    # ---- 11. the film kernel's clustered-mesh mode vs plain version -------
+    gi64 = tt.load_file(gi_xml, res=64, spp=4)
+    tab64 = pk.pack_tables(pk.bake_scene(gi64), gi64.camera, 16, dev)
+    assert tab64.hdr_list[pk.HDR_MESH_C] > 0
+    planes_k = pk.film_trace(tab64, 0, 4)
+    planes_p = pk.film_trace_plain(tab64, 0, 4)
+    torch.cuda.synchronize()
+    img_k, img_p = develop_planes(planes_k, tab64), develop_planes(planes_p, tab64)
+    frac64 = torch.isclose(img_k, img_p, rtol=1e-3, atol=1e-5).all(-1).float().mean().item()
+    ray_rel64 = abs(planes_k[-1].sum().item() - planes_p[-1].sum().item()) / planes_p[-1].sum().item()
+    print(f"path_film mesh mode vs plain, mesh_gi.xml 64x64 4 spp depth 3 "
+          f"({tab64.hdr_list[pk.HDR_MESH_C]} clusters, {tab64.hdr_list[pk.HDR_N_PRIMS]} "
+          f"unrolled prims): pixels within rtol 1e-3 atol 1e-5 {frac64:.6f}, bit-equal "
+          f"{bool(torch.equal(planes_k, planes_p))}, ray count rel diff {ray_rel64:.3e}")
+    assert frac64 >= 0.99 and ray_rel64 <= 5e-3, "path_film mesh mode disagrees"
+
+    gi = tt.load_file(gi_xml)  # 256x256, 64 spp, depth 3
+    tab = pk.pack_tables(pk.bake_scene(gi), gi.camera, 16, dev)
+    seed1 = 100003  # the first chunk seed of render(seed=1)
+    pk.film_trace(tab, seed1, 64)  # warm-up
+    g_ms, planes_k = cuda_ms(lambda: pk.film_trace(tab, seed1, 64), reps=3)
+    g_plain_ms, planes_p = cuda_ms(lambda: pk.film_trace_plain(tab, seed1, 64))
+    g_err = (planes_k - planes_p).abs().max().item()
+    g_frac = torch.isclose(planes_k, planes_p, rtol=1e-4, atol=1e-6).float().mean().item()
+    g_sums = ((planes_k.double().sum(1) - planes_p.double().sum(1)).abs()
+              / planes_p.double().sum(1).abs().clamp(min=1e-30)).max().item()
+    print(f"path_film mesh mode vs plain, 256x256 x 64 samples (one main-path launch): "
+          f"entries within rtol 1e-4 atol 1e-6 {g_frac:.6f}, max abs err {g_err:.3e}, max "
+          f"plane-sum rel diff {g_sums:.3e}; kernel {g_ms:.3f} ms, plain {g_plain_ms:.1f} ms")
+    assert g_frac >= 0.99 and g_sums <= 1e-3, "path_film mesh mode disagrees at 256x256"
+
+    # ---- 12. mesh golden gates --------------------------------------------
+    want = np.load(os.path.join(ROOT, "tests", "golden", gates.DIRECT["out"]))
+    s64 = tt.load_file(simple_xml, res=64, spp=256)
+    img = tt.render(s64, spp=256, seed=1, device="cuda").cpu().numpy()
+    rr = gates.direct_gate(img, want["img"])
+    print(f"mesh direct golden vs {gates.DIRECT['out']}: rel RMSE of 8x8 block means "
+          f"{rr:.5f} (limit {gates.DIRECT_LIMIT}); image mean {img.mean():.6f} (golden "
+          f"{want['img'].mean():.6f})")
+    assert np.isfinite(img).all() and rr <= gates.DIRECT_LIMIT, "mesh direct golden gate failed"
+    want = np.load(os.path.join(ROOT, "tests", "golden", gates.GI["out"]))
+    g32 = tt.load_file(gi_xml, res=32, spp=16)
+    img = tt.render(g32, spp=16, seed=0, device="cuda", tile_rows=8).cpu().numpy()
+    rays = int(tt.render.last_ray_count)
+    blk = gates.gi_gate(img, want["img"])
+    print(f"mesh GI golden vs {gates.GI['out']}: max 8x8 block-mean diff / image mean "
+          f"{blk:.3e} (limit {gates.GI_LIMIT}); rays {rays} (golden {int(want['rays'])})")
+    assert np.isfinite(img).all() and blk <= gates.GI_LIMIT, "mesh GI golden gate failed"
+    assert abs(rays - int(want["rays"])) <= 0.01 * int(want["rays"])
+
+    # ---- 13. the two mesh main paths at full width --------------------------
+    med, lo, hi, nr, counts, img = timed_main_path(tt, simple, 256)
+    print(f"launch counts over the direct mesh main path: {counts}")
+    print(f"direct mesh main path simple.xml 256x256 256 spp box: median {med:.3f} ms "
+          f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
+          f"{nr / (med / 1e3):.4e}")
+    assert counts == {"path_film": 0, "us_acq": 0, "mesh_direct": 4 * 5}, counts
+    assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all())
+    assert img.mean().item() > 0
+    direct_launches = counts["mesh_direct"]
+
+    med, lo, hi, nr, counts, img = timed_main_path(tt, gi, 64)
+    print(f"launch counts over the mesh GI main path: {counts}")
+    print(f"mesh GI main path mesh_gi.xml 256x256 64 spp depth 3 box: median {med:.3f} ms "
+          f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
+          f"{nr / (med / 1e3):.4e}")
+    assert counts == {"path_film": 5, "us_acq": 0, "mesh_direct": 0}, counts
+    assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all())
+    assert img.mean().item() > 0
+    return dict(
+        direct_launches=direct_launches, gi_launches=counts["path_film"],
+        direct=dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms),
+        gi=dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms))
 
 
 if __name__ == "__main__":

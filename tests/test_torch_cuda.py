@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (the film kernel and the ultrasound
-acquisition kernel) against their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels (the film kernel with its clustered-mesh
+mode, the ultrasound acquisition kernel and the direct mesh kernel)
+against their plain PyTorch versions, on the card.
 Every test here is marked ``cuda`` and skips without a GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -12,7 +13,9 @@ kernel at least 99% of entries within rtol 1e-4 / atol 1e-6, plane sums
 within 1e-3 relative, the ray count within 1%; for the acquisition kernel
 at least 99% of pressures within 1e-4 of the largest |pressure| (one ulp
 of the echo time moves sin(phase) by up to about 5e-4), time-sample
-indices and receive elements equal wherever both pressures are non-zero.
+indices and receive elements equal wherever both pressures are non-zero;
+for the direct mesh kernel at least 99.9% of rays within rtol 1e-4 /
+atol 1e-6 and the same rays cast.
 """
 
 import os
@@ -22,7 +25,8 @@ import pytest
 import torch
 
 import tpu_rt_torch
-from tpu_rt_torch.ops import path_kernel, us_kernel
+from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
+from tpu_rt_torch.sensor import camera
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
 from tpu_rt_torch.us.pipeline import us_render
 from torch_port_scenes import mixed_desc, usmain_desc
@@ -30,6 +34,9 @@ from torch_port_scenes import mixed_desc, usmain_desc
 torch.set_num_threads(1)
 
 CBOX = os.path.join(os.path.dirname(__file__), "assets", "cbox", "cbox.xml")
+MESH = os.path.join(os.path.dirname(__file__), "assets", "mesh")
+SIMPLE = os.path.join(MESH, "simple.xml")
+MESH_GI = os.path.join(MESH, "mesh_gi.xml")
 
 
 def _need_cuda():
@@ -135,3 +142,62 @@ def test_us_render_on_cuda_goes_through_the_kernel():
     assert ch.shape == (5, 64, 10000) and tx.shape == (5, 64)
     assert bool(torch.isfinite(img).all()) and 0.0 <= img.min().item() <= img.max().item() <= 1.0
     assert ch.abs().sum().item() > 0
+
+
+def _direct_rays(st, n_pass, seed):
+    c = st.camera
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    ys, xs = torch.meshgrid(torch.arange(c.height, device="cuda"),
+                            torch.arange(c.width, device="cuda"), indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    jitter = torch.rand((n_pass, c.height * c.width, 2), generator=gen, device="cuda")
+    o, d = camera.sample_ray(c, xy + jitter)
+    return torch.cat([o, d], -1).reshape(-1, 6).T.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,n_pass,seed", [(32, 1, 0), (64, 4, 7)])
+def test_direct_kernel_matches_plain_version(res, n_pass, seed):
+    _need_cuda()
+    st = tpu_rt_torch.load_file(SIMPLE, res=res, spp=n_pass)
+    ds = mesh_kernel.bake_direct_scene(st).to("cuda")
+    rays = _direct_rays(st, n_pass, seed)
+    before = mesh_kernel.direct_trace.launches
+    got = mesh_kernel.direct_trace(ds, rays)
+    torch.cuda.synchronize()
+    assert mesh_kernel.direct_trace.launches == before + 1
+    assert got.shape == (4, res * res * n_pass) and got.device.type == "cuda"
+    want = mesh_kernel.direct_trace_plain(ds, rays)
+    close = torch.isclose(got[:3], want[:3], rtol=1e-4, atol=1e-6).all(0).float().mean().item()
+    assert close >= 0.999, f"only {close:.5f} of rays agree"
+    assert torch.equal(got[3], want[3])
+    assert (want[:3].sum(0) > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,k,seed", [(16, 2, 5), (48, 4, -3)])
+def test_kernel_mesh_mode_matches_plain_version(res, k, seed):
+    _need_cuda()
+    st = tpu_rt_torch.load_file(MESH_GI, res=res, spp=k)
+    tables = path_kernel.pack_tables(path_kernel.bake_scene(st), st.camera, 16, "cuda")
+    assert tables.hdr_list[path_kernel.HDR_MESH_C] > 0
+    got = path_kernel.film_trace(tables, seed, k)
+    _check(got.cpu().numpy(), path_kernel.film_trace_plain(tables, seed, k).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,counter,launches", [
+    (SIMPLE, "direct", 3), (MESH_GI, "film", 3)], ids=["simple", "mesh_gi"])
+def test_render_mesh_scene_on_cuda_goes_through_the_kernel(path, counter, launches):
+    _need_cuda()
+    fn = mesh_kernel.direct_trace if counter == "direct" else path_kernel.film_trace
+    other = path_kernel.film_trace if counter == "direct" else mesh_kernel.direct_trace
+    st = tpu_rt_torch.load_file(path, res=32, spp=10)
+    before, before_other = fn.launches, other.launches
+    img = tpu_rt_torch.render(st, seed=1, spp_per_pass=4)
+    assert fn.launches == before + launches and other.launches == before_other
+    assert img.device.type == "cuda" and img.shape == (32, 32, 3)
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
+    rays = tpu_rt_torch.render.last_ray_count
+    assert rays.device.type == "cuda" and int(rays) > 32 * 32 * 10

@@ -18,6 +18,7 @@ from tpu_rt.ops import pallas_path
 from tpu_rt_torch.integrator import render as torch_render
 from tpu_rt_torch.ops import path_kernel
 from tpu_rt_torch.scene import scene_from_arrays
+from tpu_rt_torch.scene.convert import optional_tensor_fields
 from tpu_rt_torch.scene import types as TT
 
 torch.set_num_threads(1)
@@ -33,6 +34,9 @@ def tpu_rt_arrays(scene):
     """A tpu_rt scene's state as numpy arrays + metadata for
     ``scene_from_arrays`` (the port itself never sees a JAX array)."""
     arrays = {k: np.asarray(getattr(scene.geometry, k)) for k in _tensor_fields(TT.Geometry)}
+    for k in optional_tensor_fields(TT.Geometry):  # the mesh cluster tables, or None
+        v = getattr(scene.geometry, k)
+        arrays[k] = None if v is None else np.asarray(v)
     arrays.update({k: np.asarray(getattr(scene.emitters, k))
                    for k in _tensor_fields(TT.Emitters)})
     for k in ("shape_bsdf", "shape_emitter", "bsdf_type", "bsdf_params"):
@@ -190,6 +194,6 @@ def test_loader_names_roadmap_for_unported_plugins():
     desc["sph"] = {"type": "sphere", "bsdf": {"type": "roughconductor"}}
     with pytest.raises(ValueError, match="ROADMAP.md A10"):
         tpu_rt_torch.load_dict(desc)
-    desc["sph"] = {"type": "ply", "filename": "x.ply"}
-    with pytest.raises(ValueError, match="ROADMAP.md A5"):
+    desc["sph"] = {"type": "disk", "bsdf": {"type": "diffuse"}}
+    with pytest.raises(ValueError, match="ROADMAP.md A4"):
         tpu_rt_torch.load_dict(desc)

@@ -1,4 +1,5 @@
-"""Build the CUDA kernels with nvcc at first use and load them with ctypes.
+"""Build the CUDA kernels with nvcc, and the host BVH builder with g++, at
+first use, and load them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers).
 Each ``.cu`` file is compiled by its own ``nvcc``, all started together,
@@ -26,11 +27,14 @@ import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("path_film.cu", "us_acq.cu")
+_NATIVE = Path(__file__).resolve().parent / "native"
+_SOURCES = ("path_film.cu", "us_acq.cu", "mesh_direct.cu")
 _HEADERS = ("common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_rt_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# tpu_rt's flags for the same builder (tpu_rt/ops/native/__init__.py)
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 
 def _nvcc():
@@ -80,15 +84,44 @@ def build() -> Path:
     return out
 
 
+def host_library(source: str) -> Path:
+    """Compile ``native/<source>`` (host C++ with a plain C interface) with
+    g++ into ``build/tpu_rt_torch/``, named after a hash of the source and
+    the flags, unless that library exists.  A failed build raises with
+    g++'s output."""
+    src = _NATIVE / source
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    out = _BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {source} is built at first use")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmpdir:
+        tmp = os.path.join(tmpdir, out.name)
+        res = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, str(src)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed on {source} ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)  # atomic, as in build()
+    return out
+
+
 @functools.cache
 def load_library():
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.path_film_launch.argtypes = [p, i, p, i, p, i, i, i, i, p]
+    lib.path_film_launch.argtypes = [p, i, p, i, p, i, p, i, i, i, i, p]
     lib.path_film_launch.restype = i
     lib.us_acq_launch.argtypes = [p, i, p, i, p, p, i, i, p]
     lib.us_acq_launch.restype = i
-    for name in ("path_film_error_string", "us_acq_error_string"):
+    lib.mesh_direct_launch.argtypes = [p, i, p, p, p, i, p, i, p, p]
+    lib.mesh_direct_launch.restype = i
+    for name in ("path_film_error_string", "us_acq_error_string",
+                 "mesh_direct_error_string"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,9 @@
-// Device helpers shared by the film kernel (path_film.cu) and the
-// ultrasound acquisition kernel (us_acq.cu): float3 arithmetic, the
-// SplitMix32 random streams of tpu_rt's Pallas kernels, the shading frame,
-// and the closest-hit / any-hit sweep over the packed prim records.
+// Device helpers shared by the film kernel (path_film.cu), the ultrasound
+// acquisition kernel (us_acq.cu) and the direct mesh kernel
+// (mesh_direct.cu): float3 arithmetic, the SplitMix32 random streams of
+// tpu_rt's Pallas kernels, the shading frame, the closest-hit / any-hit
+// sweep over the packed prim records, and the per-ray cull of the mesh
+// cluster tables.
 //
 // The prim record layout (PRIM_STRIDE floats: kind, bsdf, emitter, pad,
 // then the shape's data) is written by path_kernel.py::pack_prims.
@@ -159,6 +161,50 @@ __device__ bool any_hit(const float* prims, int n_prims, V3 o, V3 d, float tmax)
       return true;
   }
   return false;
+}
+
+// ---- mesh cluster tables (ops/mesh_kernel.py::build_clusters) ----
+// A cluster is up to kCluster triangles stored in rows of kCluster floats;
+// its bounds row (32 floats) holds the cluster box (cols 0-5), the
+// triangle count (col 6) and four quarter boxes (cols 8-31).
+
+constexpr int kCluster = 128;
+constexpr float kMeshTmin = 1e-4f;
+
+// 1 / x with |x| kept >= 1e-12: the slab test's safe reciprocal.
+__device__ __forceinline__ float inv_safe(float x) { return 1.0f / clamp_abs(x, 1e-12f); }
+
+__device__ __forceinline__ float row(const float* __restrict__ base, int r, int k) {
+  return __ldg(base + r * kCluster + k);
+}
+
+// Slab test of the box b[0..5] (min xyz, max xyz) against [kMeshTmin, best_t].
+__device__ __forceinline__ bool slab(const float* b, V3 o, V3 invd, float best_t) {
+  float t0x = (b[0] - o.x) * invd.x;
+  float t1x = (b[3] - o.x) * invd.x;
+  float t0y = (b[1] - o.y) * invd.y;
+  float t1y = (b[4] - o.y) * invd.y;
+  float t0z = (b[2] - o.z) * invd.z;
+  float t1z = (b[5] - o.z) * invd.z;
+  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), kMeshTmin));
+  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), best_t));
+  return tn <= tf;
+}
+
+// The triangles of one cluster a ray sweeps: none unless the cluster box
+// passes, else the contiguous span [s, e) of the live quarter boxes
+// (quarter q holds triangles [q*k/4, (q+1)*k/4)); mesh_kernel.py::
+// cluster_candidates is the same cull in PyTorch.
+__device__ __forceinline__ bool cluster_span(const float* b, V3 o, V3 invd, float best_t,
+                                             int& s, int& e) {
+  if (!slab(b, o, invd, best_t)) return false;
+  bool l0 = slab(b + 8, o, invd, best_t), l1 = slab(b + 14, o, invd, best_t);
+  bool l2 = slab(b + 20, o, invd, best_t), l3 = slab(b + 26, o, invd, best_t);
+  int k = (int)b[6];
+  int q1 = k / 4, q2 = k / 2, q3 = (3 * k) / 4;
+  s = l0 ? 0 : (l1 ? q1 : (l2 ? q2 : q3));
+  e = l3 ? k : (l2 ? q3 : (l1 ? q2 : q1));
+  return l0 || l1 || l2 || l3;
 }
 
 }  // namespace

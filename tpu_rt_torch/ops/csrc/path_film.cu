@@ -24,6 +24,18 @@
 // shading frame and the prim sweep live in common.cuh, shared with the
 // ultrasound kernel us_acq.cu.
 //
+// Clustered-mesh mode (pallas_path.py::_mesh_closest / _mesh_anyhit),
+// selected by the header's mesh cluster count, not by another build: a
+// scene's non-emissive mesh triangles ride separate tables in global
+// memory (bounds, the 12-row Baldwin-Weber rows, the 9-row vertex
+// normals; up to 64 clusters, 688 KB), read through the read-only path.
+// Each ray's closest hit over the unrolled prims is merged with the mesh's
+// (root box, quarter boxes and the live span per ray, as in mesh_direct.cu,
+// where the TPU culled whole tiles), giving the interpolated shading normal
+// and the geometric one, which the spawn offsets follow; the shadow ray
+// also sweeps the mesh.  A dead path never reaches the sweeps, so the TPU's
+// collapsed bounds for dead lanes have no counterpart.
+//
 // What bounds it.  Per ray the kernel reads a few KB of tables from shared
 // memory and writes nothing until the end, so it is bound by FP32 ALU work
 // (the prim sweep, shading, the special functions) and by warp divergence:
@@ -45,13 +57,13 @@ enum {
   HDR_N_PRIMS = 0, HDR_N_AREA = 1, HDR_N_LIGHTS = 2, HDR_MAX_DEPTH = 3,
   HDR_RR_DEPTH = 4, HDR_HIDE_EMITTERS = 5, HDR_HAS_ENV = 6, HDR_HAS_FAR = 7,
   HDR_W = 8, HDR_H = 9, HDR_TILE_LANES = 10, HDR_OFF_PRIM = 11,
-  HDR_OFF_BSDF = 12, HDR_OFF_EM = 13, HDR_OFF_PT = 14, HDR_LEN = 16
+  HDR_OFF_BSDF = 12, HDR_OFF_EM = 13, HDR_OFF_PT = 14, HDR_MESH_C = 15, HDR_LEN = 16
 };
 // float table: global block
 enum {
   G_ENV = 0, G_INV_NL = 3, G_NL = 5, G_NL_M1 = 6, G_R = 8,
   G_ORG = 17, G_TFX = 20, G_TFY = 21, G_INVW = 22, G_INVH = 23, G_NEAR = 24,
-  G_FAR_NEAR = 25, G_GAUSS_TAIL = 26
+  G_FAR_NEAR = 25, G_GAUSS_TAIL = 26, G_MESH_BSDF = 27
 };
 enum { BSDF_STRIDE = 16, EM_STRIDE = 32, PT_STRIDE = 8 };
 enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2 };
@@ -75,9 +87,78 @@ struct Scene {
   const float* bsdfs;
   const float* ems;
   const float* pts;
-  int n_prims, n_area, n_lights, max_depth, rr_depth, W, tile_lanes;
+  // mesh tables: bounds (C, 32), Baldwin-Weber rows (C, 12, 128), vertex
+  // normals (C, 9, 128); mesh_c == 0 without a mesh
+  const float* mesh_bounds;
+  const float* mesh_trisw;
+  const float* mesh_nrm;
+  int n_prims, n_area, n_lights, max_depth, rr_depth, W, tile_lanes, mesh_c, mesh_bsdf;
   bool hide_emitters, has_env, has_far;
 };
+
+// Baldwin-Weber test (pallas_path.py::_mesh_bw_one) against lane k of a
+// cluster's 12-row table: n = e1 x e2, p0, then the barycentric rows r1, r2.
+__device__ __forceinline__ bool bw(const float* __restrict__ tw, int k, V3 o, V3 d,
+                                   float bt, float& t, float& u, float& v) {
+  float nx = row(tw, 0, k), ny = row(tw, 1, k), nz = row(tw, 2, k);
+  float tvx = o.x - row(tw, 3, k);
+  float tvy = o.y - row(tw, 4, k);
+  float tvz = o.z - row(tw, 5, k);
+  float den = nx * d.x + ny * d.y + nz * d.z;
+  t = -(nx * tvx + ny * tvy + nz * tvz) / clamp_abs(den, 1e-12f);
+  float qx = tvx + t * d.x;
+  float qy = tvy + t * d.y;
+  float qz = tvz + t * d.z;
+  u = row(tw, 6, k) * qx + row(tw, 7, k) * qy + row(tw, 8, k) * qz;
+  v = row(tw, 9, k) * qx + row(tw, 10, k) * qy + row(tw, 11, k) * qz;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kMeshTmin && t < bt;
+}
+
+// Merge the mesh's closest hit into (best_t, prim, n): on a mesh hit prim
+// becomes n_prims, n the normalised interpolated vertex normal (the
+// geometric one where that is ~0) and ng the normalised geometric normal.
+__device__ void mesh_closest(const Scene& sc, V3 o, V3 d, float& best_t, int& prim,
+                             V3& n, V3& ng) {
+  V3 invd = {inv_safe(d.x), inv_safe(d.y), inv_safe(d.z)};
+  bool got = false;
+  V3 ns_raw, g_raw;
+  for (int c = 0; c < sc.mesh_c; ++c) {
+    int s, e;
+    if (!cluster_span(sc.mesh_bounds + c * 32, o, invd, best_t, s, e)) continue;
+    const float* tw = sc.mesh_trisw + (size_t)c * 12 * kCluster;
+    const float* nr = sc.mesh_nrm + (size_t)c * 9 * kCluster;
+    for (int k = s; k < e; ++k) {
+      float t, u, v;
+      if (!bw(tw, k, o, d, best_t, t, u, v)) continue;
+      best_t = t;
+      got = true;
+      float w0 = 1.0f - u - v;
+      ns_raw = {w0 * row(nr, 0, k) + u * row(nr, 3, k) + v * row(nr, 6, k),
+                w0 * row(nr, 1, k) + u * row(nr, 4, k) + v * row(nr, 7, k),
+                w0 * row(nr, 2, k) + u * row(nr, 5, k) + v * row(nr, 8, k)};
+      g_raw = {row(tw, 0, k), row(tw, 1, k), row(tw, 2, k)};
+    }
+  }
+  if (!got) return;
+  prim = sc.n_prims;
+  ng = normalize(g_raw);
+  n = dot(ns_raw, ns_raw) > 1e-12f ? normalize(ns_raw) : ng;
+}
+
+// True where the segment (1e-4, tmax) hits a mesh triangle.
+__device__ bool mesh_any_hit(const Scene& sc, V3 o, V3 d, float tmax) {
+  V3 invd = {inv_safe(d.x), inv_safe(d.y), inv_safe(d.z)};
+  for (int c = 0; c < sc.mesh_c; ++c) {
+    int s, e;
+    if (!cluster_span(sc.mesh_bounds + c * 32, o, invd, tmax, s, e)) continue;
+    const float* tw = sc.mesh_trisw + (size_t)c * 12 * kCluster;
+    for (int k = s; k < e; ++k) {
+      float t, u, v;
+      if (bw(tw, k, o, d, tmax, t, u, v)) return true;
+    }
+  }
+  return false;
+}
 
 // Conductor Fresnel at |cos_f| for one channel (mirror -> 1).
 __device__ __forceinline__ float fres_cond(float cos_f, float eta, float k,
@@ -126,6 +207,8 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
     float t;
     V3 n = {0.0f, 0.0f, 0.0f};
     int prim = closest_hit(sc.prims, sc.n_prims, o, d, t, n);
+    V3 ng = n;  // the geometric normal, which the spawn offsets follow
+    if (sc.mesh_c > 0) mesh_closest(sc, o, d, t, prim, n, ng);
     bool hit = prim >= 0;
     if (sc.has_far && depth == 0) {
       // the origin sits at the near plane: the clip length left is
@@ -143,13 +226,14 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
       }
       break;
     }
+    bool on_mesh = prim == sc.n_prims;
     const float* prec = sc.prims + prim * PRIM_STRIDE;
     V3 p = {o.x + d.x * t, o.y + d.y * t, o.z + d.z * t};
     V3 wi = {-d.x, -d.y, -d.z};
     float cos_l = dot(n, wi);
 
     // ---- emitter hit + MIS ----
-    int em = (int)prec[2];
+    int em = on_mesh ? -1 : (int)prec[2];
     if (show_em && em >= 0 && cos_l > 0.0f) {
       const float* er = sc.ems + em * EM_STRIDE;
       float pdf_light = er[3] * t * t / fmaxf(cos_l, 1e-6f) * g[G_INV_NL];
@@ -159,7 +243,7 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
       L.z = L.z + thr.z * er[2] * w_b;
     }
 
-    const float* b = sc.bsdfs + (int)prec[1] * BSDF_STRIDE;
+    const float* b = sc.bsdfs + (on_mesh ? sc.mesh_bsdf : (int)prec[1]) * BSDF_STRIDE;
     int btype = (int)b[0];
     V3 s_fr, t_fr;
     frame(n, s_fr, t_fr);
@@ -209,9 +293,11 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
       bool is_delta = pdf_a == 0.0f;
       if (cos_sl > 0.0f && (is_delta || cos_ll > 1e-6f)) {
         ray_count += 1.0f;
-        float off = 1e-4f * (dot(n, wl) >= 0.0f ? 1.0f : -1.0f);
-        V3 so = {p.x + n.x * off, p.y + n.y * off, p.z + n.z * off};
-        if (!any_hit(sc.prims, sc.n_prims, so, wl, dist * kShadowShrink)) {
+        float off = 1e-4f * (dot(ng, wl) >= 0.0f ? 1.0f : -1.0f);
+        V3 so = {p.x + ng.x * off, p.y + ng.y * off, p.z + ng.z * off};
+        float tmax = dist * kShadowShrink;
+        if (!any_hit(sc.prims, sc.n_prims, so, wl, tmax) &&
+            !(sc.mesh_c > 0 && mesh_any_hit(sc, so, wl, tmax))) {
           float pdf_nee = is_delta ? g[G_INV_NL]
                                    : pdf_a * dist2 / fmaxf(cos_ll, 1e-6f) * g[G_INV_NL];
           float fs = kInvPi * fmaxf(cos_sl, 0.0f);
@@ -285,8 +371,8 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
     }
 
     V3 d_new = normalize(to_world(n, s_fr, t_fr, wo_l));
-    float off = 1e-4f * (dot(n, d_new) >= 0.0f ? 1.0f : -1.0f);
-    V3 o_new = {p.x + n.x * off, p.y + n.y * off, p.z + n.z * off};
+    float off = 1e-4f * (dot(ng, d_new) >= 0.0f ? 1.0f : -1.0f);
+    V3 o_new = {p.x + ng.x * off, p.y + ng.y * off, p.z + ng.z * off};
     V3 thr_new = {thr.x * w_s.x, thr.y * w_s.y, thr.z * w_s.z};
     eta_scale = eta_scale * eta_s;
     float thr_max = fmaxf(thr_new.x, fmaxf(thr_new.y, thr_new.z));
@@ -320,8 +406,8 @@ __device__ __forceinline__ float film_w1d(int dd, float j, float gauss_tail) {
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
-                 int n_tab, float* __restrict__ out, int n_pix, int seed,
-                 int n_samples) {
+                 int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
+                 int n_pix, int seed, int n_samples) {
   extern __shared__ float tab[];
   __shared__ int hdr[HDR_LEN];
   for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = tab_g[i];
@@ -346,6 +432,11 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
   sc.hide_emitters = hdr[HDR_HIDE_EMITTERS] != 0;
   sc.has_env = hdr[HDR_HAS_ENV] != 0;
   sc.has_far = hdr[HDR_HAS_FAR] != 0;
+  sc.mesh_c = hdr[HDR_MESH_C];
+  sc.mesh_bsdf = (int)tab[G_MESH_BSDF];
+  sc.mesh_bounds = mesh;
+  sc.mesh_trisw = mesh + (size_t)sc.mesh_c * 32;
+  sc.mesh_nrm = sc.mesh_trisw + (size_t)sc.mesh_c * 12 * kCluster;
 
   constexpr int kFoot = 2 * R + 1;
   constexpr int kAcc = kFoot * kFoot * 4;
@@ -402,26 +493,31 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
 }  // namespace
 
 extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
-                                int n_tab, void* out, int n_pix, int seed,
-                                int n_samples, int radius, void* stream) {
+                                int n_tab, const void* mesh, int n_mesh, void* out,
+                                int n_pix, int seed, int n_samples, int radius,
+                                void* stream) {
   if (n_hdr < HDR_LEN || n_tab <= 0 || n_tab > kMaxTableFloats || n_pix <= 0 ||
-      n_samples < 1)
+      n_samples < 1 || n_mesh < 0 || (n_mesh > 0 && mesh == nullptr))
     return (int)cudaErrorInvalidValue;
   dim3 grid((n_pix + kThreads - 1) / kThreads);
   size_t smem = (size_t)n_tab * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   const int* h = (const int*)hdr;
   const float* t = (const float*)tab;
+  const float* m = (const float*)mesh;
   float* o = (float*)out;
   switch (radius) {
     case 0:
-      path_film_kernel<0><<<grid, kThreads, smem, s>>>(h, t, n_tab, o, n_pix, seed, n_samples);
+      path_film_kernel<0><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
+                                                         n_samples);
       break;
     case 1:
-      path_film_kernel<1><<<grid, kThreads, smem, s>>>(h, t, n_tab, o, n_pix, seed, n_samples);
+      path_film_kernel<1><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
+                                                         n_samples);
       break;
     case 2:
-      path_film_kernel<2><<<grid, kThreads, smem, s>>>(h, t, n_tab, o, n_pix, seed, n_samples);
+      path_film_kernel<2><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
+                                                         n_samples);
       break;
     default:
       return (int)cudaErrorInvalidValue;

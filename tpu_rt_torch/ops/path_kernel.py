@@ -7,7 +7,13 @@ the render loop around it (``render_pallas`` / ``_get_film_render_multi_fn``).
 * ``bake_scene`` extracts the kernel's constants, as the JAX package does.
   Scenes outside this port's scope give ``None``: cones, rough conductors,
   polarizer / null pass-through, textured environments, bitmap textures,
-  clustered meshes over 64 prims, and Stokes transport.
+  and Stokes transport.  A scene of more than 64 prims takes the
+  clustered-mesh mode (``_bake_mesh``): its non-emissive triangles, which
+  must share one BSDF, move into cluster tables of at most 64 clusters
+  that the kernel sweeps per ray (root box, quarter boxes, Baldwin-Weber
+  test, shading normal interpolated from the vertex normals, geometric
+  normal for the spawn offsets); emissive triangles and analytic prims stay
+  unrolled.
 * ``pack_tables`` turns the baked scene into an int32 header and one
   float32 table.  Constants that the JAX kernel derives from Python floats
   (``eta_rel``, ``1/area``, the raygen constants, ...) are derived here in
@@ -35,6 +41,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpu_rt_torch.ops import mesh_kernel as _mk
 from tpu_rt_torch.scene.types import (
     BSDF_CONDUCTOR,
     BSDF_DIELECTRIC,
@@ -85,13 +92,53 @@ class BakedScene:
     max_depth: int = 6
     rr_depth: int = 5
     hide_emitters: bool = False
+    # clustered-mesh tables (_bake_mesh) or None
+    mesh: Optional[dict] = None
 
 
-def bake_prims(scene: Scene, with_emitters=True) -> Optional[List[BakedPrim]]:
+_MESH_MAX_C = 64  # the mesh mode's scope: at most 64 clusters
+
+
+def _bake_mesh(scene: Scene) -> Optional[dict]:
+    """Cluster tables of the scene's non-emissive triangles, which must all
+    share one BSDF (tpu_rt/ops/pallas_path.py::_bake_mesh): clusters are
+    rebuilt over that subset in the order of the scene's BVH clusters
+    (runs of 128 along ``cl_prim``).  Returns dict(bounds (C, 32), trisw
+    (C, 12, 128), nrm (C, 9, 128) vertex normals, bsdf, tri_mask) or
+    None."""
+    g = scene.geometry
+    if g.n_tris == 0 or g.cl_prim is None:
+        return None
+    tri_shape = g.tri_shape.numpy()
+    mask = scene.shape_emitter.numpy()[tri_shape] < 0
+    if not mask.any():
+        return None
+    b_ids = set(scene.shape_bsdf.numpy()[tri_shape[mask]].tolist())
+    if len(b_ids) != 1 or int(mask.sum()) > _MESH_MAX_C * _mk.CLUSTER:
+        return None
+    order, seen = [], np.zeros(g.n_tris, bool)
+    for t in g.cl_prim.numpy().tolist():
+        if 0 <= t < g.n_tris and mask[t] and not seen[t]:
+            seen[t] = True
+            order.append(t)
+    order = np.asarray(order, np.int32)
+    cl = _mk.build_clusters(g.tri_p0.numpy()[order], g.tri_e1.numpy()[order],
+                            g.tri_e2.numpy()[order])
+    if cl["tris"].shape[0] > _MESH_MAX_C:
+        return None
+    nrm = _mk.build_shading_table(
+        cl["prim"], g.tri_n0.numpy()[order], g.tri_n1.numpy()[order],
+        g.tri_n2.numpy()[order], np.zeros((order.shape[0], 3), np.float32))[:, :9]
+    return dict(bounds=cl["bounds"], trisw=cl["trisw"], nrm=np.ascontiguousarray(nrm),
+                bsdf=int(b_ids.pop()), tri_mask=mask)
+
+
+def bake_prims(scene: Scene, with_emitters=True, skip=None) -> Optional[List[BakedPrim]]:
     """The scene's triangles, spheres and rectangles as kernel prims, in
-    prim-id order; None when a prim is outside the sweep's scope (another
-    analytic type, or a sphere without a uniform scale).  With
-    ``with_emitters=False`` every prim's emitter is -1."""
+    prim-id order, leaving out the triangles where ``skip`` is set; None
+    when a prim is outside the sweep's scope (another analytic type, or a
+    sphere without a uniform scale).  With ``with_emitters=False`` every
+    prim's emitter is -1."""
     g = scene.geometry
     an_type = g.an_type.numpy()
     if not set(an_type.tolist()) <= {SPHERE, RECTANGLE}:
@@ -108,6 +155,8 @@ def bake_prims(scene: Scene, with_emitters=True) -> Optional[List[BakedPrim]]:
     tri_shape = g.tri_shape.numpy()
     prims = []
     for i in range(g.n_tris):
+        if skip is not None and skip[i]:
+            continue
         ng = np.cross(tri_e1[i], tri_e2[i])
         ng = ng / max(np.linalg.norm(ng), 1e-20)
         sid = int(tri_shape[i])
@@ -142,10 +191,13 @@ def bake_prims(scene: Scene, with_emitters=True) -> Optional[List[BakedPrim]]:
 def bake_scene(scene: Scene) -> Optional[BakedScene]:
     """The kernel's constants, or None when the scene is out of scope."""
     g = scene.geometry
-    if g.n_tris + g.n_analytic == 0 or g.n_tris + g.n_analytic > _MAX_PRIMS:
+    if g.n_tris + g.n_analytic == 0 or scene.has_textures:
         return None
-    if scene.has_textures:
-        return None
+    mesh = None
+    if g.n_tris + g.n_analytic > _MAX_PRIMS:
+        mesh = _bake_mesh(scene)
+        if mesh is None:
+            return None
     env_rgb = None
     em = scene.emitters
     if em.has_env:
@@ -156,9 +208,14 @@ def bake_scene(scene: Scene) -> Optional[BakedScene]:
     btypes = scene.bsdf_type.numpy()
     if not set(btypes.tolist()) <= _SUPPORTED_BSDFS:
         return None
-    prims = bake_prims(scene)
-    if prims is None:
+    skip = None if mesh is None else mesh["tri_mask"]
+    prims = bake_prims(scene, skip=skip)
+    if prims is None or len(prims) > _MAX_PRIMS:
         return None
+    # emissive triangles keep their place among the unrolled prims
+    tri_remap = np.arange(g.n_tris)
+    if skip is not None:
+        tri_remap = np.cumsum(~skip) - 1
 
     bsdf_params = scene.bsdf_params.numpy()
     bsdfs = [(int(t), tuple(bsdf_params[i].tolist())) for i, t in enumerate(btypes)]
@@ -171,7 +228,7 @@ def bake_scene(scene: Scene) -> Optional[BakedScene]:
         lo, hi = int(offsets[e]), int(offsets[e + 1])
         if hi - lo > _MAX_LIGHT_TRIS:
             return None
-        em_tris.append([(int(em_tri_prim[k]), float(em_tri_cdf[k]))
+        em_tris.append([(int(tri_remap[int(em_tri_prim[k])]), float(em_tri_cdf[k]))
                         for k in range(lo, hi)])
     point_lights = [(tuple(p), tuple(i)) for p, i in zip(
         em.point_pos.numpy().tolist(), em.point_intensity.numpy().tolist())]
@@ -188,6 +245,7 @@ def bake_scene(scene: Scene) -> Optional[BakedScene]:
         max_depth=min(max_depth, _MAX_DEPTH),
         rr_depth=scene.rr_depth,
         hide_emitters=scene.hide_emitters,
+        mesh=mesh,
     )
 
 
@@ -222,12 +280,13 @@ def _filter_name(filter_type):
 HDR_N_PRIMS, HDR_N_AREA, HDR_N_LIGHTS, HDR_MAX_DEPTH, HDR_RR_DEPTH = 0, 1, 2, 3, 4
 HDR_HIDE_EMITTERS, HDR_HAS_ENV, HDR_HAS_FAR, HDR_W, HDR_H = 5, 6, 7, 8, 9
 HDR_TILE_LANES, HDR_OFF_PRIM, HDR_OFF_BSDF, HDR_OFF_EM, HDR_OFF_PT = 10, 11, 12, 13, 14
+HDR_MESH_C = 15  # clusters of the mesh tables; 0 without a mesh
 HDR_LEN = 16
 
 # float32 table: a global block, then prim, bsdf, emitter, point records
 G_ENV, G_INV_NL, G_NL, G_NL_M1 = 0, 3, 5, 6
 G_R, G_ORG, G_TFX, G_TFY, G_INVW, G_INVH = 8, 17, 20, 21, 22, 23
-G_NEAR, G_FAR_NEAR, G_GAUSS_TAIL = 24, 25, 26
+G_NEAR, G_FAR_NEAR, G_GAUSS_TAIL, G_MESH_BSDF = 24, 25, 26, 27
 G_LEN = 32
 PRIM_STRIDE, BSDF_STRIDE, EM_STRIDE, PT_STRIDE = 20, 16, 32, 8
 KIND_TRI, KIND_SPHERE, KIND_RECT = 0, 1, 2
@@ -246,6 +305,18 @@ class FilmTables:
     H: int
     W: int
     radius: int  # filter footprint radius: 0 box, 1 tent, 2 gaussian
+    # mesh tables, float32 [C*32 bounds | C*12*128 Baldwin-Weber rows |
+    # C*9*128 vertex normals], or None; the kernel reads them from global
+    # memory
+    mesh: Optional[torch.Tensor] = None
+
+    def mesh_views(self):
+        """The mesh tables as (bounds (C, 32), trisw (C, 12, 128), nrm
+        (C, 9, 128)) views of ``mesh``."""
+        C = self.hdr_list[HDR_MESH_C]
+        nb, nt = C * 32, C * 12 * _mk.CLUSTER
+        return (self.mesh[:nb].view(C, 32), self.mesh[nb:nb + nt].view(C, 12, _mk.CLUSTER),
+                self.mesh[nb + nt:].view(C, 9, _mk.CLUSTER))
 
     @property
     def n_pix(self):
@@ -306,6 +377,11 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device) -> FilmT
     g[G_INVW], g[G_INVH] = _f32(1.0 / W), _f32(1.0 / H)
     g[G_NEAR], g[G_FAR_NEAR] = _f32(rg["near"]), _f32(rg["far"] - rg["near"])
     g[G_GAUSS_TAIL] = _GAUSS_TAIL
+    mesh = None
+    if bs.mesh is not None:
+        g[G_MESH_BSDF] = float(bs.mesh["bsdf"])
+        mesh = torch.from_numpy(np.concatenate(
+            [bs.mesh[k].reshape(-1) for k in ("bounds", "trisw", "nrm")])).to(device)
 
     prim_tab = pack_prims(bs.prims)
     bsdf_tab = []
@@ -365,11 +441,13 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device) -> FilmT
     hdr[HDR_TILE_LANES] = tile_rows * 128
     hdr[HDR_OFF_PRIM], hdr[HDR_OFF_BSDF] = off_prim, off_bsdf
     hdr[HDR_OFF_EM], hdr[HDR_OFF_PT] = off_em, off_pt
+    hdr[HDR_MESH_C] = 0 if bs.mesh is None else bs.mesh["bounds"].shape[0]
     return FilmTables(
         hdr=torch.tensor(hdr, dtype=torch.int32, device=device),
         tab=torch.tensor(tab, dtype=torch.float32, device=device),
         hdr_list=hdr, tab_list=tab, H=H, W=W,
         radius=_FILTER_FOOT[_filter_name(camera.filter_type)],
+        mesh=mesh,
     )
 
 
@@ -406,6 +484,12 @@ class _Consts:
         self.bsdfs = recs(h[HDR_OFF_BSDF], h[HDR_OFF_EM], BSDF_STRIDE)
         self.ems = recs(h[HDR_OFF_EM], h[HDR_OFF_PT], EM_STRIDE)
         self.points = recs(h[HDR_OFF_PT], len(t), PT_STRIDE)
+        self.mesh_c = h[HDR_MESH_C]
+        if self.mesh_c:
+            self.mesh_id = float(h[HDR_N_PRIMS])  # the prim id of a mesh hit
+            self.mesh_bsdf = t[G_MESH_BSDF]
+            self.mesh_bounds, self.mesh_trisw, self.mesh_nrm = tables.mesh_views()
+            self.mesh_bounds_list = self.mesh_bounds.cpu().tolist()
 
 
 def _mul32(x, c):
@@ -565,6 +649,73 @@ def _sweep(C: _Consts, o, d, tmin, tmax, any_hit=False):
     return best_t, best_prim, n
 
 
+def _mesh_bw(tw, o, d, bt, s, e):
+    """Baldwin-Weber test (pallas_path._mesh_bw_one) against every lane of
+    one cluster at once: tw the (12, k) rows (n = e1 x e2, p0, r1, r2),
+    o / d / bt per ray (n,), lanes outside each ray's [s, e) masked off.
+    Returns (ok, t, u, v), each (n, k)."""
+    o = [x[:, None] for x in o]
+    d = [x[:, None] for x in d]
+    nx, ny, nz = tw[0], tw[1], tw[2]
+    tvx = o[0] - tw[3]
+    tvy = o[1] - tw[4]
+    tvz = o[2] - tw[5]
+    den = nx * d[0] + ny * d[1] + nz * d[2]
+    t = -(nx * tvx + ny * tvy + nz * tvz) / _clamp_abs(den, 1e-12)
+    qx = tvx + t * d[0]
+    qy = tvy + t * d[1]
+    qz = tvz + t * d[2]
+    u = tw[6] * qx + tw[7] * qy + tw[8] * qz
+    v = tw[9] * qx + tw[10] * qy + tw[11] * qz
+    lane = torch.arange(tw.shape[1], device=tw.device)
+    ok = ((lane >= s[:, None]) & (lane < e[:, None]) & (u >= 0.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t > 1e-4) & (t < bt[:, None]))
+    return ok, t, u, v
+
+
+def _mesh_closest(C: _Consts, o, d, t0, prim0, n0, active):
+    """Merge the mesh's closest hit into the unrolled sweep's (t0, prim0,
+    n0) on the active lanes (pallas_path._mesh_closest).  Returns (t,
+    prim_f, n, n_g): on mesh hits prim_f is the mesh's prim id, n the
+    normalised interpolated vertex normal (the geometric one where that is
+    ~0) and n_g the normalised geometric normal; elsewhere n = n_g = n0."""
+    invd = [_mk._inv(x) for x in d]
+    best_t, prim = t0.clone(), prim0.clone()
+    att = torch.cat([torch.stack(n0), torch.stack(n0)])  # raw ns, raw ng
+    for c, brow in enumerate(C.mesh_bounds_list):
+        rows, s, e = _mk.cluster_candidates(brow, o, invd, best_t)
+        keep = active[rows]
+        rows, s, e = rows[keep], s[keep], e[keep]
+        if rows.numel() == 0:
+            continue
+        k = int(brow[6])
+        tw, nr = C.mesh_trisw[c, :, :k], C.mesh_nrm[c, :, :k]
+        ok, t, u, v = _mesh_bw(tw, [x[rows] for x in o], [x[rows] for x in d],
+                               best_t[rows], s, e)
+        hit, lane = _mk.first_min(ok, t)
+        rows, lane = rows[hit], lane[hit]
+        ar = torch.arange(lane.shape[0], device=lane.device)
+        t, u, v = t[hit][ar, lane], u[hit][ar, lane], v[hit][ar, lane]
+        tr, nv = tw[:, lane], nr[:, lane]
+        w0 = 1.0 - u - v
+        nsv = [w0 * nv[j] + u * nv[3 + j] + v * nv[6 + j] for j in range(3)]
+        best_t[rows] = t
+        prim[rows] = C.mesh_id
+        att[:, rows] = torch.stack(nsv + [tr[0], tr[1], tr[2]])
+    is_mesh = prim == C.mesh_id
+    ns_raw = (att[0], att[1], att[2])
+    ns = _normalize(ns_raw)
+    ng = _normalize((att[3], att[4], att[5]))
+    ns = _where3(_dot(ns_raw, ns_raw) > 1e-12, ns, ng)
+    return best_t, prim, _where3(is_mesh, ns, n0), _where3(is_mesh, ng, n0)
+
+
+def _mesh_anyhit(C: _Consts, o, d, tmax, lanes):
+    """True on the ``lanes`` whose segment (1e-4, tmax) hits a mesh
+    triangle (pallas_path._mesh_anyhit)."""
+    return _mk.cluster_any_hit(C.mesh_bounds_list, C.mesh_trisw, _mesh_bw, o, d, tmax, lanes)
+
+
 def _camera_ray(C: _Consts, idx, jx, jy):
     """Primary ray of each lane from its pixel index and in-pixel jitter,
     starting at the near clip plane.  Returns (o, d)."""
@@ -643,7 +794,13 @@ def _make_bounce_step(C: _Consts):
         zeros = torch.zeros_like(o[0])
         ones = zeros + 1.0
         t, prim_f, n = _sweep(C, o, d, 1e-4, _BIG)
-        n_g = n
+        if C.mesh_c:
+            # n stays the shading normal, n_g is the geometric one that
+            # the spawn offsets follow
+            t, prim_f, n, n_g = _mesh_closest(C, o, d, torch.where(active, t, 1e-4),
+                                              prim_f, n, active)
+        else:
+            n_g = n
         hit = (prim_f >= 0.0) & active
         if C.has_far and depth == 0:
             # the primary origin sits at the near plane, so the clip length
@@ -676,6 +833,8 @@ def _make_bounce_step(C: _Consts):
 
         # ---- per-lane BSDF constants ----------------------------------
         bsdf_id = _prim_attr_f(C, prim_f, 1, -1.0)
+        if C.mesh_c:
+            bsdf_id = torch.where(prim_f == C.mesh_id, C.mesh_bsdf, bsdf_id)
         btype = zeros - 1.0
         refl = (zeros, zeros, zeros)
         eta_rel = ones
@@ -756,6 +915,8 @@ def _make_bounce_step(C: _Consts):
             shadow_o = _add(p_hit, _scale(
                 n_g, 1e-4 * torch.where(_dot(n_g, wl) >= 0, 1.0, -1.0)))
             occ = _sweep(C, shadow_o, wl, 1e-4, dist * (1.0 - 1e-3), any_hit=True)
+            if C.mesh_c:
+                occ = occ | _mesh_anyhit(C, shadow_o, wl, dist * (1.0 - 1e-3), nee_ok)
             vis = nee_ok & ~occ
             ray_count = ray_count + torch.where(nee_ok, 1.0, 0.0)
             w_nee = torch.where(is_delta_l, 1.0, _mis(pdf_nee, pdf_bsdf_l))
@@ -918,6 +1079,11 @@ def film_trace(tables: FilmTables, seed: int, n_samples: int):
         raise ValueError(f"film_trace runs on cpu or cuda, not {dev.type}")
     if tables.radius not in (0, 1, 2) or n_samples < 1:
         raise ValueError("film_trace needs a box/tent/gaussian film and n_samples >= 1")
+    C = tables.hdr_list[HDR_MESH_C]
+    mesh = tables.mesh
+    if C and (mesh is None or mesh.device != dev or mesh.dtype != torch.float32
+              or not mesh.is_contiguous() or mesh.numel() != C * (32 + 21 * _mk.CLUSTER)):
+        raise ValueError(f"film_trace needs the {C}-cluster mesh tables on {dev}")
     from tpu_rt_torch.ops import _build
 
     lib = _build.load_library()
@@ -927,6 +1093,7 @@ def film_trace(tables: FilmTables, seed: int, n_samples: int):
         err = lib.path_film_launch(
             tables.hdr.data_ptr(), tables.hdr.numel(),
             tables.tab.data_ptr(), tables.tab.numel(),
+            mesh.data_ptr() if C else None, mesh.numel() if C else 0,
             out.data_ptr(), tables.n_pix, _wrap_i32(seed), n_samples,
             tables.radius, stream)
     if err != 0:

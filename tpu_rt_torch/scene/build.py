@@ -1,19 +1,21 @@
 """Scene compiler: Mitsuba-style description dict -> ``Scene``.
 
 Counterpart of ``tpu_rt/scene/build.py``, for the subset the cbox class of
-scenes and the ultrasound scenes use: ``perspective`` + ``hdrfilm`` with a
-box / tent / gaussian rfilter, the ``independent`` sampler, the ``path``,
-``direct`` and ``ultrasound_integrator`` integrators, the
-``ultrasound_sensor``, ``obj`` / ``sphere`` / ``rectangle`` shapes,
+scenes, the mesh scenes and the ultrasound scenes use: ``perspective`` +
+``hdrfilm`` with a box / tent / gaussian rfilter, the ``independent``
+sampler, the ``path``, ``direct``, ``direct_projective`` and
+``ultrasound_integrator`` integrators, the ``ultrasound_sensor``, ``obj`` /
+``ply`` / ``sphere`` / ``rectangle`` shapes,
 ``diffuse`` / ``dielectric`` / ``conductor`` / ``ultrasound_bsdf`` /
 ``twosided`` BSDFs, ``area`` / ``point`` / ``constant`` emitters and the
 ``ultraray`` / ``ultrasound_emitter`` transducer props.  Every other
 plugin raises ``ValueError`` naming the ROADMAP.md item that will port it.
 
-Meshes are transformed to world space and the emitter tables are built
-with the same numpy arithmetic as the JAX package, so both packages bake
-identical kernel constants.  No BVH is built: the film kernel sweeps every
-prim.
+Meshes are transformed to world space (vertex normals by the inverse
+transpose), the BVH is built by the same native builder, the mesh cluster
+tables are cut from it, and the emitter tables are built with the same
+numpy arithmetic as the JAX package, so both packages bake identical
+kernel constants.
 """
 
 from __future__ import annotations
@@ -22,10 +24,13 @@ import math as pymath
 
 import numpy as np
 
+from tpu_rt_torch.geometry.bvh import build_bvh
+from tpu_rt_torch.ops import mesh_kernel
 from tpu_rt_torch.scene import transforms as tf
 from tpu_rt_torch.scene import types as T
 from tpu_rt_torch.scene.convert import scene_from_arrays
 from tpu_rt_torch.scene.obj import load_obj
+from tpu_rt_torch.scene.ply import load_ply
 
 _BSDF_TYPES = {"diffuse", "dielectric", "conductor", "ultrasound_bsdf", "twosided"}
 _LATER_BSDFS = {"roughconductor", "null", "polarizer"}
@@ -35,11 +40,11 @@ _ANALYTIC_ENUM = {"sphere": T.SPHERE, "rectangle": T.RECTANGLE}
 _FILTERS = {"box": T.FILTER_BOX, "tent": T.FILTER_TENT,
             "gaussian": T.FILTER_GAUSSIAN}
 _INTEGRATORS = {"path": T.INTEGRATOR_PATH, "direct": T.INTEGRATOR_DIRECT,
+                "direct_projective": T.INTEGRATOR_DIRECT_PROJECTIVE,
                 "ultrasound_integrator": T.INTEGRATOR_ULTRASOUND}
 
 # Plugins of tpu_rt that this package does not load yet -> ROADMAP.md item.
 _LATER = {
-    "ply": "A5 (mesh scenes)",
     "disk": "A4 (wavefront path tracer)",
     "cylinder": "A4 (wavefront path tracer)",
     "cone": "A10 (bake-scope completions)",
@@ -50,7 +55,6 @@ _LATER = {
     "envmap": "A7 (textured environment, K5)",
     "bitmap": "A8 (asset readers and textures)",
     "stokes": "A6 (polarized transport)",
-    "direct_projective": "A4 (wavefront path tracer)",
 }
 
 # Default IORs of Mitsuba's dielectric plugin.
@@ -86,7 +90,7 @@ class _Builder:
         self.shape_bsdf = []
         self.shape_emitter = []
         self.shape_tri_ranges = []  # per shape: (tri_start, tri_end)
-        self.tri = {k: [] for k in ("p0", "e1", "e2", "shape")}
+        self.tri = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "shape")}
         self.an = {"type": [], "to_world": [], "shape": []}
         self.area_radiance = []
         self.area_shape = []  # shape id of each area emitter
@@ -153,22 +157,33 @@ class _Builder:
 
     # -- Shapes --------------------------------------------------------------
 
-    def _add_mesh(self, verts, faces, to_world, shape_id):
+    def _add_mesh(self, verts, faces, normals, to_world, shape_id):
         mw = np.asarray(to_world, np.float32)
         v_world = verts @ mw[:3, :3].T + mw[:3, 3]
         p0 = v_world[faces[:, 0]]
         p1 = v_world[faces[:, 1]]
         p2 = v_world[faces[:, 2]]
+        if normals is not None:
+            inv_t = np.linalg.inv(mw[:3, :3]).T
+            n_world = normals @ inv_t.T
+            ln = np.linalg.norm(n_world, axis=-1, keepdims=True)
+            n_world = n_world / np.maximum(ln, 1e-12)
+            n0, n1, n2 = n_world[faces[:, 0]], n_world[faces[:, 1]], n_world[faces[:, 2]]
+        else:
+            n0 = n1 = n2 = np.zeros_like(p0)
         start = sum(x.shape[0] for x in self.tri["p0"])
         self.tri["p0"].append(p0.astype(np.float32))
         self.tri["e1"].append((p1 - p0).astype(np.float32))
         self.tri["e2"].append((p2 - p0).astype(np.float32))
+        self.tri["n0"].append(n0.astype(np.float32))
+        self.tri["n1"].append(n1.astype(np.float32))
+        self.tri["n2"].append(n2.astype(np.float32))
         self.tri["shape"].append(np.full(faces.shape[0], shape_id, np.int32))
         return start, start + faces.shape[0]
 
     def add_shape(self, sd):
         stype = sd.get("type")
-        if stype != "obj" and stype not in _ANALYTIC_ENUM:
+        if stype not in ("obj", "ply") and stype not in _ANALYTIC_ENUM:
             _not_yet("shape", stype)
         shape_id = len(self.shape_bsdf)
         bsdf = _plugin_child(sd, _BSDF_TYPES | _LATER_BSDFS)
@@ -194,9 +209,10 @@ class _Builder:
             self.area_shape.append(shape_id)
 
         tri_range = (0, 0)
-        if stype == "obj":
-            mesh = load_obj(sd["filename"])
-            tri_range = self._add_mesh(mesh["vertices"], mesh["faces"],
+        if stype in ("obj", "ply"):
+            mesh = (load_obj if stype == "obj" else load_ply)(sd["filename"])
+            normals = None if sd.get("face_normals", False) else mesh["normals"]
+            tri_range = self._add_mesh(mesh["vertices"], mesh["faces"], normals,
                                        to_world, shape_id)
         else:
             if stype == "sphere" and ("center" in sd or "radius" in sd):
@@ -208,7 +224,7 @@ class _Builder:
                 verts = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
                                  np.float32)
                 faces = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-                tri_range = self._add_mesh(verts, faces, to_world, shape_id)
+                tri_range = self._add_mesh(verts, faces, None, to_world, shape_id)
             elif emitter_idx >= 0:
                 raise ValueError(f"area emitter on analytic shape {stype!r} "
                                  "is not supported")
@@ -281,7 +297,7 @@ class _Builder:
             self.max_depth = int(idict.get("max_depth", 2))
             return
         self.hide_emitters = bool(idict.get("hide_emitters", False))
-        if itype == "direct":
+        if itype in ("direct", "direct_projective"):
             self.max_depth = 2  # direct illumination == two path segments
         else:
             self.max_depth = int(idict.get("max_depth", -1))
@@ -296,18 +312,30 @@ class _Builder:
             return np.zeros((0, width) if width else (0,), dtype)
 
         tri_p0, tri_e1, tri_e2 = cat("p0", 3), cat("e1", 3), cat("e2", 3)
+        n_tris = tri_p0.shape[0]
         n_an = len(self.an["type"])
         an_to_world = (np.stack(self.an["to_world"]) if n_an
                        else np.zeros((0, 4, 4), np.float32))
         an_to_object = (np.stack([tf.inverse(x) for x in self.an["to_world"]])
                         if n_an else np.zeros((0, 4, 4), np.float32))
+        bvh = build_bvh(*self._prim_bounds(tri_p0, tri_e1, tri_e2, an_to_world))
+        clusters = {}
+        if n_tris > mesh_kernel.TREELET_SPLIT:
+            cl = mesh_kernel.build_clusters(
+                tri_p0, tri_e1, tri_e2, bvh=bvh,
+                max_count=mesh_kernel.treelet_size(bvh, n_tris))
+            clusters = {"cl_" + k: cl[k] for k in ("tris", "bounds", "prim", "trisw")}
         arrays = dict(
             tri_p0=tri_p0, tri_e1=tri_e1, tri_e2=tri_e2,
+            tri_n0=cat("n0", 3), tri_n1=cat("n1", 3), tri_n2=cat("n2", 3),
             tri_shape=cat("shape", 0, np.int32),
             an_type=np.asarray(self.an["type"], np.int32),
             an_to_world=an_to_world.astype(np.float32),
             an_to_object=an_to_object,
             an_shape=np.asarray(self.an["shape"], np.int32),
+            bvh_a=bvh["a"], bvh_b=bvh["b"], bvh_count=bvh["count"],
+            prim_order=bvh["prim_order"],
+            **clusters,
             shape_bsdf=np.asarray(self.shape_bsdf, np.int32),
             shape_emitter=np.asarray(self.shape_emitter, np.int32),
             bsdf_type=np.asarray([r[0] for r in self.bsdf_rows], np.int32),
@@ -316,7 +344,7 @@ class _Builder:
             **self._emitter_arrays(tri_e1, tri_e2),
         )
         meta = dict(
-            n_tris=tri_p0.shape[0], n_analytic=n_an,
+            n_tris=n_tris, n_analytic=n_an,
             n_area=len(self.area_radiance), n_point=len(self.point_pos),
             has_env=self.env is not None, has_textures=False,
             integrator=self.integrator, max_depth=self.max_depth,
@@ -331,6 +359,27 @@ class _Builder:
             us_arrays, meta["ultrasound"] = self._ultrasound()
             arrays.update({"us_" + k: v for k, v in us_arrays.items()})
         return scene_from_arrays(arrays, meta)
+
+    @staticmethod
+    def _prim_bounds(tri_p0, tri_e1, tri_e2, an_to_world):
+        """Per-prim AABBs for the BVH, as tpu_rt computes them: triangle
+        corners, and the image of the [-1, 1]^3 box for analytic shapes,
+        each widened by 1e-6."""
+        bbs = []
+        if tri_p0.shape[0]:
+            p1, p2 = tri_p0 + tri_e1, tri_p0 + tri_e2
+            bbs.append((np.minimum(np.minimum(tri_p0, p1), p2) - 1e-6,
+                        np.maximum(np.maximum(tri_p0, p1), p2) + 1e-6))
+        if an_to_world.shape[0]:
+            corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                                for z in (-1, 1)], np.float32)
+            pts = (np.einsum("aij,cj->aci", an_to_world[:, :3, :3], corners)
+                   + an_to_world[:, None, :3, 3])
+            bbs.append((pts.min(axis=1) - 1e-6, pts.max(axis=1) + 1e-6))
+        if not bbs:
+            return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32)
+        return (np.concatenate([b[0] for b in bbs], axis=0),
+                np.concatenate([b[1] for b in bbs], axis=0))
 
     def _ultrasound(self):
         """The ultrasound configuration as float32 arrays and static

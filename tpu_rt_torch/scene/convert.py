@@ -6,7 +6,8 @@ here, and so does a scene handed over from the JAX package: a caller
 takes ``np.asarray`` of each field of a ``tpu_rt`` scene, so this package
 never sees a JAX array.
 
-Array names: the ``Geometry`` and ``Emitters`` tensor fields, ``shape_bsdf``,
+Array names: the ``Geometry`` and ``Emitters`` tensor fields (the
+optional mesh cluster tables may be absent or None), ``shape_bsdf``,
 ``shape_emitter``, ``bsdf_type``, ``bsdf_params``, and ``camera_<field>``
 for the camera's tensor fields, ``us_<field>`` for the ultrasound
 configuration's.  ``meta`` holds the ints and flags: ``n_tris``,
@@ -30,12 +31,19 @@ def _tensor_fields(cls):
     return [f.name for f in dataclasses.fields(cls) if f.type == "torch.Tensor"]
 
 
+def optional_tensor_fields(cls):
+    """Fields that hold a tensor or None (the mesh cluster tables)."""
+    return [f.name for f in dataclasses.fields(cls) if f.type == "Optional[torch.Tensor]"]
+
+
 def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
     def t(name):
         return torch.from_numpy(np.array(arrays[name]))
 
     geometry = Geometry(
         **{k: t(k) for k in _tensor_fields(Geometry)},
+        **{k: None if arrays.get(k) is None else t(k)
+           for k in optional_tensor_fields(Geometry)},
         n_tris=int(meta["n_tris"]), n_analytic=int(meta["n_analytic"]),
     )
     emitters = Emitters(

@@ -5,9 +5,10 @@ value it has there, so tables built by either package mean the same
 thing.  The JAX package keeps static fields out of the pytree; here a
 dataclass simply holds tensors beside plain Python ints and flags.
 
-Only what the kernels' bakes read is carried: world-space triangles,
-analytic shape transforms, per-shape BSDF/emitter ids, the BSDF table, the
-emitter tables, the camera and the ultrasound configuration.
+Only what the kernels' bakes read is carried: world-space triangles with
+their vertex normals, analytic shape transforms, the BVH's prim order and
+node links, the mesh cluster tables, per-shape BSDF/emitter ids, the BSDF
+table, the emitter tables, the camera and the ultrasound configuration.
 """
 
 from __future__ import annotations
@@ -66,13 +67,28 @@ class Geometry(_Replace):
     tri_p0: torch.Tensor  # [T, 3] world space
     tri_e1: torch.Tensor  # [T, 3] p1 - p0
     tri_e2: torch.Tensor  # [T, 3] p2 - p0
+    tri_n0: torch.Tensor  # [T, 3] world vertex normals; zeros where the
+    tri_n1: torch.Tensor  # mesh has none (or face_normals is set)
+    tri_n2: torch.Tensor
     tri_shape: torch.Tensor  # [T] owning shape id
     an_type: torch.Tensor  # [A] SPHERE / RECTANGLE / ...
     an_to_world: torch.Tensor  # [A, 4, 4]
     an_to_object: torch.Tensor  # [A, 4, 4]
     an_shape: torch.Tensor  # [A]
+    # BVH over all prim ids (geometry/bvh.py): internal nodes link children
+    # (a, b) with count 0; leaves hold (first, _, count) over prim_order
+    bvh_a: torch.Tensor  # [M]
+    bvh_b: torch.Tensor  # [M]
+    bvh_count: torch.Tensor  # [M]
+    prim_order: torch.Tensor  # [T + A]
     n_tris: int = 0
     n_analytic: int = 0
+    # Mesh cluster tables (ops/mesh_kernel.py::build_clusters), built when
+    # the scene has more than 192 triangles, else None
+    cl_tris: Optional[torch.Tensor] = None  # [C, 9, 128] p0, e1, e2
+    cl_bounds: Optional[torch.Tensor] = None  # [C, 32]
+    cl_prim: Optional[torch.Tensor] = None  # [C * 128] global triangle ids
+    cl_trisw: Optional[torch.Tensor] = None  # [C, 12, 128] Baldwin-Weber rows
 
 
 @dataclass(frozen=True)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_rt_torch.scene.types import FILTER_BOX, FILTER_TENT
+from tpu_rt_torch.scene.types import FILTER_BOX, FILTER_GAUSSIAN, FILTER_TENT
 
 
 def filter_weight(filter_type: int, x):
@@ -39,6 +39,43 @@ def _shift_add(acc, img, dy, dx):
     if ys_a < ye_a and xs_a < xe_a:
         acc[..., ys_a:ye_a, xs_a:xe_a] += img[..., ys_i:ye_i, xs_i:xe_i]
     return acc
+
+
+_FOOT_RADIUS = {FILTER_BOX: 0, FILTER_TENT: 1, FILTER_GAUSSIAN: 2}
+
+
+def splat_aligned(film_vals, film_wts, jitter, values, active, filter_type: int):
+    """Add samples taken at pixel + jitter (one per pixel, jitter in
+    [0, 1)^2) to the film; counterpart of ``tpu_rt.sensor.film.splat_aligned``.
+
+    ``jitter`` [..., H, W, 2], ``values`` [..., H, W, C], ``active``
+    [..., H, W]: leading dims are a batch of sample passes, summed into
+    ``film_vals`` [H, W, C] and ``film_wts`` [H, W].  Each output pixel
+    gathers its (2r+1)^2 neighbours' samples, each weighted by the filter
+    at its distance.  Returns the updated (film_vals, film_wts)."""
+    H, W = film_wts.shape
+    r = _FOOT_RADIUS[filter_type]
+    batch = tuple(range(values.dim() - 3))
+    vals = torch.where(active[..., None], values, 0.0)
+    if r == 0:
+        return (film_vals + vals.sum(batch), film_wts + active.to(film_wts.dtype).sum(batch))
+
+    def pad(a, lead):  # zero-pad the H and W dims by r
+        return torch.nn.functional.pad(a, (0, 0) * lead + (r, r, r, r))
+
+    xp, yp = pad(jitter[..., 0], 0), pad(jitter[..., 1], 0)
+    vp, ap = pad(vals, 1), pad(active.to(torch.float32), 0) > 0.0
+    out_v = torch.zeros_like(vals)
+    out_w = torch.zeros_like(xp[..., r:r + H, r:r + W])
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            ys, xs = slice(r - dy, r - dy + H), slice(r - dx, r - dx + W)
+            wy = filter_weight(filter_type, (dy + 0.5) - yp[..., ys, xs])
+            wx = filter_weight(filter_type, (dx + 0.5) - xp[..., ys, xs])
+            w = torch.where(ap[..., ys, xs], wx * wy, 0.0)
+            out_v = out_v + w[..., None] * vp[..., ys, xs, :]
+            out_w = out_w + w
+    return film_vals + out_v.sum(batch), film_wts + out_w.sum(batch)
 
 
 def develop(film_vals, film_wts):
