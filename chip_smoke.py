@@ -42,11 +42,31 @@ Phases (any failure raises and the script exits non-zero):
  13. the two mesh main paths at full width: render(simple.xml) at
      256x256, 256 spp and render(mesh_gi.xml) at 256x256, 64 spp, depth 3
      — each one warm-up, five timed renders (CUDA events), median ms and
-     rays/s.
-Each main path (phases 5, 9 and 13) runs with every launch count set to 0
-just before it and read just after.  The line before the last is a JSON
-record of the kernels; the last line is {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+     rays/s;
+ 14. the clustered mesh-intersect kernel (mesh_isect.cu) against its plain
+     version on the card, bit for bit: tests/assets/mesh/mesh_big_gi.xml
+     (the 69 632-triangle knot, 800 clusters) at 256x256 in three waves
+     (primaries, cosine bounce rays from their hits, shadow rays toward
+     the light with tmax), and the one call against the chain of
+     128-cluster segments;
+ 15. the wavefront gates: render(mesh_big_gi.xml) at 32x32, 256 spp, seed
+     0 against tests/golden/make_wavefront_golden.py (relative RMSE of
+     8x8 block means; statistical, other RNG); the wavefront against the
+     film kernel's mesh mode on mesh_gi.xml at 64x64, 256 spp, three
+     seeds each: image means within 1%, block means within 3 standard
+     errors (RMS over the blocks);
+ 16. the wavefront main paths at full width: render(mesh_big_gi.xml) at
+     256x256, 16 spp, depth 3 and render(simple_big.xml) at 256x256, 64
+     spp (direct, max_depth 2), each one warm-up and five timed renders;
+     three mesh_big_gi renders under torch.profiler: the mesh kernel's
+     share of the device time, the rest (the PyTorch glue), the idle
+     share.
+Each main path (phases 5, 9, 13 and 16) runs with every launch count set
+to 0 just before it and read just after.  The line before the last is a
+JSON record of the kernels, each with its bound: the larger of its
+operations over 67 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100
+SXM's data-sheet peaks), counted from this run's inputs; the last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 import json
@@ -66,6 +86,9 @@ US_GOLDEN = os.path.join(ROOT, "tests", "golden", "us_usmain_rpp64_seed0.npz")
 US_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_us_golden.py")
 MESH_DIR = os.path.join(ROOT, "tests", "assets", "mesh")
 MESH_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_mesh_golden.py")
+WAVE_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_wavefront_golden.py")
+PEAK_FP32 = 67e12  # FLOP/s, H100 SXM, outside the tensor cores
+PEAK_BYTES = 3.35e12  # B/s, HBM3
 
 
 def cuda_ms(fn, reps=1):
@@ -95,6 +118,7 @@ def reset_launch_counts():
     path_kernel.film_trace.launches = 0
     us_kernel.us_trace.launches = 0
     mesh_kernel.direct_trace.launches = 0
+    mesh_kernel.mesh_intersect.launches = 0
 
 
 def launch_counts():
@@ -102,7 +126,38 @@ def launch_counts():
 
     return {"path_film": path_kernel.film_trace.launches,
             "us_acq": us_kernel.us_trace.launches,
-            "mesh_direct": mesh_kernel.direct_trace.launches}
+            "mesh_direct": mesh_kernel.direct_trace.launches,
+            "mesh_isect": mesh_kernel.mesh_intersect.launches}
+
+
+def film_trace_bound(tables, planes):
+    """K1's bound for one launch: every ray the launch cast (its own count)
+    tests every unrolled prim and every mesh cluster's box at least once;
+    bytes are the tables in and the planes out."""
+    from tpu_rt_torch.ops import path_kernel as pk
+
+    rays = planes[-1].double().sum().item()
+    h = tables.hdr_list
+    ops = rays * (h[pk.HDR_N_PRIMS] * OPS_PRIM + h[pk.HDR_MESH_C] * OPS_SLAB)
+    nbytes = 4 * (tables.tab.numel() + tables.hdr.numel() + planes.numel()
+                  + (0 if tables.mesh is None else tables.mesh.numel()))
+    return bound(ops, nbytes)
+
+
+def bound(ops, nbytes):
+    """(bound ms, what bounds it): the least time the card could take for
+    ``ops`` FP32 operations and ``nbytes`` bytes moved."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# FP32 operations per test, read off common.cuh: a slab test (6 sub, 6
+# mul, 6 min/max per axis pair, 6 more for the near / far reduction, the
+# compare) and a triangle test, Moller-Trumbore or Baldwin-Weber (about 39
+# with the guards and compares); the film and acquisition kernels' prim
+# tests are counted at the cheapest kind's 20, so their bounds are lower
+# bounds.
+OPS_SLAB, OPS_TRI, OPS_PRIM = 25, 39, 20
 
 
 def load_golden_module(path):
@@ -181,6 +236,7 @@ def main():
           f"{max_abs_err:.3e}, max plane-sum rel diff {sums_rel:.3e}; kernel "
           f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms")
     assert frac_planes >= 0.99 and sums_rel <= 1e-3, "kernel disagrees at 512x512"
+    film_bound = film_trace_bound(tab512, planes_k)
 
     # ---- 4. golden gate ------------------------------------------------------
     sc128 = tt.load_file(FIXTURE, res=128, spp=2048)
@@ -209,7 +265,7 @@ def main():
     counts = launch_counts()
     launches = counts["path_film"]
     print(f"launch counts over the cbox main path: {counts}")
-    assert counts["us_acq"] == counts["mesh_direct"] == 0
+    assert counts["us_acq"] == counts["mesh_direct"] == counts["mesh_isect"] == 0
     med = statistics.median(times)
     print(f"main path 512x512 256 spp tent: median {med:.3f} ms "
           f"(min {min(times):.3f}, max {max(times):.3f}, n 5), rays/render "
@@ -227,6 +283,7 @@ def main():
 
     us = ultrasound_phases(tt, dev)
     mesh = mesh_phases(tt, dev)
+    wave = wavefront_phases(tt, dev)
 
     print(json.dumps({"kernels": [{
         "name": "path_film", "route": "cuda",
@@ -236,6 +293,7 @@ def main():
         "launches_by_path": {"cbox": launches, "mesh_gi": mesh["gi_launches"]},
         "max_abs_err": max(max_abs_err, mesh["gi"]["max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": film_bound[0], "bound_by": film_bound[1], "library_ms": None,
         "mesh_mode": mesh["gi"],
     }, {
         "name": "us_acq", "route": "cuda",
@@ -243,6 +301,7 @@ def main():
         "replaces": "tpu_rt/ops/pallas_us.py:388",
         "launches": us["launches"], "max_abs_err": us["max_abs_err"],
         "ms": us["ms"], "plain_ms": us["plain_ms"],
+        "bound_ms": us["bound_ms"], "bound_by": us["bound_by"], "library_ms": None,
     }, {
         "name": "mesh_direct", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/mesh_direct.cu",
@@ -250,6 +309,18 @@ def main():
         "launches": mesh["direct_launches"],
         "max_abs_err": mesh["direct"]["max_abs_err"],
         "ms": mesh["direct"]["ms"], "plain_ms": mesh["direct"]["plain_ms"],
+        "bound_ms": mesh["direct"]["bound_ms"], "bound_by": mesh["direct"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "mesh_isect", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/mesh_isect.cu",
+        "replaces": "tpu_rt/ops/pallas_mesh.py:862",
+        "also_replaces": "tpu_rt/ops/pallas_mesh.py:911",
+        "launches": wave["launches"], "launches_by_path": wave["launches_by_path"],
+        "max_abs_err": wave["max_abs_err"],
+        "ms": wave["ms"], "plain_ms": wave["plain_ms"],
+        "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"], "library_ms": None,
+        "waves": wave["waves"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -319,7 +390,7 @@ def ultrasound_phases(tt, dev):
         times.append(ms)
     counts = launch_counts()
     print(f"launch counts over the ultrasound main path: {counts}")
-    assert counts == {"path_film": 0, "us_acq": 5, "mesh_direct": 0}, counts
+    assert counts == {"path_film": 0, "us_acq": 5, "mesh_direct": 0, "mesh_isect": 0}, counts
     assert img.shape == (638, 1040) and bool(torch.isfinite(img).all())
     assert 0.0 <= img.min().item() and img.max().item() <= 1.0
     med = statistics.median(times)
@@ -344,7 +415,12 @@ def ultrasound_phases(tt, dev):
           f"{n_lanes / (acq_ms / 1e3):.4e}")
     print(f"bmode_pipeline at the USMain grid: method='matmul' {matmul_ms:.3f} ms, "
           f"method='gather' {gather_ms:.3f} ms")
-    return dict(launches=counts["us_acq"], max_abs_err=max_abs_err, ms=k_ms, plain_ms=p_ms)
+    # every lane tests every prim at least once; rays in, records out
+    us_ops = n_lanes * tables.hdr_list[uk.UH_N_PRIMS] * OPS_PRIM
+    us_bytes = 4 * (rays.numel() + rec_k.numel() + tables.tab.numel() + tables.hdr.numel())
+    us_bound = bound(us_ops, us_bytes)
+    return dict(launches=counts["us_acq"], max_abs_err=max_abs_err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=us_bound[0], bound_by=us_bound[1])
 
 
 def timed_main_path(tt, scene, spp, n=5, **kw):
@@ -401,6 +477,10 @@ def mesh_phases(tt, dev):
           f"bit-equal {bool(torch.equal(out_k, out_p))}, max abs err {d_err:.3e}, rays cast "
           f"{n_k} vs {n_p}, lit share {lit:.4f}; kernel {d_ms:.3f} ms, plain {d_plain_ms:.1f} ms")
     assert d_frac >= 0.999 and n_k == n_p and lit > 0.05, "mesh_direct disagrees"
+    # every ray cast tests every cluster's box at least once
+    d_bound = bound(n_k * ds.n_clusters * OPS_SLAB,
+                    4 * (rays.numel() + out_k.numel() + ds.bounds.numel() + ds.tris.numel()
+                         + ds.shade.numel() + ds.lights.numel()))
 
     # ---- 11. the film kernel's clustered-mesh mode vs plain version -------
     gi64 = tt.load_file(gi_xml, res=64, spp=4)
@@ -458,7 +538,7 @@ def mesh_phases(tt, dev):
     print(f"direct mesh main path simple.xml 256x256 256 spp box: median {med:.3f} ms "
           f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    assert counts == {"path_film": 0, "us_acq": 0, "mesh_direct": 4 * 5}, counts
+    assert counts == {"path_film": 0, "us_acq": 0, "mesh_direct": 4 * 5, "mesh_isect": 0}, counts
     assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all())
     assert img.mean().item() > 0
     direct_launches = counts["mesh_direct"]
@@ -468,13 +548,220 @@ def mesh_phases(tt, dev):
     print(f"mesh GI main path mesh_gi.xml 256x256 64 spp depth 3 box: median {med:.3f} ms "
           f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    assert counts == {"path_film": 5, "us_acq": 0, "mesh_direct": 0}, counts
+    assert counts == {"path_film": 5, "us_acq": 0, "mesh_direct": 0, "mesh_isect": 0}, counts
     assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all())
     assert img.mean().item() > 0
     return dict(
         direct_launches=direct_launches, gi_launches=counts["path_film"],
-        direct=dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms),
-        gi=dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms))
+        direct=dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound[0],
+                    bound_by=d_bound[1]),
+        gi=dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms,
+                bound_ms=film_trace_bound(tab, planes_k)[0]))
+
+
+def count_mesh_work(bounds, trisw, o, d, tmax):
+    """The box and triangle tests K7 makes on these rays, by the plain
+    version's walk: every ray tests every cluster's root box, the four
+    quarter boxes of each cluster whose root box it passes, and the
+    triangles of its live span.  Returns (root, quarter, triangle) test
+    counts."""
+    from tpu_rt_torch.ops import mesh_kernel as mk
+
+    oc, dc = [o[:, i] for i in range(3)], [d[:, i] for i in range(3)]
+    invd = [mk._inv(x) for x in dc]
+    best_t = tmax.clone()
+    roots = 0
+    quarters = torch.zeros((), dtype=torch.int64, device=o.device)
+    tris = torch.zeros_like(quarters)
+    for c, brow in enumerate(bounds.tolist()):
+        roots += o.shape[0]
+        quarters += 4 * mk.slab(oc, invd, best_t, brow[0:6]).sum()
+        rows, s, e = mk.cluster_candidates(brow, oc, invd, best_t)
+        if rows.numel() == 0:
+            continue
+        tris += (e - s).sum()
+        ok, t, _, _ = mk.bw_test(trisw[c, :, :int(brow[6])], [x[rows] for x in oc],
+                                 [x[rows] for x in dc], best_t[rows], s, e)
+        hit, lane = mk.first_min(ok, t)
+        best_t[rows[hit]] = t[hit][torch.arange(int(hit.sum()), device=o.device), lane[hit]]
+    return roots, int(quarters), int(tris)
+
+
+def mesh_isect_waves(scene, dev, seed):
+    """Three waves of K7 queries at the scene's film size: the primaries,
+    cosine bounce rays from their hits, shadow rays from the hits toward
+    uniform points of the 3x3 area light at y = 4 (tmax just short of
+    it)."""
+    from tpu_rt_torch.core import math as cm
+    from tpu_rt_torch.core import warps
+    from tpu_rt_torch.geometry import trace
+    from tpu_rt_torch.sensor import camera as cam
+
+    c = scene.camera
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ys, xs = torch.meshgrid(torch.arange(c.height, device=dev),
+                            torch.arange(c.width, device=dev), indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    n = xy.shape[0]
+    o, d = cam.sample_ray(c, xy + torch.rand((n, 2), generator=gen, device=dev))
+    o, d = o.contiguous(), d.contiguous()
+    si = trace.ray_intersect(scene, o, d)
+    nf = torch.where((si.n * d).sum(-1, keepdim=True) < 0, si.n, -si.n)
+    sf, tf = cm.coordinate_system(nf)
+    db = cm.to_world(nf, sf, tf, warps.square_to_cosine_hemisphere(
+        torch.rand((n, 2), generator=gen, device=dev))).contiguous()
+    ob = si.spawn_origin(db).contiguous()
+    uv = torch.rand((n, 2), generator=gen, device=dev) * 3.0 - 1.5
+    pl = torch.stack([uv[:, 0], torch.full_like(uv[:, 0], 4.0), uv[:, 1]], -1)
+    to_l = pl - si.p
+    dist = to_l.norm(dim=-1)
+    ds = (to_l / dist[:, None]).contiguous()
+    big = torch.full((n,), 0.99 * 1e8, device=dev)
+    return {"primary": (o, d, big), "bounce": (ob, db, big),
+            "shadow": (si.spawn_origin(ds).contiguous(), ds, (dist * (1.0 - 1e-3)).contiguous())}
+
+
+def wavefront_phases(tt, dev):
+    """Phases 14-16; returns the mesh-intersect kernel's JSON numbers."""
+    from tpu_rt_torch.geometry import trace
+    from tpu_rt_torch.integrator import path as wavefront
+    from tpu_rt_torch.ops import mesh_kernel as mk
+
+    big_xml = os.path.join(MESH_DIR, "mesh_big_gi.xml")
+    simple_big_xml = os.path.join(MESH_DIR, "simple_big.xml")
+
+    # ---- 14. K7 vs its plain version, bit for bit ---------------------------
+    big = tt.load_file(big_xml)  # 256x256, 16 spp, depth 3
+    sc = big.to(dev)
+    cl = trace.mesh_clusters(sc.geometry)
+    C = cl["bounds"].shape[0]
+    waves = {}
+    for name, (o, d, tmax) in mesh_isect_waves(sc, dev, 0).items():
+        got = mk.mesh_intersect(cl, o, d, tmax=tmax)
+        t, lid, u, v = mk.mesh_intersect_plain(cl["bounds"], cl["trisw"], o, d, tmax)
+        prim = torch.where(lid >= 0, cl["prim"][lid.clamp(min=0).long()], -1).to(torch.int32)
+        torch.cuda.synchronize()
+        same = ((got[0] == t) & (got[1] == prim) & (got[2] == u) & (got[3] == v)).float()
+        k_ms, _ = cuda_ms(lambda: mk.mesh_intersect(cl, o, d, tmax=tmax), reps=10)
+        p_ms, _ = cuda_ms(lambda: mk.mesh_intersect_plain(cl["bounds"], cl["trisw"], o, d, tmax))
+        roots, quarters, tris = count_mesh_work(cl["bounds"], cl["trisw"], o, d, tmax)
+        n = o.shape[0]
+        ops = n * 9 + (roots + quarters) * OPS_SLAB + tris * OPS_TRI
+        nbytes = 4 * (cl["bounds"].numel() + cl["trisw"].numel() + 7 * n + 4 * n)
+        b_ms, b_by = bound(ops, nbytes)
+        waves[name] = dict(rays=n, hit_share=(got[1] >= 0).float().mean().item(),
+                           bit_equal_share=same.mean().item(),
+                           max_abs_dt=(got[0] - t).abs().max().item(), ms=k_ms, plain_ms=p_ms,
+                           root_tests=roots, quarter_tests=quarters, triangle_tests=tris,
+                           ops=ops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+        print(f"mesh_isect vs plain, mesh_big_gi.xml 256x256 {name} wave ({n} rays, {C} "
+              f"clusters): bit-equal share {same.mean().item():.6f}, max |dt| "
+              f"{waves[name]['max_abs_dt']:.3e}, hit share {waves[name]['hit_share']:.4f}; "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms; tests: root {roots}, quarter "
+              f"{quarters}, triangle {tris}; bound {b_ms:.5f} ms ({b_by})")
+        assert same.mean().item() == 1.0, f"mesh_isect differs from its plain version ({name})"
+    o, d, tmax = mesh_isect_waves(sc, dev, 1)["bounce"]
+    one = mk.mesh_intersect(cl, o, d, tmax=tmax)
+    best = None
+    for c0 in range(0, C, 128):
+        seg = mk.mesh_intersect(cl, o, d, tmax=tmax if best is None else best[0], c0=c0,
+                                c1=min(c0 + 128, C))
+        best = seg if best is None else tuple(
+            torch.where(seg[1] >= 0, a, b) for a, b in zip(seg, best))
+    chain_equal = all(torch.equal(a, b) for a, b in zip(one, best))
+    print(f"mesh_isect one call vs {-(-C // 128)} chained 128-cluster segments (bounce wave): "
+          f"bit-equal {chain_equal}")
+    assert chain_equal, "the one-call form differs from the chained segments"
+
+    # ---- 15. wavefront gates ------------------------------------------------
+    g = load_golden_module(WAVE_GOLDEN_SCRIPT)
+    want = np.load(os.path.join(ROOT, "tests", "golden", g.CFG["out"]))
+    s32 = tt.load_file(big_xml, res=g.CFG["res"], spp=g.CFG["spp"])
+    img = tt.render(s32, spp=g.CFG["spp"], seed=0, device="cuda").cpu().numpy()
+    rays = int(tt.render.last_ray_count)
+    rr = g.gate(img, want["img"])
+    print(f"wavefront golden vs {g.CFG['out']}: rel RMSE of 8x8 block means {rr:.5f} (limit "
+          f"{g.LIMIT}; the CPU plain version's noise at {g.CPU_SPP} spp over 8 seeds, scaled "
+          f"to {g.CFG['spp']} spp, is about 0.008); image mean {img.mean():.6f} (golden "
+          f"{want['img'].mean():.6f}); rays {rays} (golden {int(want['rays'])})")
+    assert np.isfinite(img).all() and rr <= g.LIMIT, "wavefront golden gate failed"
+    assert abs(rays - int(want["rays"])) <= 0.02 * int(want["rays"])
+
+    gi64 = tt.load_file(os.path.join(MESH_DIR, "mesh_gi.xml"), res=64, spp=256)
+    k1 = np.stack([tt.render(gi64, spp=256, seed=7 + i, device="cuda").cpu().numpy()
+                   for i in range(3)])
+    wf = np.stack([wavefront.render(gi64, spp=256, seed=91 + i, device="cuda").cpu().numpy()
+                   for i in range(3)])
+
+    def blocks(x):
+        n, h, w, _ = x.shape
+        return x.reshape(n, h // 8, 8, w // 8, 8, 3).mean(axis=(2, 4))
+
+    bk, bw = blocks(k1), blocks(wf)
+    se = np.sqrt(bk.var(0, ddof=1) / 3 + bw.var(0, ddof=1) / 3)
+    diff = bk.mean(0) - bw.mean(0)
+    ratio = float(np.sqrt((diff ** 2).mean()) / np.sqrt((se ** 2).mean()))
+    mean_rel = abs(wf.mean() - k1.mean()) / k1.mean()
+    print(f"wavefront vs film kernel mesh mode, mesh_gi.xml 64x64 256 spp x 3 seeds each: "
+          f"image means {wf.mean():.6f} vs {k1.mean():.6f} (rel diff {mean_rel:.3e}, limit "
+          f"0.01); RMS block-mean difference over RMS standard error {ratio:.3f} (limit 3)")
+    assert mean_rel <= 0.01 and ratio <= 3.0, "the wavefront disagrees with the film kernel"
+
+    # ---- 16. the wavefront main paths at full width ---------------------------
+    med, lo, hi, nr, counts, img = timed_main_path(tt, big, 16)
+    print(f"launch counts over the wavefront mesh GI main path: {counts}")
+    print(f"wavefront main path mesh_big_gi.xml 256x256 16 spp depth 3 box: median "
+          f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
+          f"{nr / (med / 1e3):.4e}")
+    gi_launches = counts["mesh_isect"]
+    assert counts == {"path_film": 0, "us_acq": 0, "mesh_direct": 0,
+                      "mesh_isect": 5 * 16 * 5}, counts
+    assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
+
+    simple_big = tt.load_file(simple_big_xml)  # 256x256, 64 spp
+    med2, lo, hi, nr2, counts, img = timed_main_path(tt, simple_big, 64)
+    print(f"launch counts over the wavefront direct main path: {counts}")
+    print(f"wavefront main path simple_big.xml 256x256 64 spp direct box: median {med2:.3f} ms "
+          f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr2}, rays/s "
+          f"{nr2 / (med2 / 1e3):.4e}")
+    direct_launches = counts["mesh_isect"]
+    assert counts == {"path_film": 0, "us_acq": 0, "mesh_direct": 0,
+                      "mesh_isect": 5 * 64 * 2}, counts
+    assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rep in range(3):
+            tt.render(big, spp=16, seed=50 + rep, device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total", None) or getattr(
+            evt, "self_cuda_time_total", 0.0)
+
+    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    k7 = sum(dev_us(e) for e in prof.key_averages() if "mesh_isect" in e.key) / 1e3
+    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]
+    print(f"profile of 3 wavefront renders (mesh_big_gi 256x256 16 spp): wall {wall_ms:.3f} ms, "
+          f"device busy {busy:.3f} ms, mesh_isect_kernel {k7:.3f} ms "
+          f"({k7 / max(busy, 1e-9):.4f} of busy), the rest {busy - k7:.3f} ms, idle share "
+          f"{1.0 - busy / wall_ms:.4f}")
+    for e in top:
+        print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+    tot = {k: sum(w[k] for w in waves.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    return dict(launches=gi_launches + direct_launches,
+                launches_by_path={"mesh_big_gi": gi_launches, "simple_big": direct_launches},
+                max_abs_err=max(w["max_abs_dt"] for w in waves.values()),
+                ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                bound_by=waves["bounce"]["bound_by"], waves=waves,
+                main=dict(gi_ms=med, gi_rays=nr, direct_ms=med2, direct_rays=nr2,
+                          profile=dict(wall_ms=wall_ms, busy_ms=busy, mesh_isect_ms=k7)))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
-"""Write the mesh fixture ``knot.ply`` beside this script.
+"""Write the mesh fixtures ``knot.ply`` and ``knot_69k.ply`` beside this
+script.
 
 A (2,3) torus-knot tube: the centre curve winds twice around the y axis
 and three times through the torus hole (major radius R = 1, minor radius
-r = 0.4), swept by a circle of radius 0.18 in 140 segments x 8 sides, so
-1 120 vertices and 2 240 triangles (a teapot-class mesh).  The knot folds
+r = 0.4), swept by a circle of radius 0.18.  The defaults, 140 segments x
+8 sides, give 1 120 vertices and 2 240 triangles (a teapot-class mesh,
+``knot.ply``); ``--segments 2176 --sides 16`` gives 34 816 vertices and
+69 632 triangles (a bunny-class mesh, ``knot_69k.ply``).  The knot folds
 over itself, so it shadows itself and, seen from outside, shows back-facing
 shading normals where the tube turns away; a convex mesh has neither.
 
@@ -12,8 +15,11 @@ faces are ``uchar int`` index lists, binary little endian, wound so that
 cross(p1 - p0, p2 - p0) points out of the tube.  numpy only, deterministic.
 
 Run:  python tests/assets/mesh/make_mesh.py
+      python tests/assets/mesh/make_mesh.py --segments 2176 --sides 16 \
+          --out tests/assets/mesh/knot_69k.ply
 """
 
+import argparse
 import os
 
 import numpy as np
@@ -24,9 +30,10 @@ R_MAJOR, R_MINOR, TUBE = 1.0, 0.4, 0.18
 SEGMENTS, SIDES = 140, 8
 
 
-def knot_mesh():
-    """(vertices [V, 3], normals [V, 3], faces [F, 3]) of the tube."""
-    phi = np.arange(SEGMENTS) * (2.0 * np.pi / SEGMENTS)
+def knot_mesh(segments=SEGMENTS, sides=SIDES):
+    """(vertices [V, 3], normals [V, 3], faces [F, 3]) of the tube, swept
+    in ``segments`` rings of ``sides`` vertices."""
+    phi = np.arange(segments) * (2.0 * np.pi / segments)
     rad = R_MAJOR + R_MINOR * np.cos(Q * phi)
     # centre curve and its derivative; the symmetry axis is y
     c = np.stack([rad * np.cos(P * phi), R_MINOR * np.sin(Q * phi),
@@ -41,16 +48,16 @@ def knot_mesh():
     b1 = np.cross(t, np.array([0.0, 1.0, 0.0]))
     b1 /= np.linalg.norm(b1, axis=-1, keepdims=True)
     b2 = np.cross(t, b1)
-    theta = np.arange(SIDES) * (2.0 * np.pi / SIDES)
+    theta = np.arange(sides) * (2.0 * np.pi / sides)
     nrm = (np.cos(theta)[None, :, None] * b1[:, None, :]
            + np.sin(theta)[None, :, None] * b2[:, None, :])  # [S, K, 3]
     verts = c[:, None, :] + TUBE * nrm
-    i = np.arange(SEGMENTS)[:, None]
-    k = np.arange(SIDES)[None, :]
-    a = i * SIDES + k
-    b = ((i + 1) % SEGMENTS) * SIDES + k
-    a1 = i * SIDES + (k + 1) % SIDES
-    b1_ = ((i + 1) % SEGMENTS) * SIDES + (k + 1) % SIDES
+    i = np.arange(segments)[:, None]
+    k = np.arange(sides)[None, :]
+    a = i * sides + k
+    b = ((i + 1) % segments) * sides + k
+    a1 = i * sides + (k + 1) % sides
+    b1_ = ((i + 1) % segments) * sides + (k + 1) % sides
     faces = np.concatenate([np.stack([a, b, b1_], -1).reshape(-1, 3),
                             np.stack([a, b1_, a1], -1).reshape(-1, 3)], 0)
     verts = verts.reshape(-1, 3)
@@ -82,9 +89,14 @@ def write_ply(path, verts, normals, faces):
         f.write(frec.tobytes())
 
 
-def main():
-    verts, normals, faces = knot_mesh()
-    out = os.path.join(HERE, "knot.ply")
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--segments", type=int, default=SEGMENTS)
+    ap.add_argument("--sides", type=int, default=SIDES)
+    ap.add_argument("--out", default=os.path.join(HERE, "knot.ply"))
+    args = ap.parse_args(argv)
+    verts, normals, faces = knot_mesh(args.segments, args.sides)
+    out = args.out
     write_ply(out, verts, normals, faces)
     print(f"wrote {out}: {verts.shape[0]} vertices, {faces.shape[0]} triangles")
 

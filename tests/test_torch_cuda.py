@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (the film kernel with its clustered-mesh
-mode, the ultrasound acquisition kernel and the direct mesh kernel)
-against their plain PyTorch versions, on the card.
+mode, the ultrasound acquisition kernel, the direct mesh kernel and the
+clustered mesh-intersect kernel) against their plain PyTorch versions, on
+the card, and the wavefront tracer's route through the last.
 Every test here is marked ``cuda`` and skips without a GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -15,7 +16,8 @@ at least 99% of pressures within 1e-4 of the largest |pressure| (one ulp
 of the echo time moves sin(phase) by up to about 5e-4), time-sample
 indices and receive elements equal wherever both pressures are non-zero;
 for the direct mesh kernel at least 99.9% of rays within rtol 1e-4 /
-atol 1e-6 and the same rays cast.
+atol 1e-6 and the same rays cast; the mesh-intersect kernel bit-equal
+(t, prim, u, v), and its one call bit-equal to the chained segments.
 """
 
 import os
@@ -25,6 +27,8 @@ import pytest
 import torch
 
 import tpu_rt_torch
+from tpu_rt_torch.geometry import trace
+from tpu_rt_torch.integrator import path as wavefront
 from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 from tpu_rt_torch.sensor import camera
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
@@ -37,6 +41,8 @@ CBOX = os.path.join(os.path.dirname(__file__), "assets", "cbox", "cbox.xml")
 MESH = os.path.join(os.path.dirname(__file__), "assets", "mesh")
 SIMPLE = os.path.join(MESH, "simple.xml")
 MESH_GI = os.path.join(MESH, "mesh_gi.xml")
+BIG_GI = os.path.join(MESH, "mesh_big_gi.xml")
+SIMPLE_BIG = os.path.join(MESH, "simple_big.xml")
 
 
 def _need_cuda():
@@ -201,3 +207,117 @@ def test_render_mesh_scene_on_cuda_goes_through_the_kernel(path, counter, launch
     assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
     rays = tpu_rt_torch.render.last_ray_count
     assert rays.device.type == "cuda" and int(rays) > 32 * 32 * 10
+
+
+def _big_gi_rays(res, seed):
+    """Primaries of mesh_big_gi.xml at res x res, then cosine-like bounce
+    rays from their hits and shadow rays toward the light with tmax."""
+    st = tpu_rt_torch.load_file(BIG_GI, res=res, spp=1).to("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    c = st.camera
+    ys, xs = torch.meshgrid(torch.arange(res, device="cuda"), torch.arange(res, device="cuda"),
+                            indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    o, d = camera.sample_ray(c, xy + torch.rand((res * res, 2), generator=gen, device="cuda"))
+    o, d = o.contiguous(), d.contiguous()
+    si = trace.ray_intersect(st, o, d)
+    n = torch.where((si.ng * d).sum(-1, keepdim=True) < 0, si.ng, -si.ng)
+    db = torch.nn.functional.normalize(torch.randn(d.shape, generator=gen, device="cuda")
+                                       + 1.2 * n, dim=-1)
+    ob = si.spawn_origin(db)
+    light = torch.tensor([0.0, 4.0, 0.0], device="cuda")
+    to_l = light - si.p
+    dist = to_l.norm(dim=-1)
+    ds = to_l / dist[:, None]
+    return st, [(o, d, None), (ob.contiguous(), db.contiguous(), None),
+                (si.spawn_origin(ds).contiguous(), ds.contiguous(), dist * (1.0 - 1e-3))]
+
+
+@pytest.mark.cuda
+def test_mesh_intersect_kernel_is_bit_equal_to_plain_version():
+    _need_cuda()
+    st, waves = _big_gi_rays(64, 3)
+    cl = trace.mesh_clusters(st.geometry)
+    for o, d, tmax in waves:
+        before = mesh_kernel.mesh_intersect.launches
+        got = mesh_kernel.mesh_intersect(cl, o, d, tmax=tmax)
+        torch.cuda.synchronize()
+        assert mesh_kernel.mesh_intersect.launches == before + 1
+        tm = torch.full((o.shape[0],), 0.99 * 1e8, device="cuda") if tmax is None else tmax
+        t, lid, u, v = mesh_kernel.mesh_intersect_plain(cl["bounds"], cl["trisw"], o, d, tm)
+        prim = torch.where(lid >= 0, cl["prim"][lid.clamp(min=0).long()], -1)
+        for a, b, name in zip(got, (t, prim.to(torch.int32), u, v), ("t", "prim", "u", "v")):
+            assert torch.equal(a, b), name
+        assert 0 < (got[1] >= 0).float().mean().item() < 1
+
+
+@pytest.mark.cuda
+def test_mesh_intersect_one_call_equals_chained_segments_on_the_card():
+    _need_cuda()
+    st, waves = _big_gi_rays(32, 4)
+    cl = trace.mesh_clusters(st.geometry)
+    o, d, _ = waves[1]
+    one = mesh_kernel.mesh_intersect(cl, o, d)
+    best = None
+    for c0 in range(0, 800, 128):
+        seg = mesh_kernel.mesh_intersect(cl, o, d, tmax=None if best is None else best[0],
+                                         c0=c0, c1=min(c0 + 128, 800))
+        best = seg if best is None else tuple(
+            torch.where(seg[1] >= 0, a, b) for a, b in zip(seg, best))
+    for a, b, name in zip(one, best, ("t", "prim", "u", "v")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_argmin_on_cuda_keeps_the_first_of_equal_values():
+    """The brute-force route takes torch.argmin's winner, as tpu_rt takes
+    jnp.argmin's: of equal distances, the first prim."""
+    _need_cuda()
+    x = torch.tensor([[3.0, 1.0, 1.0, 2.0], [5.0, 5.0, 5.0, 5.0], [2.0, 0.5, 9.0, 0.5]] * 1000,
+                     device="cuda")
+    assert torch.equal(torch.argmin(x, 1).cpu(), torch.tensor([1, 0, 1] * 1000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,max_depth", [(BIG_GI, None), (SIMPLE_BIG, 2)],
+                         ids=["big_gi", "simple_big"])
+def test_wavefront_on_cuda_goes_through_the_mesh_kernel(path, max_depth):
+    _need_cuda()
+    st = tpu_rt_torch.load_file(path, res=32, spp=2)
+    before = mesh_kernel.mesh_intersect.launches
+    img = tpu_rt_torch.render(st, seed=1)
+    # per wave: a closest-hit query per bounce, a shadow query per NEE bounce
+    bounces = wavefront.n_bounces(st, max_depth)
+    cap = wavefront.resolved_depth(st, max_depth)
+    per_wave = bounces + sum(1 for depth in range(bounces) if depth + 2 <= cap)
+    assert mesh_kernel.mesh_intersect.launches == before + 2 * per_wave
+    assert img.device.type == "cuda" and img.shape == (32, 32, 3)
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
+    rays = tpu_rt_torch.render.last_ray_count
+    assert rays.device.type == "cuda" and int(rays) > 32 * 32 * 2
+
+
+@pytest.mark.cuda
+def test_wavefront_path_trace_on_cuda_matches_the_cpu():
+    """The same rays and uniforms through the wavefront on the card and on
+    the CPU: transcendental functions round otherwise there, so at least
+    99% of the lanes within rtol 1e-4 / atol 1e-6, the rays cast within
+    1%."""
+    _need_cuda()
+    st = tpu_rt_torch.load_file(BIG_GI, res=16, spp=1)
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    c = st.camera
+    ys, xs = torch.meshgrid(torch.arange(16), torch.arange(16), indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32) + torch.rand(
+        (256, 2), generator=gen)
+    o, d, t0, t1 = camera.sample_ray_extents(c, xy)
+    u = torch.rand((wavefront.n_bounces(st), 256, 8), generator=gen)
+    Lc, nc = wavefront.path_trace(st, o, d, uniforms=u, tmin0=t0, tmax0=t1)
+    sg = st.to("cuda")
+    Lg, ng = wavefront.path_trace(sg, o.cuda(), d.cuda(), uniforms=u.cuda(), tmin0=t0.cuda(),
+                                  tmax0=t1.cuda())
+    close = torch.isclose(Lg.cpu(), Lc, rtol=1e-4, atol=1e-6).all(-1).float().mean().item()
+    assert close >= 0.99, close
+    assert abs(int(ng) - int(nc)) <= 0.01 * int(nc)

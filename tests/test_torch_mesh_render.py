@@ -121,8 +121,22 @@ def test_direct_scene_outside_the_kernels_scope_raises_naming_A4(which):
     else:
         desc["lamp"] = {"type": "rectangle", "emitter": {"type": "area", "radiance": 1.0}}
     st = tpu_rt_torch.load_dict(desc)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        tpu_rt_torch.render(st, device="cpu")
+    # ROADMAP.md A4 landed: the wavefront tracer renders it at max_depth 2
+    assert mesh_kernel.bake_direct_scene(st) is None
+    wave = []
+    from tpu_rt_torch.integrator import path as wavefront
+
+    render_wave = wavefront.render
+
+    def spy(*args, **kwargs):
+        wave.append(kwargs)
+        return render_wave(*args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(wavefront, "render", spy)
+        img = tpu_rt_torch.render(st, spp=1, device="cpu")
+    assert len(wave) == 1 and wave[0]["max_depth"] == 2
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 def test_direct_golden_gate_holds_for_the_plain_version():

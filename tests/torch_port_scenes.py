@@ -93,3 +93,42 @@ def usmain_desc(st, radius=float("inf"), opening_angle=None):
     if opening_angle is not None:
         desc["probe"] = {"type": "ultraray", "opening_angle": opening_angle}
     return desc
+
+
+def shapes_desc(st):
+    """The analytic shapes and BSDFs that only the wavefront tracer takes:
+    a disk floor, a cylinder given by its end points, a cone, a rough
+    conductor (GGX, alpha 0.25), a perfect-mirror rough conductor, a
+    null-BSDF sphere, a dielectric and a diffuse ball, lit by an area
+    light, a point light and a constant environment."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 4},
+        "sensor": {"type": "perspective", "fov": 50,
+                   "to_world": st().look_at(origin=[0, 1.5, -5], target=[0, 0, 0], up=[0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": 16, "height": 16,
+                            "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": 2}},
+        "floor": {"type": "disk",
+                  "to_world": st().translate([0, -1, 0]).rotate([1, 0, 0], -90).scale(4),
+                  "bsdf": {"type": "diffuse", "reflectance": np.array([0.6, 0.5, 0.4])}},
+        "pillar": {"type": "cylinder", "p0": [-1.5, -1, 0.5], "p1": [-1.2, 1.0, 0.8],
+                   "radius": 0.4,
+                   "bsdf": {"type": "roughconductor", "alpha": 0.25,
+                            "eta": np.array([0.2, 0.9, 1.1]), "k": np.array([3.9, 2.4, 2.2])}},
+        "cone": {"type": "cone",
+                 "to_world": st().translate([1.3, -1, 0.3]).rotate([1, 0, 0], -90).scale(0.8),
+                 "bsdf": {"type": "roughconductor", "alpha": 0.1}},
+        "veil": {"type": "sphere", "center": [0.3, -0.2, -1.2], "radius": 0.45,
+                 "bsdf": {"type": "null"}},
+        "glass": {"type": "sphere", "center": [0.0, -0.4, 0.6], "radius": 0.6,
+                  "bsdf": {"type": "dielectric"}},
+        "ball": {"type": "sphere", "center": [-0.4, 0.6, 1.6], "radius": 0.5,
+                 "bsdf": {"type": "diffuse"}},
+        "lamp": {"type": "rectangle",
+                 "to_world": st().translate([0, 2.5, 0]).rotate([1, 0, 0], 90).scale(0.7),
+                 "emitter": {"type": "area", "radiance": np.array([6.0, 6.0, 6.0])}},
+        "pt": {"type": "point", "position": [2, 2, -2],
+               "intensity": np.array([10.0, 8.0, 6.0])},
+        "env": {"type": "constant", "radiance": np.array([0.2, 0.2, 0.3])},
+    }

@@ -1,1 +1,2 @@
-"""Geometry on the host: the BVH that the mesh cluster tables are cut from."""
+"""Geometry: the host BVH the mesh cluster tables are cut from, the
+analytic intersectors and the wavefront tracer's ray queries."""

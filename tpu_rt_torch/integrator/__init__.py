@@ -5,19 +5,21 @@ the film kernel's scope renders through ``ops/path_kernel.py`` (a mesh
 scene of more than 64 prims through its clustered-mesh mode); a ``direct``
 (or ``direct_projective``, whose image is the direct one) scene of meshes
 lit by point lights renders through the direct mesh kernel of
-``ops/mesh_kernel.py``; an
-ultrasound scene returns the B-mode image of ``us.pipeline.us_render``,
-whose acquisition runs through the ultrasound kernel (tpu_rt's ``render``
-sends it through its XLA tracer instead: both estimate the same integrals
-with different random streams).  Every other scene raises
-``NotImplementedError`` naming the ROADMAP.md item that will port its
-route.
+``ops/mesh_kernel.py``.  Every other ``path`` scene, and every other
+``direct`` scene at max_depth 2, renders through the wavefront path
+tracer of ``integrator/path.py`` (whose mesh queries run through the
+clustered mesh-intersect kernel).  An ultrasound scene returns the B-mode
+image of ``us.pipeline.us_render``, whose acquisition runs through the
+ultrasound kernel (tpu_rt's ``render`` sends it through its XLA tracer
+instead: both estimate the same integrals with different random streams).
+A Stokes scene raises ``NotImplementedError`` naming ROADMAP.md A6.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_rt_torch.core.math import luminance
 from tpu_rt_torch.scene.types import (
     INTEGRATOR_DIRECT,
     INTEGRATOR_DIRECT_PROJECTIVE,
@@ -48,15 +50,17 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
 
     A path or direct scene gives an (H, W, 3) float32 tensor on ``device``
     and sets ``render.last_ray_count`` (a 0-d int64 tensor on ``device``:
-    path segments or primaries, plus shadow rays).  For a path scene
-    ``seed`` keys the film kernel's counter RNG and ``tile_rows`` only keys
-    that RNG (tile = pixel // (tile_rows * 128)), so ``tile_rows=16``
-    reproduces the JAX package's TPU render and ``tile_rows=8`` its
-    interpret-mode render.  A direct scene draws its jitter from a
-    ``torch.Generator`` seeded by ``seed`` (``tile_rows`` is not used), so
-    it matches the JAX package's render statistically.  Both take
-    ``spp_per_pass`` samples per kernel launch.  An hdrfilm with
-    ``pixel_format="luminance"`` gives (H, W, 1).
+    path segments or primaries, plus shadow rays).  For a path scene in
+    the film kernel's scope ``seed`` keys the kernel's counter RNG and
+    ``tile_rows`` only keys that RNG (tile = pixel // (tile_rows * 128)),
+    so ``tile_rows=16`` reproduces the JAX package's TPU render and
+    ``tile_rows=8`` its interpret-mode render.  The direct mesh kernel and
+    the wavefront tracer draw their randomness from a ``torch.Generator``
+    seeded by ``seed`` (``tile_rows`` is not used), so they match the JAX
+    package's renders statistically.  The two kernels take
+    ``spp_per_pass`` samples per launch; the wavefront traces one sample
+    per pixel per wave.  An hdrfilm with ``pixel_format="luminance"``
+    gives (H, W, 1).
 
     An ultrasound scene gives the B-mode display image [Nz, Nx] of
     ``us_render(scene, seed, device=device, **us_kwargs)`` (e.g.
@@ -78,10 +82,7 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
 
         baked = mesh_kernel.bake_direct_scene(scene)
         if baked is None:
-            raise NotImplementedError(
-                "direct scenes other than meshes lit by point lights (at most "
-                "64 clusters, diffuse, no analytic shape) are not ported yet "
-                "(ROADMAP.md A4: wavefront path tracer)")
+            return _render_wavefront(scene, spp, seed, device, max_depth=2)
         img = mesh_kernel.mesh_direct_render(scene, spp=spp, seed=seed, device=device,
                                              spp_per_pass=spp_per_pass, baked=baked)
         render.last_ray_count = mesh_kernel.mesh_direct_render.last_ray_count
@@ -92,11 +93,7 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
             f"(ROADMAP.md {_LATER.get(scene.integrator, 'A4')})")
     baked = path_kernel.bake_scene(scene)
     if baked is None:
-        raise NotImplementedError(
-            "scene is outside the film kernel's bake scope (ROADMAP.md A10 "
-            "and the items it lists: cone, rough conductor, pass-through, "
-            "textured environment, textures, meshes of more than one BSDF or "
-            "64 clusters)")
+        return _render_wavefront(scene, spp, seed, device)
     img, n_rays = path_kernel.render_film(
         scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
         tile_rows=tile_rows, baked=baked)
@@ -104,12 +101,24 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     return _develop_format(scene, img)
 
 
+def _render_wavefront(scene: Scene, spp, seed, device, max_depth=None):
+    """A scene outside the kernels' scope, through the wavefront tracer
+    (which has no texture lookup yet)."""
+    from tpu_rt_torch.integrator import path as wavefront
+
+    if scene.has_textures:
+        raise NotImplementedError(
+            "bitmap textures are not ported yet (ROADMAP.md A8: textures)")
+    img = wavefront.render(scene, spp=spp, seed=seed, max_depth=max_depth, device=device)
+    render.last_ray_count = wavefront.render.last_ray_count
+    return _develop_format(scene, img)
+
+
 def _develop_format(scene: Scene, img):
     """The hdrfilm's pixel format: "luminance" collapses rgb to one
     ITU-R BT.709 luminance channel."""
     if scene.camera.pixel_format == "luminance":
-        img = (img[..., 0] * 0.212671 + img[..., 1] * 0.715160
-               + img[..., 2] * 0.072169)[..., None]
+        img = luminance(img)[..., None]
     return img
 
 

@@ -28,7 +28,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _NATIVE = Path(__file__).resolve().parent / "native"
-_SOURCES = ("path_film.cu", "us_acq.cu", "mesh_direct.cu")
+_SOURCES = ("path_film.cu", "us_acq.cu", "mesh_direct.cu", "mesh_isect.cu")
 _HEADERS = ("common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_rt_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -120,8 +120,10 @@ def load_library():
     lib.us_acq_launch.restype = i
     lib.mesh_direct_launch.argtypes = [p, i, p, p, p, i, p, i, p, p]
     lib.mesh_direct_launch.restype = i
+    lib.mesh_isect_launch.argtypes = [p, p, i, i, p, p, p, ctypes.c_float, i, p, p, p, p, p]
+    lib.mesh_isect_launch.restype = i
     for name in ("path_film_error_string", "us_acq_error_string",
-                 "mesh_direct_error_string"):
+                 "mesh_direct_error_string", "mesh_isect_error_string"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = ctypes.c_char_p
     return lib

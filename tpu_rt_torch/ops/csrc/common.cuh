@@ -1,9 +1,9 @@
 // Device helpers shared by the film kernel (path_film.cu), the ultrasound
-// acquisition kernel (us_acq.cu) and the direct mesh kernel
-// (mesh_direct.cu): float3 arithmetic, the SplitMix32 random streams of
-// tpu_rt's Pallas kernels, the shading frame, the closest-hit / any-hit
-// sweep over the packed prim records, and the per-ray cull of the mesh
-// cluster tables.
+// acquisition kernel (us_acq.cu), the direct mesh kernel (mesh_direct.cu)
+// and the mesh-intersect kernel (mesh_isect.cu): float3 arithmetic, the
+// SplitMix32 random streams of tpu_rt's Pallas kernels, the shading frame,
+// the closest-hit / any-hit sweep over the packed prim records, and the
+// per-ray cull and Baldwin-Weber test of the mesh cluster tables.
 //
 // The prim record layout (PRIM_STRIDE floats: kind, bsdf, emitter, pad,
 // then the shape's data) is written by path_kernel.py::pack_prims.
@@ -178,15 +178,16 @@ __device__ __forceinline__ float row(const float* __restrict__ base, int r, int 
   return __ldg(base + r * kCluster + k);
 }
 
-// Slab test of the box b[0..5] (min xyz, max xyz) against [kMeshTmin, best_t].
-__device__ __forceinline__ bool slab(const float* b, V3 o, V3 invd, float best_t) {
+// Slab test of the box b[0..5] (min xyz, max xyz) against [tmin, best_t].
+__device__ __forceinline__ bool slab(const float* b, V3 o, V3 invd, float best_t,
+                                     float tmin = kMeshTmin) {
   float t0x = (b[0] - o.x) * invd.x;
   float t1x = (b[3] - o.x) * invd.x;
   float t0y = (b[1] - o.y) * invd.y;
   float t1y = (b[4] - o.y) * invd.y;
   float t0z = (b[2] - o.z) * invd.z;
   float t1z = (b[5] - o.z) * invd.z;
-  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), kMeshTmin));
+  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), tmin));
   float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), best_t));
   return tn <= tf;
 }
@@ -196,15 +197,35 @@ __device__ __forceinline__ bool slab(const float* b, V3 o, V3 invd, float best_t
 // (quarter q holds triangles [q*k/4, (q+1)*k/4)); mesh_kernel.py::
 // cluster_candidates is the same cull in PyTorch.
 __device__ __forceinline__ bool cluster_span(const float* b, V3 o, V3 invd, float best_t,
-                                             int& s, int& e) {
-  if (!slab(b, o, invd, best_t)) return false;
-  bool l0 = slab(b + 8, o, invd, best_t), l1 = slab(b + 14, o, invd, best_t);
-  bool l2 = slab(b + 20, o, invd, best_t), l3 = slab(b + 26, o, invd, best_t);
+                                             int& s, int& e, float tmin = kMeshTmin) {
+  if (!slab(b, o, invd, best_t, tmin)) return false;
+  bool l0 = slab(b + 8, o, invd, best_t, tmin), l1 = slab(b + 14, o, invd, best_t, tmin);
+  bool l2 = slab(b + 20, o, invd, best_t, tmin), l3 = slab(b + 26, o, invd, best_t, tmin);
   int k = (int)b[6];
   int q1 = k / 4, q2 = k / 2, q3 = (3 * k) / 4;
   s = l0 ? 0 : (l1 ? q1 : (l2 ? q2 : q3));
   e = l3 ? k : (l2 ? q3 : (l1 ? q2 : q1));
   return l0 || l1 || l2 || l3;
+}
+
+// Baldwin-Weber test (pallas_mesh.py intersect_one_bw, pallas_path.py
+// _mesh_bw_one) against lane k of a cluster's 12-row table: n = e1 x e2,
+// p0, then the barycentric rows r1, r2.  A hit lies in (tmin, bt).
+// mesh_kernel.py::bw_test is the same test in PyTorch.
+__device__ __forceinline__ bool bw(const float* __restrict__ tw, int k, V3 o, V3 d,
+                                   float bt, float tmin, float& t, float& u, float& v) {
+  float nx = row(tw, 0, k), ny = row(tw, 1, k), nz = row(tw, 2, k);
+  float tvx = o.x - row(tw, 3, k);
+  float tvy = o.y - row(tw, 4, k);
+  float tvz = o.z - row(tw, 5, k);
+  float den = nx * d.x + ny * d.y + nz * d.z;
+  t = -(nx * tvx + ny * tvy + nz * tvz) / clamp_abs(den, 1e-12f);
+  float qx = tvx + t * d.x;
+  float qy = tvy + t * d.y;
+  float qz = tvz + t * d.z;
+  u = row(tw, 6, k) * qx + row(tw, 7, k) * qy + row(tw, 8, k) * qz;
+  v = row(tw, 9, k) * qx + row(tw, 10, k) * qy + row(tw, 11, k) * qz;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < bt;
 }
 
 }  // namespace

@@ -96,24 +96,6 @@ struct Scene {
   bool hide_emitters, has_env, has_far;
 };
 
-// Baldwin-Weber test (pallas_path.py::_mesh_bw_one) against lane k of a
-// cluster's 12-row table: n = e1 x e2, p0, then the barycentric rows r1, r2.
-__device__ __forceinline__ bool bw(const float* __restrict__ tw, int k, V3 o, V3 d,
-                                   float bt, float& t, float& u, float& v) {
-  float nx = row(tw, 0, k), ny = row(tw, 1, k), nz = row(tw, 2, k);
-  float tvx = o.x - row(tw, 3, k);
-  float tvy = o.y - row(tw, 4, k);
-  float tvz = o.z - row(tw, 5, k);
-  float den = nx * d.x + ny * d.y + nz * d.z;
-  t = -(nx * tvx + ny * tvy + nz * tvz) / clamp_abs(den, 1e-12f);
-  float qx = tvx + t * d.x;
-  float qy = tvy + t * d.y;
-  float qz = tvz + t * d.z;
-  u = row(tw, 6, k) * qx + row(tw, 7, k) * qy + row(tw, 8, k) * qz;
-  v = row(tw, 9, k) * qx + row(tw, 10, k) * qy + row(tw, 11, k) * qz;
-  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kMeshTmin && t < bt;
-}
-
 // Merge the mesh's closest hit into (best_t, prim, n): on a mesh hit prim
 // becomes n_prims, n the normalised interpolated vertex normal (the
 // geometric one where that is ~0) and ng the normalised geometric normal.
@@ -129,7 +111,7 @@ __device__ void mesh_closest(const Scene& sc, V3 o, V3 d, float& best_t, int& pr
     const float* nr = sc.mesh_nrm + (size_t)c * 9 * kCluster;
     for (int k = s; k < e; ++k) {
       float t, u, v;
-      if (!bw(tw, k, o, d, best_t, t, u, v)) continue;
+      if (!bw(tw, k, o, d, best_t, kMeshTmin, t, u, v)) continue;
       best_t = t;
       got = true;
       float w0 = 1.0f - u - v;
@@ -154,7 +136,7 @@ __device__ bool mesh_any_hit(const Scene& sc, V3 o, V3 d, float tmax) {
     const float* tw = sc.mesh_trisw + (size_t)c * 12 * kCluster;
     for (int k = s; k < e; ++k) {
       float t, u, v;
-      if (bw(tw, k, o, d, tmax, t, u, v)) return true;
+      if (bw(tw, k, o, d, tmax, kMeshTmin, t, u, v)) return true;
     }
   }
   return false;

@@ -1,4 +1,5 @@
-"""Mesh cluster tables and the direct-lighting mesh kernel (K9).
+"""Mesh cluster tables, the clustered mesh-intersect kernel (K7 / K8) and
+the direct-lighting mesh kernel (K9).
 
 Counterpart of ``tpu_rt/ops/pallas_mesh.py`` for what the mesh paths run.
 
@@ -12,6 +13,17 @@ Host side (numpy, the JAX package's arithmetic):
   quarter boxes) and its global triangle ids.
 * ``build_shading_table`` gives the 12-row table of vertex normals and
   albedo that K9 reads at a hit.
+
+K7 (``tpu_rt/ops/pallas_mesh.py::_mesh_sweep``, and K8, ``_mesh_sweep_fused``,
+its one-call form over every table segment, with the same output): the
+closest hit of N rays over the clusters [c0, c1) of the Baldwin-Weber table,
+each ray starting from its incoming ``tmax``.  ``mesh_intersect_plain`` is
+the plain PyTorch version, ``mesh_intersect`` the wrapper (plain version
+for CPU tensors, ``csrc/mesh_isect.cu`` for CUDA tensors, or it raises).
+The wavefront tracer (``geometry/trace.py``) sends every mesh query
+through it.  The segments of the TPU form (an SMEM limit) are a cluster
+range here: a call over [0, C) equals the chain of calls over consecutive
+ranges, each taking the last one's ``t`` as its ``tmax``.
 
 K9 (``tpu_rt/ops/pallas_mesh.py::_build_direct_kernel``, launched by
 ``_direct_render_setup``): per ray, the Moller-Trumbore closest hit over
@@ -334,6 +346,30 @@ def cluster_candidates(bounds_row, o, invd, best_t, tmin=_TMIN):
     return rows[live], s[live], e[live]
 
 
+def bw_test(tw, o, d, bt, s, e, tmin=_TMIN):
+    """Baldwin-Weber test (pallas_mesh.py ``intersect_one_bw``) against
+    every lane of one cluster at once: tw the (12, k) rows (n = e1 x e2,
+    p0, r1, r2), o / d / bt per ray (n,), lanes outside each ray's [s, e)
+    masked off.  Returns (ok, t, u, v), each (n, k)."""
+    o = [x[:, None] for x in o]
+    d = [x[:, None] for x in d]
+    nx, ny, nz = tw[0], tw[1], tw[2]
+    tvx = o[0] - tw[3]
+    tvy = o[1] - tw[4]
+    tvz = o[2] - tw[5]
+    den = nx * d[0] + ny * d[1] + nz * d[2]
+    t = -(nx * tvx + ny * tvy + nz * tvz) / _clamp_abs(den, 1e-12)
+    qx = tvx + t * d[0]
+    qy = tvy + t * d[1]
+    qz = tvz + t * d[2]
+    u = tw[6] * qx + tw[7] * qy + tw[8] * qz
+    v = tw[9] * qx + tw[10] * qy + tw[11] * qz
+    lane = torch.arange(tw.shape[1], device=tw.device)
+    ok = ((lane >= s[:, None]) & (lane < e[:, None]) & (u >= 0.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t > tmin) & (t < bt[:, None]))
+    return ok, t, u, v
+
+
 def _mt(tc, o, d, bt, s, e):
     """Moller-Trumbore against every lane of one cluster at once: tc the
     (9, k) p0/e1/e2 rows, o / d / bt per ray (n,), lanes outside each ray's
@@ -543,3 +579,109 @@ def mesh_direct_render(scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
 
 
 mesh_direct_render.last_ray_count = None
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: closest hit over the clusters, plain version and wrapper
+# ---------------------------------------------------------------------------
+
+def mesh_intersect_plain(bounds, trisw, o, d, tmax, tmin=_TMIN, c0=0, c1=None):
+    """The plain PyTorch version of K7 on rays o, d [N, 3] float32 with the
+    incoming best distance ``tmax`` [N]: the clusters c0 .. c1-1 of
+    ``bounds`` (C, 32) / ``trisw`` (C, 12, 128) in table order, each one's
+    root and quarter culls against the running best, then its live span,
+    keeping a strictly smaller t (ties to the lowest lane, as a sequential
+    sweep keeps them).  Returns (t, lid, u, v) [N]: lid the table lane
+    c * 128 + k (int32, -1 where nothing was hit below tmax, and t then
+    stays tmax, u = v = 0)."""
+    n = o.shape[0]
+    dev = o.device
+    c1 = bounds.shape[0] if c1 is None else c1
+    oc, dc = [o[:, i] for i in range(3)], [d[:, i] for i in range(3)]
+    invd = [_inv(x) for x in dc]
+    best_t = tmax.clone()
+    lid = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    bu = torch.zeros((n,), dtype=torch.float32, device=dev)
+    bv = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for c, brow in enumerate(bounds[c0:c1].tolist(), start=c0):
+        rows, s, e = cluster_candidates(brow, oc, invd, best_t, tmin)
+        if rows.numel() == 0:
+            continue
+        k = int(brow[6])
+        ok, t, u, v = bw_test(trisw[c, :, :k], [x[rows] for x in oc], [x[rows] for x in dc],
+                              best_t[rows], s, e, tmin)
+        hit, lane = first_min(ok, t)
+        rows, lane = rows[hit], lane[hit]
+        ar = torch.arange(lane.shape[0], device=dev)
+        best_t[rows] = t[hit][ar, lane]
+        bu[rows] = u[hit][ar, lane]
+        bv[rows] = v[hit][ar, lane]
+        lid[rows] = (lane + c * CLUSTER).to(torch.int32)
+    return best_t, lid, bu, bv
+
+
+def mesh_intersect(clusters, o, d, tmin=_TMIN, tmax=None, c0=0, c1=None):
+    """Closest hit of rays o, d [N, 3] float32 over the clusters [c0, c1)
+    (all by default) of ``clusters`` (a dict of tensors on the rays'
+    device: ``bounds`` (C, 32), ``trisw`` (C, 12, 128), ``prim`` (C * 128,)
+    global triangle ids).  ``tmax`` is a scalar or [N], by default
+    0.99 * 1e8.  Returns (t, prim, u, v) [N], detached: prim the global
+    triangle id, -1 on a miss, where t stays the incoming tmax.
+
+    On CPU tensors this runs the plain version.  On CUDA tensors it
+    launches ``csrc/mesh_isect.cu`` (built at first use) or raises.
+    ``mesh_intersect.launches`` counts kernel launches."""
+    dev = o.device
+    n = o.shape[0]
+    bounds, trisw, prim_map = clusters["bounds"], clusters["trisw"], clusters["prim"]
+    C = bounds.shape[0]
+    c1 = C if c1 is None else c1
+    if not 0 <= c0 <= c1 <= C:
+        raise ValueError(f"mesh_intersect: cluster range [{c0}, {c1}) outside [0, {C})")
+    if tmax is None:
+        tmax = _MISS
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n).contiguous()
+    with torch.no_grad():
+        if dev.type == "cpu":
+            t, lid, u, v = mesh_intersect_plain(bounds, trisw, o, d, tmax, tmin, c0, c1)
+        elif dev.type == "cuda":
+            t, lid, u, v = _mesh_intersect_cuda(bounds, trisw, o, d, tmax, tmin, c0, c1)
+        else:
+            raise ValueError(f"mesh_intersect runs on cpu or cuda, not {dev.type}")
+        prim = torch.where(lid >= 0, prim_map[torch.clamp(lid, min=0).to(torch.int64)], -1)
+    return t, prim.to(torch.int32), u, v
+
+
+mesh_intersect.launches = 0
+
+
+def _mesh_intersect_cuda(bounds, trisw, o, d, tmax, tmin, c0, c1):
+    dev = o.device
+    n = o.shape[0]
+    for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("tmax", tmax, (n,)),
+                           ("bounds", bounds, (bounds.shape[0], 32)),
+                           ("trisw", trisw, (bounds.shape[0], 12, CLUSTER))):
+        if (x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"mesh_intersect needs {name} as contiguous float32 of shape "
+                             f"{shape} on {dev}")
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"mesh_intersect takes 1 .. 2^31 - 1 rays (got {n})")
+    from tpu_rt_torch.ops import _build
+
+    lib = _build.load_library()
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    lid = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mesh_isect_launch(
+            bounds.data_ptr(), trisw.data_ptr(), c0, c1, o.data_ptr(), d.data_ptr(),
+            tmax.data_ptr(), float(tmin), n, t.data_ptr(), lid.data_ptr(), u.data_ptr(),
+            v.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("mesh_isect kernel launch failed: "
+                           + lib.mesh_isect_error_string(err).decode())
+    mesh_intersect.launches += 1
+    return t, lid, u, v

@@ -649,30 +649,6 @@ def _sweep(C: _Consts, o, d, tmin, tmax, any_hit=False):
     return best_t, best_prim, n
 
 
-def _mesh_bw(tw, o, d, bt, s, e):
-    """Baldwin-Weber test (pallas_path._mesh_bw_one) against every lane of
-    one cluster at once: tw the (12, k) rows (n = e1 x e2, p0, r1, r2),
-    o / d / bt per ray (n,), lanes outside each ray's [s, e) masked off.
-    Returns (ok, t, u, v), each (n, k)."""
-    o = [x[:, None] for x in o]
-    d = [x[:, None] for x in d]
-    nx, ny, nz = tw[0], tw[1], tw[2]
-    tvx = o[0] - tw[3]
-    tvy = o[1] - tw[4]
-    tvz = o[2] - tw[5]
-    den = nx * d[0] + ny * d[1] + nz * d[2]
-    t = -(nx * tvx + ny * tvy + nz * tvz) / _clamp_abs(den, 1e-12)
-    qx = tvx + t * d[0]
-    qy = tvy + t * d[1]
-    qz = tvz + t * d[2]
-    u = tw[6] * qx + tw[7] * qy + tw[8] * qz
-    v = tw[9] * qx + tw[10] * qy + tw[11] * qz
-    lane = torch.arange(tw.shape[1], device=tw.device)
-    ok = ((lane >= s[:, None]) & (lane < e[:, None]) & (u >= 0.0) & (v >= 0.0)
-          & (u + v <= 1.0) & (t > 1e-4) & (t < bt[:, None]))
-    return ok, t, u, v
-
-
 def _mesh_closest(C: _Consts, o, d, t0, prim0, n0, active):
     """Merge the mesh's closest hit into the unrolled sweep's (t0, prim0,
     n0) on the active lanes (pallas_path._mesh_closest).  Returns (t,
@@ -690,7 +666,7 @@ def _mesh_closest(C: _Consts, o, d, t0, prim0, n0, active):
             continue
         k = int(brow[6])
         tw, nr = C.mesh_trisw[c, :, :k], C.mesh_nrm[c, :, :k]
-        ok, t, u, v = _mesh_bw(tw, [x[rows] for x in o], [x[rows] for x in d],
+        ok, t, u, v = _mk.bw_test(tw, [x[rows] for x in o], [x[rows] for x in d],
                                best_t[rows], s, e)
         hit, lane = _mk.first_min(ok, t)
         rows, lane = rows[hit], lane[hit]
@@ -713,7 +689,7 @@ def _mesh_closest(C: _Consts, o, d, t0, prim0, n0, active):
 def _mesh_anyhit(C: _Consts, o, d, tmax, lanes):
     """True on the ``lanes`` whose segment (1e-4, tmax) hits a mesh
     triangle (pallas_path._mesh_anyhit)."""
-    return _mk.cluster_any_hit(C.mesh_bounds_list, C.mesh_trisw, _mesh_bw, o, d, tmax, lanes)
+    return _mk.cluster_any_hit(C.mesh_bounds_list, C.mesh_trisw, _mk.bw_test, o, d, tmax, lanes)
 
 
 def _camera_ray(C: _Consts, idx, jx, jy):

@@ -5,9 +5,10 @@ scenes, the mesh scenes and the ultrasound scenes use: ``perspective`` +
 ``hdrfilm`` with a box / tent / gaussian rfilter, the ``independent``
 sampler, the ``path``, ``direct``, ``direct_projective`` and
 ``ultrasound_integrator`` integrators, the ``ultrasound_sensor``, ``obj`` /
-``ply`` / ``sphere`` / ``rectangle`` shapes,
-``diffuse`` / ``dielectric`` / ``conductor`` / ``ultrasound_bsdf`` /
-``twosided`` BSDFs, ``area`` / ``point`` / ``constant`` emitters and the
+``ply`` / ``sphere`` / ``rectangle`` / ``disk`` / ``cylinder`` / ``cone``
+shapes, ``diffuse`` / ``dielectric`` / ``conductor`` / ``roughconductor`` /
+``null`` / ``ultrasound_bsdf`` / ``twosided`` BSDFs, ``area`` / ``point`` /
+``constant`` emitters and the
 ``ultraray`` / ``ultrasound_emitter`` transducer props.  Every other
 plugin raises ``ValueError`` naming the ROADMAP.md item that will port it.
 
@@ -32,11 +33,13 @@ from tpu_rt_torch.scene.convert import scene_from_arrays
 from tpu_rt_torch.scene.obj import load_obj
 from tpu_rt_torch.scene.ply import load_ply
 
-_BSDF_TYPES = {"diffuse", "dielectric", "conductor", "ultrasound_bsdf", "twosided"}
-_LATER_BSDFS = {"roughconductor", "null", "polarizer"}
+_BSDF_TYPES = {"diffuse", "dielectric", "conductor", "roughconductor", "null",
+               "ultrasound_bsdf", "twosided"}
+_LATER_BSDFS = {"polarizer"}
 _TRANSDUCER_EMITTERS = {"ultraray", "ultrasound_emitter"}
 _EMITTERS_IN_SHAPES = {"area"} | _TRANSDUCER_EMITTERS
-_ANALYTIC_ENUM = {"sphere": T.SPHERE, "rectangle": T.RECTANGLE}
+_ANALYTIC_ENUM = {"sphere": T.SPHERE, "rectangle": T.RECTANGLE, "disk": T.DISK,
+                  "cylinder": T.CYLINDER, "cone": T.CONE}
 _FILTERS = {"box": T.FILTER_BOX, "tent": T.FILTER_TENT,
             "gaussian": T.FILTER_GAUSSIAN}
 _INTEGRATORS = {"path": T.INTEGRATOR_PATH, "direct": T.INTEGRATOR_DIRECT,
@@ -45,12 +48,7 @@ _INTEGRATORS = {"path": T.INTEGRATOR_PATH, "direct": T.INTEGRATOR_DIRECT,
 
 # Plugins of tpu_rt that this package does not load yet -> ROADMAP.md item.
 _LATER = {
-    "disk": "A4 (wavefront path tracer)",
-    "cylinder": "A4 (wavefront path tracer)",
-    "cone": "A10 (bake-scope completions)",
     "bsplinecurve": "A8 (asset readers, curves)",
-    "roughconductor": "A10 (bake-scope completions)",
-    "null": "A10 (bake-scope completions)",
     "polarizer": "A6 (polarized transport)",
     "envmap": "A7 (textured environment, K5)",
     "bitmap": "A8 (asset readers and textures)",
@@ -90,7 +88,8 @@ class _Builder:
         self.shape_bsdf = []
         self.shape_emitter = []
         self.shape_tri_ranges = []  # per shape: (tri_start, tri_end)
-        self.tri = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2", "shape")}
+        self.tri = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2",
+                                    "uv0", "uv1", "uv2", "shape")}
         self.an = {"type": [], "to_world": [], "shape": []}
         self.area_radiance = []
         self.area_shape = []  # shape id of each area emitter
@@ -134,8 +133,8 @@ class _Builder:
             p[1] = _IOR.get(ext_ior, ext_ior if isinstance(ext_ior, (int, float)) else 1.000277)
             p[3:6] = _rgb(bd.get("specular_reflectance"), 1.0)
             p[6:9] = _rgb(bd.get("specular_transmittance"), 1.0)
-        elif btype == "conductor":
-            code = T.BSDF_CONDUCTOR
+        elif btype in ("conductor", "roughconductor"):
+            code = T.BSDF_CONDUCTOR if btype == "conductor" else T.BSDF_ROUGH_CONDUCTOR
             if "eta" in bd:
                 p[0:3] = _rgb(bd.get("eta"), 0.0)
                 p[3:6] = _rgb(bd.get("k"), 1.0)
@@ -148,6 +147,8 @@ class _Builder:
             p[0] = float(bd.get("impedance", 1.54))
             p[1] = float(bd.get("roughness", 0.5))
             p[2] = float(bd.get("exterior_impedance", 1.2))
+        elif btype == "null":
+            code = T.BSDF_NULL
         else:
             _not_yet("bsdf", btype)
         idx = len(self.bsdf_rows)
@@ -157,7 +158,7 @@ class _Builder:
 
     # -- Shapes --------------------------------------------------------------
 
-    def _add_mesh(self, verts, faces, normals, to_world, shape_id):
+    def _add_mesh(self, verts, faces, normals, uvs, to_world, shape_id):
         mw = np.asarray(to_world, np.float32)
         v_world = verts @ mw[:3, :3].T + mw[:3, 3]
         p0 = v_world[faces[:, 0]]
@@ -171,6 +172,10 @@ class _Builder:
             n0, n1, n2 = n_world[faces[:, 0]], n_world[faces[:, 1]], n_world[faces[:, 2]]
         else:
             n0 = n1 = n2 = np.zeros_like(p0)
+        if uvs is not None:
+            uv0, uv1, uv2 = uvs[faces[:, 0]], uvs[faces[:, 1]], uvs[faces[:, 2]]
+        else:
+            uv0 = uv1 = uv2 = np.zeros((faces.shape[0], 2), np.float32)
         start = sum(x.shape[0] for x in self.tri["p0"])
         self.tri["p0"].append(p0.astype(np.float32))
         self.tri["e1"].append((p1 - p0).astype(np.float32))
@@ -178,6 +183,9 @@ class _Builder:
         self.tri["n0"].append(n0.astype(np.float32))
         self.tri["n1"].append(n1.astype(np.float32))
         self.tri["n2"].append(n2.astype(np.float32))
+        self.tri["uv0"].append(uv0.astype(np.float32))
+        self.tri["uv1"].append(uv1.astype(np.float32))
+        self.tri["uv2"].append(uv2.astype(np.float32))
         self.tri["shape"].append(np.full(faces.shape[0], shape_id, np.int32))
         return start, start + faces.shape[0]
 
@@ -213,18 +221,27 @@ class _Builder:
             mesh = (load_obj if stype == "obj" else load_ply)(sd["filename"])
             normals = None if sd.get("face_normals", False) else mesh["normals"]
             tri_range = self._add_mesh(mesh["vertices"], mesh["faces"], normals,
-                                       to_world, shape_id)
+                                       mesh["uvs"], to_world, shape_id)
         else:
             if stype == "sphere" and ("center" in sd or "radius" in sd):
                 c = np.asarray(sd.get("center", (0.0, 0.0, 0.0)), np.float32)
                 r = float(sd.get("radius", 1.0))
                 to_world = to_world @ tf.translate(c) @ tf.scale(r)
+            if stype == "cylinder" and ("p0" in sd or "p1" in sd or "radius" in sd):
+                pa = np.asarray(sd.get("p0", (0, 0, 0)), np.float64)
+                pb = np.asarray(sd.get("p1", (0, 0, 1)), np.float64)
+                r = float(sd.get("radius", 1.0))
+                axis = pb - pa
+                h = np.linalg.norm(axis)
+                mrot = np.eye(4, dtype=np.float32)
+                mrot[:3, :3] = _frame_from_z(axis / max(h, 1e-12))
+                to_world = to_world @ tf.translate(pa) @ mrot @ tf.scale((r, r, h))
             if emitter_idx >= 0 and stype == "rectangle":
                 # emissive rectangles become 2 triangles for area sampling
                 verts = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
                                  np.float32)
                 faces = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
-                tri_range = self._add_mesh(verts, faces, None, to_world, shape_id)
+                tri_range = self._add_mesh(verts, faces, None, None, to_world, shape_id)
             elif emitter_idx >= 0:
                 raise ValueError(f"area emitter on analytic shape {stype!r} "
                                  "is not supported")
@@ -328,11 +345,14 @@ class _Builder:
         arrays = dict(
             tri_p0=tri_p0, tri_e1=tri_e1, tri_e2=tri_e2,
             tri_n0=cat("n0", 3), tri_n1=cat("n1", 3), tri_n2=cat("n2", 3),
+            tri_uv0=cat("uv0", 2), tri_uv1=cat("uv1", 2), tri_uv2=cat("uv2", 2),
             tri_shape=cat("shape", 0, np.int32),
             an_type=np.asarray(self.an["type"], np.int32),
             an_to_world=an_to_world.astype(np.float32),
             an_to_object=an_to_object,
             an_shape=np.asarray(self.an["shape"], np.int32),
+            # the loaded shapes have no per-prim parameters (curves, A8)
+            an_param=np.zeros((n_an, 2), np.float32),
             bvh_a=bvh["a"], bvh_b=bvh["b"], bvh_count=bvh["count"],
             prim_order=bvh["prim_order"],
             **clusters,
@@ -432,6 +452,15 @@ class _Builder:
             em_offsets.append(em_offsets[-1] + hi - lo)
             area_total.append(total)
         n_area = len(self.area_radiance)
+        env_map = (np.asarray(self.env, np.float32) if self.env is not None
+                   else np.zeros((1, 1, 3), np.float32))
+        # the lat-long sampling CDFs, as tpu_rt builds them (luminance x sin
+        # theta per texel); a constant environment is one texel
+        H = env_map.shape[0]
+        lum = env_map @ np.array([0.212671, 0.715160, 0.072169], np.float32)
+        sin_theta = np.sin((np.arange(H) + 0.5) / H * np.pi).astype(np.float32)
+        w = lum * sin_theta[:, None] + 1e-12
+        row_w = w.sum(axis=1)
         return dict(
             area_radiance=(np.stack(self.area_radiance) if n_area
                            else np.zeros((0, 3), np.float32)),
@@ -445,10 +474,24 @@ class _Builder:
                        else np.zeros((0, 3), np.float32)),
             point_intensity=(np.stack(self.point_intensity) if self.point_pos
                              else np.zeros((0, 3), np.float32)),
-            env_map=(np.asarray(self.env, np.float32) if self.env is not None
-                     else np.zeros((1, 1, 3), np.float32)),
+            env_map=env_map,
+            env_to_world=np.eye(4, dtype=np.float32),
+            env_to_local=tf.inverse(np.eye(4, dtype=np.float32)),
+            env_cdf_rows=(np.cumsum(row_w) / row_w.sum()).astype(np.float32),
+            env_cdf_cols=(np.cumsum(w, axis=1) / w.sum(axis=1, keepdims=True)).astype(np.float32),
             env_scale=np.float32(1.0),
         )
+
+
+def _frame_from_z(z):
+    """An orthonormal frame (columns x, y, z) around the unit axis z, as
+    tpu_rt/scene/build.py builds the cylinder's."""
+    z = np.asarray(z, np.float64)
+    a = np.array([0.0, 1.0, 0.0]) if abs(z[1]) < 0.9 else np.array([1.0, 0.0, 0.0])
+    x = np.cross(a, z)
+    x /= max(np.linalg.norm(x), 1e-12)
+    y = np.cross(z, x)
+    return np.stack([x, y, z], axis=1).astype(np.float32)
 
 
 def build_scene(desc: dict):

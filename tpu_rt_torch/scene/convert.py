@@ -14,7 +14,9 @@ configuration's.  ``meta`` holds the ints and flags: ``n_tris``,
 ``n_analytic``, ``n_area``, ``n_point``, ``has_env``, ``has_textures``,
 ``integrator``, ``max_depth``, ``rr_depth``, ``hide_emitters``, ``camera``
 (a dict of the camera's static fields, or absent) and ``ultrasound`` (a
-dict of the ultrasound configuration's static fields, or absent).
+dict of the ultrasound configuration's static fields, or absent).  The
+sets of analytic shape types and of BSDF types present are computed here
+from ``an_type`` and ``bsdf_type``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
         **{k: None if arrays.get(k) is None else t(k)
            for k in optional_tensor_fields(Geometry)},
         n_tris=int(meta["n_tris"]), n_analytic=int(meta["n_analytic"]),
+        analytic_types=tuple(sorted(set(np.asarray(arrays["an_type"]).tolist()))),
     )
     emitters = Emitters(
         **{k: t(k) for k in _tensor_fields(Emitters)},
@@ -60,12 +63,14 @@ def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
         ultrasound = UltrasoundConfig(
             **{k: t("us_" + k) for k in _tensor_fields(UltrasoundConfig)},
             **meta["ultrasound"])
+    bsdf_type = t("bsdf_type")
     return Scene(
         geometry=geometry,
         emitters=emitters,
         shape_bsdf=t("shape_bsdf"),
         shape_emitter=t("shape_emitter"),
-        bsdf_type=t("bsdf_type"),
+        bsdf_type=bsdf_type,
+        bsdf_types_present=tuple(sorted(set(bsdf_type.tolist()))),
         bsdf_params=t("bsdf_params"),
         camera=camera,
         ultrasound=ultrasound,

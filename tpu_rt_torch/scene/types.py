@@ -5,10 +5,12 @@ value it has there, so tables built by either package mean the same
 thing.  The JAX package keeps static fields out of the pytree; here a
 dataclass simply holds tensors beside plain Python ints and flags.
 
-Only what the kernels' bakes read is carried: world-space triangles with
-their vertex normals, analytic shape transforms, the BVH's prim order and
-node links, the mesh cluster tables, per-shape BSDF/emitter ids, the BSDF
-table, the emitter tables, the camera and the ultrasound configuration.
+Carried: world-space triangles with their vertex normals and uvs,
+analytic shape transforms and parameters, the BVH's prim order and node
+links, the mesh cluster tables, per-shape BSDF/emitter ids, the BSDF
+table and the set of BSDF types present, the emitter tables (with the
+environment's frame and sampling CDFs), the camera and the ultrasound
+configuration.
 """
 
 from __future__ import annotations
@@ -58,6 +60,15 @@ class _Replace:
         """Copy with some fields changed (flax.struct's ``replace``)."""
         return dataclasses.replace(self, **changes)
 
+    def to(self, device):
+        """Copy with every tensor, nested ones included, on ``device``."""
+        changes = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, (torch.Tensor, _Replace)):
+                changes[f.name] = v.to(device)
+        return dataclasses.replace(self, **changes)
+
 
 @dataclass(frozen=True)
 class Geometry(_Replace):
@@ -70,11 +81,15 @@ class Geometry(_Replace):
     tri_n0: torch.Tensor  # [T, 3] world vertex normals; zeros where the
     tri_n1: torch.Tensor  # mesh has none (or face_normals is set)
     tri_n2: torch.Tensor
+    tri_uv0: torch.Tensor  # [T, 2] vertex uvs; zeros where the mesh has none
+    tri_uv1: torch.Tensor
+    tri_uv2: torch.Tensor
     tri_shape: torch.Tensor  # [T] owning shape id
     an_type: torch.Tensor  # [A] SPHERE / RECTANGLE / ...
     an_to_world: torch.Tensor  # [A, 4, 4]
     an_to_object: torch.Tensor  # [A, 4, 4]
     an_shape: torch.Tensor  # [A]
+    an_param: torch.Tensor  # [A, 2] per-prim parameters (curve radii), else 0
     # BVH over all prim ids (geometry/bvh.py): internal nodes link children
     # (a, b) with count 0; leaves hold (first, _, count) over prim_order
     bvh_a: torch.Tensor  # [M]
@@ -83,6 +98,7 @@ class Geometry(_Replace):
     prim_order: torch.Tensor  # [T + A]
     n_tris: int = 0
     n_analytic: int = 0
+    analytic_types: tuple = ()  # the analytic type codes present
     # Mesh cluster tables (ops/mesh_kernel.py::build_clusters), built when
     # the scene has more than 192 triangles, else None
     cl_tris: Optional[torch.Tensor] = None  # [C, 9, 128] p0, e1, e2
@@ -104,10 +120,20 @@ class Emitters(_Replace):
     point_pos: torch.Tensor  # [Ep, 3]
     point_intensity: torch.Tensor  # [Ep, 3]
     env_map: torch.Tensor  # [h, w, 3]; (1, 1, 3) for a constant environment
+    env_to_world: torch.Tensor  # [4, 4]
+    env_to_local: torch.Tensor  # [4, 4]
+    env_cdf_rows: torch.Tensor  # [h] marginal CDF over rows (luminance * sin theta)
+    env_cdf_cols: torch.Tensor  # [h, w] conditional CDF within each row
     env_scale: torch.Tensor  # [] radiance scale
     n_area: int = 0
     n_point: int = 0
     has_env: bool = False
+
+    @property
+    def n_lights(self) -> int:
+        """Light units NEE selects among uniformly: area emitters, point
+        lights and the environment."""
+        return self.n_area + self.n_point + (1 if self.has_env else 0)
 
 
 @dataclass(frozen=True)
@@ -173,6 +199,9 @@ class Scene(_Replace):
     bsdf_params: torch.Tensor  # [B, 16]
     camera: Optional[Camera] = None
     ultrasound: Optional[UltrasoundConfig] = None
+    # the BSDF type codes that occur in the scene: the wavefront's BSDF
+    # dispatch evaluates only their lobes
+    bsdf_types_present: tuple = ()
     has_textures: bool = False
     integrator: int = INTEGRATOR_PATH
     max_depth: int = -1
