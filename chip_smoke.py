@@ -4,9 +4,10 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the kernels (tpu_rt_torch/ops/csrc/path_film.cu, us_acq.cu,
-     mesh_direct.cu), one nvcc per source, started together, and the host
-     BVH builder (tpu_rt_torch/ops/native/bvh_builder.cpp) with g++;
+  2. build the kernels (tpu_rt_torch/ops/csrc/path_film.cu with K1, K2,
+     K3 and K6; us_acq.cu, mesh_direct.cu, mesh_isect.cu), one nvcc per
+     source, started together, and the host BVH builder
+     (tpu_rt_torch/ops/native/bvh_builder.cpp) with g++;
   3. the kernel against its plain PyTorch version on the card: the cbox
      fixture rendered at 64x64, 4 spp, and the raw film planes of one
      main-path launch (512x512, 64 samples);
@@ -60,9 +61,33 @@ Phases (any failure raises and the script exits non-zero):
      spp (direct, max_depth 2), each one warm-up and five timed renders;
      three mesh_big_gi renders under torch.profiler: the mesh kernel's
      share of the device time, the rest (the PyTorch glue), the idle
-     share.
-Each main path (phases 5, 9, 13 and 16) runs with every launch count set
-to 0 just before it and read just after.  The line before the last is a
+     share;
+ 17. the Stokes film kernel K3, K2's regeneration loop and the per-sample
+     Stokes kernel K6 against their plain versions on the card, bit for
+     bit: tests/assets/cbox_pol/cbox_pol.xml at 32x32, 4 spp, depth 16 in
+     both loop forms; the raw planes of one 128x128 x 16-sample launch and
+     of one main-path launch (256x256 x 64 samples, the kernels line's
+     numbers), kernel ms in both forms and plain ms; K1 at depth 16 on the cbox
+     fixture in both forms; K6 at 32x32 and 256x256; K6 + splat_aligned
+     against K3 with spp_per_pass 1; diffuse-only Stokes-I against K1's
+     radiance within 1e-5 of the mean;
+ 18. the Stokes gates: render(cbox_pol) at 32x32, 32 spp, seed 0,
+     tile_rows 8 against tests/golden/make_stokes_golden.py (tpu_rt's
+     kernels in interpret mode, the same streams; I, Q, U block means);
+     the polarizer wavefront on the card (one sheet: I = 0.5 +- 0.03,
+     degree of polarization > 0.95; two sheets at 0, 45, 90 degrees: Malus
+     within 0.04); Stokes-I of cbox_pol against the scalar render within
+     5% of the mean, Q and U RMS > 0.01;
+ 19. the polarized main path at full width: render(cbox_pol.xml) at
+     256x256, 512 spp, gaussian, depth 16 (K3 in K2's loop) — one warm-up,
+     five timed renders, launch counts; the same with the per-sample loop
+     forced, and both forms at max_depth 6; three renders under
+     torch.profiler (the kernel's share, the deposit's, idle); the
+     per-sample route (K6 + splat_aligned) at the same size;
+ 20. the polarizer wavefront: render_stokes(polarizers_const.xml) at
+     128x128, 10 spp — one warm-up, five timed renders.
+Each main path (phases 5, 9, 13, 16, 19 and 20) runs with every launch
+count set to 0 just before it and read just after.  The line before the last is a
 JSON record of the kernels, each with its bound: the larger of its
 operations over 67 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100
 SXM's data-sheet peaks), counted from this run's inputs; the last line is
@@ -87,6 +112,8 @@ US_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_us_golden.py")
 MESH_DIR = os.path.join(ROOT, "tests", "assets", "mesh")
 MESH_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_mesh_golden.py")
 WAVE_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_wavefront_golden.py")
+POL_DIR = os.path.join(ROOT, "tests", "assets", "cbox_pol")
+STOKES_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_stokes_golden.py")
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM, outside the tensor cores
 PEAK_BYTES = 3.35e12  # B/s, HBM3
 
@@ -112,22 +139,41 @@ def develop_planes(planes, tables):
     return develop(film[:3].permute(1, 2, 0), film[3])
 
 
-def reset_launch_counts():
+def _counters():
     from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 
-    path_kernel.film_trace.launches = 0
-    us_kernel.us_trace.launches = 0
-    mesh_kernel.direct_trace.launches = 0
-    mesh_kernel.mesh_intersect.launches = 0
+    # K1, K3, K6, K10, K9, K7; K2's loop, around K1 or K3, is counted by
+    # the two film wrappers' regen_launches
+    return {"path_film": path_kernel.film_trace,
+            "stokes_film": path_kernel.stokes_film_trace,
+            "stokes_sample": path_kernel.stokes_sample_trace,
+            "us_acq": us_kernel.us_trace,
+            "mesh_direct": mesh_kernel.direct_trace,
+            "mesh_isect": mesh_kernel.mesh_intersect}
+
+
+def reset_launch_counts():
+    from tpu_rt_torch.ops import path_kernel
+
+    for fn in _counters().values():
+        fn.launches = 0
+    path_kernel.film_trace.regen_launches = 0
+    path_kernel.stokes_film_trace.regen_launches = 0
 
 
 def launch_counts():
-    from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
+    from tpu_rt_torch.ops import path_kernel
 
-    return {"path_film": path_kernel.film_trace.launches,
-            "us_acq": us_kernel.us_trace.launches,
-            "mesh_direct": mesh_kernel.direct_trace.launches,
-            "mesh_isect": mesh_kernel.mesh_intersect.launches}
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    counts["regen"] = (path_kernel.film_trace.regen_launches
+                       + path_kernel.stokes_film_trace.regen_launches)
+    return counts
+
+
+def check_counts(counts, **want):
+    """Every count as ``want`` names it, 0 where it does not."""
+    expect = {k: want.get(k, 0) for k in counts}
+    assert counts == expect, f"launch counts {counts}, expected {expect}"
 
 
 def film_trace_bound(tables, planes):
@@ -158,6 +204,10 @@ def bound(ops, nbytes):
 # tests are counted at the cheapest kind's 20, so their bounds are lower
 # bounds.
 OPS_SLAB, OPS_TRI, OPS_PRIM = 25, 39, 20
+# The Mueller chain a bounce, read off path_film.cu::mueller_chain: the s
+# axis and cos / sin 2 phi (about 50) and 12 rows of rot_a, rot_b and four
+# outputs (216).
+OPS_MUELLER = 266
 
 
 def load_golden_module(path):
@@ -265,7 +315,7 @@ def main():
     counts = launch_counts()
     launches = counts["path_film"]
     print(f"launch counts over the cbox main path: {counts}")
-    assert counts["us_acq"] == counts["mesh_direct"] == counts["mesh_isect"] == 0
+    check_counts(counts, path_film=20)
     med = statistics.median(times)
     print(f"main path 512x512 256 spp tent: median {med:.3f} ms "
           f"(min {min(times):.3f}, max {max(times):.3f}, n 5), rays/render "
@@ -278,12 +328,18 @@ def main():
     # ---- 6. plain version vs kernel, ms per spp at 512x512 -------------------
     plain8, _ = cuda_ms(lambda: pk.film_trace_plain(tab512, seed512, 8))
     kern8, _ = cuda_ms(lambda: pk.film_trace(tab512, seed512, 8), reps=5)
+    sg = sc512.replace(camera=sc512.camera.replace(filter_type=2))
+    tabg = pk.pack_tables(pk.bake_scene(sg), sg.camera, 16, dev)
+    pk.film_trace(tabg, seed512, 64)  # warm-up
+    gauss_ms, _ = cuda_ms(lambda: pk.film_trace(tabg, seed512, 64), reps=3)
     print(f"ms per spp at 512x512: kernel {kern8 / 8:.4f} (8-spp launch), "
-          f"{kernel_ms / 64:.4f} (64-spp launch); plain {plain8 / 8:.2f} (8 spp)")
+          f"{kernel_ms / 64:.4f} (64-spp launch); plain {plain8 / 8:.2f} (8 spp); the "
+          f"gaussian form's 64-spp launch {gauss_ms:.3f} ms")
 
     us = ultrasound_phases(tt, dev)
     mesh = mesh_phases(tt, dev)
     wave = wavefront_phases(tt, dev)
+    pol = stokes_phases(tt, dev)
 
     print(json.dumps({"kernels": [{
         "name": "path_film", "route": "cuda",
@@ -321,6 +377,29 @@ def main():
         "ms": wave["ms"], "plain_ms": wave["plain_ms"],
         "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"], "library_ms": None,
         "waves": wave["waves"],
+    }, {
+        "name": "stokes_film", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/path_film.cu",
+        "replaces": "tpu_rt/ops/pallas_path.py:2091",
+        "launches": pol["k3_launches"], "max_abs_err": pol["k3_err"],
+        "ms": pol["k3_ms"], "plain_ms": pol["plain_ms"],
+        "bound_ms": pol["bound_ms"], "bound_by": pol["bound_by"], "library_ms": None,
+        "launch_128": pol["launch_128"],
+    }, {
+        "name": "regen_loop", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/path_film.cu",
+        "replaces": "tpu_rt/ops/pallas_path.py:1890",
+        "launches": pol["k2_launches"], "max_abs_err": pol["k2_err"],
+        "ms": pol["k2_ms"], "plain_ms": pol["plain_ms"],
+        "bound_ms": pol["bound_ms"], "bound_by": pol["bound_by"], "library_ms": None,
+        "k1_depth16": pol["k1_depth16"],
+    }, {
+        "name": "stokes_sample", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/path_film.cu",
+        "replaces": "tpu_rt/ops/pallas_path.py:2161",
+        "launches": pol["k6_launches"], "max_abs_err": pol["k6_err"],
+        "ms": pol["k6_ms"], "plain_ms": pol["k6_plain_ms"],
+        "bound_ms": pol["k6_bound_ms"], "bound_by": pol["k6_bound_by"], "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -390,7 +469,7 @@ def ultrasound_phases(tt, dev):
         times.append(ms)
     counts = launch_counts()
     print(f"launch counts over the ultrasound main path: {counts}")
-    assert counts == {"path_film": 0, "us_acq": 5, "mesh_direct": 0, "mesh_isect": 0}, counts
+    check_counts(counts, us_acq=5)
     assert img.shape == (638, 1040) and bool(torch.isfinite(img).all())
     assert 0.0 <= img.min().item() and img.max().item() <= 1.0
     med = statistics.median(times)
@@ -538,7 +617,7 @@ def mesh_phases(tt, dev):
     print(f"direct mesh main path simple.xml 256x256 256 spp box: median {med:.3f} ms "
           f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    assert counts == {"path_film": 0, "us_acq": 0, "mesh_direct": 4 * 5, "mesh_isect": 0}, counts
+    check_counts(counts, mesh_direct=4 * 5)
     assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all())
     assert img.mean().item() > 0
     direct_launches = counts["mesh_direct"]
@@ -548,7 +627,7 @@ def mesh_phases(tt, dev):
     print(f"mesh GI main path mesh_gi.xml 256x256 64 spp depth 3 box: median {med:.3f} ms "
           f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    assert counts == {"path_film": 5, "us_acq": 0, "mesh_direct": 0, "mesh_isect": 0}, counts
+    check_counts(counts, path_film=5)
     assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all())
     assert img.mean().item() > 0
     return dict(
@@ -715,8 +794,7 @@ def wavefront_phases(tt, dev):
           f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
     gi_launches = counts["mesh_isect"]
-    assert counts == {"path_film": 0, "us_acq": 0, "mesh_direct": 0,
-                      "mesh_isect": 5 * 16 * 5}, counts
+    check_counts(counts, mesh_isect=5 * 16 * 5)
     assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
 
     simple_big = tt.load_file(simple_big_xml)  # 256x256, 64 spp
@@ -726,8 +804,7 @@ def wavefront_phases(tt, dev):
           f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr2}, rays/s "
           f"{nr2 / (med2 / 1e3):.4e}")
     direct_launches = counts["mesh_isect"]
-    assert counts == {"path_film": 0, "us_acq": 0, "mesh_direct": 0,
-                      "mesh_isect": 5 * 64 * 2}, counts
+    check_counts(counts, mesh_isect=5 * 64 * 2)
     assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
 
     from torch.profiler import ProfilerActivity, profile
@@ -762,6 +839,273 @@ def wavefront_phases(tt, dev):
                 bound_by=waves["bounce"]["bound_by"], waves=waves,
                 main=dict(gi_ms=med, gi_rays=nr, direct_ms=med2, direct_rays=nr2,
                           profile=dict(wall_ms=wall_ms, busy_ms=busy, mesh_isect_ms=k7)))
+
+
+def equal_stats(a, b):
+    """(share of bit-equal entries, largest |a - b|) of two tensors."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return same.float().mean().item(), (a - b).abs().max().item()
+
+
+def stokes_bound(tables, planes, n_samples):
+    """A Stokes launch's bound: K1's count (every ray tests every prim)
+    plus the Mueller chain on at least rays / 2 - samples continuing
+    bounces (a segment casts at most one shadow ray, a sample's last
+    segment ends it) and the splat of each sample's values; bytes are the
+    tables in and the planes out.  ``planes[ray_row]`` is the ray count."""
+    from tpu_rt_torch.ops import path_kernel as pk
+
+    ray_row = -1 if planes.shape[0] != 15 else 12
+    rays = planes[ray_row].double().sum().item()
+    samples = n_samples * tables.n_pix
+    foot = (2 * tables.radius + 1) ** 2 if planes.shape[0] != 15 else 0
+    ops = (rays * tables.hdr_list[pk.HDR_N_PRIMS] * OPS_PRIM
+           + max(rays / 2 - samples, 0.0) * OPS_MUELLER + samples * foot * (2 * 12 + 3))
+    nbytes = 4 * (tables.tab.numel() + tables.hdr.numel() + planes.numel())
+    return bound(ops, nbytes)
+
+
+def stokes_phases(tt, dev):
+    """Phases 17-20; returns the Stokes kernels' JSON numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_rt_torch.integrator import stokes as stokes_mod
+    from tpu_rt_torch.ops import path_kernel as pk
+    from tpu_rt_torch.scene import types as TT
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import polarizer_desc, render_stokes_per_sample
+
+    cbox_pol = os.path.join(POL_DIR, "cbox_pol.xml")
+    g = load_golden_module(STOKES_GOLDEN_SCRIPT)
+
+    # ---- 17. K3, K2 and K6 against their plain versions, bit for bit --------
+    pol32 = tt.load_file(cbox_pol, res=32, spp=4)
+    t32 = pk.pack_tables(pk.bake_scene(pol32), pol32.camera, 16, dev, stokes=True)
+    assert t32.regen and t32.radius == 2 and t32.hdr_list[pk.HDR_MAX_DEPTH] == 16
+    plain32 = pk.stokes_film_trace_plain(t32, 0, 4)
+    errs = {}
+    for regen in (True, False):
+        got = pk.stokes_film_trace(t32, 0, 4, regen=regen)
+        share, errs[regen] = equal_stats(got, plain32)
+        print(f"stokes_film ({'K2 loop' if regen else 'per-sample loop'}) vs plain, cbox_pol "
+              f"32x32 x 4 samples, depth 16, gaussian: bit-equal share {share:.6f}, max |d| "
+              f"{errs[regen]:.3e}")
+        assert torch.equal(got, plain32), "the Stokes kernel differs from its plain version"
+
+    pol128 = tt.load_file(cbox_pol, res=128, spp=16)
+    t128 = pk.pack_tables(pk.bake_scene(pol128), pol128.camera, 16, dev, stokes=True)
+    seed1 = 100003  # the first chunk seed of render(seed=1)
+    pk.stokes_film_trace(t128, seed1, 16)  # warm-up
+    k2_ms, planes_k = cuda_ms(lambda: pk.stokes_film_trace(t128, seed1, 16, regen=True), reps=3)
+    k3_ms, planes_u = cuda_ms(lambda: pk.stokes_film_trace(t128, seed1, 16, regen=False), reps=3)
+    plain_ms, planes_p = cuda_ms(lambda: pk.stokes_film_trace_plain(t128, seed1, 16))
+    share, k2_err = equal_stats(planes_k, planes_p)
+    share_u, k3_err = equal_stats(planes_u, planes_p)
+    b_ms, b_by = stokes_bound(t128, planes_k, 16)
+    print(f"stokes_film vs plain, cbox_pol 128x128 x 16 samples (one launch, 326 planes): "
+          f"bit-equal share K2 loop {share:.6f} / per-sample loop {share_u:.6f}, max |d| "
+          f"{max(k2_err, k3_err):.3e}; kernel {k2_ms:.3f} ms (K2 loop), {k3_ms:.3f} ms "
+          f"(per-sample loop), plain {plain_ms:.1f} ms; bound {b_ms:.5f} ms ({b_by}); rays "
+          f"{planes_k[-1].sum().item():.0f}")
+    assert torch.equal(planes_k, planes_p) and torch.equal(planes_u, planes_p)
+
+    # one launch at the main path's own shape: render(seed=0)'s first chunk
+    pol256 = tt.load_file(cbox_pol)  # 256x256, 512 spp, gaussian, depth 16
+    t256 = pk.pack_tables(pk.bake_scene(pol256), pol256.camera, 16, dev, stokes=True)
+    assert t256.regen and t256.radius == 2 and t256.n_pix == 256 * 256
+    pk.stokes_film_trace(t256, 0, 64)  # warm-up
+    m2_ms, main_k = cuda_ms(lambda: pk.stokes_film_trace(t256, 0, 64, regen=True), reps=3)
+    m3_ms, main_u = cuda_ms(lambda: pk.stokes_film_trace(t256, 0, 64, regen=False), reps=3)
+    m_plain_ms, main_p = cuda_ms(lambda: pk.stokes_film_trace_plain(t256, 0, 64))
+    m_share, m2_err = equal_stats(main_k, main_p)
+    m_share_u, m3_err = equal_stats(main_u, main_p)
+    m_b_ms, m_b_by = stokes_bound(t256, main_k, 64)
+    print(f"stokes_film vs plain, cbox_pol 256x256 x 64 samples (one main-path launch): "
+          f"bit-equal share K2 loop {m_share:.6f} / per-sample loop {m_share_u:.6f} (128x128: "
+          f"{share:.6f} / {share_u:.6f}), max |d| {max(m2_err, m3_err):.3e}; kernel "
+          f"{m2_ms:.3f} ms (K2 loop), {m3_ms:.3f} ms (per-sample loop), plain "
+          f"{m_plain_ms:.1f} ms; bound {m_b_ms:.5f} ms ({m_b_by}); rays "
+          f"{main_k[-1].sum().item():.0f}")
+    assert torch.equal(main_k, main_p) and torch.equal(main_u, main_p), \
+        "the Stokes kernel differs from its plain version on a main-path launch"
+    del main_k, main_u, main_p
+
+    cb = tt.load_file(FIXTURE, res=128, spp=16).replace(max_depth=16)
+    tcb = pk.pack_tables(pk.bake_scene(cb), cb.camera, 16, dev)
+    assert tcb.regen and not tcb.stokes
+    a = pk.film_trace(tcb, 7, 16, regen=True)
+    b = pk.film_trace(tcb, 7, 16, regen=False)
+    p1 = pk.film_trace_plain(tcb, 7, 16)
+    r1_ms, _ = cuda_ms(lambda: pk.film_trace(tcb, 7, 16, regen=True), reps=3)
+    u1_ms, _ = cuda_ms(lambda: pk.film_trace(tcb, 7, 16, regen=False), reps=3)
+    print(f"path_film at depth 16, cbox 128x128 x 16 samples, tent: K2 loop bit-equal to the "
+          f"per-sample loop {bool(torch.equal(a, b))}, to the plain version "
+          f"{bool(torch.equal(a, p1))}; {r1_ms:.3f} ms (K2 loop) vs {u1_ms:.3f} ms")
+    assert torch.equal(a, b) and torch.equal(a, p1), "K1 in K2's loop differs"
+
+    s_k, s_p = pk.stokes_sample_trace(t32, 5), pk.stokes_sample_trace_plain(t32, 5)
+    assert torch.equal(s_k, s_p), "K6 differs from its plain version"
+    pk.stokes_sample_trace(t256, 3)  # warm-up
+    k6_ms, s256 = cuda_ms(lambda: pk.stokes_sample_trace(t256, 3), reps=10)
+    k6_plain_ms, s256p = cuda_ms(lambda: pk.stokes_sample_trace_plain(t256, 3))
+    _, k6_err = equal_stats(s256, s256p)
+    k6_b = stokes_bound(t256, s256, 1)
+    print(f"stokes_sample vs plain: bit-equal at 32x32 {bool(torch.equal(s_k, s_p))}, at "
+          f"256x256 {bool(torch.equal(s256, s256p))}; kernel {k6_ms:.4f} ms, plain "
+          f"{k6_plain_ms:.1f} ms (256x256, one sample, depth 16); bound {k6_b[0]:.5f} ms "
+          f"({k6_b[1]})")
+    assert torch.equal(s256, s256p)
+    S_film, r_film = pk.render_stokes_film(pol32, spp=4, seed=5, device=dev, spp_per_pass=1)
+    S_ps, r_ps = render_stokes_per_sample(pol32, 4, 5, dev)
+    share, ps_err = equal_stats(S_film, S_ps)
+    close = torch.isclose(S_film, S_ps, rtol=2e-5, atol=2e-6).float().mean().item()
+    print(f"K6 + splat_aligned vs K3 (spp_per_pass 1), cbox_pol 32x32 4 spp: within rtol "
+          f"2e-5 atol 2e-6 {close:.6f}, bit-equal share {share:.6f}, max |d| {ps_err:.3e}, "
+          f"rays {int(r_ps)} vs {int(r_film)}")
+    assert close == 1.0 and int(r_ps) == int(r_film)
+
+    dif = tt.load_file(FIXTURE, res=64, spp=4).replace(max_depth=16)
+    dif = dif.replace(bsdf_type=torch.full_like(dif.bsdf_type, TT.BSDF_DIFFUSE))
+    dif = dif.replace(camera=dif.camera.replace(filter_type=TT.FILTER_GAUSSIAN))
+    S_d, _ = pk.render_stokes_film(dif, spp=4, seed=4, device=dev)
+    L_d, _ = pk.render_film(dif, spp=4, seed=4, device=dev)
+    rel = ((S_d[..., 0, :] - L_d).abs().max() / L_d.mean()).item()
+    quv = S_d[..., 1:, :].abs().max().item()
+    print(f"diffuse-only Stokes-I vs path_film radiance, cbox 64x64 4 spp depth 16: max |d| / "
+          f"mean {rel:.3e} (limit 1e-5), max |Q, U, V| {quv:.1e}")
+    assert rel <= 1e-5 and quv == 0.0
+
+    # ---- 18. the Stokes gates ----------------------------------------------------
+    want = np.load(g.OUT)
+    spp_g = g.RENDER["spps"][0]
+    pg = tt.load_file(cbox_pol, res=g.RENDER["res"], spp=spp_g)
+    S = tt.render(pg, spp=spp_g, seed=g.RENDER["seed"], device="cuda", tile_rows=8)
+    rays = int(tt.render.last_ray_count)
+    gate = g.render_gate(S.cpu().numpy(), want[f"render_{spp_g}"])
+    want_rays = int(want[f"render_{spp_g}_rays"])
+    print(f"cbox_pol golden vs {os.path.basename(g.OUT)} (tpu_rt interpret mode, same "
+          f"streams), 32x32 {spp_g} spp: max I/Q/U 8x8 block-mean diff / mean I {gate:.3e} "
+          f"(limit {g.RENDER_LIMIT}); rays {rays} (golden {want_rays})")
+    assert bool(torch.isfinite(S).all()) and gate <= g.RENDER_LIMIT, "cbox_pol golden failed"
+    assert abs(rays - want_rays) <= 1e-3 * want_rays
+
+    st = tt.ScalarTransform4f
+    S1 = tt.render(tt.load_dict(polarizer_desc(st, [0.0], [0.0])), spp=16, seed=0).cpu().numpy()
+    c1 = S1[6:10, 6:10]
+    I1 = c1[..., 0, :].mean()
+    dop = np.sqrt(sum(c1[..., k, :].mean() ** 2 for k in (1, 2, 3))) / max(I1, 1e-9)
+    malus = {}
+    for delta in (0.0, 45.0, 90.0):
+        S2 = tt.render(tt.load_dict(polarizer_desc(st, [0.0, delta], [0.5, 0.0])), spp=16,
+                       seed=0).cpu().numpy()
+        malus[delta] = float(S2[6:10, 6:10, 0, :].mean())
+    print(f"polarizer wavefront on the card: one sheet I {I1:.5f} (0.5 +- 0.03), degree of "
+          f"polarization {dop:.5f} (> 0.95); two sheets at 0/45/90 deg: I "
+          f"{malus[0.0]:.5f} / {malus[45.0]:.5f} / {malus[90.0]:.5f} (Malus 0.5 / 0.25 / 0, "
+          f"+- 0.04)")
+    assert abs(I1 - 0.5) <= 0.03 and dop > 0.95
+    assert all(abs(v - 0.5 * np.cos(np.deg2rad(k)) ** 2) <= 0.04 for k, v in malus.items())
+
+    p64 = tt.load_file(cbox_pol, res=64, spp=64)
+    S = tt.render(p64, spp=64, seed=3)
+    img = tt.render(p64.replace(integrator=TT.INTEGRATOR_PATH), spp=64, seed=3)
+    rel = ((S[..., 0, :] - img).abs().mean() / img.mean()).item()
+    q_rms, u_rms = ((S[..., k, :] ** 2).mean().sqrt().item() for k in (1, 2))
+    print(f"cbox_pol Stokes-I vs the scalar render, 64x64 64 spp: mean |d| / mean {rel:.3e} "
+          f"(limit 0.05); Q RMS {q_rms:.5f}, U RMS {u_rms:.5f} (> 0.01)")
+    assert rel <= 0.05 and q_rms > 0.01 and u_rms > 0.01
+
+    # ---- 19. the main path: render(cbox_pol.xml) 256x256, 512 spp, depth 16 ------
+    med, lo, hi, nr, counts, S = timed_main_path(tt, pol256, 512)
+    print(f"launch counts over the cbox_pol main path: {counts}")
+    print(f"cbox_pol main path 256x256 512 spp gaussian depth 16 (K3 in K2's loop): median "
+          f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
+          f"{nr / (med / 1e3):.4e}")
+    check_counts(counts, stokes_film=5 * 8, regen=5 * 8)
+    assert S.shape == (256, 256, 4, 3) and bool(torch.isfinite(S).all())
+    assert S[..., 0, :].mean().item() > 0
+    main_counts = counts
+
+    def timed(scene, spp, n, **kw):
+        stokes_mod.render_stokes(scene, spp=spp, seed=1000, device="cuda", **kw)
+        times = [cuda_ms(lambda: stokes_mod.render_stokes(scene, spp=spp, seed=rep,
+                                                          device="cuda", **kw))[0]
+                 for rep in range(n)]
+        return statistics.median(times), min(times), max(times)
+
+    modes = {}
+    for depth in (16, 6):
+        sc = pol256 if depth == 16 else pol256.replace(max_depth=6)
+        for regen in (True, False):
+            modes[(depth, regen)] = timed(sc, 512, 5 if depth == 16 else 3, regen=regen)
+        r, u = modes[(depth, True)][0], modes[(depth, False)][0]
+        print(f"cbox_pol 256x256 512 spp at max_depth {depth}: K2 loop median {r:.3f} ms, "
+              f"per-sample loop {u:.3f} ms (per-sample / K2 = {u / r:.3f}; the auto rule takes "
+              f"K2's loop {'from' if depth >= pk.REGEN_AUTO_DEPTH else 'below'} depth 8)")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rep in range(3):
+            tt.render(pol256, spp=512, seed=50 + rep, device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total", None) or getattr(
+            evt, "self_cuda_time_total", 0.0)
+
+    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    kern = sum(dev_us(e) for e in prof.key_averages() if "path_film_kernel" in e.key) / 1e3
+    print(f"profile of 3 cbox_pol renders: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+          f"path_film_kernel {kern:.3f} ms ({kern / max(busy, 1e-9):.4f} of busy), the rest "
+          f"(deposit, develop) {busy - kern:.3f} ms ({(busy - kern) / max(busy, 1e-9):.4f}), "
+          f"idle share {1.0 - busy / wall_ms:.4f}")
+    for e in sorted(prof.key_averages(), key=dev_us, reverse=True)[:6]:
+        print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+    render_stokes_per_sample(pol256, 4, 0, dev)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ps_ms, (S_ps, nr_ps) = cuda_ms(lambda: render_stokes_per_sample(pol256, 512, 2, dev))
+    ps_counts = launch_counts()
+    print(f"launch counts over the per-sample route (K6 + splat_aligned): {ps_counts}")
+    print(f"cbox_pol 256x256 512 spp through K6 + splat_aligned: {ps_ms:.3f} ms, rays "
+          f"{int(nr_ps)}, rays/s {int(nr_ps) / (ps_ms / 1e3):.4e}")
+    check_counts(ps_counts, stokes_sample=512)
+    assert bool(torch.isfinite(S_ps).all())
+
+    # ---- 20. the polarizer wavefront: polarizers_const.xml 128x128, 10 spp -------
+    pz = tt.load_file(os.path.join(POL_DIR, "polarizers_const.xml"))
+    stokes_mod.render_stokes(pz, seed=1000, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times, rays = [], []
+    for rep in range(5):
+        ms, Sz = cuda_ms(lambda: stokes_mod.render_stokes(pz, seed=rep, device="cuda"))
+        times.append(ms)
+        rays.append(int(stokes_mod.render_stokes.last_ray_count))
+    counts = launch_counts()
+    zm = statistics.median(times)
+    zr = rays[times.index(zm)]
+    print(f"launch counts over the polarizer wavefront: {counts}")
+    print(f"polarizer wavefront polarizers_const.xml 128x128 10 spp: median {zm:.3f} ms (min "
+          f"{min(times):.3f}, max {max(times):.3f}, n 5), rays/render {zr}, rays/s "
+          f"{zr / (zm / 1e3):.4e}; I mean {Sz[..., 0, :].mean().item():.5f}, Q RMS "
+          f"{(Sz[..., 1, :] ** 2).mean().sqrt().item():.5f}")
+    check_counts(counts)
+    assert Sz.shape == (128, 128, 4, 3) and bool(torch.isfinite(Sz).all())
+    assert Sz[..., 0, :].mean().item() > 0.01
+
+    return dict(k3_launches=main_counts["stokes_film"], k2_launches=main_counts["regen"],
+                k6_launches=ps_counts["stokes_sample"],
+                k3_err=max(errs[False], k3_err, m3_err), k2_err=max(errs[True], k2_err, m2_err),
+                k6_err=k6_err, k3_ms=m3_ms, k2_ms=m2_ms, plain_ms=m_plain_ms, bound_ms=m_b_ms,
+                bound_by=m_b_by,
+                launch_128=dict(k3_ms=k3_ms, k2_ms=k2_ms, plain_ms=plain_ms, bound_ms=b_ms),
+                k1_depth16=dict(regen_ms=r1_ms, unrolled_ms=u1_ms),
+                k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_bound_ms=k6_b[0], k6_bound_by=k6_b[1])
 
 
 if __name__ == "__main__":

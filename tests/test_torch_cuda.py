@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (the film kernel with its clustered-mesh
-mode, the ultrasound acquisition kernel, the direct mesh kernel and the
-clustered mesh-intersect kernel) against their plain PyTorch versions, on
-the card, and the wavefront tracer's route through the last.
+mode, its Stokes modes K3 and K6 and K2's regeneration loop, the
+ultrasound acquisition kernel, the direct mesh kernel and the clustered
+mesh-intersect kernel) against their plain PyTorch versions, on the card,
+and the wavefront tracers' routes through the last.
 Every test here is marked ``cuda`` and skips without a GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -17,7 +18,9 @@ of the echo time moves sin(phase) by up to about 5e-4), time-sample
 indices and receive elements equal wherever both pressures are non-zero;
 for the direct mesh kernel at least 99.9% of rays within rtol 1e-4 /
 atol 1e-6 and the same rays cast; the mesh-intersect kernel bit-equal
-(t, prim, u, v), and its one call bit-equal to the chained segments.
+(t, prim, u, v), and its one call bit-equal to the chained segments; the
+Stokes kernels K3 and K6 and K2's loop bit-equal to their plain versions,
+and K2's loop bit-equal to the per-sample loop for K1 and K3.
 """
 
 import os
@@ -33,7 +36,7 @@ from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 from tpu_rt_torch.sensor import camera
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
 from tpu_rt_torch.us.pipeline import us_render
-from torch_port_scenes import mixed_desc, usmain_desc
+from torch_port_scenes import mixed_desc, polarizer_desc, usmain_desc
 
 torch.set_num_threads(1)
 
@@ -43,6 +46,7 @@ SIMPLE = os.path.join(MESH, "simple.xml")
 MESH_GI = os.path.join(MESH, "mesh_gi.xml")
 BIG_GI = os.path.join(MESH, "mesh_big_gi.xml")
 SIMPLE_BIG = os.path.join(MESH, "simple_big.xml")
+CBOX_POL = os.path.join(os.path.dirname(__file__), "assets", "cbox_pol", "cbox_pol.xml")
 
 
 def _need_cuda():
@@ -321,3 +325,104 @@ def test_wavefront_path_trace_on_cuda_matches_the_cpu():
     close = torch.isclose(Lg.cpu(), Lc, rtol=1e-4, atol=1e-6).all(-1).float().mean().item()
     assert close >= 0.99, close
     assert abs(int(ng) - int(nc)) <= 0.01 * int(nc)
+
+
+def _film_tables(path, res, depth, filter_type, stokes):
+    st = tpu_rt_torch.load_file(path, res=res, spp=1)
+    if depth is not None:
+        st = st.replace(max_depth=depth)
+    st = st.replace(camera=st.camera.replace(filter_type=filter_type))
+    return path_kernel.pack_tables(path_kernel.bake_scene(st), st.camera, 16, "cuda",
+                                   stokes=stokes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_type", [0, 1, 2], ids=["box", "tent", "gaussian"])
+@pytest.mark.parametrize("depth,regen", [(3, False), (None, True), (None, False)],
+                         ids=["depth3", "depth16_regen", "depth16_unrolled"])
+def test_stokes_kernel_is_bit_equal_to_plain_version(filter_type, depth, regen):
+    """K3, and K2's loop around it, on cbox_pol (depth 16 is its own)."""
+    _need_cuda()
+    tables = _film_tables(CBOX_POL, 24, depth, filter_type, True)
+    before = (path_kernel.stokes_film_trace.launches,
+              path_kernel.stokes_film_trace.regen_launches)
+    got = path_kernel.stokes_film_trace(tables, 5, 3, regen=regen)
+    torch.cuda.synchronize()
+    assert (path_kernel.stokes_film_trace.launches,
+            path_kernel.stokes_film_trace.regen_launches) == (before[0] + 1,
+                                                              before[1] + int(regen))
+    want = path_kernel.stokes_film_trace_plain(tables, 5, 3)
+    assert got.shape == want.shape == (tables.n_acc + 1, 24 * 24)
+    assert torch.equal(got, want)
+    assert got[1:12].abs().max().item() > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_type", [0, 1, 2], ids=["box", "tent", "gaussian"])
+@pytest.mark.parametrize("stokes", [False, True], ids=["K1", "K3"])
+def test_regen_loop_is_bit_equal_to_the_per_sample_loop(filter_type, stokes):
+    """K2's loop and the per-sample loop give the same planes, bit for bit,
+    at depth 16 (K1 on the cbox fixture, K3 on cbox_pol)."""
+    _need_cuda()
+    tables = _film_tables(CBOX_POL if stokes else CBOX, 48, 16, filter_type, stokes)
+    trace_fn = path_kernel.stokes_film_trace if stokes else path_kernel.film_trace
+    a = trace_fn(tables, -7, 4, regen=True)
+    b = trace_fn(tables, -7, 4, regen=False)
+    assert torch.equal(a, b)
+    assert a[-1].sum().item() > 4 * 48 * 48
+
+
+@pytest.mark.cuda
+def test_scalar_depth_16_kernel_is_bit_equal_to_plain_version():
+    """K1 in K2's loop, which depth 16 switches on, against the plain version."""
+    _need_cuda()
+    tables = _film_tables(CBOX, 32, 16, 1, False)
+    assert tables.regen
+    before = path_kernel.film_trace.regen_launches
+    got = path_kernel.film_trace(tables, 11, 2)
+    assert path_kernel.film_trace.regen_launches == before + 1
+    assert torch.equal(got, path_kernel.film_trace_plain(tables, 11, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [3, None], ids=["depth3", "depth16"])
+def test_stokes_sample_kernel_is_bit_equal_to_plain_version(depth):
+    """K6 on cbox_pol; and K3's one-sample box planes are its values."""
+    _need_cuda()
+    tables = _film_tables(CBOX_POL, 32, depth, 0, True)
+    before = path_kernel.stokes_sample_trace.launches
+    got = path_kernel.stokes_sample_trace(tables, 123)
+    torch.cuda.synchronize()
+    assert path_kernel.stokes_sample_trace.launches == before + 1
+    assert torch.equal(got, path_kernel.stokes_sample_trace_plain(tables, 123))
+    film = path_kernel.stokes_film_trace(tables, 123, 1)
+    assert torch.equal(film[:12], got[:12]) and torch.equal(film[13], got[12])
+
+
+@pytest.mark.cuda
+def test_render_stokes_on_cuda_goes_through_the_stokes_kernel():
+    _need_cuda()
+    st = tpu_rt_torch.load_file(CBOX_POL, res=32, spp=10)
+    k3 = path_kernel.stokes_film_trace
+    before = (k3.launches, k3.regen_launches, path_kernel.film_trace.launches)
+    S = tpu_rt_torch.render(st, seed=1, spp_per_pass=4)
+    assert (k3.launches, k3.regen_launches, path_kernel.film_trace.launches) == (
+        before[0] + 3, before[1] + 3, before[2])  # 4 + 4 + 2 samples, K2's loop
+    assert S.device.type == "cuda" and S.shape == (32, 32, 4, 3)
+    assert bool(torch.isfinite(S).all()) and S[..., 0, :].mean().item() > 0
+    rays = tpu_rt_torch.render.last_ray_count
+    assert rays.device.type == "cuda" and int(rays) > 32 * 32 * 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [0.0, 45.0, 90.0])
+def test_polarizer_wavefront_on_cuda_follows_malus(delta):
+    _need_cuda()
+    st = tpu_rt_torch.load_dict(polarizer_desc(tpu_rt_torch.ScalarTransform4f, [0.0, delta],
+                                               [0.5, 0.0]))
+    before = path_kernel.stokes_film_trace.launches
+    S = tpu_rt_torch.render(st, spp=16, seed=0)
+    assert path_kernel.stokes_film_trace.launches == before
+    assert S.device.type == "cuda" and S.shape == (16, 16, 4, 3)
+    I = S[6:10, 6:10, 0, :].mean().item()
+    assert abs(I - 0.5 * np.cos(np.deg2rad(delta)) ** 2) <= 0.04

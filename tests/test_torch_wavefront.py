@@ -139,9 +139,11 @@ def test_direct_projective_outside_the_kernels_scope_renders_as_direct():
 
 
 def test_stokes_still_raises_naming_A6():
+    """A6 has landed: a Stokes scene no longer raises but renders its
+    (H, W, 4, 3) Stokes image, through the Stokes film kernel here."""
     st = tpu_rt_torch.load_file(CBOX, res=8, spp=1).replace(integrator=TT.INTEGRATOR_STOKES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        tpu_rt_torch.render(st, device="cpu")
+    S = tpu_rt_torch.render(st, device="cpu")
+    assert S.shape == (8, 8, 4, 3) and bool(torch.isfinite(S).all()) and S[..., 0, :].mean() > 0
 
 
 def test_render_is_reproducible_per_seed():

@@ -1,5 +1,5 @@
-"""Scene descriptions shared by the tpu_rt_torch tests (no JAX import, so
-the card-side tests can use them)."""
+"""Scene descriptions and helpers shared by the tpu_rt_torch tests (no JAX
+import, so the card-side tests and chip_smoke.py can use them)."""
 
 import numpy as np
 
@@ -132,3 +132,65 @@ def shapes_desc(st):
                "intensity": np.array([10.0, 8.0, 6.0])},
         "env": {"type": "constant", "radiance": np.array([0.2, 0.2, 0.3])},
     }
+
+
+def polarizer_desc(st, angles_deg, z_positions, res=16, theta_props=None):
+    """tests/test_stokes.py::_polarizer_scene's dict: polarizer sheets
+    (3 x 3 rectangles, each rotated about the view axis by its angle, or
+    given a ``theta`` property) in front of a camera that looks down +z at
+    a constant white environment; stokes integrator, box filter, 16 spp."""
+    d = {
+        "type": "scene",
+        "integrator": {"type": "stokes"},
+        "sensor": {
+            "type": "perspective",
+            "fov": 30,
+            "to_world": st().look_at(origin=[0, 0, -4], target=[0, 0, 0], up=[0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": res, "height": res,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": 16},
+        },
+        "env": {"type": "constant", "radiance": np.ones(3)},
+    }
+    for i, (ang, z) in enumerate(zip(angles_deg, z_positions)):
+        bsdf = {"type": "polarizer"}
+        if theta_props is not None:
+            bsdf["theta"] = theta_props[i]
+        d[f"pol{i}"] = {
+            "type": "rectangle",
+            "to_world": st().translate([0, 0, z]) @ st().rotate([0, 0, 1], ang)
+            @ st().scale([3.0, 3.0, 1.0]),
+            "bsdf": bsdf,
+        }
+    return d
+
+
+def render_stokes_per_sample(scene, spp, seed, device, tile_rows=16):
+    """The JAX package's per-sample Stokes route (render_stokes_pallas:
+    2257-2295), the reference that K3's film planes are held to: K6 once a
+    sample, its values splatted by ``sensor/film.py::splat_aligned``, then
+    developed.  Sample j draws the stream of seed * 100003 + j, as in the
+    film route.  Returns the (H, W, 4, 3) Stokes image and the ray count
+    (0-d int64)."""
+    import torch
+
+    from tpu_rt_torch.ops import path_kernel as pk
+    from tpu_rt_torch.sensor import film
+
+    c = scene.camera
+    H, W = c.height, c.width
+    tables = pk.pack_tables(pk.bake_scene(scene), c, tile_rows, device, stokes=True)
+    fv = torch.zeros((H, W, 12), dtype=torch.float32, device=device)
+    fw = torch.zeros((H, W), dtype=torch.float32, device=device)
+    n_rays = torch.zeros((), dtype=torch.int64, device=device)
+    seed0 = pk._wrap_i32(seed * 100003)
+    for j in range(spp):
+        planes = pk.stokes_sample_trace(tables, pk._wrap_i32(seed0 + j))
+        S, jitter, n = pk.sample_planes_split(planes)
+        S = S.reshape(-1, 12)
+        ok = torch.isfinite(S).all(-1)
+        fv, fw = film.splat_aligned(fv, fw, jitter.reshape(1, H, W, 2),
+                                    torch.where(ok[:, None], S, 0.0).reshape(1, H, W, 12),
+                                    ok.reshape(1, H, W), c.filter_type)
+        n_rays += n
+    return film.develop(fv, fw).reshape(H, W, 4, 3), n_rays

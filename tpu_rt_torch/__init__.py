@@ -5,11 +5,13 @@ port mirrors its layout (``scene/``, ``sensor/``, ``integrator/``, ``ops/``,
 ``us/``) and its public API: ``load_file`` / ``load_dict`` build a scene,
 ``render`` renders it, ``us_render`` runs the ultrasound acquisition,
 beamforming and B-mode display.  On an NVIDIA GPU the path-tracing bounce
-loop with its film accumulation, the ultrasound acquisition bounce loop
-and direct lighting on a mesh each run in one hand-written CUDA kernel
+loop with its film accumulation (scalar or polarized, per-sample or in a
+regeneration loop), the ultrasound acquisition bounce loop and direct
+lighting on a mesh each run in hand-written CUDA kernels
 (``ops/csrc/path_film.cu``, ``us_acq.cu``, ``mesh_direct.cu``); scenes
-outside their scope render through the wavefront path tracer
-(``integrator/path.py``), whose mesh queries run in a fourth
+outside their scope render through the wavefront path tracers
+(``integrator/path.py``, and ``integrator/stokes.py`` for polarized
+transport through polarizers), whose mesh queries run in a fourth
 (``mesh_isect.cu``).  On the CPU the kernels' plain PyTorch versions run.
 
 This package imports torch, numpy and the standard library, never jax.

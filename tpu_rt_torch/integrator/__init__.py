@@ -12,7 +12,10 @@ clustered mesh-intersect kernel).  An ultrasound scene returns the B-mode
 image of ``us.pipeline.us_render``, whose acquisition runs through the
 ultrasound kernel (tpu_rt's ``render`` sends it through its XLA tracer
 instead: both estimate the same integrals with different random streams).
-A Stokes scene raises ``NotImplementedError`` naming ROADMAP.md A6.
+A ``stokes`` scene returns the (H, W, 4, 3) Stokes image of
+``integrator/stokes.py::render_stokes``: through the Stokes film kernel
+K3 when the scene is in its scope, else through the Stokes wavefront
+(polarizers among them), as ``tpu_rt/integrator/stokes.py:163-172`` does.
 """
 
 from __future__ import annotations
@@ -28,11 +31,6 @@ from tpu_rt_torch.scene.types import (
     INTEGRATOR_ULTRASOUND,
     Scene,
 )
-
-_LATER = {
-    INTEGRATOR_STOKES: "A6 (polarized transport)",
-}
-
 
 def _check_device(device):
     device = torch.device(device)
@@ -62,6 +60,10 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     per pixel per wave.  An hdrfilm with ``pixel_format="luminance"``
     gives (H, W, 1).
 
+    A Stokes scene gives the (H, W, 4, 3) Stokes image (I, Q, U, V by
+    rgb) of ``render_stokes``, its in-scope form through the Stokes film
+    kernel with the same seeding as the film kernel.
+
     An ultrasound scene gives the B-mode display image [Nz, Nx] of
     ``us_render(scene, seed, device=device, **us_kwargs)`` (e.g.
     ``rays_per_pair``, ``x_bounds``, ``z_bounds``)."""
@@ -74,6 +76,13 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
         return us_render(scene, seed=seed, device=device, **us_kwargs)[0]
     if us_kwargs:
         raise TypeError(f"render got unexpected arguments {sorted(us_kwargs)}")
+    if scene.integrator == INTEGRATOR_STOKES:
+        from tpu_rt_torch.integrator.stokes import render_stokes
+
+        img = render_stokes(scene, spp=spp, seed=seed, device=device,
+                            spp_per_pass=spp_per_pass, tile_rows=tile_rows)
+        render.last_ray_count = render_stokes.last_ray_count
+        return img
     if scene.integrator == INTEGRATOR_DIRECT_PROJECTIVE:
         # its primal image is the direct integrator's
         scene = scene.replace(integrator=INTEGRATOR_DIRECT)
@@ -90,7 +99,7 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     if scene.integrator != INTEGRATOR_PATH:
         raise NotImplementedError(
             f"integrator {scene.integrator} is not ported to tpu_rt_torch yet "
-            f"(ROADMAP.md {_LATER.get(scene.integrator, 'A4')})")
+            f"(ROADMAP.md A4)")
     baked = path_kernel.bake_scene(scene)
     if baked is None:
         return _render_wavefront(scene, spp, seed, device)

@@ -1,28 +1,62 @@
-// Film path-tracing kernel for NVIDIA Hopper (sm_90a).
+// Film path-tracing kernels for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel tpu_rt/ops/pallas_path.py::pallas_film_trace,
-// whose body is _build_kernel(film=...) in its unrolled form: per pixel,
-// for k samples, SplitMix32 jitter, a camera ray from the near plane, then
-// up to max_depth bounces (closest-hit sweep over every prim, emitter hit
-// with MIS, one NEE light sample with an any-hit shadow ray, BSDF
-// sampling, Russian roulette), accumulated into reconstruction-filter
-// planes (r, g, b, w per filter offset) plus a ray count.
+// Replaces these TPU kernels of tpu_rt/ops/pallas_path.py, all bodies of
+// _build_kernel:
+//   K1  pallas_film_trace, film mode, unrolled form: per pixel, for k
+//       samples, SplitMix32 jitter, a camera ray from the near plane, then
+//       up to max_depth bounces (closest-hit sweep over every prim,
+//       emitter hit with MIS, one NEE light sample with an any-hit shadow
+//       ray, BSDF sampling, Russian roulette), accumulated into
+//       reconstruction-filter planes (r, g, b, w per filter offset) plus a
+//       ray count;
+//   K3  the same call with stokes=...: full Mueller transport, 13 planes
+//       per offset (12 Stokes values and the weight);
+//   K2  the same call with regen=True (_regen_loop): K1 or K3 with the
+//       sample and depth loops flattened into one loop, a lane restarting
+//       on its next sample as soon as its path ends;
+//   K6  pallas_stokes_trace: one polarized sample a pixel, its 12 Stokes
+//       values, ray count and jitter.
+// One file, one bounce: bounce<Stokes> below serves all four, selected by
+// template flags, so no second copy of the transport exists.
 //
-// Design.  One thread per pixel index.  Each thread loops over its
-// samples and runs a per-thread depth loop that breaks once the path is
-// dead; that equals the TPU's unrolled form, where dead lanes add exact
-// zeros and their later random draws are never read.  The filter
-// accumulators (4, 36 or 100 floats + the ray count) live in registers
-// (the filter radius is a template parameter) and each thread writes its
-// column of the (n_acc + 1, H*W) output once at the end.  The scene is not
-// compiled into the code as the TPU's Python-float constants were: the
-// host packs prims, BSDFs, emitters, point lights, environment and camera
-// into one float table plus an int header (layout in path_kernel.py), and
-// each block stages the table in shared memory.  The random streams are
-// the JAX kernel's SplitMix32 streams bit for bit, keyed on
-// (seed + sample, pixel // tile_lanes, pixel % tile_lanes).  The RNG, the
-// shading frame and the prim sweep live in common.cuh, shared with the
-// ultrasound kernel us_acq.cu.
+// Design.  One thread per pixel index.  The per-sample form runs a depth
+// loop that breaks once the path is dead; that equals the TPU's unrolled
+// form, where dead lanes add exact zeros and their later random draws are
+// never read.  K2's form steps one bounce an iteration at the lane's own
+// depth and, when the path ends (dead, roulette, depth cap), splats the
+// sample, re-keys the RNG to seed + (sample index) and starts the next
+// one: a warp then waits for its longest per-lane total instead of, at
+// every sample, its longest path.  Each lane meets its samples in order
+// and every accumulator is added in the same order, so K2's planes are
+// bit-equal to the per-sample form's.  The filter accumulators live in the
+// thread (the filter radius is a template parameter): 4, 36 or 100 floats
+// for K1, 13, 117 or 325 for K3, plus the ray count.  K3's gaussian
+// footprint does not fit in registers; the compiler keeps what does not in
+// the thread's local memory (cached, and private to the thread, so the add
+// order stays), and ptxas reports the spill.  Each thread writes its column
+// of the (n_acc + 1, H*W) output once at the end.
+//
+// The scene is not compiled into the code as the TPU's Python-float
+// constants were: the host packs prims, BSDFs, emitters, point lights,
+// environment and camera into one float table plus an int header (layout
+// in path_kernel.py), and each block stages the table in shared memory.
+// The random streams are the JAX kernel's SplitMix32 streams bit for bit,
+// keyed on (seed + sample, pixel // tile_lanes, pixel % tile_lanes).  The
+// RNG, the shading frame and the prim sweep live in common.cuh, shared with
+// the ultrasound kernel us_acq.cu.
+//
+// Polarized transport (pallas_path.py:1024-1039, 1194-1233, 1439-1477,
+// 1616-1709).  A Stokes lane carries T (3, 4, 4), the camera-side Mueller
+// matrix per RGB channel, the Stokes basis and S (4, 3).  Every emission it
+// meets adds Le * T[:, :, 0] (emitters are unpolarized); the kernel's NEE
+// is diffuse-only and depolarizing, so its contribution is T[:, 0] * w.
+// Each bounce chains T <- T R(phi) M with M the interaction's sparse
+// Mueller matrix per channel (m00, m01, m10, m11, mc, ms), M00-normalized
+// to the scalar sampling weight; cos 2 phi and sin 2 phi come from dot and
+// cross products, with no trig.  The scalar throughput keeps running: it
+// drives roulette.  Fresnel amplitudes of conductors (and of dielectric
+// reflection, which covers total internal reflection) are complex,
+// spelled out in (re, im) pairs.
 //
 // Clustered-mesh mode (pallas_path.py::_mesh_closest / _mesh_anyhit),
 // selected by the header's mesh cluster count, not by another build: a
@@ -36,13 +70,17 @@
 // also sweeps the mesh.  A dead path never reaches the sweeps, so the TPU's
 // collapsed bounds for dead lanes have no counterpart.
 //
-// What bounds it.  Per ray the kernel reads a few KB of tables from shared
-// memory and writes nothing until the end, so it is bound by FP32 ALU work
-// (the prim sweep, shading, the special functions) and by warp divergence:
-// neighbouring pixels take different BSDF branches and die at different
-// depths.  This first form does nothing about divergence beyond keeping
-// the state in registers; the wavefront-vs-megakernel question and
-// occupancy tuning are left to later work.
+// What bounds them.  Per ray the kernels read a few KB of tables from
+// shared memory and write nothing until the end, so K1 is bound by FP32
+// ALU work (the prim sweep, shading, the special functions) and by warp
+// divergence: neighbouring pixels take different BSDF branches and die at
+// different depths.  K3 adds the Mueller chain (about 230 operations a
+// bounce) and, in its gaussian form, the traffic of 325 accumulators in
+// local memory a sample.  K2 removes the per-sample wait at the depth loop;
+// it does nothing about divergence inside a bounce.  K6 writes 15 planes a
+// sample and is bound like K3's box form.  Occupancy tuning and a
+// wavefront or persistent-thread design across pixels are left to later
+// work.
 //
 // Arithmetic follows the plain PyTorch version operation by operation
 // (same association order, IEEE division and square root, no fast math);
@@ -57,16 +95,19 @@ enum {
   HDR_N_PRIMS = 0, HDR_N_AREA = 1, HDR_N_LIGHTS = 2, HDR_MAX_DEPTH = 3,
   HDR_RR_DEPTH = 4, HDR_HIDE_EMITTERS = 5, HDR_HAS_ENV = 6, HDR_HAS_FAR = 7,
   HDR_W = 8, HDR_H = 9, HDR_TILE_LANES = 10, HDR_OFF_PRIM = 11,
-  HDR_OFF_BSDF = 12, HDR_OFF_EM = 13, HDR_OFF_PT = 14, HDR_MESH_C = 15, HDR_LEN = 16
-};
+  HDR_OFF_BSDF = 12, HDR_OFF_EM = 13, HDR_OFF_PT = 14, HDR_MESH_C = 15,
+  HDR_STOKES = 16, HDR_REGEN = 17, HDR_LEN = 18
+};  // HDR_STOKES and HDR_REGEN are the host's: mode and regen are launch arguments
 // float table: global block
 enum {
   G_ENV = 0, G_INV_NL = 3, G_NL = 5, G_NL_M1 = 6, G_R = 8,
   G_ORG = 17, G_TFX = 20, G_TFY = 21, G_INVW = 22, G_INVH = 23, G_NEAR = 24,
-  G_FAR_NEAR = 25, G_GAUSS_TAIL = 26, G_MESH_BSDF = 27
+  G_FAR_NEAR = 25, G_GAUSS_TAIL = 26, G_MESH_BSDF = 27, G_CAM_X = 28
 };
 enum { BSDF_STRIDE = 16, EM_STRIDE = 32, PT_STRIDE = 8 };
 enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2 };
+// launch modes (path_kernel.py _MODE_*)
+enum { MODE_FILM = 0, MODE_STOKES_FILM = 1, MODE_STOKES_SAMPLE = 2 };
 constexpr int kMaxTableFloats = 12 * 1024;
 constexpr int kThreads = 128;
 
@@ -161,9 +202,111 @@ __device__ __forceinline__ float fres_cond(float cos_f, float eta, float k,
   return mirror ? 1.0f : 0.5f * (rs + rp);
 }
 
-// One path sample of pixel idx: radiance L and the rays it traced.
-__device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
-                           uint32_t& rng, V3& L, float& ray_count) {
+// ---- polarized transport (path_kernel.py _perp_basis ... _mueller_chain) ----
+
+// ref projected perpendicular to the unit w and normalized; the
+// deterministic horizontal basis where that is degenerate.
+__device__ V3 perp_basis(V3 w, V3 ref) {
+  float dp = dot(w, ref);
+  V3 proj = {ref.x - w.x * dp, ref.y - w.y * dp, ref.z - w.z * dp};
+  float ln2 = dot(proj, proj);
+  if (ln2 > 1e-12f) return scale(proj, 1.0f / sqrtf(fmaxf(ln2, 1e-24f)));
+  float ax = fabsf(w.x) > 0.9f ? 0.0f : 1.0f;
+  return normalize(cross({ax, 1.0f - ax, 0.0f}, w));
+}
+
+// (ar + i ai) / (br + i bi)
+__device__ __forceinline__ void cdiv(float ar, float ai, float br, float bi, float& re,
+                                     float& im) {
+  float den = fmaxf(br * br + bi * bi, 1e-30f);
+  re = (ar * br + ai * bi) / den;
+  im = (ai * br - ar * bi) / den;
+}
+
+// Fresnel reflection's polarization terms for the complex relative IOR
+// e_re + i e_im at |cos_f|: a = (|rs|^2 + |rp|^2) / 2, b = (|rs|^2 -
+// |rp|^2) / 2, c + i s = rs conj(rp).
+__device__ void fres_pol(float cos_f, float e_re, float e_im, float& a, float& b, float& c,
+                         float& s) {
+  float cf = fabsf(cos_f);
+  float sin2 = fmaxf(1.0f - cf * cf, 0.0f);
+  float zr = e_re * e_re - e_im * e_im - sin2;
+  float zi = 2.0f * e_re * e_im;
+  float mag = sqrtf(fmaxf(zr * zr + zi * zi, 0.0f));
+  float u = sqrtf(fmaxf(0.5f * (mag + zr), 0.0f));
+  float v = sqrtf(fmaxf(0.5f * (mag - zr), 0.0f));
+  float rs_r, rs_i, rp_r, rp_i;
+  cdiv(cf - u, -v, cf + u, v, rs_r, rs_i);
+  float e2r = (zr + sin2) * cf;
+  float e2i = zi * cf;
+  cdiv(e2r - u, e2i - v, e2r + u, e2i + v, rp_r, rp_i);
+  float Rs = rs_r * rs_r + rs_i * rs_i;
+  float Rp = rp_r * rp_r + rp_i * rp_i;
+  a = 0.5f * (Rs + Rp);
+  b = 0.5f * (Rs - Rp);
+  c = rs_r * rp_r + rs_i * rp_i;
+  s = rs_i * rp_r - rs_r * rp_i;
+}
+
+// The Stokes state of a lane.
+struct Pol {
+  float T[3][4][4];  // camera-side Mueller matrix per channel
+  float S[4][3];     // Stokes radiance, (I, Q, U, V) x rgb
+  V3 basis;          // carried Stokes basis
+};
+
+// S += Le * T[:, :, 0] for unpolarized emission of weight w[ch].
+__device__ __forceinline__ void add_emission(Pol& q, const float w[3]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) q.S[i][ch] = q.S[i][ch] + q.T[ch][i][0] * w[ch];
+  }
+}
+
+// T <- T R(phi) M, M per channel (m00, m01, m10, m11, mc, ms); phi turns
+// the carried basis onto the scattering plane's s axis around pB.
+__device__ void mueller_chain(Pol& q, V3 pB, V3 pA, float M6[3][6]) {
+  V3 s_raw = cross(pA, pB);
+  float ln2 = dot(s_raw, s_raw);
+  bool degen = ln2 < 1e-12f;
+  V3 s_axis = degen ? perp_basis(pB, q.basis)
+                    : scale(s_raw, 1.0f / sqrtf(fmaxf(ln2, 1e-24f)));
+  float cs = dot(s_axis, q.basis);
+  float sn = dot(cross(s_axis, q.basis), pB);
+  float n2 = fmaxf(cs * cs + sn * sn, 1e-20f);
+  float C2 = (cs * cs - sn * sn) / n2;
+  float S2 = 2.0f * cs * sn / n2;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float* m = &M6[ch][0];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* t = q.T[ch][i];
+      float t0 = t[0], t1 = t[1], t2 = t[2], t3 = t[3];
+      float rot_a = t1 * C2 - t2 * S2;
+      float rot_b = t1 * S2 + t2 * C2;
+      t[0] = t0 * m[0] + rot_a * m[2];
+      t[1] = t0 * m[1] + rot_a * m[3];
+      t[2] = rot_b * m[4] - t3 * m[5];
+      t[3] = rot_b * m[5] + t3 * m[4];
+    }
+  }
+  q.basis = degen ? perp_basis(pA, s_axis) : s_axis;
+}
+
+// The scalar state of one path sample.
+struct Path {
+  V3 o, d, thr, L;
+  float prev_pdf, eta_scale, ray_count;
+  bool prev_delta;
+};
+
+// A fresh sample of pixel idx with in-pixel jitter (jx, jy): the camera
+// ray from the near plane, and for a Stokes lane T = I, S = 0 and the
+// camera's x axis projected perpendicular to the ray as the basis.
+template <bool kStokes>
+__device__ void start_sample(const Scene& sc, int idx, float jx, float jy, Path& p, Pol& q) {
   const float* g = sc.g;
   const float* R = g + G_R;  // rows of to_world[:3, :3]
   int py_i = idx / sc.W;
@@ -173,207 +316,320 @@ __device__ void trace_path(const Scene& sc, int idx, float jx, float jy,
   float v_img = (py + jy) * g[G_INVH];
   float cx = (2.0f * u_img - 1.0f) * g[G_TFX];
   float cy = (1.0f - 2.0f * v_img) * g[G_TFY];
-  V3 d = normalize({R[0] * cx + R[1] * cy + R[2], R[3] * cx + R[4] * cy + R[5],
-                    R[6] * cx + R[7] * cy + R[8]});
+  p.d = normalize({R[0] * cx + R[1] * cy + R[2], R[3] * cx + R[4] * cy + R[5],
+                   R[6] * cx + R[7] * cy + R[8]});
   float t_near = g[G_NEAR] * sqrtf(cx * cx + cy * cy + 1.0f);
-  V3 o = {g[G_ORG] + t_near * d.x, g[G_ORG + 1] + t_near * d.y,
-          g[G_ORG + 2] + t_near * d.z};
-
-  V3 thr = {1.0f, 1.0f, 1.0f};
-  L = {0.0f, 0.0f, 0.0f};
-  ray_count = 0.0f;
-  float prev_pdf = 1.0f, eta_scale = 1.0f;
-  bool prev_delta = true;
-
-  for (int depth = 0; depth < sc.max_depth; ++depth) {
-    float t;
-    V3 n = {0.0f, 0.0f, 0.0f};
-    int prim = closest_hit(sc.prims, sc.n_prims, o, d, t, n);
-    V3 ng = n;  // the geometric normal, which the spawn offsets follow
-    if (sc.mesh_c > 0) mesh_closest(sc, o, d, t, prim, n, ng);
-    bool hit = prim >= 0;
-    if (sc.has_far && depth == 0) {
-      // the origin sits at the near plane: the clip length left is
-      // (far - near) * |d_cam|, |d_cam| = 1 / (d . forward)
-      float dz = d.x * R[2] + d.y * R[5] + d.z * R[8];
-      hit = hit && t <= g[G_FAR_NEAR] / fmaxf(dz, 1e-9f);
-    }
-    ray_count += 1.0f;
-    bool show_em = !(depth == 0 && sc.hide_emitters);
-    if (!hit) {
-      if (sc.has_env && show_em) {  // BSDF-sampled constant environment
-        L.x = L.x + thr.x * g[G_ENV];
-        L.y = L.y + thr.y * g[G_ENV + 1];
-        L.z = L.z + thr.z * g[G_ENV + 2];
-      }
-      break;
-    }
-    bool on_mesh = prim == sc.n_prims;
-    const float* prec = sc.prims + prim * PRIM_STRIDE;
-    V3 p = {o.x + d.x * t, o.y + d.y * t, o.z + d.z * t};
-    V3 wi = {-d.x, -d.y, -d.z};
-    float cos_l = dot(n, wi);
-
-    // ---- emitter hit + MIS ----
-    int em = on_mesh ? -1 : (int)prec[2];
-    if (show_em && em >= 0 && cos_l > 0.0f) {
-      const float* er = sc.ems + em * EM_STRIDE;
-      float pdf_light = er[3] * t * t / fmaxf(cos_l, 1e-6f) * g[G_INV_NL];
-      float w_b = prev_delta ? 1.0f : mis(prev_pdf, pdf_light);
-      L.x = L.x + thr.x * er[0] * w_b;
-      L.y = L.y + thr.y * er[1] * w_b;
-      L.z = L.z + thr.z * er[2] * w_b;
-    }
-
-    const float* b = sc.bsdfs + (on_mesh ? sc.mesh_bsdf : (int)prec[1]) * BSDF_STRIDE;
-    int btype = (int)b[0];
-    V3 s_fr, t_fr;
-    frame(n, s_fr, t_fr);
-    V3 wi_l = {dot(wi, s_fr), dot(wi, t_fr), dot(wi, n)};
-    float cos_i = wi_l.z;
-    float u[9];
+  p.o = {g[G_ORG] + t_near * p.d.x, g[G_ORG + 1] + t_near * p.d.y,
+         g[G_ORG + 2] + t_near * p.d.z};
+  p.thr = {1.0f, 1.0f, 1.0f};
+  p.L = {0.0f, 0.0f, 0.0f};
+  p.ray_count = 0.0f;
+  p.prev_pdf = 1.0f;
+  p.eta_scale = 1.0f;
+  p.prev_delta = true;
+  if constexpr (kStokes) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) u[k] = rng_next(rng);
-    bool is_diffuse = btype == BSDF_DIFFUSE;
-    V3 refl = {b[1], b[2], b[3]};
+    for (int ch = 0; ch < 3; ++ch) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) q.T[ch][i][j] = i == j ? 1.0f : 0.0f;
+        q.S[i][ch] = 0.0f;
+      }
+    }
+    q.basis = perp_basis(scale(p.d, -1.0f), {g[G_CAM_X], g[G_CAM_X + 1], g[G_CAM_X + 2]});
+  }
+}
 
-    // ---- NEE: one light sample on diffuse lanes (not on the last bounce) ----
-    if (sc.n_lights > 0 && depth + 2 <= sc.max_depth && is_diffuse &&
-        cos_i > 0.0f) {
-      int li = (int)fminf(floorf(u[0] * g[G_NL]), g[G_NL_M1]);
-      V3 lp = {0.0f, 0.0f, 0.0f}, ln = {0.0f, 0.0f, 0.0f}, l_rad;
-      float pdf_a;  // area pdf 1/area; 0 marks a delta light
-      if (li < sc.n_area) {
-        const float* er = sc.ems + li * EM_STRIDE;
-        int nt = (int)er[4];
-        for (int j = 0; j < nt; ++j) {
-          const float* tr = er + 5 + 3 * j;
-          if (u[1] >= tr[1] && u[1] < tr[2]) {  // later triangles win ties
-            const float* q = sc.prims + (int)tr[0] * PRIM_STRIDE + 4;
-            float st = safe_sqrt(1.0f - u[2]);
-            float ub = 1.0f - st;
-            float vb = st * u[3];
-            lp = {q[0] + ub * q[3] + vb * q[6], q[1] + ub * q[4] + vb * q[7],
-                  q[2] + ub * q[5] + vb * q[8]};
-            ln = {q[9], q[10], q[11]};
+// One bounce of the sample at depth `depth` (sweep, emitter hit + MIS, one
+// NEE sample with a shadow ray, BSDF sampling, Russian roulette).  Returns
+// whether the path goes on.  K1 accumulates L; a Stokes lane accumulates S
+// instead and chains its Mueller matrix.
+template <bool kStokes>
+__device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& q) {
+  const float* g = sc.g;
+  const float* R = g + G_R;
+  V3 o = p.o, d = p.d, thr = p.thr;
+  float t;
+  V3 n = {0.0f, 0.0f, 0.0f};
+  int prim = closest_hit(sc.prims, sc.n_prims, o, d, t, n);
+  V3 ng = n;  // the geometric normal, which the spawn offsets follow
+  if (sc.mesh_c > 0) mesh_closest(sc, o, d, t, prim, n, ng);
+  bool hit = prim >= 0;
+  if (sc.has_far && depth == 0) {
+    // the origin sits at the near plane: the clip length left is
+    // (far - near) * |d_cam|, |d_cam| = 1 / (d . forward)
+    float dz = d.x * R[2] + d.y * R[5] + d.z * R[8];
+    hit = hit && t <= g[G_FAR_NEAR] / fmaxf(dz, 1e-9f);
+  }
+  p.ray_count += 1.0f;
+  bool show_em = !(depth == 0 && sc.hide_emitters);
+  if (!hit) {
+    if (sc.has_env && show_em) {  // BSDF-sampled constant environment
+      if constexpr (kStokes) {
+        add_emission(q, g + G_ENV);
+      } else {
+        p.L.x = p.L.x + thr.x * g[G_ENV];
+        p.L.y = p.L.y + thr.y * g[G_ENV + 1];
+        p.L.z = p.L.z + thr.z * g[G_ENV + 2];
+      }
+    }
+    return false;
+  }
+  bool on_mesh = prim == sc.n_prims;
+  const float* prec = sc.prims + prim * PRIM_STRIDE;
+  V3 ph = {o.x + d.x * t, o.y + d.y * t, o.z + d.z * t};
+  V3 wi = {-d.x, -d.y, -d.z};
+  float cos_l = dot(n, wi);
+
+  // ---- emitter hit + MIS ----
+  int em = on_mesh ? -1 : (int)prec[2];
+  if (show_em && em >= 0 && cos_l > 0.0f) {
+    const float* er = sc.ems + em * EM_STRIDE;
+    float pdf_light = er[3] * t * t / fmaxf(cos_l, 1e-6f) * g[G_INV_NL];
+    float w_b = p.prev_delta ? 1.0f : mis(p.prev_pdf, pdf_light);
+    if constexpr (kStokes) {
+      float w[3] = {er[0], er[1], er[2]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          q.S[i][ch] = q.S[i][ch] + q.T[ch][i][0] * w[ch] * w_b;
+      }
+    } else {
+      p.L.x = p.L.x + thr.x * er[0] * w_b;
+      p.L.y = p.L.y + thr.y * er[1] * w_b;
+      p.L.z = p.L.z + thr.z * er[2] * w_b;
+    }
+  }
+
+  const float* b = sc.bsdfs + (on_mesh ? sc.mesh_bsdf : (int)prec[1]) * BSDF_STRIDE;
+  int btype = (int)b[0];
+  V3 s_fr, t_fr;
+  frame(n, s_fr, t_fr);
+  V3 wi_l = {dot(wi, s_fr), dot(wi, t_fr), dot(wi, n)};
+  float cos_i = wi_l.z;
+  float u[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) u[k] = rng_next(rng);
+  bool is_diffuse = btype == BSDF_DIFFUSE;
+  V3 refl = {b[1], b[2], b[3]};
+
+  // ---- NEE: one light sample on diffuse lanes (not on the last bounce) ----
+  if (sc.n_lights > 0 && depth + 2 <= sc.max_depth && is_diffuse && cos_i > 0.0f) {
+    int li = (int)fminf(floorf(u[0] * g[G_NL]), g[G_NL_M1]);
+    V3 lp = {0.0f, 0.0f, 0.0f}, ln = {0.0f, 0.0f, 0.0f}, l_rad;
+    float pdf_a;  // area pdf 1/area; 0 marks a delta light
+    if (li < sc.n_area) {
+      const float* er = sc.ems + li * EM_STRIDE;
+      int nt = (int)er[4];
+      for (int j = 0; j < nt; ++j) {
+        const float* tr = er + 5 + 3 * j;
+        if (u[1] >= tr[1] && u[1] < tr[2]) {  // later triangles win ties
+          const float* qv = sc.prims + (int)tr[0] * PRIM_STRIDE + 4;
+          float st = safe_sqrt(1.0f - u[2]);
+          float ub = 1.0f - st;
+          float vb = st * u[3];
+          lp = {qv[0] + ub * qv[3] + vb * qv[6], qv[1] + ub * qv[4] + vb * qv[7],
+                qv[2] + ub * qv[5] + vb * qv[8]};
+          ln = {qv[9], qv[10], qv[11]};
+        }
+      }
+      l_rad = {er[0], er[1], er[2]};
+      pdf_a = er[3];
+    } else {
+      const float* pt = sc.pts + (li - sc.n_area) * PT_STRIDE;
+      lp = {pt[0], pt[1], pt[2]};
+      l_rad = {pt[3], pt[4], pt[5]};
+      pdf_a = 0.0f;
+    }
+    V3 to_l = {lp.x - ph.x, lp.y - ph.y, lp.z - ph.z};
+    float dist2 = fmaxf(dot(to_l, to_l), 1e-20f);
+    float dist = sqrtf(dist2);
+    V3 wl = scale(to_l, 1.0f / dist);
+    float cos_sl = dot(n, wl);
+    float cos_ll = -dot(wl, ln);
+    bool is_delta = pdf_a == 0.0f;
+    if (cos_sl > 0.0f && (is_delta || cos_ll > 1e-6f)) {
+      p.ray_count += 1.0f;
+      float off = 1e-4f * (dot(ng, wl) >= 0.0f ? 1.0f : -1.0f);
+      V3 so = {ph.x + ng.x * off, ph.y + ng.y * off, ph.z + ng.z * off};
+      float tmax = dist * kShadowShrink;
+      if (!any_hit(sc.prims, sc.n_prims, so, wl, tmax) &&
+          !(sc.mesh_c > 0 && mesh_any_hit(sc, so, wl, tmax))) {
+        float pdf_nee = is_delta ? g[G_INV_NL]
+                                 : pdf_a * dist2 / fmaxf(cos_ll, 1e-6f) * g[G_INV_NL];
+        float fs = kInvPi * fmaxf(cos_sl, 0.0f);
+        float pdf_bsdf = fmaxf(cos_sl, 0.0f) * kInvPi;
+        float sc_w = is_delta ? g[G_NL] / dist2
+                              : mis(pdf_nee, pdf_bsdf) / fmaxf(pdf_nee, 1e-20f);
+        if constexpr (kStokes) {
+          // diffuse NEE depolarizes: (T R M_dep)[:, 0] = T[:, 0] w
+          float w[3] = {refl.x * fs * l_rad.x * sc_w, refl.y * fs * l_rad.y * sc_w,
+                        refl.z * fs * l_rad.z * sc_w};
+          add_emission(q, w);
+        } else {
+          p.L.x = p.L.x + thr.x * (refl.x * fs) * l_rad.x * sc_w;
+          p.L.y = p.L.y + thr.y * (refl.y * fs) * l_rad.y * sc_w;
+          p.L.z = p.L.z + thr.z * (refl.z * fs) * l_rad.z * sc_w;
+        }
+      }
+    }
+  }
+
+  // ---- BSDF sampling; a Stokes lane also builds its Mueller matrix ----
+  V3 wo_l, w_s;
+  float pdf_s, eta_s = 1.0f;
+  bool valid, delta;
+  float M6[3][6];
+  if (is_diffuse) {  // cosine hemisphere via the concentric disk
+    float sx = 2.0f * u[4] - 1.0f;
+    float sy = 2.0f * u[5] - 1.0f;
+    bool quad_x = fabsf(sx) > fabsf(sy);
+    float r_d = quad_x ? sx : sy;
+    float safe_sx = sx == 0.0f ? 1.0f : sx;
+    float safe_sy = sy == 0.0f ? 1.0f : sy;
+    float phi = quad_x ? kPi4 * (sy / safe_sx) : kPi2 - kPi4 * (sx / safe_sy);
+    if (sx == 0.0f && sy == 0.0f) phi = 0.0f;
+    float dx = r_d * cosf(phi);
+    float dy = r_d * sinf(phi);
+    float dz = safe_sqrt(1.0f - dx * dx - dy * dy);
+    float sign_i = cos_i == 0.0f ? 1.0f : (cos_i > 0.0f ? 1.0f : -1.0f);
+    wo_l = {dx * sign_i, dy * sign_i, dz * sign_i};
+    pdf_s = fabsf(dz) * kInvPi;
+    w_s = refl;
+    valid = cos_i > 0.0f;
+    delta = false;
+    if constexpr (kStokes) {  // depolarizer
+      const float wv[3] = {w_s.x, w_s.y, w_s.z};
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        M6[ch][0] = wv[ch];
+#pragma unroll
+        for (int k = 1; k < 6; ++k) M6[ch][k] = 0.0f;
+      }
+    }
+  } else if (btype == BSDF_DIELECTRIC) {  // Fresnel pick: reflect or refract
+    float eta_rel = b[4];
+    float eta_it = cos_i >= 0.0f ? eta_rel : 1.0f / eta_rel;
+    float eta_ti = 1.0f / eta_it;
+    float c2t = 1.0f - eta_ti * eta_ti * (1.0f - cos_i * cos_i);
+    float abs_ci = fabsf(cos_i);
+    float ct = safe_sqrt(c2t);
+    float rs = (abs_ci - eta_it * ct) / fmaxf(abs_ci + eta_it * ct, 1e-9f);
+    float rp = (eta_it * abs_ci - ct) / fmaxf(eta_it * abs_ci + ct, 1e-9f);
+    float F = c2t <= 0.0f ? 1.0f : 0.5f * (rs * rs + rp * rp);
+    bool pick_refl = u[6] <= F;
+    float ct_signed = cos_i >= 0.0f ? -ct : ct;
+    if (pick_refl) {
+      wo_l = {-wi_l.x, -wi_l.y, wi_l.z};
+      w_s = {1.0f, 1.0f, 1.0f};
+      pdf_s = F;
+    } else {
+      wo_l = {-eta_ti * wi_l.x, -eta_ti * wi_l.y, ct_signed};
+      float w = eta_ti * eta_ti;
+      w_s = {w, w, w};
+      pdf_s = 1.0f - F;
+      eta_s = eta_it;
+    }
+    valid = true;
+    delta = true;
+    if constexpr (kStokes) {
+      // reflection: the complex form; transmission: real and achromatic
+      float rb, rc, rsv;
+      if (pick_refl) {
+        float a, bb, c, s;
+        fres_pol(cos_i, eta_it, 0.0f, a, bb, c, s);
+        float inv_a = 1.0f / fmaxf(a, 1e-12f);
+        rb = bb * inv_a;
+        rc = c * inv_a;
+        rsv = s * inv_a;
+      } else {
+        float ts = 2.0f * abs_ci / fmaxf(abs_ci + eta_it * ct, 1e-9f);
+        float tp = 2.0f * abs_ci / fmaxf(eta_it * abs_ci + ct, 1e-9f);
+        float Ts = ts * ts, Tp = tp * tp;
+        float inv_a = 1.0f / fmaxf(0.5f * (Ts + Tp), 1e-12f);
+        rb = 0.5f * (Ts - Tp) * inv_a;
+        rc = ts * tp * inv_a;
+        rsv = 0.0f;
+      }
+      const float wv[3] = {w_s.x, w_s.y, w_s.z};
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        float w = wv[ch];
+        M6[ch][0] = w;
+        M6[ch][1] = w * rb;
+        M6[ch][2] = w * rb;
+        M6[ch][3] = w;
+        M6[ch][4] = w * rc;
+        M6[ch][5] = w * rsv;
+      }
+    }
+  } else {  // smooth conductor: mirror reflection
+    float cf = fabsf(cos_i);
+    bool mirror = b[11] != 0.0f;
+    wo_l = {-wi_l.x, -wi_l.y, wi_l.z};
+    w_s = {fres_cond(cf, b[5], b[8], mirror) * b[12],
+           fres_cond(cf, b[6], b[9], mirror) * b[13],
+           fres_cond(cf, b[7], b[10], mirror) * b[14]};
+    pdf_s = 1.0f;
+    valid = cos_i > 0.0f;
+    delta = true;
+    if constexpr (kStokes) {  // complex Fresnel per channel (mirror: 1e6 + 1e8 i)
+      const float wv[3] = {w_s.x, w_s.y, w_s.z};
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        float a, bb, c, s;
+        fres_pol(cf, mirror ? 1e6f : b[5 + ch], mirror ? 1e8f : b[8 + ch], a, bb, c, s);
+        float inv_a = 1.0f / fmaxf(a, 1e-12f);
+        float w = wv[ch];
+        M6[ch][0] = w;
+        M6[ch][1] = w * (bb * inv_a);
+        M6[ch][2] = w * (bb * inv_a);
+        M6[ch][3] = w;
+        M6[ch][4] = w * (c * inv_a);
+        M6[ch][5] = w * (s * inv_a);
+      }
+    }
+  }
+
+  V3 d_new = normalize(to_world(n, s_fr, t_fr, wo_l));
+  float off = 1e-4f * (dot(ng, d_new) >= 0.0f ? 1.0f : -1.0f);
+  V3 o_new = {ph.x + ng.x * off, ph.y + ng.y * off, ph.z + ng.z * off};
+  V3 thr_new = {thr.x * w_s.x, thr.y * w_s.y, thr.z * w_s.z};
+  p.eta_scale = p.eta_scale * eta_s;
+  float thr_max = fmaxf(thr_new.x, fmaxf(thr_new.y, thr_new.z));
+  bool alive = valid && pdf_s > 0.0f && thr_max > 0.0f;
+  if constexpr (kStokes) {
+    if (alive) mueller_chain(q, scale(d, -1.0f), scale(d_new, -1.0f), M6);
+  }
+  if (depth >= sc.rr_depth) {
+    float u_rr = rng_next(rng);
+    float inv_e2 = 1.0f / fmaxf(p.eta_scale * p.eta_scale, 1e-12f);
+    float qr = fminf(thr_max * inv_e2, 0.95f);
+    float inv_q = 1.0f / fmaxf(qr, 1e-12f);
+    thr_new = scale(thr_new, inv_q);
+    alive = alive && u_rr < qr;
+    if constexpr (kStokes) {
+      if (alive) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) q.T[ch][i][j] = q.T[ch][i][j] * inv_q;
           }
         }
-        l_rad = {er[0], er[1], er[2]};
-        pdf_a = er[3];
-      } else {
-        const float* pt = sc.pts + (li - sc.n_area) * PT_STRIDE;
-        lp = {pt[0], pt[1], pt[2]};
-        l_rad = {pt[3], pt[4], pt[5]};
-        pdf_a = 0.0f;
-      }
-      V3 to_l = {lp.x - p.x, lp.y - p.y, lp.z - p.z};
-      float dist2 = fmaxf(dot(to_l, to_l), 1e-20f);
-      float dist = sqrtf(dist2);
-      V3 wl = scale(to_l, 1.0f / dist);
-      float cos_sl = dot(n, wl);
-      float cos_ll = -dot(wl, ln);
-      bool is_delta = pdf_a == 0.0f;
-      if (cos_sl > 0.0f && (is_delta || cos_ll > 1e-6f)) {
-        ray_count += 1.0f;
-        float off = 1e-4f * (dot(ng, wl) >= 0.0f ? 1.0f : -1.0f);
-        V3 so = {p.x + ng.x * off, p.y + ng.y * off, p.z + ng.z * off};
-        float tmax = dist * kShadowShrink;
-        if (!any_hit(sc.prims, sc.n_prims, so, wl, tmax) &&
-            !(sc.mesh_c > 0 && mesh_any_hit(sc, so, wl, tmax))) {
-          float pdf_nee = is_delta ? g[G_INV_NL]
-                                   : pdf_a * dist2 / fmaxf(cos_ll, 1e-6f) * g[G_INV_NL];
-          float fs = kInvPi * fmaxf(cos_sl, 0.0f);
-          float pdf_bsdf = fmaxf(cos_sl, 0.0f) * kInvPi;
-          float sc_w = is_delta ? g[G_NL] / dist2
-                                : mis(pdf_nee, pdf_bsdf) / fmaxf(pdf_nee, 1e-20f);
-          L.x = L.x + thr.x * (refl.x * fs) * l_rad.x * sc_w;
-          L.y = L.y + thr.y * (refl.y * fs) * l_rad.y * sc_w;
-          L.z = L.z + thr.z * (refl.z * fs) * l_rad.z * sc_w;
-        }
       }
     }
-
-    // ---- BSDF sampling ----
-    V3 wo_l, w_s;
-    float pdf_s, eta_s = 1.0f;
-    bool valid, delta;
-    if (is_diffuse) {  // cosine hemisphere via the concentric disk
-      float sx = 2.0f * u[4] - 1.0f;
-      float sy = 2.0f * u[5] - 1.0f;
-      bool quad_x = fabsf(sx) > fabsf(sy);
-      float r_d = quad_x ? sx : sy;
-      float safe_sx = sx == 0.0f ? 1.0f : sx;
-      float safe_sy = sy == 0.0f ? 1.0f : sy;
-      float phi = quad_x ? kPi4 * (sy / safe_sx) : kPi2 - kPi4 * (sx / safe_sy);
-      if (sx == 0.0f && sy == 0.0f) phi = 0.0f;
-      float dx = r_d * cosf(phi);
-      float dy = r_d * sinf(phi);
-      float dz = safe_sqrt(1.0f - dx * dx - dy * dy);
-      float sign_i = cos_i == 0.0f ? 1.0f : (cos_i > 0.0f ? 1.0f : -1.0f);
-      wo_l = {dx * sign_i, dy * sign_i, dz * sign_i};
-      pdf_s = fabsf(dz) * kInvPi;
-      w_s = refl;
-      valid = cos_i > 0.0f;
-      delta = false;
-    } else if (btype == BSDF_DIELECTRIC) {  // Fresnel pick: reflect or refract
-      float eta_rel = b[4];
-      float eta_it = cos_i >= 0.0f ? eta_rel : 1.0f / eta_rel;
-      float eta_ti = 1.0f / eta_it;
-      float c2t = 1.0f - eta_ti * eta_ti * (1.0f - cos_i * cos_i);
-      float abs_ci = fabsf(cos_i);
-      float ct = safe_sqrt(c2t);
-      float rs = (abs_ci - eta_it * ct) / fmaxf(abs_ci + eta_it * ct, 1e-9f);
-      float rp = (eta_it * abs_ci - ct) / fmaxf(eta_it * abs_ci + ct, 1e-9f);
-      float F = c2t <= 0.0f ? 1.0f : 0.5f * (rs * rs + rp * rp);
-      bool pick_refl = u[6] <= F;
-      float ct_signed = cos_i >= 0.0f ? -ct : ct;
-      if (pick_refl) {
-        wo_l = {-wi_l.x, -wi_l.y, wi_l.z};
-        w_s = {1.0f, 1.0f, 1.0f};
-        pdf_s = F;
-      } else {
-        wo_l = {-eta_ti * wi_l.x, -eta_ti * wi_l.y, ct_signed};
-        float w = eta_ti * eta_ti;
-        w_s = {w, w, w};
-        pdf_s = 1.0f - F;
-        eta_s = eta_it;
-      }
-      valid = true;
-      delta = true;
-    } else {  // smooth conductor: mirror reflection
-      float cf = fabsf(cos_i);
-      bool mirror = b[11] != 0.0f;
-      wo_l = {-wi_l.x, -wi_l.y, wi_l.z};
-      w_s = {fres_cond(cf, b[5], b[8], mirror) * b[12],
-             fres_cond(cf, b[6], b[9], mirror) * b[13],
-             fres_cond(cf, b[7], b[10], mirror) * b[14]};
-      pdf_s = 1.0f;
-      valid = cos_i > 0.0f;
-      delta = true;
-    }
-
-    V3 d_new = normalize(to_world(n, s_fr, t_fr, wo_l));
-    float off = 1e-4f * (dot(ng, d_new) >= 0.0f ? 1.0f : -1.0f);
-    V3 o_new = {p.x + ng.x * off, p.y + ng.y * off, p.z + ng.z * off};
-    V3 thr_new = {thr.x * w_s.x, thr.y * w_s.y, thr.z * w_s.z};
-    eta_scale = eta_scale * eta_s;
-    float thr_max = fmaxf(thr_new.x, fmaxf(thr_new.y, thr_new.z));
-    bool alive = valid && pdf_s > 0.0f && thr_max > 0.0f;
-    if (depth >= sc.rr_depth) {
-      float u_rr = rng_next(rng);
-      float inv_e2 = 1.0f / fmaxf(eta_scale * eta_scale, 1e-12f);
-      float q = fminf(thr_max * inv_e2, 0.95f);
-      float inv_q = 1.0f / fmaxf(q, 1e-12f);
-      thr_new = scale(thr_new, inv_q);
-      alive = alive && u_rr < q;
-    }
-    if (!alive) break;
-    o = o_new;
-    d = d_new;
-    thr = thr_new;
-    prev_pdf = pdf_s;
-    prev_delta = delta;
   }
+  if (!alive) return false;
+  p.o = o_new;
+  p.d = d_new;
+  p.thr = thr_new;
+  p.prev_pdf = pdf_s;
+  p.prev_delta = delta;
+  return true;
 }
 
 // 1-D filter weight at pixel offset dd for in-pixel jitter j.
@@ -385,19 +641,64 @@ __device__ __forceinline__ float film_w1d(int dd, float j, float gauss_tail) {
   return fabsf(x) <= 2.0f ? fmaxf(0.0f, gw) : 0.0f;
 }
 
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
-                 int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
-                 int n_pix, int seed, int n_samples) {
-  extern __shared__ float tab[];
-  __shared__ int hdr[HDR_LEN];
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = tab_g[i];
-  for (int i = threadIdx.x; i < HDR_LEN; i += blockDim.x) hdr[i] = hdr_g[i];
-  __syncthreads();
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_pix) return;
+// One sample's filter splat of its NV values into the accumulators: per
+// offset (dy, dx) the weighted values and the weight, then the ray count.
+// A sample with a non-finite value is left out of value and weight.
+template <int R, int NV>
+__device__ __forceinline__ void splat(float* acc, const float* v, float rc, float jx,
+                                      float jy, float gauss_tail) {
+  constexpr int kFoot = 2 * R + 1;
+  bool ok = true;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) ok = ok && isfinite(v[k]);
+  float okf = ok ? 1.0f : 0.0f;
+  float vv[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) vv[k] = ok ? v[k] : 0.0f;
+  if constexpr (R == 0) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[k] += vv[k];
+    acc[NV] += okf;
+  } else {
+    float wx[kFoot], wy[kFoot];
+#pragma unroll
+    for (int k = 0; k < kFoot; ++k) {
+      wx[k] = film_w1d<R>(k - R, jx, gauss_tail);
+      wy[k] = film_w1d<R>(k - R, jy, gauss_tail);
+    }
+#pragma unroll
+    for (int a = 0; a < kFoot; ++a) {
+#pragma unroll
+      for (int c = 0; c < kFoot; ++c) {
+        float w = wy[a] * wx[c] * okf;
+        float* slot = acc + (a * kFoot + c) * (NV + 1);
+#pragma unroll
+        for (int k = 0; k < NV; ++k) slot[k] += w * vv[k];
+        slot[NV] += w;
+      }
+    }
+  }
+  acc[kFoot * kFoot * (NV + 1)] += rc;
+}
 
+// The values a sample splats: L (K1) or S row-major, (I, Q, U, V) x rgb.
+template <bool kStokes>
+__device__ __forceinline__ void sample_values(const Path& p, const Pol& q, float* v) {
+  if constexpr (kStokes) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) v[i * 3 + ch] = q.S[i][ch];
+    }
+  } else {
+    v[0] = p.L.x;
+    v[1] = p.L.y;
+    v[2] = p.L.z;
+  }
+}
+
+__device__ __forceinline__ Scene load_scene(const int* hdr, const float* tab,
+                                            const float* mesh) {
   Scene sc;
   sc.g = tab;
   sc.prims = tab + hdr[HDR_OFF_PRIM];
@@ -419,67 +720,143 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
   sc.mesh_bounds = mesh;
   sc.mesh_trisw = mesh + (size_t)sc.mesh_c * 32;
   sc.mesh_nrm = sc.mesh_trisw + (size_t)sc.mesh_c * 12 * kCluster;
+  return sc;
+}
 
-  constexpr int kFoot = 2 * R + 1;
-  constexpr int kAcc = kFoot * kFoot * 4;
+// Each block stages the header and the scene table in shared memory.
+#define STAGE_TABLES()                                                          \
+  extern __shared__ float tab[];                                                \
+  __shared__ int hdr[HDR_LEN];                                                  \
+  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = tab_g[i];      \
+  for (int i = threadIdx.x; i < HDR_LEN; i += blockDim.x) hdr[i] = hdr_g[i];    \
+  __syncthreads();                                                              \
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;                              \
+  if (idx >= n_pix) return;                                                     \
+  Scene sc = load_scene(hdr, tab, mesh);                                        \
+  uint32_t tile = (uint32_t)(idx / sc.tile_lanes);                              \
+  uint32_t lane = (uint32_t)(idx % sc.tile_lanes);
+
+// K1 (kStokes false) and K3 (true), with K2's loop when kRegen: n_samples
+// samples of pixel idx splatted into the (n_acc + 1, n_pix) planes.  K1
+// asks for 5 resident blocks a multiprocessor (at most 96 registers a
+// thread): more warps to hide the sweep's latency outweigh the spills that
+// cap brings (PERF.md has the measurements).  K3 keeps the compiler's
+// choice.
+template <int R, bool kStokes, bool kRegen>
+__global__ void __launch_bounds__(kThreads, kStokes ? 1 : 5)
+path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
+                 int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
+                 int n_pix, int seed, int n_samples) {
+  STAGE_TABLES()
+  constexpr int NV = kStokes ? 12 : 3;
+  constexpr int kAcc = (2 * R + 1) * (2 * R + 1) * (NV + 1);
   float acc[kAcc + 1];
 #pragma unroll
   for (int i = 0; i <= kAcc; ++i) acc[i] = 0.0f;
-  uint32_t tile = (uint32_t)(idx / sc.tile_lanes);
-  uint32_t lane = (uint32_t)(idx % sc.tile_lanes);
   float gauss_tail = tab[G_GAUSS_TAIL];
-
-  for (int i = 0; i < n_samples; ++i) {
-    // sample i of a launch seeded s draws the stream of seed s + i
-    uint32_t rng = rng_init((uint32_t)seed + (uint32_t)i, tile, lane);
+  Path p;
+  Pol q;
+  float v[NV];
+  // sample i of a launch seeded s draws the stream of seed s + i
+  if constexpr (kRegen) {
+    // one bounce an iteration at the lane's own depth; a finished sample
+    // is splatted and the lane starts its next one at once
+    uint32_t rng = rng_init((uint32_t)seed, tile, lane);
     float jx = rng_next(rng);
     float jy = rng_next(rng);
-    V3 L;
-    float rc;
-    trace_path(sc, idx, jx, jy, rng, L, rc);
-    // non-finite samples are left out of value and weight
-    bool ok = isfinite(L.x) && isfinite(L.y) && isfinite(L.z);
-    float okf = ok ? 1.0f : 0.0f;
-    float vr = ok ? L.x : 0.0f, vg = ok ? L.y : 0.0f, vb = ok ? L.z : 0.0f;
-    if constexpr (R == 0) {
-      acc[0] += vr;
-      acc[1] += vg;
-      acc[2] += vb;
-      acc[3] += okf;
-    } else {
-      float wx[kFoot], wy[kFoot];
-#pragma unroll
-      for (int k = 0; k < kFoot; ++k) {
-        wx[k] = film_w1d<R>(k - R, jx, gauss_tail);
-        wy[k] = film_w1d<R>(k - R, jy, gauss_tail);
-      }
-#pragma unroll
-      for (int a = 0; a < kFoot; ++a) {
-#pragma unroll
-        for (int c = 0; c < kFoot; ++c) {
-          float w = wy[a] * wx[c] * okf;
-          float* slot = acc + (a * kFoot + c) * 4;
-          slot[0] += w * vr;
-          slot[1] += w * vg;
-          slot[2] += w * vb;
-          slot[3] += w;
-        }
-      }
+    start_sample<kStokes>(sc, idx, jx, jy, p, q);
+    int si = 0, depth = 0;
+    while (true) {
+      bool alive = bounce<kStokes>(sc, depth, rng, p, q);
+      ++depth;
+      if (alive && depth < sc.max_depth) continue;
+      sample_values<kStokes>(p, q, v);
+      splat<R, NV>(acc, v, p.ray_count, jx, jy, gauss_tail);
+      if (++si >= n_samples) break;
+      rng = rng_init((uint32_t)seed + (uint32_t)si, tile, lane);
+      jx = rng_next(rng);
+      jy = rng_next(rng);
+      start_sample<kStokes>(sc, idx, jx, jy, p, q);
+      depth = 0;
     }
-    acc[kAcc] += rc;
+  } else {
+    for (int i = 0; i < n_samples; ++i) {
+      uint32_t rng = rng_init((uint32_t)seed + (uint32_t)i, tile, lane);
+      float jx = rng_next(rng);
+      float jy = rng_next(rng);
+      start_sample<kStokes>(sc, idx, jx, jy, p, q);
+      for (int depth = 0; depth < sc.max_depth; ++depth)
+        if (!bounce<kStokes>(sc, depth, rng, p, q)) break;
+      sample_values<kStokes>(p, q, v);
+      splat<R, NV>(acc, v, p.ray_count, jx, jy, gauss_tail);
+    }
   }
 #pragma unroll
   for (int i = 0; i <= kAcc; ++i) out[(size_t)i * n_pix + idx] = acc[i];
 }
 
+// K6: one polarized sample of pixel idx, as 15 planes: S row-major, the
+// ray count, the jitter jx, jy.
+__global__ void __launch_bounds__(kThreads)
+stokes_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
+                     int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
+                     int n_pix, int seed) {
+  STAGE_TABLES()
+  Path p;
+  Pol q;
+  uint32_t rng = rng_init((uint32_t)seed, tile, lane);
+  float jx = rng_next(rng);
+  float jy = rng_next(rng);
+  start_sample<true>(sc, idx, jx, jy, p, q);
+  for (int depth = 0; depth < sc.max_depth; ++depth)
+    if (!bounce<true>(sc, depth, rng, p, q)) break;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) out[(size_t)(i * 3 + ch) * n_pix + idx] = q.S[i][ch];
+  }
+  out[(size_t)12 * n_pix + idx] = p.ray_count;
+  out[(size_t)13 * n_pix + idx] = jx;
+  out[(size_t)14 * n_pix + idx] = jy;
+}
+
+template <int R, bool kStokes, bool kRegen>
+void launch_film(dim3 grid, size_t smem, cudaStream_t s, const int* h, const float* t,
+                 int n_tab, const float* m, float* o, int n_pix, int seed, int n_samples) {
+  path_film_kernel<R, kStokes, kRegen><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix,
+                                                                    seed, n_samples);
+}
+
+template <bool kStokes, bool kRegen>
+int launch_radius(int radius, dim3 grid, size_t smem, cudaStream_t s, const int* h,
+                  const float* t, int n_tab, const float* m, float* o, int n_pix, int seed,
+                  int n_samples) {
+  switch (radius) {
+    case 0:
+      launch_film<0, kStokes, kRegen>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed, n_samples);
+      return 0;
+    case 1:
+      launch_film<1, kStokes, kRegen>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed, n_samples);
+      return 0;
+    case 2:
+      launch_film<2, kStokes, kRegen>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed, n_samples);
+      return 0;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// mode: MODE_FILM (K1), MODE_STOKES_FILM (K3), MODE_STOKES_SAMPLE (K6;
+// n_samples 1, radius ignored); regen: K2's loop for the film modes.
 extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
                                 int n_tab, const void* mesh, int n_mesh, void* out,
-                                int n_pix, int seed, int n_samples, int radius,
-                                void* stream) {
+                                int n_pix, int seed, int n_samples, int radius, int mode,
+                                int regen, void* stream) {
   if (n_hdr < HDR_LEN || n_tab <= 0 || n_tab > kMaxTableFloats || n_pix <= 0 ||
-      n_samples < 1 || n_mesh < 0 || (n_mesh > 0 && mesh == nullptr))
+      n_samples < 1 || n_mesh < 0 || (n_mesh > 0 && mesh == nullptr) || mode < 0 ||
+      mode > MODE_STOKES_SAMPLE)
     return (int)cudaErrorInvalidValue;
   dim3 grid((n_pix + kThreads - 1) / kThreads);
   size_t smem = (size_t)n_tab * sizeof(float);
@@ -488,22 +865,21 @@ extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
   const float* t = (const float*)tab;
   const float* m = (const float*)mesh;
   float* o = (float*)out;
-  switch (radius) {
-    case 0:
-      path_film_kernel<0><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
-                                                         n_samples);
-      break;
-    case 1:
-      path_film_kernel<1><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
-                                                         n_samples);
-      break;
-    case 2:
-      path_film_kernel<2><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
-                                                         n_samples);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if (mode == MODE_STOKES_SAMPLE) {
+    stokes_sample_kernel<<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed);
+  } else if (mode == MODE_STOKES_FILM) {
+    err = regen ? launch_radius<true, true>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix,
+                                            seed, n_samples)
+                : launch_radius<true, false>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix,
+                                             seed, n_samples);
+  } else {
+    err = regen ? launch_radius<false, true>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix,
+                                             seed, n_samples)
+                : launch_radius<false, false>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                              n_pix, seed, n_samples);
   }
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 

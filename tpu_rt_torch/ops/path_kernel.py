@@ -1,13 +1,15 @@
-"""Film path-tracing kernel: host side, plain PyTorch version and wrapper.
+"""Film path-tracing kernels: host side, plain PyTorch versions, wrappers.
 
 Counterpart of ``tpu_rt/ops/pallas_path.py`` for the film megakernel
-(``pallas_film_trace`` / ``_build_kernel(film=...)``, unrolled form) and
-the render loop around it (``render_pallas`` / ``_get_film_render_multi_fn``).
+(``pallas_film_trace`` / ``_build_kernel(film=...)``: K1; its Stokes form
+K3; K2, the regeneration loop ``_regen_loop`` around either), the
+per-sample Stokes kernel K6 (``pallas_stokes_trace``) and the render
+loops around them (``render_pallas``, ``render_stokes_pallas``).
 
 * ``bake_scene`` extracts the kernel's constants, as the JAX package does.
   Scenes outside this port's scope give ``None``: cones, rough conductors,
-  polarizer / null pass-through, textured environments, bitmap textures,
-  and Stokes transport.  A scene of more than 64 prims takes the
+  polarizer / null pass-through, textured environments and bitmap
+  textures.  A scene of more than 64 prims takes the
   clustered-mesh mode (``_bake_mesh``): its non-emissive triangles, which
   must share one BSDF, move into cluster tables of at most 64 clusters
   that the kernel sweeps per ray (root box, quarter boxes, Baldwin-Weber
@@ -20,16 +22,26 @@ the render loop around it (``render_pallas`` / ``_get_film_render_multi_fn``).
   float64 and rounded once, so both packages use the same float32 values.
   The tables are built once per render; the scene is not compiled into
   the kernel.
-* ``film_trace`` is the wrapper: on a CPU tensor it runs the plain PyTorch
-  version below, on a CUDA tensor it launches the hand-written kernel
-  ``csrc/path_film.cu`` or raises.
+* ``pack_tables(..., stokes=True)`` packs the Stokes kernels' tables
+  (the camera's x axis, the header's Stokes flag).  The header's regen
+  flag records the auto loop form (K2's loop from max_depth 8, as
+  ``_use_regen``); a launch takes it unless the wrapper's ``regen=`` names
+  the other form.
+* ``film_trace`` (K1), ``stokes_film_trace`` (K3) and
+  ``stokes_sample_trace`` (K6) are the wrappers: on a CPU tensor they run
+  the plain PyTorch versions below, on a CUDA tensor they launch the
+  hand-written kernels of ``csrc/path_film.cu`` or raise.  K2 needs no
+  plain version of its own: it computes K1's and K3's function, each lane
+  meeting its samples in order.
 * The plain version keeps the JAX kernel's math in its order, over flat
   ``(N,)`` tensors, one per component, with ``torch.where`` masks.  Its
   SplitMix32 RNG emulates uint32 arithmetic in int64 (CPU torch has no
   uint32 shifts), so it reproduces the JAX package's random streams bit
   for bit.
-* ``render_film`` loops over ``spp_per_pass``-sample chunks, deposits each
-  chunk's filter planes into the film and develops the image.
+* ``render_film`` and ``render_stokes_film`` loop over
+  ``spp_per_pass``-sample chunks, deposit each chunk's filter planes into
+  the film and develop the image (H, W, 3) or the Stokes image
+  (H, W, 4, 3).
 """
 
 from __future__ import annotations
@@ -281,13 +293,21 @@ HDR_N_PRIMS, HDR_N_AREA, HDR_N_LIGHTS, HDR_MAX_DEPTH, HDR_RR_DEPTH = 0, 1, 2, 3,
 HDR_HIDE_EMITTERS, HDR_HAS_ENV, HDR_HAS_FAR, HDR_W, HDR_H = 5, 6, 7, 8, 9
 HDR_TILE_LANES, HDR_OFF_PRIM, HDR_OFF_BSDF, HDR_OFF_EM, HDR_OFF_PT = 10, 11, 12, 13, 14
 HDR_MESH_C = 15  # clusters of the mesh tables; 0 without a mesh
-HDR_LEN = 16
+# Stokes tables (K3 / K6: 12 Stokes values a sample); the auto loop form,
+# 1 for K2's regeneration loop.  Host-side words: the kernel takes its mode
+# and loop form as launch arguments and reads neither.
+HDR_STOKES, HDR_REGEN = 16, 17
+HDR_LEN = 18
 
 # float32 table: a global block, then prim, bsdf, emitter, point records
 G_ENV, G_INV_NL, G_NL, G_NL_M1 = 0, 3, 5, 6
 G_R, G_ORG, G_TFX, G_TFY, G_INVW, G_INVH = 8, 17, 20, 21, 22, 23
 G_NEAR, G_FAR_NEAR, G_GAUSS_TAIL, G_MESH_BSDF = 24, 25, 26, 27
+G_CAM_X = 28  # the camera's x axis (Stokes tables only)
 G_LEN = 32
+# tpu_rt's _REGEN_AUTO_DEPTH: from this max_depth on, K1 and K3 run in
+# K2's loop (a lane restarts on its next sample as soon as its path ends)
+REGEN_AUTO_DEPTH = 8
 PRIM_STRIDE, BSDF_STRIDE, EM_STRIDE, PT_STRIDE = 20, 16, 32, 8
 KIND_TRI, KIND_SPHERE, KIND_RECT = 0, 1, 2
 # The kernel stages the table in shared memory: 48 KB without opt-in.
@@ -323,8 +343,22 @@ class FilmTables:
         return self.H * self.W
 
     @property
+    def stokes(self):
+        return bool(self.hdr_list[HDR_STOKES])
+
+    @property
+    def regen(self):
+        return bool(self.hdr_list[HDR_REGEN])
+
+    @property
+    def n_val(self):
+        """Planes per filter offset: the sample's values (r, g, b, or the
+        12 Stokes values I, Q, U, V x r, g, b) and the filter weight."""
+        return 13 if self.stokes else 4
+
+    @property
     def n_acc(self):
-        return (2 * self.radius + 1) ** 2 * 4
+        return (2 * self.radius + 1) ** 2 * self.n_val
 
 
 def _f32(x):
@@ -354,9 +388,18 @@ def pack_prims(prims: List[BakedPrim]) -> list:
     return tab
 
 
-def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device) -> FilmTables:
+def use_regen(bs: BakedScene) -> bool:
+    """tpu_rt's ``_use_regen`` in its auto mode: K2's loop from
+    max_depth 8 on."""
+    return bs.max_depth >= REGEN_AUTO_DEPTH
+
+
+def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device,
+                stokes=False) -> FilmTables:
     """Pack a baked scene and its camera for the film kernel on ``device``.
-    ``tile_rows`` keys the RNG: tile = pixel // (tile_rows * 128)."""
+    ``tile_rows`` keys the RNG: tile = pixel // (tile_rows * 128).
+    ``stokes`` packs the tables of the Stokes kernel (K3, K6), with the
+    camera's x axis.  The header's regen flag is ``use_regen``."""
     H, W = camera.height, camera.width
     n_pix = H * W
     if n_pix > 1 << 24:
@@ -377,6 +420,8 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device) -> FilmT
     g[G_INVW], g[G_INVH] = _f32(1.0 / W), _f32(1.0 / H)
     g[G_NEAR], g[G_FAR_NEAR] = _f32(rg["near"]), _f32(rg["far"] - rg["near"])
     g[G_GAUSS_TAIL] = _GAUSS_TAIL
+    if stokes:
+        g[G_CAM_X:G_CAM_X + 3] = [_f32(x) for x in camera.to_world.numpy()[:3, 0]]
     mesh = None
     if bs.mesh is not None:
         g[G_MESH_BSDF] = float(bs.mesh["bsdf"])
@@ -442,6 +487,8 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device) -> FilmT
     hdr[HDR_OFF_PRIM], hdr[HDR_OFF_BSDF] = off_prim, off_bsdf
     hdr[HDR_OFF_EM], hdr[HDR_OFF_PT] = off_em, off_pt
     hdr[HDR_MESH_C] = 0 if bs.mesh is None else bs.mesh["bounds"].shape[0]
+    hdr[HDR_STOKES] = int(bool(stokes))
+    hdr[HDR_REGEN] = int(use_regen(bs))
     return FilmTables(
         hdr=torch.tensor(hdr, dtype=torch.int32, device=device),
         tab=torch.tensor(tab, dtype=torch.float32, device=device),
@@ -476,6 +523,9 @@ class _Consts:
         self.tile_lanes = h[HDR_TILE_LANES]
         self.g = t[:G_LEN]
         self.R = [t[G_R + 3 * i:G_R + 3 * i + 3] for i in range(3)]
+        self.stokes = bool(h[HDR_STOKES])
+        self.cam_x = t[G_CAM_X:G_CAM_X + 3]
+        self.tab_device = tables.tab.device
 
         def recs(lo, hi, stride):
             return [t[o:o + stride] for o in range(lo, hi, stride)]
@@ -714,7 +764,14 @@ def _camera_ray(C: _Consts, idx, jx, jy):
 
 def _sample_state_init(C: _Consts, rng, idx):
     """Fresh per-sample path state; draws the jitter and casts the camera
-    ray.  Returns (state, (jx, jy))."""
+    ray.  Returns (state, (jx, jy)).
+
+    Stokes tables add the polarized state (pallas_path.py:1024-1039): T
+    (3, 4, 4, N), the camera-side Mueller matrix per RGB channel, starting
+    as the identity; the carried Stokes basis, the camera's x axis
+    projected perpendicular to the primary ray; S (4, 3, N), the Stokes
+    radiance.  The scalar thr / w_s machinery keeps running beside them: it
+    drives Russian roulette and supplies the M00 weights."""
     zeros = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
     ones = zeros + 1.0
     rng, jx = _rng_next(rng)
@@ -724,7 +781,98 @@ def _sample_state_init(C: _Consts, rng, idx):
     st = dict(rng=rng, o=o, d=d, thr=(ones, ones, ones), L=(zeros, zeros, zeros),
               active=active, prev_pdf=ones, prev_delta=active, eta_scale=ones,
               ray_count=zeros)
+    if C.stokes:
+        n = idx.shape[0]
+        T = torch.zeros((3, 4, 4, n), dtype=torch.float32, device=idx.device)
+        for i in range(4):
+            T[:, i, i] = 1.0
+        st.update(T=T, S=torch.zeros((4, 3, n), dtype=torch.float32, device=idx.device),
+                  basis=_perp_basis(_scale(d, -1.0), [x + zeros for x in C.cam_x]))
     return st, (jx, jy)
+
+
+# ---- polarized transport (pallas_path.py:803-890) ----
+# vectors as component tuples, T as a (3, 4, 4, N) tensor
+
+def _perp_basis(w, ref):
+    """ref projected perpendicular to the unit w and normalized; where that
+    is degenerate, the deterministic horizontal basis of
+    ``bsdf/mueller.py::stokes_basis``.  ``1 / sqrt`` stands for the JAX
+    package's ``rsqrt``, so the card rounds it the same way."""
+    dp = _dot(w, ref)
+    proj = (ref[0] - w[0] * dp, ref[1] - w[1] * dp, ref[2] - w[2] * dp)
+    ln2 = _dot(proj, proj)
+    ax = torch.where(torch.abs(w[0]) > 0.9, 0.0, 1.0)
+    fb = _normalize(_cross((ax, 1.0 - ax, torch.zeros_like(ax)), w))
+    inv = 1.0 / torch.sqrt(torch.clamp(ln2, min=1e-24))
+    return _where3(ln2 > 1e-12, _scale(proj, inv), fb)
+
+
+def _cdiv(ar, ai, br, bi):
+    """(ar + i ai) / (br + i bi) in (re, im) pairs."""
+    den = torch.clamp(br * br + bi * bi, min=1e-30)
+    return (ar * br + ai * bi) / den, (ai * br - ar * bi) / den
+
+
+def _fres_pol(cos_f, e_re, e_im):
+    """Polarization components of Fresnel reflection for the complex
+    relative IOR e_re + i e_im at |cos_f|: (a, b, c, s) with
+    a = (|rs|^2 + |rp|^2) / 2, b = (|rs|^2 - |rp|^2) / 2, c + i s =
+    rs conj(rp) (``bsdf/mueller.py::specular_reflection``'s terms; a
+    dielectric's total internal reflection comes through the same complex
+    square root)."""
+    c = torch.abs(cos_f)
+    sin2 = torch.clamp(1.0 - c * c, min=0.0)
+    zr = e_re * e_re - e_im * e_im - sin2  # eta^2 - sin^2, complex
+    zi = 2.0 * e_re * e_im
+    mag = torch.sqrt(torch.clamp(zr * zr + zi * zi, min=0.0))
+    u = torch.sqrt(torch.clamp(0.5 * (mag + zr), min=0.0))
+    v = torch.sqrt(torch.clamp(0.5 * (mag - zr), min=0.0))
+    rs_r, rs_i = _cdiv(c - u, -v, c + u, v)
+    e2r = (zr + sin2) * c  # eta^2 cos
+    e2i = zi * c
+    rp_r, rp_i = _cdiv(e2r - u, e2i - v, e2r + u, e2i + v)
+    Rs = rs_r * rs_r + rs_i * rs_i
+    Rp = rp_r * rp_r + rp_i * rp_i
+    return (0.5 * (Rs + Rp), 0.5 * (Rs - Rp), rs_r * rp_r + rs_i * rp_i,
+            rs_i * rp_r - rs_r * rp_i)
+
+
+def _mueller_chain(T, basis, p_B, p_A, M6):
+    """T <- T R(phi) M for the sparse interaction matrix M = [[m00, m01, 0,
+    0], [m10, m11, 0, 0], [0, 0, mc, ms], [0, 0, -ms, mc]], given per
+    channel as M6 = (m00, m01, m10, m11, mc, ms), each (3, N).  phi turns
+    the carried basis onto the scattering plane's s axis around the
+    (camera-pointing) propagation direction p_B; cos 2 phi and sin 2 phi
+    come from dot and cross products.  Returns (T_new, basis_new)."""
+    s_raw = _cross(p_A, p_B)
+    ln2 = _dot(s_raw, s_raw)
+    degen = ln2 < 1e-12
+    inv = 1.0 / torch.sqrt(torch.clamp(ln2, min=1e-24))
+    s_axis = _where3(degen, _perp_basis(p_B, basis), _scale(s_raw, inv))
+    cs = _dot(s_axis, basis)
+    sn = _dot(_cross(s_axis, basis), p_B)
+    n2 = torch.clamp(cs * cs + sn * sn, min=1e-20)
+    C2 = (cs * cs - sn * sn) / n2
+    S2 = 2.0 * cs * sn / n2
+    m00, m01, m10, m11, mc, ms = (m[:, None] for m in M6)  # (3, 1, N)
+    t0, t1, t2, t3 = T[:, :, 0], T[:, :, 1], T[:, :, 2], T[:, :, 3]  # (3, 4, N)
+    rot_a = t1 * C2 - t2 * S2
+    rot_b = t1 * S2 + t2 * C2
+    T_new = torch.stack([t0 * m00 + rot_a * m10, t0 * m01 + rot_a * m11,
+                         rot_b * mc - t3 * ms, rot_b * ms + t3 * mc], 2)
+    return T_new, _where3(degen, _perp_basis(p_A, s_axis), s_axis)
+
+
+def _add_emission(S, T, w, f=1.0):
+    """Unpolarized emission: S[i][ch] += T[ch][i][0] * w[ch] * f, w (3, 1)
+    or (3, N), f a lane factor (a product by 1.0 is exact)."""
+    return S + T[:, :, 0].transpose(0, 1) * w * f
+
+
+def _col3(vals, dev):
+    """Three per-channel table constants as a (3, 1) tensor."""
+    return torch.tensor(vals, dtype=torch.float32, device=dev)[:, None]
 
 
 def _prim_attr_f(C: _Consts, prim_f, field, default):
@@ -759,14 +907,20 @@ def _fres_cond(cos_f, c_eta, c_k, is_mirror):
 def _make_bounce_step(C: _Consts):
     """step(depth, st) -> st: one bounce (sweep, emitter hit + MIS, one NEE
     sample with a shadow ray, BSDF sampling, Russian roulette) at a static
-    depth, as the JAX kernel's unrolled form."""
+    depth, as the JAX kernel's unrolled form.  On Stokes tables every
+    emission also reaches S through T's first column, and the sampled
+    interaction's Mueller matrix is chained onto T (pallas_path.py:
+    1194-1199, 1228-1233, 1439-1477, 1616-1709)."""
     g = C.g
     inv_nl = g[G_INV_NL]
+    dev = C.tab_device
 
     def step(depth, st):
         rng, o, d, thr, L = st["rng"], st["o"], st["d"], st["thr"], st["L"]
         active, prev_pdf, prev_delta = st["active"], st["prev_pdf"], st["prev_delta"]
         eta_scale, ray_count = st["eta_scale"], st["ray_count"]
+        if C.stokes:
+            T, S, basis = st["T"], st["S"], st["basis"]
         zeros = torch.zeros_like(o[0])
         ones = zeros + 1.0
         t, prim_f, n = _sweep(C, o, d, 1e-4, _BIG)
@@ -792,6 +946,8 @@ def _make_bounce_step(C: _Consts):
             # constant environment, BSDF-sampled only: escape weight is 1
             ef = torch.where(active & ~hit, 1.0, 0.0)
             L = tuple(L[c] + thr[c] * g[G_ENV + c] * ef for c in range(3))
+            if C.stokes:
+                S = _add_emission(S, T, _col3(g[G_ENV:G_ENV + 3], dev), ef)
 
         p_hit = _add(o, _scale(d, torch.where(hit, t, 0.0)))
         wi = _scale(d, -1.0)
@@ -806,6 +962,8 @@ def _make_bounce_step(C: _Consts):
                 w_b = torch.where(prev_delta, 1.0, _mis(prev_pdf, pdf_light))
                 wfac = torch.where(m, w_b, 0.0)
                 L = tuple(L[c] + thr[c] * rec[c] * wfac for c in range(3))
+                if C.stokes:
+                    S = _add_emission(S, T, _col3(rec[0:3], dev), wfac)
 
         # ---- per-lane BSDF constants ----------------------------------
         bsdf_id = _prim_attr_f(C, prim_f, 1, -1.0)
@@ -900,6 +1058,10 @@ def _make_bounce_step(C: _Consts):
             scale_delta = _rdiv(g[G_NL], dist2)  # 1/pdf = L; I/d^2
             scf = torch.where(vis, torch.where(is_delta_l, scale_delta, scale_area), 0.0)
             L = tuple(L[c] + thr[c] * nee_f[c] * l_rad[c] * scf for c in range(3))
+            if C.stokes:
+                # diffuse NEE depolarizes: (T R M_dep)[:, 0] = T[:, 0] w
+                S = _add_emission(S, T, torch.stack([nee_f[c] * l_rad[c] * scf
+                                                     for c in range(3)]))
 
         # ---- BSDF sampling --------------------------------------------
         # diffuse: cosine hemisphere via the concentric disk
@@ -963,6 +1125,37 @@ def _make_bounce_step(C: _Consts):
         thr_max = torch.maximum(thr_new[0], torch.maximum(thr_new[1], thr_new[2]))
         alive = alive & (thr_max > 0.0)
 
+        if C.stokes:
+            # the interaction's Mueller matrix per channel, M00-normalized to
+            # the scalar weight w_s: only the lobe's polarization ratios
+            # b/a, c/a, s/a ride on top.  Dielectric reflection takes the
+            # complex form (it covers TIR), transmission the real one.
+            a_dr, b_dr, c_dr, s_dr = _fres_pol(cos_i, eta_it, zeros)
+            inv_adr = 1.0 / torch.clamp(a_dr, min=1e-12)
+            ts_ = 2.0 * abs_ci / torch.clamp(abs_ci + eta_it * ct, min=1e-9)
+            tp_ = 2.0 * abs_ci / torch.clamp(eta_it * abs_ci + ct, min=1e-9)
+            Ts_, Tp_ = ts_ * ts_, tp_ * tp_
+            inv_adt = 1.0 / torch.clamp(0.5 * (Ts_ + Tp_), min=1e-12)
+            rb_die = torch.where(pick_refl, b_dr * inv_adr, 0.5 * (Ts_ - Tp_) * inv_adt)
+            rc_die = torch.where(pick_refl, c_dr * inv_adr, ts_ * tp_ * inv_adt)
+            rs_die = torch.where(pick_refl, s_dr * inv_adr, 0.0)
+            specf = torch.where(is_die | is_con, 1.0, 0.0)
+            M6 = [[] for _ in range(6)]
+            for ch in range(3):
+                a_c, b_c, c_c, s_c = _fres_pol(torch.abs(cos_i),
+                                               torch.where(is_mirror, 1e6, c_eta[ch]),
+                                               torch.where(is_mirror, 1e8, c_k[ch]))
+                inv_ac = 1.0 / torch.clamp(a_c, min=1e-12)
+                rb = torch.where(is_die, rb_die, b_c * inv_ac)
+                rc = torch.where(is_die, rc_die, c_c * inv_ac)
+                rs_ = torch.where(is_die, rs_die, s_c * inv_ac)
+                w_ch = w_s[ch]
+                for k, m in enumerate((w_ch, w_ch * rb * specf, w_ch * rb * specf,
+                                       w_ch * specf, w_ch * (rc * specf), w_ch * rs_ * specf)):
+                    M6[k].append(m)
+            T_new, basis_new = _mueller_chain(T, basis, _scale(d, -1.0), _scale(d_new, -1.0),
+                                              [torch.stack(m) for m in M6])
+
         if depth >= C.rr_depth:
             rng, u_rr = _rng_next(rng)
             inv_e2 = 1.0 / torch.clamp(eta_scale * eta_scale, min=1e-12)
@@ -971,12 +1164,19 @@ def _make_bounce_step(C: _Consts):
             inv_q = 1.0 / torch.clamp(q, min=1e-12)
             thr_new = tuple(torch.where(survive, x * inv_q, 0.0) for x in thr_new)
             alive = alive & survive
+            if C.stokes:
+                T_new = T_new * torch.where(survive, inv_q, 0.0)
 
-        return dict(
+        out = dict(
             rng=rng, o=_where3(alive, o_new, o), d=_where3(alive, d_new, d),
             thr=_where3(alive, thr_new, (zeros, zeros, zeros)), L=L,
             active=alive, prev_pdf=pdf_s, prev_delta=delta_s,
             eta_scale=eta_scale, ray_count=ray_count)
+        if C.stokes:
+            # a dead lane's T is exact zeros
+            out.update(T=T_new * torch.where(alive, 1.0, 0.0), S=S,
+                       basis=_where3(alive, basis_new, basis))
+        return out
 
     return step
 
@@ -993,10 +1193,12 @@ def _film_w1d(filt, d, j):
 
 def splat_upd(vals, rc, jx, jy, radius):
     """One sample's update of the film planes: per filter offset (dy, dx)
-    in row-major order, (w*r, w*g, w*b, w); then the ray count.  Samples
-    with a non-finite value are left out of value and weight."""
-    ok = (torch.abs(vals[0]) < math.inf) & (torch.abs(vals[1]) < math.inf) \
-        & (torch.abs(vals[2]) < math.inf)
+    in row-major order, the weighted values (r, g, b, or the 12 Stokes
+    values) and the weight w; then the ray count.  A sample with any
+    non-finite value is left out of value and weight."""
+    ok = torch.abs(vals[0]) < math.inf
+    for v in vals[1:]:
+        ok = ok & (torch.abs(v) < math.inf)
     okf = torch.where(ok, 1.0, 0.0)
     vals = [torch.where(ok, v, 0.0) for v in vals]
     if radius == 0:  # box: the sample stays in its own pixel with w = 1
@@ -1012,58 +1214,105 @@ def splat_upd(vals, rc, jx, jy, radius):
     return upd + [rc]
 
 
-def film_trace_plain(tables: FilmTables, seed: int, n_samples: int):
-    """The plain PyTorch version of the kernel: (n_acc + 1, H*W) planes."""
+def _sample_vals(st):
+    """The values a sample splats: L, or S row-major (I, Q, U, V) x rgb."""
+    return list(st["S"].reshape(12, -1)) if "S" in st else list(st["L"])
+
+
+def _trace_samples(tables: FilmTables, seed: int, n_samples: int):
+    """Yield (state, jx, jy) of each of ``n_samples`` traced samples per
+    pixel, in order.  Sample i of a launch seeded s draws the stream of
+    seed s + i; a lane's samples come out in order whatever the loop form,
+    so the plain version serves K1 / K3 and K2's regeneration loop."""
     C = _Consts(tables)
     dev = tables.tab.device
     idx = torch.arange(tables.n_pix, dtype=torch.int64, device=dev)
     tile, lane = idx // C.tile_lanes, idx % C.tile_lanes
     step = _make_bounce_step(C)
-    acc = [torch.zeros(tables.n_pix, dtype=torch.float32, device=dev)] * (tables.n_acc + 1)
     for i in range(n_samples):
-        # sample i of a chunk seeded s draws the stream of seed s + i
         st, (jx, jy) = _sample_state_init(C, _rng_init(seed + i, tile, lane), idx)
         for depth in range(C.max_depth):
             st = step(depth, st)
-        upd = splat_upd(list(st["L"]), st["ray_count"], jx, jy, tables.radius)
+        yield st, jx, jy
+
+
+def _film_plain(tables: FilmTables, seed: int, n_samples: int):
+    acc = [torch.zeros(tables.n_pix, dtype=torch.float32, device=tables.tab.device)] * (
+        tables.n_acc + 1)
+    for st, jx, jy in _trace_samples(tables, seed, n_samples):
+        upd = splat_upd(_sample_vals(st), st["ray_count"], jx, jy, tables.radius)
         acc = [a + u for a, u in zip(acc, upd)]
     return torch.stack(acc)
 
 
+def film_trace_plain(tables: FilmTables, seed: int, n_samples: int):
+    """The plain PyTorch version of K1 (and of K2's loop around it):
+    (n_acc + 1, H*W) planes."""
+    _check_kind(tables, False, "film_trace")
+    return _film_plain(tables, seed, n_samples)
+
+
+def stokes_film_trace_plain(tables: FilmTables, seed: int, n_samples: int):
+    """The plain PyTorch version of K3 (and of K2's loop around it):
+    (13 * offsets + 1, H*W) planes, per filter offset the 12 weighted
+    Stokes values (I, Q, U, V, each r, g, b) and the weight, then the ray
+    count."""
+    _check_kind(tables, True, "stokes_film_trace")
+    return _film_plain(tables, seed, n_samples)
+
+
+def stokes_sample_trace_plain(tables: FilmTables, seed: int):
+    """The plain PyTorch version of K6: one polarized sample per pixel,
+    as (15, H*W) planes: S row-major (I, Q, U, V) x rgb, the ray count,
+    the jitter jx, jy (pallas_path.pallas_stokes_trace's outputs)."""
+    _check_kind(tables, True, "stokes_sample_trace")
+    st, jx, jy = next(_trace_samples(tables, seed, 1))
+    return torch.cat([st["S"].reshape(12, -1), torch.stack([st["ray_count"], jx, jy])])
+
+
+def sample_planes_split(planes):
+    """K6's planes as (S [N, 4, 3], jitter [N, 2], the rays cast as a 0-d
+    int64 tensor)."""
+    return (planes[:12].T.reshape(-1, 4, 3), planes[13:15].T,
+            planes[12].to(torch.int64).sum())
+
+
+def _check_kind(tables: FilmTables, stokes: bool, name: str):
+    if tables.stokes != stokes:
+        raise ValueError(f"{name} needs tables packed with stokes={stokes}")
+
+
 # ---------------------------------------------------------------------------
-# Wrapper: the plain version on the CPU, the hand-written kernel on CUDA
+# Wrappers: the plain version on the CPU, the hand-written kernel on CUDA
 # ---------------------------------------------------------------------------
 
 def _wrap_i32(x: int) -> int:
     return ((x + (1 << 31)) & _M32) - (1 << 31)
 
 
-def film_trace(tables: FilmTables, seed: int, n_samples: int):
-    """Trace ``n_samples`` paths per pixel and accumulate the filter
-    splat: returns (n_acc + 1, H*W) float32 planes on the tables' device,
-    (r, g, b, w) per filter offset (dy, dx) in row-major order, then the
-    ray count.  ``seed`` is an int32 (it wraps); sample i of the call
-    draws the stream of seed + i.
+# what the launch computes: K1's planes, K3's planes, or K6's sample planes
+_MODE_FILM, _MODE_STOKES_FILM, _MODE_STOKES_SAMPLE = 0, 1, 2
 
-    On a CPU tensor this runs the plain version.  On a CUDA tensor it
-    launches ``csrc/path_film.cu`` (built at first use) or raises.
-    ``film_trace.launches`` counts kernel launches."""
+
+def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_out: int,
+            name: str):
+    """Launch ``csrc/path_film.cu`` (built at first use) in ``mode`` on the
+    tables' CUDA device.  Returns (planes, whether K2's loop ran)."""
     dev = tables.tab.device
-    if dev.type == "cpu":
-        return film_trace_plain(tables, seed, n_samples)
     if dev.type != "cuda":
-        raise ValueError(f"film_trace runs on cpu or cuda, not {dev.type}")
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
     if tables.radius not in (0, 1, 2) or n_samples < 1:
-        raise ValueError("film_trace needs a box/tent/gaussian film and n_samples >= 1")
+        raise ValueError(f"{name} needs a box/tent/gaussian film and n_samples >= 1")
     C = tables.hdr_list[HDR_MESH_C]
     mesh = tables.mesh
     if C and (mesh is None or mesh.device != dev or mesh.dtype != torch.float32
               or not mesh.is_contiguous() or mesh.numel() != C * (32 + 21 * _mk.CLUSTER)):
-        raise ValueError(f"film_trace needs the {C}-cluster mesh tables on {dev}")
+        raise ValueError(f"{name} needs the {C}-cluster mesh tables on {dev}")
+    regen = tables.regen if regen is None else bool(regen)
     from tpu_rt_torch.ops import _build
 
     lib = _build.load_library()
-    out = torch.empty((tables.n_acc + 1, tables.n_pix), dtype=torch.float32, device=dev)
+    out = torch.empty((n_out, tables.n_pix), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.path_film_launch(
@@ -1071,22 +1320,77 @@ def film_trace(tables: FilmTables, seed: int, n_samples: int):
             tables.tab.data_ptr(), tables.tab.numel(),
             mesh.data_ptr() if C else None, mesh.numel() if C else 0,
             out.data_ptr(), tables.n_pix, _wrap_i32(seed), n_samples,
-            tables.radius, stream)
+            tables.radius, mode, int(regen), stream)
     if err != 0:
         raise RuntimeError("path_film kernel launch failed: "
                            + lib.path_film_error_string(err).decode())
+    return out, regen
+
+
+def film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
+    """Trace ``n_samples`` paths per pixel and accumulate the filter
+    splat: returns (n_acc + 1, H*W) float32 planes on the tables' device,
+    (r, g, b, w) per filter offset (dy, dx) in row-major order, then the
+    ray count.  ``seed`` is an int32 (it wraps); sample i of the call
+    draws the stream of seed + i.  ``regen`` picks the loop form (None:
+    the tables' auto form, ``HDR_REGEN``): K2's regeneration loop or the
+    per-sample depth loop, which give the same planes.
+
+    On a CPU tensor this runs the plain version.  On a CUDA tensor it
+    launches ``csrc/path_film.cu`` (built at first use) or raises.
+    ``film_trace.launches`` counts kernel launches, ``regen_launches``
+    those in K2's loop."""
+    _check_kind(tables, False, "film_trace")
+    if tables.tab.device.type == "cpu":
+        return film_trace_plain(tables, seed, n_samples)
+    out, regen = _launch(tables, seed, n_samples, _MODE_FILM, regen, tables.n_acc + 1,
+                         "film_trace")
     film_trace.launches += 1
+    film_trace.regen_launches += int(regen)
     return out
 
 
-film_trace.launches = 0
+def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
+    """K3: ``film_trace`` with full Mueller transport on Stokes tables
+    (``pack_tables(..., stokes=True)``): (13 * offsets + 1, H*W) planes,
+    per offset the 12 weighted Stokes values and the weight, then the ray
+    count.  ``regen`` as in ``film_trace`` (K2 around K3).  Plain version
+    on a CPU tensor; on a CUDA tensor the kernel or raise.
+    ``stokes_film_trace.launches`` / ``regen_launches`` count launches."""
+    _check_kind(tables, True, "stokes_film_trace")
+    if tables.tab.device.type == "cpu":
+        return stokes_film_trace_plain(tables, seed, n_samples)
+    out, regen = _launch(tables, seed, n_samples, _MODE_STOKES_FILM, regen,
+                         tables.n_acc + 1, "stokes_film_trace")
+    stokes_film_trace.launches += 1
+    stokes_film_trace.regen_launches += int(regen)
+    return out
+
+
+def stokes_sample_trace(tables: FilmTables, seed: int):
+    """K6: one polarized sample per pixel on Stokes tables, (15, H*W)
+    planes (``stokes_sample_trace_plain``; ``sample_planes_split`` turns
+    them into S, jitter and rays).  Plain version on a CPU tensor; on a
+    CUDA tensor the kernel or raise.  ``stokes_sample_trace.launches``
+    counts launches."""
+    _check_kind(tables, True, "stokes_sample_trace")
+    if tables.tab.device.type == "cpu":
+        return stokes_sample_trace_plain(tables, seed)
+    out, _ = _launch(tables, seed, 1, _MODE_STOKES_SAMPLE, False, 15, "stokes_sample_trace")
+    stokes_sample_trace.launches += 1
+    return out
+
+
+film_trace.launches = film_trace.regen_launches = 0
+stokes_film_trace.launches = stokes_film_trace.regen_launches = 0
+stokes_sample_trace.launches = 0
 
 
 def deposit(film, planes, tables: FilmTables):
-    """Add one chunk's planes into the (4, H, W) film, in place: each
+    """Add one chunk's planes into the (n_val, H, W) film, in place: each
     filter offset (dy, dx) lands on pixel p + (dy, dx)."""
     r = tables.radius
-    acc = planes[:-1].view(-1, 4, tables.H, tables.W)
+    acc = planes[:-1].view(-1, tables.n_val, tables.H, tables.W)
     if r == 0:
         film += acc[0]
         return film
@@ -1098,28 +1402,71 @@ def deposit(film, planes, tables: FilmTables):
     return film
 
 
-def render_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
-                tile_rows=16, baked=None):
-    """Full render through the film kernel: ``spp_per_pass``-sample chunks,
-    each deposited into the film, then developed.  Returns the (H, W, 3)
-    image and the ray count (a 0-d int64 tensor), both on ``device``."""
-    bs = baked if baked is not None else bake_scene(scene)
-    if bs is None:
-        raise ValueError("scene is outside the film kernel's scope")
-    c = scene.camera
-    spp = c.spp if spp is None else spp
+def _render_chunks(tables: FilmTables, trace, spp, seed, spp_per_pass, regen):
+    """``spp_per_pass``-sample launches of ``trace``, each deposited into
+    the film.  Returns the (n_val, H, W) film and the ray count (0-d
+    int64)."""
+    dev = tables.tab.device
     k = max(1, min(spp_per_pass, spp))
     n_full, rem = divmod(spp, k)
-    tables = pack_tables(bs, c, tile_rows, device)
-    film = torch.zeros((4, c.height, c.width), dtype=torch.float32, device=device)
-    n_rays = torch.zeros((), dtype=torch.int64, device=device)
+    film = torch.zeros((tables.n_val, tables.H, tables.W), dtype=torch.float32, device=dev)
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     seed0 = _wrap_i32(seed * 100003)
     chunks = [(seed0 + j * k, k) for j in range(n_full)]
     if rem:
         chunks.append((seed0 + n_full * k, rem))
     for s, n in chunks:
-        planes = film_trace(tables, _wrap_i32(s), n)
+        planes = trace(tables, _wrap_i32(s), n, regen=regen)
         deposit(film, planes, tables)
         n_rays += planes[-1].to(torch.int64).sum()
+    return film, n_rays
+
+
+def _baked(scene: Scene, baked):
+    bs = baked if baked is not None else bake_scene(scene)
+    if bs is None:
+        raise ValueError("scene is outside the film kernel's scope")
+    return bs
+
+
+def render_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
+                tile_rows=16, baked=None, regen=None):
+    """Full render through the film kernel: ``spp_per_pass``-sample chunks,
+    each deposited into the film, then developed.  ``regen`` (None: auto
+    at max_depth >= 8) picks K2's loop.  Returns the (H, W, 3) image and
+    the ray count (a 0-d int64 tensor), both on ``device``."""
+    c = scene.camera
+    tables = pack_tables(_baked(scene, baked), c, tile_rows, device)
+    film, n_rays = _render_chunks(tables, film_trace, c.spp if spp is None else spp, seed,
+                                  spp_per_pass, regen)
     img = _film.develop(film[:3].permute(1, 2, 0), film[3])
     return img.contiguous(), n_rays
+
+
+def stokes_in_scope(bs: Optional[BakedScene]) -> bool:
+    """Scenes the Stokes kernel renders (pallas_path.stokes_in_scope): baked,
+    with no textured environment and no polarizer.  This package's bake
+    already rejects both (the polarizer's true Mueller transport stays on
+    the wavefront, ``integrator/stokes.py``), so every baked scene is in
+    scope."""
+    return bs is not None
+
+
+def render_stokes_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
+                       tile_rows=16, baked=None, regen=None):
+    """Full polarized render through K3 (``render_stokes_pallas``): the
+    film render of ``render_film`` with 13 planes per filter offset, then
+    S = film / weight.  ``regen`` as in ``render_film``.  Returns the
+    (H, W, 4, 3) Stokes image (I, Q, U, V by rgb) and the ray count (0-d
+    int64), both on ``device``.  Every filter the loader makes (box, tent,
+    gaussian) has a film footprint, so this route never needs K6."""
+    bs = _baked(scene, baked)
+    if not stokes_in_scope(bs):
+        raise ValueError("scene is outside the Stokes kernel's scope")
+    c = scene.camera
+    spp = c.spp if spp is None else spp
+    tables = pack_tables(bs, c, tile_rows, device, stokes=True)
+    film, n_rays = _render_chunks(tables, stokes_film_trace, spp, seed, spp_per_pass, regen)
+    S = _film.develop(film[:12].permute(1, 2, 0), film[12])
+    return S.reshape(c.height, c.width, 4, 3).contiguous(), n_rays
+

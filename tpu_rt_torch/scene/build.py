@@ -4,10 +4,12 @@ Counterpart of ``tpu_rt/scene/build.py``, for the subset the cbox class of
 scenes, the mesh scenes and the ultrasound scenes use: ``perspective`` +
 ``hdrfilm`` with a box / tent / gaussian rfilter, the ``independent``
 sampler, the ``path``, ``direct``, ``direct_projective`` and
-``ultrasound_integrator`` integrators, the ``ultrasound_sensor``, ``obj`` /
+``ultrasound_integrator`` integrators and ``stokes`` wrapping one of
+them, the ``ultrasound_sensor``, ``obj`` /
 ``ply`` / ``sphere`` / ``rectangle`` / ``disk`` / ``cylinder`` / ``cone``
 shapes, ``diffuse`` / ``dielectric`` / ``conductor`` / ``roughconductor`` /
-``null`` / ``ultrasound_bsdf`` / ``twosided`` BSDFs, ``area`` / ``point`` /
+``polarizer`` / ``null`` / ``ultrasound_bsdf`` / ``twosided`` BSDFs,
+``area`` / ``point`` /
 ``constant`` emitters and the
 ``ultraray`` / ``ultrasound_emitter`` transducer props.  Every other
 plugin raises ``ValueError`` naming the ROADMAP.md item that will port it.
@@ -33,9 +35,8 @@ from tpu_rt_torch.scene.convert import scene_from_arrays
 from tpu_rt_torch.scene.obj import load_obj
 from tpu_rt_torch.scene.ply import load_ply
 
-_BSDF_TYPES = {"diffuse", "dielectric", "conductor", "roughconductor", "null",
-               "ultrasound_bsdf", "twosided"}
-_LATER_BSDFS = {"polarizer"}
+_BSDF_TYPES = {"diffuse", "dielectric", "conductor", "roughconductor", "polarizer",
+               "null", "ultrasound_bsdf", "twosided"}
 _TRANSDUCER_EMITTERS = {"ultraray", "ultrasound_emitter"}
 _EMITTERS_IN_SHAPES = {"area"} | _TRANSDUCER_EMITTERS
 _ANALYTIC_ENUM = {"sphere": T.SPHERE, "rectangle": T.RECTANGLE, "disk": T.DISK,
@@ -49,10 +50,8 @@ _INTEGRATORS = {"path": T.INTEGRATOR_PATH, "direct": T.INTEGRATOR_DIRECT,
 # Plugins of tpu_rt that this package does not load yet -> ROADMAP.md item.
 _LATER = {
     "bsplinecurve": "A8 (asset readers, curves)",
-    "polarizer": "A6 (polarized transport)",
     "envmap": "A7 (textured environment, K5)",
     "bitmap": "A8 (asset readers and textures)",
-    "stokes": "A6 (polarized transport)",
 }
 
 # Default IORs of Mitsuba's dielectric plugin.
@@ -87,6 +86,7 @@ class _Builder:
         self.bsdf_index = {}  # id(dict) -> index
         self.shape_bsdf = []
         self.shape_emitter = []
+        self.shape_to_world = []
         self.shape_tri_ranges = []  # per shape: (tri_start, tri_end)
         self.tri = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2",
                                     "uv0", "uv1", "uv2", "shape")}
@@ -115,7 +115,7 @@ class _Builder:
             return self.bsdf_index[key]
         btype = bd.get("type")
         if btype == "twosided":
-            idx = self.add_bsdf(_plugin_child(bd, _BSDF_TYPES | _LATER_BSDFS))
+            idx = self.add_bsdf(_plugin_child(bd, _BSDF_TYPES))
             self.bsdf_index[key] = idx
             return idx
         p = np.zeros(16, np.float32)
@@ -142,6 +142,10 @@ class _Builder:
                 p[0] = -1.0  # marker: perfect mirror (Mitsuba material="none")
             p[6:9] = _rgb(bd.get("specular_reflectance"), 1.0)
             p[9] = float(np.asarray(bd.get("alpha", 0.1)).reshape(-1)[0])
+        elif btype == "polarizer":
+            code = T.BSDF_POLARIZER
+            p[0] = float(np.asarray(bd.get("theta", 0.0)).reshape(-1)[0])
+            p[3:6] = _rgb(bd.get("transmittance"), 1.0)
         elif btype == "ultrasound_bsdf":
             code = T.BSDF_ULTRASOUND
             p[0] = float(bd.get("impedance", 1.54))
@@ -194,7 +198,7 @@ class _Builder:
         if stype not in ("obj", "ply") and stype not in _ANALYTIC_ENUM:
             _not_yet("shape", stype)
         shape_id = len(self.shape_bsdf)
-        bsdf = _plugin_child(sd, _BSDF_TYPES | _LATER_BSDFS)
+        bsdf = _plugin_child(sd, _BSDF_TYPES)
         emitter = _plugin_child(sd, _EMITTERS_IN_SHAPES)
         bsdf_idx = self.add_bsdf(bsdf)
         to_world = tf.as_matrix(sd.get("to_world"))
@@ -252,6 +256,7 @@ class _Builder:
 
         self.shape_bsdf.append(bsdf_idx)
         self.shape_emitter.append(emitter_idx)
+        self.shape_to_world.append(np.asarray(to_world, np.float32))
         self.shape_tri_ranges.append(tri_range)
 
     # -- Emitters, sensor, integrator -----------------------------------------
@@ -306,6 +311,16 @@ class _Builder:
 
     def add_integrator(self, idict):
         itype = idict.get("type")
+        if itype == "stokes":
+            # the wrapped integrator's depth, roulette and emitter settings
+            inner = next((v for v in idict.values() if isinstance(v, dict) and "type" in v),
+                         None)
+            self.integrator = T.INTEGRATOR_STOKES
+            if inner is not None:
+                self.max_depth = int(inner.get("max_depth", -1))
+                self.rr_depth = int(inner.get("rr_depth", 5))
+                self.hide_emitters = bool(inner.get("hide_emitters", False))
+            return
         if itype not in _INTEGRATORS:
             _not_yet("integrator", itype)
         self.integrator = _INTEGRATORS[itype]
@@ -361,6 +376,8 @@ class _Builder:
             bsdf_type=np.asarray([r[0] for r in self.bsdf_rows], np.int32),
             bsdf_params=(np.stack([r[1] for r in self.bsdf_rows]) if self.bsdf_rows
                          else np.zeros((0, 16), np.float32)),
+            shape_to_world=(np.stack(self.shape_to_world) if self.shape_to_world
+                            else np.zeros((0, 4, 4), np.float32)),
             **self._emitter_arrays(tri_e1, tri_e2),
         )
         meta = dict(
@@ -512,7 +529,7 @@ def build_scene(desc: dict):
         elif vtype in ("point", "constant", "envmap", "ultraray",
                        "ultrasound_emitter"):
             b.add_emitter(val)
-        elif vtype in _BSDF_TYPES or vtype in _LATER_BSDFS:
+        elif vtype in _BSDF_TYPES:
             b.add_bsdf(val)
         elif vtype == "ref":
             raise KeyError(f"unresolved ref at scene key {key!r}")

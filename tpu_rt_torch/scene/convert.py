@@ -8,7 +8,8 @@ never sees a JAX array.
 
 Array names: the ``Geometry`` and ``Emitters`` tensor fields (the
 optional mesh cluster tables may be absent or None), ``shape_bsdf``,
-``shape_emitter``, ``bsdf_type``, ``bsdf_params``, and ``camera_<field>``
+``shape_emitter``, ``bsdf_type``, ``bsdf_params``, ``shape_to_world``
+(optional: the polarizer's axis frame), and ``camera_<field>``
 for the camera's tensor fields, ``us_<field>`` for the ultrasound
 configuration's.  ``meta`` holds the ints and flags: ``n_tris``,
 ``n_analytic``, ``n_area``, ``n_point``, ``has_env``, ``has_textures``,
@@ -72,6 +73,7 @@ def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
         bsdf_type=bsdf_type,
         bsdf_types_present=tuple(sorted(set(bsdf_type.tolist()))),
         bsdf_params=t("bsdf_params"),
+        shape_to_world=None if arrays.get("shape_to_world") is None else t("shape_to_world"),
         camera=camera,
         ultrasound=ultrasound,
         has_textures=bool(meta["has_textures"]),

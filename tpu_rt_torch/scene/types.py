@@ -10,7 +10,7 @@ analytic shape transforms and parameters, the BVH's prim order and node
 links, the mesh cluster tables, per-shape BSDF/emitter ids, the BSDF
 table and the set of BSDF types present, the emitter tables (with the
 environment's frame and sampling CDFs), the camera and the ultrasound
-configuration.
+configuration, and each shape's to_world (the polarizer's axis frame).
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ CURVE = 5
 #   DIFFUSE [0:3] reflectance; DIELECTRIC [0] int_ior, [1] ext_ior,
 #   [3:6] specular_reflectance, [6:9] specular_transmittance;
 #   CONDUCTOR / ROUGH_CONDUCTOR [0:3] eta ([0] = -1 marks a perfect
-#   mirror), [3:6] k, [6:9] specular_reflectance, [9] alpha.
+#   mirror), [3:6] k, [6:9] specular_reflectance, [9] alpha;
+#   POLARIZER [0] theta (degrees), [3:6] transmittance.
 BSDF_DIFFUSE = 0
 BSDF_DIELECTRIC = 1
 BSDF_CONDUCTOR = 2
@@ -199,6 +200,11 @@ class Scene(_Replace):
     bsdf_params: torch.Tensor  # [B, 16]
     camera: Optional[Camera] = None
     ultrasound: Optional[UltrasoundConfig] = None
+    # [N, 4, 4] each shape's to_world as written (a sphere's with its
+    # centre and radius): the polarizer's transmission axis is its local
+    # (sin theta, cos theta, 0) through this transform; None when the
+    # caller carried no such array
+    shape_to_world: Optional[torch.Tensor] = None
     # the BSDF type codes that occur in the scene: the wavefront's BSDF
     # dispatch evaluates only their lobes
     bsdf_types_present: tuple = ()
