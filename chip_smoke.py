@@ -5,9 +5,10 @@
 Phases (any failure raises and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the kernels (tpu_rt_torch/ops/csrc/path_film.cu with K1, K2,
-     K3 and K6; us_acq.cu, mesh_direct.cu, mesh_isect.cu), one nvcc per
+     K3, K4, K5 and K6; us_acq.cu, mesh_direct.cu, mesh_isect.cu), one nvcc per
      source, started together, and the host BVH builder
-     (tpu_rt_torch/ops/native/bvh_builder.cpp) with g++;
+     (tpu_rt_torch/ops/native/bvh_builder.cpp) with g++; ptxas's registers
+     and spills of every kernel instantiation;
   3. the kernel against its plain PyTorch version on the card: the cbox
      fixture rendered at 64x64, 4 spp, and the raw film planes of one
      main-path launch (512x512, 64 samples);
@@ -84,9 +85,31 @@ Phases (any failure raises and the script exits non-zero):
      forced, and both forms at max_depth 6; three renders under
      torch.profiler (the kernel's share, the deposit's, idle); the
      per-sample route (K6 + splat_aligned) at the same size;
- 20. the polarizer wavefront: render_stokes(polarizers_const.xml) at
-     128x128, 10 spp — one warm-up, five timed renders.
-Each main path (phases 5, 9, 13, 16, 19 and 20) runs with every launch
+ 20. the polarizer Stokes wavefront: render_stokes(polarizers_const.xml)
+     at 128x128, 10 spp — one warm-up, five timed renders (its own line,
+     not the polarizers cell, which is phase 24);
+ 21. the per-sample kernels K5 (raygen_trace) and K4 (path_trace) against
+     their plain versions on the card, bit for bit: K5 on
+     tests/assets/polarizers/polarizers.xml (two sheets under the rotated
+     EXR envmap) at 32x32 and 128x128, all 12 planes; K4 on 128x128 rays
+     through the sheets (10 planes) and on 16 384 rays inside the cbox
+     fixture (4 planes); each kernel's ms, its plain version's and its
+     bound;
+ 22. the lanes: K1's film planes on polarizers_const.xml as a path scene
+     (the pass-through lane) at 64x64 x 4 samples, and K3 with a null BSDF
+     on cbox_pol at 32x32 x 4 samples in both loop forms, bit for bit; K1's
+     cbox and K3's cbox_pol launches re-timed;
+ 23. the gates: render(polarizers.xml) at 32x32, 16 spp, seed 0, tile_rows
+     8 and render(polarizers_const.xml) (path) at 32x32, 4 spp against
+     tests/golden/make_envmap_golden.py (tpu_rt's kernels in interpret
+     mode, the same streams): 8x8 block means;
+ 24. the polarizers cell at full width: render(polarizers.xml) at 128x128,
+     10 spp (K5 once a sample, the lat-long lookup, splat_aligned,
+     develop) — one warm-up, five timed renders, K5's launch count 10 a
+     render; three renders under torch.profiler (K5's share, the rest, the
+     idle share); then the rays-in route: K4 on the 128x128 rays at ten
+     seeds.
+Each main path (phases 5, 9, 13, 16, 19, 20 and 24) runs with every launch
 count set to 0 just before it and read just after.  The line before the last is a
 JSON record of the kernels, each with its bound: the larger of its
 operations over 67 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100
@@ -114,6 +137,8 @@ MESH_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_mesh_golden.py"
 WAVE_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_wavefront_golden.py")
 POL_DIR = os.path.join(ROOT, "tests", "assets", "cbox_pol")
 STOKES_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_stokes_golden.py")
+ENV_GOLDEN_SCRIPT = os.path.join(ROOT, "tests", "golden", "make_envmap_golden.py")
+POLARIZERS = os.path.join(ROOT, "tests", "assets", "polarizers", "polarizers.xml")
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM, outside the tensor cores
 PEAK_BYTES = 3.35e12  # B/s, HBM3
 
@@ -130,6 +155,12 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps, out
 
 
+def dev_us(evt):
+    """A torch.profiler event's own device time, us."""
+    return getattr(evt, "self_device_time_total", None) or getattr(
+        evt, "self_cuda_time_total", 0.0)
+
+
 def develop_planes(planes, tables):
     from tpu_rt_torch.ops import path_kernel as pk
     from tpu_rt_torch.sensor.film import develop
@@ -142,11 +173,13 @@ def develop_planes(planes, tables):
 def _counters():
     from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 
-    # K1, K3, K6, K10, K9, K7; K2's loop, around K1 or K3, is counted by
-    # the two film wrappers' regen_launches
+    # K1, K3, K6, K5, K4, K10, K9, K7; K2's loop, around K1 or K3, is
+    # counted by the two film wrappers' regen_launches
     return {"path_film": path_kernel.film_trace,
             "stokes_film": path_kernel.stokes_film_trace,
             "stokes_sample": path_kernel.stokes_sample_trace,
+            "raygen_sample": path_kernel.raygen_trace,
+            "rays_sample": path_kernel.path_trace,
             "us_acq": us_kernel.us_trace,
             "mesh_direct": mesh_kernel.direct_trace,
             "mesh_isect": mesh_kernel.mesh_intersect}
@@ -176,16 +209,17 @@ def check_counts(counts, **want):
     assert counts == expect, f"launch counts {counts}, expected {expect}"
 
 
-def film_trace_bound(tables, planes):
-    """K1's bound for one launch: every ray the launch cast (its own count)
-    tests every unrolled prim and every mesh cluster's box at least once;
-    bytes are the tables in and the planes out."""
+def film_trace_bound(tables, planes, ray_row=-1, n_in=0):
+    """A path_film launch's bound (K1, and K5 / K4 with their ray-count
+    row and ``n_in`` input floats): every ray the launch cast (its own
+    count) tests every unrolled prim and every mesh cluster's box at least
+    once; bytes are the tables and inputs in and the planes out."""
     from tpu_rt_torch.ops import path_kernel as pk
 
-    rays = planes[-1].double().sum().item()
+    rays = planes[ray_row].double().sum().item()
     h = tables.hdr_list
     ops = rays * (h[pk.HDR_N_PRIMS] * OPS_PRIM + h[pk.HDR_MESH_C] * OPS_SLAB)
-    nbytes = 4 * (tables.tab.numel() + tables.hdr.numel() + planes.numel()
+    nbytes = 4 * (tables.tab.numel() + tables.hdr.numel() + planes.numel() + n_in
                   + (0 if tables.mesh is None else tables.mesh.numel()))
     return bound(ops, nbytes)
 
@@ -249,9 +283,8 @@ def main():
     bvh_path = _build.host_library("bvh_builder.cpp")
     print(f"build (g++): {time.perf_counter() - t0:.2f} s ({bvh_path.name})")
     log = lib_path.with_suffix(".log")
-    for line in (log.read_text() if log.exists() else "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    for name, (regs, st_b, ld_b) in ptxas_summary(log.read_text() if log.exists() else "").items():
+        print(f"  ptxas {name}: {regs} registers, spill stores {st_b} B, spill loads {ld_b} B")
 
     # ---- 3. kernel vs plain version on the card -----------------------------
     sc64 = tt.load_file(FIXTURE, res=64, spp=4)
@@ -273,8 +306,12 @@ def main():
     sc512 = tt.load_file(FIXTURE, res=512, spp=256)
     tab512 = pk.pack_tables(pk.bake_scene(sc512), sc512.camera, 16, dev)
     seed512 = 100003  # the first chunk seed of render(seed=1)
-    pk.film_trace(tab512, seed512, 64)  # warm-up
-    kernel_ms, planes_k = cuda_ms(lambda: pk.film_trace(tab512, seed512, 64), reps=3)
+    # two warm-ups, then the median of five single launches, so that one
+    # outlying timing does not move the figure
+    for _ in range(2):
+        pk.film_trace(tab512, seed512, 64)
+    runs = [cuda_ms(lambda: pk.film_trace(tab512, seed512, 64)) for _ in range(5)]
+    kernel_ms, planes_k = statistics.median(r[0] for r in runs), runs[-1][1]
     pk.film_trace_plain(tab512, seed512, 1)  # warm-up of the plain version
     plain_ms, planes_p = cuda_ms(lambda: pk.film_trace_plain(tab512, seed512, 64))
     max_abs_err = (planes_k - planes_p).abs().max().item()
@@ -284,7 +321,8 @@ def main():
     print(f"kernel vs plain, 512x512 x 64 samples (one main-path launch): "
           f"entries within rtol 1e-4 atol 1e-6 {frac_planes:.6f}, max abs err "
           f"{max_abs_err:.3e}, max plane-sum rel diff {sums_rel:.3e}; kernel "
-          f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms")
+          f"{kernel_ms:.3f} ms (median of 5, min {min(r[0] for r in runs):.3f}, max "
+          f"{max(r[0] for r in runs):.3f}), plain {plain_ms:.1f} ms")
     assert frac_planes >= 0.99 and sums_rel <= 1e-3, "kernel disagrees at 512x512"
     film_bound = film_trace_bound(tab512, planes_k)
 
@@ -340,6 +378,7 @@ def main():
     mesh = mesh_phases(tt, dev)
     wave = wavefront_phases(tt, dev)
     pol = stokes_phases(tt, dev)
+    env = envmap_phases(tt, dev, k1_ms=kernel_ms, k3_ms=pol["k3_ms"])
 
     print(json.dumps({"kernels": [{
         "name": "path_film", "route": "cuda",
@@ -400,6 +439,21 @@ def main():
         "launches": pol["k6_launches"], "max_abs_err": pol["k6_err"],
         "ms": pol["k6_ms"], "plain_ms": pol["k6_plain_ms"],
         "bound_ms": pol["k6_bound_ms"], "bound_by": pol["k6_bound_by"], "library_ms": None,
+    }, {
+        "name": "raygen_sample", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/path_film.cu",
+        "replaces": "tpu_rt/ops/pallas_path.py:2044",
+        "launches": env["k5_launches"], "max_abs_err": env["k5_err"],
+        "ms": env["k5_ms"], "plain_ms": env["k5_plain_ms"],
+        "bound_ms": env["k5_bound"][0], "bound_by": env["k5_bound"][1], "library_ms": None,
+    }, {
+        "name": "rays_sample", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/path_film.cu",
+        "replaces": "tpu_rt/ops/pallas_path.py:1995",
+        "launches": env["k4_launches"], "max_abs_err": env["k4_err"],
+        "ms": env["k4_ms"], "plain_ms": env["k4_plain_ms"],
+        "bound_ms": env["k4_bound"][0], "bound_by": env["k4_bound"][1], "library_ms": None,
+        "cbox": env["k4_cbox"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -817,10 +871,6 @@ def wavefront_phases(tt, dev):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total", None) or getattr(
-            evt, "self_cuda_time_total", 0.0)
-
     busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
     k7 = sum(dev_us(e) for e in prof.key_averages() if "mesh_isect" in e.key) / 1e3
     top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]
@@ -1052,10 +1102,6 @@ def stokes_phases(tt, dev):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(evt):
-        return getattr(evt, "self_device_time_total", None) or getattr(
-            evt, "self_cuda_time_total", 0.0)
-
     busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
     kern = sum(dev_us(e) for e in prof.key_averages() if "path_film_kernel" in e.key) / 1e3
     print(f"profile of 3 cbox_pol renders: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
@@ -1089,8 +1135,9 @@ def stokes_phases(tt, dev):
     counts = launch_counts()
     zm = statistics.median(times)
     zr = rays[times.index(zm)]
-    print(f"launch counts over the polarizer wavefront: {counts}")
-    print(f"polarizer wavefront polarizers_const.xml 128x128 10 spp: median {zm:.3f} ms (min "
+    print(f"launch counts over the polarizer Stokes wavefront: {counts}")
+    print(f"polarizer Stokes wavefront (render_stokes, not the polarizers cell) "
+          f"polarizers_const.xml 128x128 10 spp: median {zm:.3f} ms (min "
           f"{min(times):.3f}, max {max(times):.3f}, n 5), rays/render {zr}, rays/s "
           f"{zr / (zm / 1e3):.4e}; I mean {Sz[..., 0, :].mean().item():.5f}, Q RMS "
           f"{(Sz[..., 1, :] ** 2).mean().sqrt().item():.5f}")
@@ -1107,6 +1154,203 @@ def stokes_phases(tt, dev):
                 k1_depth16=dict(regen_ms=r1_ms, unrolled_ms=u1_ms),
                 k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_bound_ms=k6_b[0], k6_bound_by=k6_b[1])
 
+
+
+def ptxas_summary(log_text):
+    """{kernel: (registers, spill store bytes, spill load bytes)} of every
+    entry function, read off nvcc's -Xptxas -v report (names demangled by
+    c++filt where it exists)."""
+    import re
+    import shutil
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [None, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    names = list(out)
+    filt = shutil.which("c++filt")
+    pretty = names
+    if filt and names:
+        pretty = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True,
+                                check=True).stdout.split("\n")[:len(names)]
+    return {re.sub(r"^void |\(anonymous namespace\)::", "", p).split("(")[0]: tuple(out[n])
+            for n, p in zip(names, pretty)}
+
+
+def envmap_phases(tt, dev, k1_ms, k3_ms):
+    """Phases 21-24; returns K5's and K4's JSON numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_rt_torch.ops import path_kernel as pk
+
+    g = load_golden_module(ENV_GOLDEN_SCRIPT)
+
+    # ---- 21. K5 and K4 against their plain versions, bit for bit ----------
+    k5 = {}
+    for res in (32, 128):
+        sc = tt.load_file(POLARIZERS, res=res, spp=1)
+        tab = pk.pack_tables(pk.bake_scene(sc), sc.camera, 16, dev)
+        assert tab.env_textured and tab.hdr_list[pk.HDR_MAX_DEPTH] == 16
+        got = pk.raygen_trace(tab, 0)  # the first sample of render(seed=0)
+        want = pk.raygen_trace_plain(tab, 0)
+        torch.cuda.synchronize()
+        share, err = equal_stats(got, want)
+        k_ms, _ = cuda_ms(lambda: pk.raygen_trace(tab, 0), reps=20)
+        p_ms, _ = cuda_ms(lambda: pk.raygen_trace_plain(tab, 0))
+        b_ms, b_by = film_trace_bound(tab, got, 3)
+        escaped = (got[9:12].sum(0) > 0).float().mean().item()
+        k5[res] = dict(ms=k_ms, plain_ms=p_ms, err=err, bound=(b_ms, b_by))
+        print(f"raygen_sample (K5) vs plain, polarizers.xml {res}x{res}, one sample, depth 16, "
+              f"12 planes: bit-equal share {share:.6f}, max |d| {err:.3e}, escaped share "
+              f"{escaped:.4f}, rays {got[3].sum().item():.0f}; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.1f} ms; bound {b_ms:.6f} ms ({b_by})")
+        assert torch.equal(got, want), f"K5 differs from its plain version at {res}x{res}"
+        assert escaped > 0.5
+
+    pol128 = tt.load_file(POLARIZERS, res=128, spp=1)
+    tab128 = pk.pack_tables(pk.bake_scene(pol128), pol128.camera, 16, dev)
+    o, d = (torch.from_numpy(x).to(dev) for x in g.k4_env_rays(128 * 128))
+    got = pk.path_trace(tab128, o, d, 2)
+    want = pk.path_trace_plain(tab128, o, d, 2)
+    torch.cuda.synchronize()
+    share, k4_err = equal_stats(got, want)
+    k4_ms, _ = cuda_ms(lambda: pk.path_trace(tab128, o, d, 2), reps=20)
+    k4_plain_ms, _ = cuda_ms(lambda: pk.path_trace_plain(tab128, o, d, 2))
+    k4_bound = film_trace_bound(tab128, got, 3, n_in=6 * o.shape[0])
+    print(f"rays_sample (K4) vs plain, {o.shape[0]} rays through the polarizers.xml sheets, "
+          f"depth 16, 10 planes: bit-equal share {share:.6f}, max |d| {k4_err:.3e}, escape "
+          f"throughputs {sorted(set(got[7].unique().tolist()))}; kernel {k4_ms:.4f} ms, plain "
+          f"{k4_plain_ms:.1f} ms; bound {k4_bound[0]:.6f} ms ({k4_bound[1]})")
+    assert torch.equal(got, want) and got.shape == (10, 128 * 128), "K4 differs (envmap)"
+
+    cb = tt.load_file(FIXTURE, res=16, spp=1)
+    tcb = pk.pack_tables(pk.bake_scene(cb), cb.camera, 16, dev)
+    oc, dc = (torch.from_numpy(x).to(dev) for x in g.k4_cbox3_rays(128 * 128))
+    got = pk.path_trace(tcb, oc, dc, 9)
+    want = pk.path_trace_plain(tcb, oc, dc, 9)
+    torch.cuda.synchronize()
+    share, cb_err = equal_stats(got, want)
+    cb_ms, _ = cuda_ms(lambda: pk.path_trace(tcb, oc, dc, 9), reps=20)
+    cb_plain_ms, _ = cuda_ms(lambda: pk.path_trace_plain(tcb, oc, dc, 9))
+    cb_bound = film_trace_bound(tcb, got, 3, n_in=6 * oc.shape[0])
+    print(f"rays_sample (K4) vs plain, {oc.shape[0]} rays inside the cbox fixture, depth "
+          f"{tcb.hdr_list[pk.HDR_MAX_DEPTH]}, 4 planes: bit-equal share {share:.6f}, max |d| "
+          f"{cb_err:.3e}, mean L {got[0:3].mean().item():.5f}; kernel {cb_ms:.4f} ms, plain "
+          f"{cb_plain_ms:.1f} ms; bound {cb_bound[0]:.6f} ms ({cb_bound[1]})")
+    assert torch.equal(got, want) and got.shape == (4, 128 * 128), "K4 differs (cbox)"
+
+    # ---- 22. the pass-through and null lanes; K1 and K3 re-timed ------------
+    pc = tt.load_file(os.path.join(POL_DIR, "polarizers_const.xml"), res=64, spp=4)
+    tpc = pk.pack_tables(pk.bake_scene(pc), pc.camera, 16, dev)
+    assert not tpc.env_textured and tpc.regen
+    got, want = pk.film_trace(tpc, 100003, 4), pk.film_trace_plain(tpc, 100003, 4)
+    share, pass_err = equal_stats(got, want)
+    print(f"path_film (K1, pass-through lane) vs plain, polarizers_const.xml as a path scene "
+          f"64x64 x 4 samples, depth 16 (K2 loop), gaussian: bit-equal share {share:.6f}, max "
+          f"|d| {pass_err:.3e}, rays {got[-1].sum().item():.0f}")
+    assert torch.equal(got, want), "K1's pass-through lane differs from its plain version"
+
+    cp = tt.load_file(os.path.join(POL_DIR, "cbox_pol.xml"), res=32, spp=4)
+    bt = cp.bsdf_type.clone()
+    bt[4] = pk.BSDF_NULL  # the low glass sphere
+    cp = cp.replace(bsdf_type=bt)
+    bs = pk.bake_scene(cp)
+    assert pk.stokes_in_scope(bs)
+    tcp = pk.pack_tables(bs, cp.camera, 16, dev, stokes=True)
+    want = pk.stokes_film_trace_plain(tcp, 5, 4)
+    for regen in (True, False):
+        got = pk.stokes_film_trace(tcp, 5, 4, regen=regen)
+        share, null_err = equal_stats(got, want)
+        print(f"stokes_film (K3, {'K2 loop' if regen else 'per-sample loop'}) with a null BSDF "
+              f"vs plain, cbox_pol 32x32 x 4 samples, depth 16: bit-equal share {share:.6f}, "
+              f"max |d| {null_err:.3e}")
+        assert torch.equal(got, want), "K3 with a null BSDF differs from its plain version"
+    print(f"K1 cbox launch (512x512 x 64 samples, tent) {k1_ms:.3f} ms; K3 cbox_pol launch "
+          f"(256x256 x 64 samples, per-sample loop) {k3_ms:.3f} ms (registers and spills in "
+          f"phase 2)")
+
+    # ---- 23. the gates against tpu_rt's interpret-mode renders ---------------
+    want = np.load(g.OUT)
+    res, spp = g.RENDER["res"], g.RENDER["spps"][0]
+    sg = tt.load_file(POLARIZERS, res=res, spp=spp)
+    img = tt.render(sg, spp=spp, seed=g.RENDER["seed"], device="cuda", tile_rows=8)
+    rays = int(tt.render.last_ray_count)
+    gate = g.render_gate(img.cpu().numpy(), want[f"render_{spp}"])
+    want_rays = int(want[f"render_{spp}_rays"])
+    print(f"polarizers golden vs {os.path.basename(g.OUT)} (tpu_rt interpret mode, same "
+          f"streams), {res}x{res} {spp} spp: max 8x8 block-mean diff / mean {gate:.3e} (limit "
+          f"{g.RENDER_LIMIT}); rays {rays} (golden {want_rays}); image mean "
+          f"{img.mean().item():.6f} (golden {want[f'render_{spp}'].mean():.6f})")
+    assert bool(torch.isfinite(img).all()) and gate <= g.RENDER_LIMIT, "polarizers golden failed"
+    assert abs(rays - want_rays) <= 0.01 * want_rays
+    spp = g.RENDER["const_spp"]
+    sc = tt.load_file(os.path.join(POL_DIR, "polarizers_const.xml"), res=res, spp=spp)
+    img = tt.render(sc, spp=spp, seed=g.RENDER["seed"], device="cuda", tile_rows=8)
+    rays = int(tt.render.last_ray_count)
+    gate = g.render_gate(img.cpu().numpy(), want["const_render"])
+    want_rays = int(want["const_render_rays"])
+    print(f"polarizers_const (path, K1's pass-through lane) golden, {res}x{res} {spp} spp: max "
+          f"8x8 block-mean diff / mean {gate:.3e} (limit {g.RENDER_LIMIT}); rays {rays} (golden "
+          f"{want_rays})")
+    assert bool(torch.isfinite(img).all()) and gate <= g.RENDER_LIMIT, "polarizers_const failed"
+    assert abs(rays - want_rays) <= 0.01 * want_rays
+
+    # ---- 24. the polarizers cell: render(polarizers.xml) 128x128, 10 spp -----
+    polar = tt.load_file(POLARIZERS)  # 128x128, 10 spp, gaussian
+    med, lo, hi, nr, counts, img = timed_main_path(tt, polar, 10)
+    print(f"launch counts over the polarizers main path: {counts}")
+    print(f"polarizers main path polarizers.xml 128x128 10 spp gaussian (K5 per sample): "
+          f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
+          f"{nr / (med / 1e3):.4e}; image mean {img.mean().item():.5f}, max "
+          f"{img.max().item():.3f}")
+    check_counts(counts, raygen_sample=10 * 5)
+    assert img.shape == (128, 128, 3) and bool(torch.isfinite(img).all())
+    assert img.max().item() > 5.0  # the sun, through to_world and scale
+    k5_launches = counts["raygen_sample"]
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rep in range(3):
+            tt.render(polar, seed=50 + rep, device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    kern = sum(dev_us(e) for e in prof.key_averages() if "path_sample_kernel" in e.key) / 1e3
+    print(f"profile of 3 polarizers renders: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+          f"path_sample_kernel (K5) {kern:.3f} ms ({kern / max(busy, 1e-9):.4f} of busy), the "
+          f"rest (eval_env, splat_aligned, develop) {busy - kern:.3f} ms "
+          f"({(busy - kern) / max(busy, 1e-9):.4f}), idle share {1.0 - busy / wall_ms:.4f}")
+    for e in sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]:
+        print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+    # the rays-in route: K4 on the 128x128 rays at ten seeds, as a caller
+    # tracing its own rays does
+    pk.path_trace(tab128, o, d, 1000)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    r_ms, planes = cuda_ms(lambda: [pk.path_trace(tab128, o, d, s) for s in range(10)])
+    counts = launch_counts()
+    print(f"launch counts over the rays-in route (K4, 10 seeds): {counts}")
+    print(f"rays-in route, {o.shape[0]} rays x 10 seeds: {r_ms:.3f} ms, rays "
+          f"{sum(p[3].sum().item() for p in planes):.0f}")
+    check_counts(counts, rays_sample=10)
+
+    return dict(k5_launches=k5_launches, k5_err=max(v["err"] for v in k5.values()),
+                k5_ms=k5[128]["ms"], k5_plain_ms=k5[128]["plain_ms"], k5_bound=k5[128]["bound"],
+                k4_launches=counts["rays_sample"], k4_err=max(k4_err, cb_err), k4_ms=k4_ms,
+                k4_plain_ms=k4_plain_ms, k4_bound=k4_bound,
+                k4_cbox=dict(ms=cb_ms, plain_ms=cb_plain_ms, bound_ms=cb_bound[0],
+                             bound_by=cb_bound[1]),
+                main=dict(ms=med, rays=nr, wall_ms=wall_ms, busy_ms=busy, k5_ms=kern))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -253,8 +253,9 @@ def test_emitter_sampling_matches_tpu_rt(which):
 
 
 def test_latlong_environment_sampling_matches_tpu_rt():
-    """A textured lat-long map (the loader builds only the constant one
-    until envmap lands): the same tables handed to both packages."""
+    """A textured lat-long map of random texels (the EXR fixture's lookup
+    is tests/test_torch_envmap_kernel.py's): the same tables handed to both
+    packages."""
     sj, st = _pair("mixed")
     rng = np.random.default_rng(4)
     H, W = 8, 16

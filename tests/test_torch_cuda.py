@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (the film kernel with its clustered-mesh
-mode, its Stokes modes K3 and K6 and K2's regeneration loop, the
-ultrasound acquisition kernel, the direct mesh kernel and the clustered
-mesh-intersect kernel) against their plain PyTorch versions, on the card,
-and the wavefront tracers' routes through the last.
+mode, its pass-through lane, its Stokes modes K3 and K6, its per-sample
+modes K5 and K4 and K2's regeneration loop, the ultrasound acquisition
+kernel, the direct mesh kernel and the clustered mesh-intersect kernel)
+against their plain PyTorch versions, on the card, and the routes through
+them.
 Every test here is marked ``cuda`` and skips without a GPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -20,7 +21,9 @@ for the direct mesh kernel at least 99.9% of rays within rtol 1e-4 /
 atol 1e-6 and the same rays cast; the mesh-intersect kernel bit-equal
 (t, prim, u, v), and its one call bit-equal to the chained segments; the
 Stokes kernels K3 and K6 and K2's loop bit-equal to their plain versions,
-and K2's loop bit-equal to the per-sample loop for K1 and K3.
+and K2's loop bit-equal to the per-sample loop for K1 and K3; K5 and K4
+under a textured environment, K1 with polarizer / null pass-through and
+K3 with a null BSDF bit-equal to their plain versions.
 """
 
 import os
@@ -36,7 +39,7 @@ from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 from tpu_rt_torch.sensor import camera
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
 from tpu_rt_torch.us.pipeline import us_render
-from torch_port_scenes import mixed_desc, polarizer_desc, usmain_desc
+from torch_port_scenes import envmap_desc, mixed_desc, polarizer_desc, usmain_desc
 
 torch.set_num_threads(1)
 
@@ -426,3 +429,128 @@ def test_polarizer_wavefront_on_cuda_follows_malus(delta):
     assert S.device.type == "cuda" and S.shape == (16, 16, 4, 3)
     I = S[6:10, 6:10, 0, :].mean().item()
     assert abs(I - 0.5 * np.cos(np.deg2rad(delta)) ** 2) <= 0.04
+
+
+POLARIZERS = os.path.join(os.path.dirname(__file__), "assets", "polarizers", "polarizers.xml")
+ENVMAP = os.path.join(os.path.dirname(__file__), "assets", "polarizers", "envmap.exr")
+POL_CONST = os.path.join(os.path.dirname(__file__), "assets", "cbox_pol", "polarizers_const.xml")
+
+
+def _envmap_tables(which, res, depth=None):
+    """Tables of the polarizers fixture (two sheets under the rotated EXR
+    map) or of envmap_desc (every lane under it), on the card."""
+    if which == "polarizers":
+        st = tpu_rt_torch.load_file(POLARIZERS, res=res, spp=1)
+    else:
+        st = tpu_rt_torch.load_dict(envmap_desc(tpu_rt_torch.ScalarTransform4f, ENVMAP, res))
+    if depth is not None:
+        st = st.replace(max_depth=depth)
+    tables = path_kernel.pack_tables(path_kernel.bake_scene(st), st.camera, 16, "cuda")
+    assert tables.env_textured
+    return tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,res,depth,seed", [
+    ("polarizers", 32, None, 0), ("polarizers", 40, 3, -9), ("mixed", 24, None, 4),
+    ("mixed", 48, 16, 100003)])
+def test_raygen_kernel_is_bit_equal_to_plain_version(which, res, depth, seed):
+    """K5: the 12 planes (L, rays, jitter, escape direction and throughput)
+    under the textured environment."""
+    _need_cuda()
+    tables = _envmap_tables(which, res, depth)
+    before = path_kernel.raygen_trace.launches
+    got = path_kernel.raygen_trace(tables, seed)
+    torch.cuda.synchronize()
+    assert path_kernel.raygen_trace.launches == before + 1
+    want = path_kernel.raygen_trace_plain(tables, seed)
+    assert got.shape == want.shape == (12, res * res)
+    assert torch.equal(got, want)
+    assert (got[9:12].sum(0) > 0).any() and got[3].sum().item() >= res * res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,n,seed", [("polarizers", 1000, 2), ("mixed", 5000, -1),
+                                          ("cbox", 2500, 9)])
+def test_rays_kernel_is_bit_equal_to_plain_version(which, n, seed):
+    """K4 on rays passed in (n not a multiple of the tile): 10 planes under
+    the textured environment, 4 on the cbox."""
+    _need_cuda()
+    if which == "cbox":
+        tables = _film_tables(CBOX, 16, 3, 1, False)
+    else:
+        tables = _envmap_tables(which, 16)
+    gen = torch.Generator()
+    gen.manual_seed(n)
+    o = (torch.rand((n, 3), generator=gen) - 0.5) * 0.4
+    o[:, 2] -= 3.0 if which != "cbox" else 0.0
+    d = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=gen) * 0.3 + torch.tensor([0.0, 0.0, 1.0]), dim=-1)
+    o, d = o.cuda(), d.cuda()
+    before = path_kernel.path_trace.launches
+    got = path_kernel.path_trace(tables, o, d, seed)
+    torch.cuda.synchronize()
+    assert path_kernel.path_trace.launches == before + 1
+    want = path_kernel.path_trace_plain(tables, o, d, seed)
+    assert got.shape == want.shape == ((4 if which == "cbox" else 10), n)
+    assert torch.equal(got, want)
+    # the cbox's light reaches L; the environment reaches the escape record
+    assert got[0:3 if which == "cbox" else 7].sum().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,filter_type,depth", [(POL_CONST, 2, None), (POL_CONST, 1, 4),
+                                                   ("mixed_const", 2, 6)],
+                         ids=["polarizers_const", "polarizers_const_tent", "mixed_const"])
+def test_film_kernel_with_pass_through_is_bit_equal_to_plain_version(path, filter_type, depth):
+    """K1's pass-through lane: polarizer and null BSDFs under a constant
+    environment take the film kernel (polarizers_const.xml in K2's loop at
+    depth 16; every lane of envmap_desc with a constant environment)."""
+    _need_cuda()
+    if path == "mixed_const":
+        desc = envmap_desc(tpu_rt_torch.ScalarTransform4f, ENVMAP, 32)
+        desc["env"] = {"type": "constant", "radiance": np.array([0.7, 0.8, 0.9])}
+        st = tpu_rt_torch.load_dict(desc)
+    else:
+        st = tpu_rt_torch.load_file(path, res=32, spp=1)
+    if depth is not None:
+        st = st.replace(max_depth=depth)
+    st = st.replace(camera=st.camera.replace(filter_type=filter_type))
+    bs = path_kernel.bake_scene(st)
+    assert path_kernel.BSDF_POLARIZER in {b for b, _ in bs.bsdfs} and not bs.env_textured
+    tables = path_kernel.pack_tables(bs, st.camera, 16, "cuda")
+    got = path_kernel.film_trace(tables, 3, 4)
+    assert torch.equal(got, path_kernel.film_trace_plain(tables, 3, 4))
+    assert got[-1].sum().item() > 4 * 32 * 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regen", [True, False], ids=["K2_loop", "per_sample_loop"])
+def test_stokes_kernel_with_a_null_bsdf_is_bit_equal_to_plain_version(regen):
+    """K3's neutral attenuator: cbox_pol with its low glass sphere turned
+    into a null BSDF, depth 16."""
+    _need_cuda()
+    st = tpu_rt_torch.load_file(CBOX_POL, res=24, spp=1)
+    bt = st.bsdf_type.clone()
+    bt[4] = path_kernel.BSDF_NULL
+    st = st.replace(bsdf_type=bt)
+    bs = path_kernel.bake_scene(st)
+    assert path_kernel.stokes_in_scope(bs)
+    tables = path_kernel.pack_tables(bs, st.camera, 16, "cuda", stokes=True)
+    got = path_kernel.stokes_film_trace(tables, 8, 3, regen=regen)
+    assert torch.equal(got, path_kernel.stokes_film_trace_plain(tables, 8, 3))
+    assert got[1:12].abs().max().item() > 1e-4
+
+
+@pytest.mark.cuda
+def test_render_textured_environment_on_cuda_goes_through_k5():
+    _need_cuda()
+    st = tpu_rt_torch.load_file(POLARIZERS, res=32, spp=3)
+    before = (path_kernel.raygen_trace.launches, path_kernel.film_trace.launches)
+    img = tpu_rt_torch.render(st, seed=1)
+    assert (path_kernel.raygen_trace.launches, path_kernel.film_trace.launches) == (
+        before[0] + 3, before[1])  # one K5 launch a sample, no film kernel
+    assert img.device.type == "cuda" and img.shape == (32, 32, 3)
+    assert bool(torch.isfinite(img).all()) and img.max().item() > 5.0
+    rays = tpu_rt_torch.render.last_ray_count
+    assert rays.device.type == "cuda" and int(rays) >= 32 * 32 * 3

@@ -203,7 +203,9 @@ def test_loader_names_roadmap_for_unported_plugins():
     desc["sph"] = {"type": "bsplinecurve", "filename": "curve.txt"}
     with pytest.raises(ValueError, match="ROADMAP.md A8"):
         tpu_rt_torch.load_dict(desc)
+    # the envmap loads since the textured environment was ported
     desc["sph"] = {"type": "sphere", "bsdf": {"type": "diffuse"}}
-    desc["env"] = {"type": "envmap", "filename": "sky.exr"}
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
-        tpu_rt_torch.load_dict(desc)
+    desc["env"] = {"type": "envmap", "scale": 2.0, "filename": os.path.join(
+        os.path.dirname(__file__), "assets", "polarizers", "envmap.exr")}
+    env = tpu_rt_torch.load_dict(desc).emitters
+    assert env.has_env and env.env_map.shape == (256, 512, 3)

@@ -144,7 +144,9 @@ def test_loader_tables_match_tpu_rt(which):
     assert st.camera.filter_type == sj.camera.filter_type
     if which == "polarizers":
         assert TT.BSDF_POLARIZER in st.bsdf_types_present
-        assert path_kernel.bake_scene(st) is None  # the polarizer stays off the kernel
+        # baked (K1's pass-through lane), but the polarizer stays off the
+        # Stokes kernel
+        assert not path_kernel.stokes_in_scope(path_kernel.bake_scene(st))
 
 
 def test_cbox_pol_is_in_the_kernel_scope_of_both_packages():

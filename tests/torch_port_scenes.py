@@ -165,6 +165,39 @@ def polarizer_desc(st, angles_deg, z_positions, res=16, theta_props=None):
     return d
 
 
+def envmap_desc(st, filename, res=16):
+    """Every lane of the per-sample kernels under a textured environment:
+    a diffuse floor lit by a point light, a null-BSDF sphere, a dielectric
+    sphere, a polarizer sheet and a conductor ball under the EXR map
+    ``filename``, turned by a rotation and scaled by 1.5; path integrator,
+    max_depth 4, gaussian film."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 4},
+        "sensor": {"type": "perspective", "fov": 50,
+                   "to_world": st().look_at(origin=[0, 1, -4], target=[0, 0, 0], up=[0, 1, 0]),
+                   "film": {"type": "hdrfilm", "width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": 2}},
+        "floor": {"type": "rectangle",
+                  "to_world": st().translate([0, -1, 0]).rotate([1, 0, 0], -90).scale(2),
+                  "bsdf": {"type": "diffuse", "reflectance": np.array([0.6, 0.5, 0.4])}},
+        "veil": {"type": "sphere", "center": [-0.8, -0.2, -0.5], "radius": 0.5,
+                 "bsdf": {"type": "null"}},
+        "glass": {"type": "sphere", "center": [0.7, -0.4, 0.3], "radius": 0.5,
+                  "bsdf": {"type": "dielectric"}},
+        "ball": {"type": "sphere", "center": [0.0, 0.2, 1.2], "radius": 0.45,
+                 "bsdf": {"type": "conductor", "eta": np.array([0.2, 0.9, 1.1]),
+                          "k": np.array([3.9, 2.4, 2.2])}},
+        "sheet": {"type": "rectangle",
+                  "to_world": st().translate([0.2, 0.3, -1.5]).rotate([0, 0, 1], 30).scale(0.4),
+                  "bsdf": {"type": "polarizer", "transmittance": np.array([0.9, 0.8, 0.7])}},
+        "pt": {"type": "point", "position": [1, 2, -2],
+               "intensity": np.array([6.0, 6.0, 6.0])},
+        "env": {"type": "envmap", "filename": filename, "scale": 1.5,
+                "to_world": st().rotate([0, 1, 0], 150) @ st().rotate([1, 0, 0], 20)},
+    }
+
+
 def render_stokes_per_sample(scene, spp, seed, device, tile_rows=16):
     """The JAX package's per-sample Stokes route (render_stokes_pallas:
     2257-2295), the reference that K3's film planes are held to: K6 once a

@@ -1,8 +1,13 @@
 """Integrator dispatch (Mitsuba's integrator plugin factory).
 
 Counterpart of ``tpu_rt/integrator/__init__.py``.  A ``path`` scene inside
-the film kernel's scope renders through ``ops/path_kernel.py`` (a mesh
-scene of more than 64 prims through its clustered-mesh mode); a ``direct``
+the film kernel's scope renders through ``ops/path_kernel.py``: through the
+film kernel K1 (a mesh scene of more than 64 prims through its
+clustered-mesh mode; polarizer and ``null`` BSDFs through its
+pass-through lane, as tpu_rt's ``render_pallas`` does), or, under a
+textured environment, through the per-sample kernel K5 of
+``render_sample_film`` (the environment looked up at each path's escape
+after the kernel, the samples splatted and developed); a ``direct``
 (or ``direct_projective``, whose image is the direct one) scene of meshes
 lit by point lights renders through the direct mesh kernel of
 ``ops/mesh_kernel.py``.  Every other ``path`` scene, and every other
@@ -52,7 +57,9 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     the film kernel's scope ``seed`` keys the kernel's counter RNG and
     ``tile_rows`` only keys that RNG (tile = pixel // (tile_rows * 128)),
     so ``tile_rows=16`` reproduces the JAX package's TPU render and
-    ``tile_rows=8`` its interpret-mode render.  The direct mesh kernel and
+    ``tile_rows=8`` its interpret-mode render; a scene with a textured
+    environment takes the per-sample kernel K5 (one launch a sample,
+    ``spp_per_pass`` not used) with the same seeding.  The direct mesh kernel and
     the wavefront tracer draw their randomness from a ``torch.Generator``
     seeded by ``seed`` (``tile_rows`` is not used), so they match the JAX
     package's renders statistically.  The two kernels take
@@ -103,9 +110,13 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     baked = path_kernel.bake_scene(scene)
     if baked is None:
         return _render_wavefront(scene, spp, seed, device)
-    img, n_rays = path_kernel.render_film(
-        scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
-        tile_rows=tile_rows, baked=baked)
+    if baked.env_textured:
+        img, n_rays = path_kernel.render_sample_film(
+            scene, spp=spp, seed=seed, device=device, tile_rows=tile_rows, baked=baked)
+    else:
+        img, n_rays = path_kernel.render_film(
+            scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
+            tile_rows=tile_rows, baked=baked)
     render.last_ray_count = n_rays
     return _develop_format(scene, img)
 

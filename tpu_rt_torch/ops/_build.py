@@ -114,9 +114,10 @@ def host_library(source: str) -> Path:
 def load_library():
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    # hdr, n_hdr, tab, n_tab, mesh, n_mesh, out, n_pix, seed, n_samples,
-    # radius, mode (K1 / K3 / K6), regen (K2's loop), stream
-    lib.path_film_launch.argtypes = [p, i, p, i, p, i, p, i, i, i, i, i, i, p]
+    # hdr, n_hdr, tab, n_tab, mesh, n_mesh, rays (K4's, else NULL), out,
+    # n_pix, seed, n_samples, radius, mode (K1 / K3 / K6 / K5 / K4), regen
+    # (K2's loop), stream
+    lib.path_film_launch.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i, i, i, p]
     lib.path_film_launch.restype = i
     lib.us_acq_launch.argtypes = [p, i, p, i, p, p, i, i, p]
     lib.us_acq_launch.restype = i

@@ -15,9 +15,19 @@
 //       sample and depth loops flattened into one loop, a lane restarting
 //       on its next sample as soon as its path ends;
 //   K6  pallas_stokes_trace: one polarized sample a pixel, its 12 Stokes
-//       values, ray count and jitter.
-// One file, one bounce: bounce<Stokes> below serves all four, selected by
-// template flags, so no second copy of the transport exists.
+//       values, ray count and jitter;
+//   K5  pallas_raygen_trace: one scalar camera sample a pixel, its
+//       radiance, ray count and jitter, and on a textured environment the
+//       path's escape record (direction and throughput where it left the
+//       scene; the lat-long lookup runs after the kernel);
+//   K4  pallas_path_trace: K5's bounce loop on rays passed in, one sample a
+//       lane, no jitter and no far-plane clip.
+// One file, one bounce: bounce<Stokes, Esc> below serves all six, selected
+// by template flags, so no second copy of the transport exists.  The
+// bounce has the JAX kernel's pass-through lane: a polarizer (its
+// intensity fallback, weight 0.5 x transmittance) or a null BSDF sends
+// the ray straight on as a delta lobe, and in the Stokes form acts as a
+// neutral attenuator.
 //
 // Design.  One thread per pixel index.  The per-sample form runs a depth
 // loop that breaks once the path is dead; that equals the TPU's unrolled
@@ -96,7 +106,7 @@ enum {
   HDR_RR_DEPTH = 4, HDR_HIDE_EMITTERS = 5, HDR_HAS_ENV = 6, HDR_HAS_FAR = 7,
   HDR_W = 8, HDR_H = 9, HDR_TILE_LANES = 10, HDR_OFF_PRIM = 11,
   HDR_OFF_BSDF = 12, HDR_OFF_EM = 13, HDR_OFF_PT = 14, HDR_MESH_C = 15,
-  HDR_STOKES = 16, HDR_REGEN = 17, HDR_LEN = 18
+  HDR_STOKES = 16, HDR_REGEN = 17, HDR_ENV_TEXTURED = 18, HDR_LEN = 19
 };  // HDR_STOKES and HDR_REGEN are the host's: mode and regen are launch arguments
 // float table: global block
 enum {
@@ -105,9 +115,13 @@ enum {
   G_FAR_NEAR = 25, G_GAUSS_TAIL = 26, G_MESH_BSDF = 27, G_CAM_X = 28
 };
 enum { BSDF_STRIDE = 16, EM_STRIDE = 32, PT_STRIDE = 8 };
-enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2 };
+enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2, BSDF_POLARIZER = 4,
+       BSDF_NULL = 6 };
 // launch modes (path_kernel.py _MODE_*)
-enum { MODE_FILM = 0, MODE_STOKES_FILM = 1, MODE_STOKES_SAMPLE = 2 };
+enum {
+  MODE_FILM = 0, MODE_STOKES_FILM = 1, MODE_STOKES_SAMPLE = 2, MODE_RAYGEN_SAMPLE = 3,
+  MODE_RAYS_SAMPLE = 4
+};
 constexpr int kMaxTableFloats = 12 * 1024;
 constexpr int kThreads = 128;
 
@@ -134,7 +148,7 @@ struct Scene {
   const float* mesh_trisw;
   const float* mesh_nrm;
   int n_prims, n_area, n_lights, max_depth, rr_depth, W, tile_lanes, mesh_c, mesh_bsdf;
-  bool hide_emitters, has_env, has_far;
+  bool hide_emitters, has_env, has_far, env_textured;
 };
 
 // Merge the mesh's closest hit into (best_t, prim, n): on a mesh hit prim
@@ -295,11 +309,13 @@ __device__ void mueller_chain(Pol& q, V3 pB, V3 pA, float M6[3][6]) {
   q.basis = degen ? perp_basis(pA, s_axis) : s_axis;
 }
 
-// The scalar state of one path sample.
+// The scalar state of one path sample; esc_d and esc_thr, the escape
+// record, are K4's and K5's only.
 struct Path {
   V3 o, d, thr, L;
   float prev_pdf, eta_scale, ray_count;
   bool prev_delta;
+  V3 esc_d, esc_thr;
 };
 
 // A fresh sample of pixel idx with in-pixel jitter (jx, jy): the camera
@@ -344,8 +360,10 @@ __device__ void start_sample(const Scene& sc, int idx, float jx, float jy, Path&
 // One bounce of the sample at depth `depth` (sweep, emitter hit + MIS, one
 // NEE sample with a shadow ray, BSDF sampling, Russian roulette).  Returns
 // whether the path goes on.  K1 accumulates L; a Stokes lane accumulates S
-// instead and chains its Mueller matrix.
-template <bool kStokes>
+// instead and chains its Mueller matrix.  With kEsc (K4, K5) an escaping
+// path records its direction and throughput: a path escapes once, on the
+// bounce where it dies, so the record is written before the return.
+template <bool kStokes, bool kEsc = false>
 __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& q) {
   const float* g = sc.g;
   const float* R = g + G_R;
@@ -372,6 +390,12 @@ __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& 
         p.L.x = p.L.x + thr.x * g[G_ENV];
         p.L.y = p.L.y + thr.y * g[G_ENV + 1];
         p.L.z = p.L.z + thr.z * g[G_ENV + 2];
+      }
+    }
+    if constexpr (kEsc) {
+      if (show_em) {
+        p.esc_d = d;
+        p.esc_thr = thr;
       }
     }
     return false;
@@ -565,6 +589,26 @@ __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& 
         M6[ch][5] = w * rsv;
       }
     }
+  } else if (btype == BSDF_POLARIZER || btype == BSDF_NULL) {
+    // pass-through: straight on with the table's tint (0.5 x transmittance
+    // for the polarizer, 1 for null), a delta lobe of eta 1
+    wo_l = {-wi_l.x, -wi_l.y, -wi_l.z};
+    w_s = {b[1], b[2], b[3]};
+    pdf_s = 1.0f;
+    valid = true;
+    delta = true;
+    if constexpr (kStokes) {  // a neutral attenuator
+      const float wv[3] = {w_s.x, w_s.y, w_s.z};
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        M6[ch][0] = wv[ch];
+        M6[ch][1] = 0.0f;
+        M6[ch][2] = 0.0f;
+        M6[ch][3] = wv[ch];
+        M6[ch][4] = wv[ch];
+        M6[ch][5] = 0.0f;
+      }
+    }
   } else {  // smooth conductor: mirror reflection
     float cf = fabsf(cos_i);
     bool mirror = b[11] != 0.0f;
@@ -715,6 +759,7 @@ __device__ __forceinline__ Scene load_scene(const int* hdr, const float* tab,
   sc.hide_emitters = hdr[HDR_HIDE_EMITTERS] != 0;
   sc.has_env = hdr[HDR_HAS_ENV] != 0;
   sc.has_far = hdr[HDR_HAS_FAR] != 0;
+  sc.env_textured = hdr[HDR_ENV_TEXTURED] != 0;
   sc.mesh_c = hdr[HDR_MESH_C];
   sc.mesh_bsdf = (int)tab[G_MESH_BSDF];
   sc.mesh_bounds = mesh;
@@ -820,6 +865,56 @@ stokes_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ ta
   out[(size_t)14 * n_pix + idx] = jy;
 }
 
+// K5 (kRays false): one camera sample of pixel idx, as planes L (3), the
+// ray count, the jitter jx, jy.  K4 (kRays true): one sample on the ray
+// idx of the (6, n_pix) rays (o, d as planes), every lane active with
+// prev_delta set, no jitter drawn and no far-plane clip
+// (_sample_state_init with raygen=None), as planes L (3) and the ray
+// count.  On a textured environment both add the escape record: esc_d
+// (3), esc_thr (3), zero where the path never escaped.  The RNG keys are
+// the film kernel's, (seed, idx / tile_lanes, idx % tile_lanes).
+template <bool kRays>
+__global__ void __launch_bounds__(kThreads)
+path_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g, int n_tab,
+                   const float* __restrict__ mesh, const float* __restrict__ rays,
+                   float* __restrict__ out, int n_pix, int seed) {
+  STAGE_TABLES()
+  Path p;
+  Pol q;
+  uint32_t rng = rng_init((uint32_t)seed, tile, lane);
+  float jx = 0.0f, jy = 0.0f;
+  if constexpr (kRays) {
+    sc.has_far = false;
+    p.o = {rays[idx], rays[(size_t)n_pix + idx], rays[(size_t)2 * n_pix + idx]};
+    p.d = {rays[(size_t)3 * n_pix + idx], rays[(size_t)4 * n_pix + idx],
+           rays[(size_t)5 * n_pix + idx]};
+    p.thr = {1.0f, 1.0f, 1.0f};
+    p.L = {0.0f, 0.0f, 0.0f};
+    p.ray_count = 0.0f;
+    p.prev_pdf = 1.0f;
+    p.eta_scale = 1.0f;
+    p.prev_delta = true;
+  } else {
+    jx = rng_next(rng);
+    jy = rng_next(rng);
+    start_sample<false>(sc, idx, jx, jy, p, q);
+  }
+  p.esc_d = {0.0f, 0.0f, 0.0f};
+  p.esc_thr = {0.0f, 0.0f, 0.0f};
+  for (int depth = 0; depth < sc.max_depth; ++depth)
+    if (!bounce<false, true>(sc, depth, rng, p, q)) break;
+  constexpr int kVals = kRays ? 4 : 6;  // K4 writes no jitter
+  const float vals[12] = {p.L.x, p.L.y, p.L.z, p.ray_count, jx, jy,
+                          p.esc_d.x, p.esc_d.y, p.esc_d.z,
+                          p.esc_thr.x, p.esc_thr.y, p.esc_thr.z};
+#pragma unroll
+  for (int k = 0; k < kVals; ++k) out[(size_t)k * n_pix + idx] = vals[k];
+  if (sc.env_textured) {
+#pragma unroll
+    for (int e = 0; e < 6; ++e) out[(size_t)(kVals + e) * n_pix + idx] = vals[6 + e];
+  }
+}
+
 template <int R, bool kStokes, bool kRegen>
 void launch_film(dim3 grid, size_t smem, cudaStream_t s, const int* h, const float* t,
                  int n_tab, const float* m, float* o, int n_pix, int seed, int n_samples) {
@@ -848,15 +943,17 @@ int launch_radius(int radius, dim3 grid, size_t smem, cudaStream_t s, const int*
 
 }  // namespace
 
-// mode: MODE_FILM (K1), MODE_STOKES_FILM (K3), MODE_STOKES_SAMPLE (K6;
-// n_samples 1, radius ignored); regen: K2's loop for the film modes.
+// mode: MODE_FILM (K1), MODE_STOKES_FILM (K3), MODE_STOKES_SAMPLE (K6),
+// MODE_RAYGEN_SAMPLE (K5), MODE_RAYS_SAMPLE (K4, on the (6, n_pix) rays;
+// NULL for every other mode); the per-sample modes take n_samples 1 and
+// ignore radius; regen: K2's loop for the film modes.
 extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
-                                int n_tab, const void* mesh, int n_mesh, void* out,
-                                int n_pix, int seed, int n_samples, int radius, int mode,
-                                int regen, void* stream) {
+                                int n_tab, const void* mesh, int n_mesh, const void* rays,
+                                void* out, int n_pix, int seed, int n_samples, int radius,
+                                int mode, int regen, void* stream) {
   if (n_hdr < HDR_LEN || n_tab <= 0 || n_tab > kMaxTableFloats || n_pix <= 0 ||
       n_samples < 1 || n_mesh < 0 || (n_mesh > 0 && mesh == nullptr) || mode < 0 ||
-      mode > MODE_STOKES_SAMPLE)
+      mode > MODE_RAYS_SAMPLE || ((mode == MODE_RAYS_SAMPLE) != (rays != nullptr)))
     return (int)cudaErrorInvalidValue;
   dim3 grid((n_pix + kThreads - 1) / kThreads);
   size_t smem = (size_t)n_tab * sizeof(float);
@@ -866,8 +963,13 @@ extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
   const float* m = (const float*)mesh;
   float* o = (float*)out;
   int err = 0;
+  const float* r = (const float*)rays;
   if (mode == MODE_STOKES_SAMPLE) {
     stokes_sample_kernel<<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed);
+  } else if (mode == MODE_RAYGEN_SAMPLE) {
+    path_sample_kernel<false><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix, seed);
+  } else if (mode == MODE_RAYS_SAMPLE) {
+    path_sample_kernel<true><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix, seed);
   } else if (mode == MODE_STOKES_FILM) {
     err = regen ? launch_radius<true, true>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix,
                                             seed, n_samples)

@@ -3,13 +3,18 @@
 Counterpart of ``tpu_rt/ops/pallas_path.py`` for the film megakernel
 (``pallas_film_trace`` / ``_build_kernel(film=...)``: K1; its Stokes form
 K3; K2, the regeneration loop ``_regen_loop`` around either), the
-per-sample Stokes kernel K6 (``pallas_stokes_trace``) and the render
-loops around them (``render_pallas``, ``render_stokes_pallas``).
+per-sample kernels (``pallas_raygen_trace``: K5; ``pallas_path_trace``,
+its rays-in form: K4; ``pallas_stokes_trace``: K6) and the render loops
+around them (``render_pallas``, ``render_stokes_pallas``).
 
 * ``bake_scene`` extracts the kernel's constants, as the JAX package does.
-  Scenes outside this port's scope give ``None``: cones, rough conductors,
-  polarizer / null pass-through, textured environments and bitmap
-  textures.  A scene of more than 64 prims takes the
+  BSDFs: diffuse, smooth dielectric, smooth conductor, and the polarizer
+  and ``null`` as delta pass-through (the polarizer's intensity fallback:
+  straight on, weight 0.5 x transmittance).  Environments: constant, or
+  textured (``env_textured``: the kernels record each path's escape
+  direction and throughput, and the lat-long lookup runs after them).
+  Scenes outside this port's scope give ``None``: cones, rough conductors
+  and bitmap textures.  A scene of more than 64 prims takes the
   clustered-mesh mode (``_bake_mesh``): its non-emissive triangles, which
   must share one BSDF, move into cluster tables of at most 64 clusters
   that the kernel sweeps per ray (root box, quarter boxes, Baldwin-Weber
@@ -27,10 +32,11 @@ loops around them (``render_pallas``, ``render_stokes_pallas``).
   flag records the auto loop form (K2's loop from max_depth 8, as
   ``_use_regen``); a launch takes it unless the wrapper's ``regen=`` names
   the other form.
-* ``film_trace`` (K1), ``stokes_film_trace`` (K3) and
-  ``stokes_sample_trace`` (K6) are the wrappers: on a CPU tensor they run
-  the plain PyTorch versions below, on a CUDA tensor they launch the
-  hand-written kernels of ``csrc/path_film.cu`` or raise.  K2 needs no
+* ``film_trace`` (K1), ``stokes_film_trace`` (K3), ``raygen_trace``
+  (K5), ``path_trace`` (K4) and ``stokes_sample_trace`` (K6) are the
+  wrappers: on a CPU tensor they run the plain PyTorch versions below, on
+  a CUDA tensor they launch the hand-written kernels of
+  ``csrc/path_film.cu`` or raise.  K2 needs no
   plain version of its own: it computes K1's and K3's function, each lane
   meeting its samples in order.
 * The plain version keeps the JAX kernel's math in its order, over flat
@@ -41,7 +47,9 @@ loops around them (``render_pallas``, ``render_stokes_pallas``).
 * ``render_film`` and ``render_stokes_film`` loop over
   ``spp_per_pass``-sample chunks, deposit each chunk's filter planes into
   the film and develop the image (H, W, 3) or the Stokes image
-  (H, W, 4, 3).
+  (H, W, 4, 3).  ``render_sample_film``, the route of a textured
+  environment, launches K5 once a sample, adds the environment seen at
+  each path's escape, splats the samples and develops.
 """
 
 from __future__ import annotations
@@ -58,6 +66,8 @@ from tpu_rt_torch.scene.types import (
     BSDF_CONDUCTOR,
     BSDF_DIELECTRIC,
     BSDF_DIFFUSE,
+    BSDF_NULL,
+    BSDF_POLARIZER,
     FILTER_GAUSSIAN,
     FILTER_TENT,
     RECTANGLE,
@@ -72,7 +82,8 @@ _MAX_LIGHT_TRIS = 8
 _MAX_DEPTH = 16
 _BIG = 1e8
 _GAUSS_TAIL = float(np.float32(np.exp(-8.0)))  # Mitsuba gaussian's offset at radius 2
-_SUPPORTED_BSDFS = {BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR}
+_SUPPORTED_BSDFS = {BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_POLARIZER,
+                    BSDF_NULL}
 # In-kernel film footprint radius per filter: box keeps the sample in its
 # own pixel, tent touches 3x3, Mitsuba's gaussian (stddev 0.5, radius 2)
 # touches 5x5.
@@ -100,6 +111,9 @@ class BakedScene:
     em_tris: List[List[Tuple[int, float]]]  # per emitter: [(prim, cdf)]
     point_lights: List[Tuple[tuple, tuple]]  # (pos, intensity)
     env_rgb: Optional[tuple] = None  # constant environment radiance
+    # a textured environment: the kernels record each path's escape, and
+    # the lat-long lookup runs after them (render_sample_film)
+    env_textured: bool = False
     n_lights: int = 0
     max_depth: int = 6
     rr_depth: int = 5
@@ -212,11 +226,13 @@ def bake_scene(scene: Scene) -> Optional[BakedScene]:
             return None
     env_rgb = None
     em = scene.emitters
+    env_textured = False
     if em.has_env:
         env_map = em.env_map.numpy()
-        if env_map.shape[:2] != (1, 1):
-            return None  # textured environment
-        env_rgb = tuple((env_map[0, 0] * float(em.env_scale)).tolist())
+        if env_map.shape[:2] == (1, 1):
+            env_rgb = tuple((env_map[0, 0] * float(em.env_scale)).tolist())
+        else:
+            env_textured = True
     btypes = scene.bsdf_type.numpy()
     if not set(btypes.tolist()) <= _SUPPORTED_BSDFS:
         return None
@@ -253,6 +269,9 @@ def bake_scene(scene: Scene) -> Optional[BakedScene]:
         em_tris=em_tris,
         point_lights=point_lights,
         env_rgb=env_rgb,
+        env_textured=env_textured,
+        # the environment stays out of the NEE light set: the kernels
+        # sample it by the BSDF only
         n_lights=em.n_area + len(point_lights),
         max_depth=min(max_depth, _MAX_DEPTH),
         rr_depth=scene.rr_depth,
@@ -297,7 +316,8 @@ HDR_MESH_C = 15  # clusters of the mesh tables; 0 without a mesh
 # 1 for K2's regeneration loop.  Host-side words: the kernel takes its mode
 # and loop form as launch arguments and reads neither.
 HDR_STOKES, HDR_REGEN = 16, 17
-HDR_LEN = 18
+HDR_ENV_TEXTURED = 18  # 1: a textured environment, K4 / K5 write escape records
+HDR_LEN = 19
 
 # float32 table: a global block, then prim, bsdf, emitter, point records
 G_ENV, G_INV_NL, G_NL, G_NL_M1 = 0, 3, 5, 6
@@ -349,6 +369,10 @@ class FilmTables:
     @property
     def regen(self):
         return bool(self.hdr_list[HDR_REGEN])
+
+    @property
+    def env_textured(self):
+        return bool(self.hdr_list[HDR_ENV_TEXTURED])
 
     @property
     def n_val(self):
@@ -440,6 +464,11 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device,
             rec[1:4] = [_f32(x) for x in prm[0:3]]
         elif bt == BSDF_DIELECTRIC:
             rec[4] = _f32(prm[0] / max(prm[1], 1e-6))
+        elif bt == BSDF_NULL:
+            rec[1:4] = [1.0, 1.0, 1.0]  # pass-through tint
+        elif bt == BSDF_POLARIZER:
+            # the intensity fallback's tint: half the transmittance
+            rec[1:4] = [_f32(x * 0.5) for x in prm[3:6]]
         else:  # conductor
             if prm[0] < 0.0:  # perfect mirror marker
                 rec[11] = 1.0
@@ -489,6 +518,7 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device,
     hdr[HDR_MESH_C] = 0 if bs.mesh is None else bs.mesh["bounds"].shape[0]
     hdr[HDR_STOKES] = int(bool(stokes))
     hdr[HDR_REGEN] = int(use_regen(bs))
+    hdr[HDR_ENV_TEXTURED] = int(bs.env_textured)
     return FilmTables(
         hdr=torch.tensor(hdr, dtype=torch.int32, device=device),
         tab=torch.tensor(tab, dtype=torch.float32, device=device),
@@ -518,6 +548,7 @@ class _Consts:
         self.rr_depth = h[HDR_RR_DEPTH]
         self.hide_emitters = bool(h[HDR_HIDE_EMITTERS])
         self.has_env = bool(h[HDR_HAS_ENV])
+        self.env_textured = bool(h[HDR_ENV_TEXTURED])
         self.has_far = bool(h[HDR_HAS_FAR])
         self.W, self.H = h[HDR_W], h[HDR_H]
         self.tile_lanes = h[HDR_TILE_LANES]
@@ -762,9 +793,13 @@ def _camera_ray(C: _Consts, idx, jx, jy):
     return o, d
 
 
-def _sample_state_init(C: _Consts, rng, idx):
+def _sample_state_init(C: _Consts, rng, idx, rays=None):
     """Fresh per-sample path state; draws the jitter and casts the camera
-    ray.  Returns (state, (jx, jy)).
+    ray.  Returns (state, (jx, jy)).  With ``rays`` = (o, d), [N, 3] each,
+    the lanes start on those rays instead, with no jitter drawn (K4;
+    ``_sample_state_init(raygen=None)``): (jx, jy) are then None.  On a
+    textured environment the state carries the escape record (esc_d,
+    esc_thr), zero until the path escapes.
 
     Stokes tables add the polarized state (pallas_path.py:1024-1039): T
     (3, 4, 4, N), the camera-side Mueller matrix per RGB channel, starting
@@ -774,13 +809,19 @@ def _sample_state_init(C: _Consts, rng, idx):
     drives Russian roulette and supplies the M00 weights."""
     zeros = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
     ones = zeros + 1.0
-    rng, jx = _rng_next(rng)
-    rng, jy = _rng_next(rng)
-    o, d = _camera_ray(C, idx, jx, jy)
+    if rays is None:
+        rng, jx = _rng_next(rng)
+        rng, jy = _rng_next(rng)
+        o, d = _camera_ray(C, idx, jx, jy)
+    else:
+        jx = jy = None
+        o, d = (tuple(r[:, i] for i in range(3)) for r in rays)
     active = ones > 0.0
     st = dict(rng=rng, o=o, d=d, thr=(ones, ones, ones), L=(zeros, zeros, zeros),
               active=active, prev_pdf=ones, prev_delta=active, eta_scale=ones,
               ray_count=zeros)
+    if C.env_textured:
+        st.update(esc_d=(zeros, zeros, zeros), esc_thr=(zeros, zeros, zeros))
     if C.stokes:
         n = idx.shape[0]
         T = torch.zeros((3, 4, 4, n), dtype=torch.float32, device=idx.device)
@@ -904,13 +945,18 @@ def _fres_cond(cos_f, c_eta, c_k, is_mirror):
     return tuple(out)
 
 
-def _make_bounce_step(C: _Consts):
+def _make_bounce_step(C: _Consts, raygen=True):
     """step(depth, st) -> st: one bounce (sweep, emitter hit + MIS, one NEE
     sample with a shadow ray, BSDF sampling, Russian roulette) at a static
     depth, as the JAX kernel's unrolled form.  On Stokes tables every
     emission also reaches S through T's first column, and the sampled
     interaction's Mueller matrix is chained onto T (pallas_path.py:
-    1194-1199, 1228-1233, 1439-1477, 1616-1709)."""
+    1194-1199, 1228-1233, 1439-1477, 1616-1709).  A polarizer or ``null``
+    hit passes straight on, a delta lobe of the BSDF table's tint
+    (pallas_path.py:1246-1262, 1575-1602), a neutral attenuator in the
+    Stokes form (:1635-1660).  On a textured environment an escaping path
+    records its direction and throughput (:1199-1204).  ``raygen=False``
+    (K4's rays) drops the camera's far-plane clip at depth 0."""
     g = C.g
     inv_nl = g[G_INV_NL]
     dev = C.tab_device
@@ -921,6 +967,8 @@ def _make_bounce_step(C: _Consts):
         eta_scale, ray_count = st["eta_scale"], st["ray_count"]
         if C.stokes:
             T, S, basis = st["T"], st["S"], st["basis"]
+        if C.env_textured:
+            esc_d, esc_thr = st["esc_d"], st["esc_thr"]
         zeros = torch.zeros_like(o[0])
         ones = zeros + 1.0
         t, prim_f, n = _sweep(C, o, d, 1e-4, _BIG)
@@ -932,7 +980,7 @@ def _make_bounce_step(C: _Consts):
         else:
             n_g = n
         hit = (prim_f >= 0.0) & active
-        if C.has_far and depth == 0:
+        if raygen and C.has_far and depth == 0:
             # the primary origin sits at the near plane, so the clip length
             # left is (far - near) * |d_cam|, |d_cam| = 1 / (d . forward)
             R = C.R
@@ -948,6 +996,10 @@ def _make_bounce_step(C: _Consts):
             L = tuple(L[c] + thr[c] * g[G_ENV + c] * ef for c in range(3))
             if C.stokes:
                 S = _add_emission(S, T, _col3(g[G_ENV:G_ENV + 3], dev), ef)
+        if C.env_textured and show_em:
+            # the lat-long lookup of the escape runs after the kernel
+            esc = active & ~hit
+            esc_d, esc_thr = _where3(esc, d, esc_d), _where3(esc, thr, esc_thr)
 
         p_hit = _add(o, _scale(d, torch.where(hit, t, 0.0)))
         wi = _scale(d, -1.0)
@@ -976,6 +1028,7 @@ def _make_bounce_step(C: _Consts):
         c_k = (ones, ones, ones)
         is_mirror = zeros > 1.0
         spec_c = (ones, ones, ones)
+        pass_t = (ones, ones, ones)  # pass-through tint (polarizer / null)
         for bi, rec in enumerate(C.bsdfs):
             m = bsdf_id == float(bi)
             bt = int(rec[0])
@@ -984,6 +1037,8 @@ def _make_bounce_step(C: _Consts):
                 refl = _where3(m, [x + zeros for x in rec[1:4]], refl)
             elif bt == BSDF_DIELECTRIC:
                 eta_rel = torch.where(m, rec[4], eta_rel)
+            elif bt in (BSDF_POLARIZER, BSDF_NULL):
+                pass_t = _where3(m, [x + zeros for x in rec[1:4]], pass_t)
             else:
                 if rec[11]:
                     is_mirror = is_mirror | m
@@ -1107,13 +1162,18 @@ def _make_bounce_step(C: _Consts):
 
         is_die = btype == float(BSDF_DIELECTRIC)
         is_con = btype == float(BSDF_CONDUCTOR)
+        is_pass = (btype == float(BSDF_POLARIZER)) | (btype == float(BSDF_NULL))
         wo_l = _where3(is_diffuse, wo_diff, _where3(is_die, wo_die, wo_con))
+        # pass-through: straight on
+        wo_l = _where3(is_pass, (-wi_l[0], -wi_l[1], -wi_l[2]), wo_l)
         pdf_s = torch.where(is_diffuse, pdf_diff, torch.where(
             is_die, torch.where(pick_refl, F, 1.0 - F), 1.0))
         w_s = _where3(is_diffuse, refl,
                       _where3(is_die, (w_die_s, w_die_s, w_die_s), Fc))
+        w_s = _where3(is_pass, pass_t, w_s)
         delta_s = ~is_diffuse
-        valid_s = (is_diffuse & (cos_i > 0.0)) | (is_con & (cos_i > 0.0)) | is_die
+        valid_s = ((is_diffuse & (cos_i > 0.0)) | (is_con & (cos_i > 0.0)) | is_die
+                   | is_pass)
         eta_s = torch.where(is_die, eta_fac, 1.0)
 
         d_new = _normalize(_to_world(n, s_fr, t_fr, wo_l))
@@ -1140,6 +1200,7 @@ def _make_bounce_step(C: _Consts):
             rc_die = torch.where(pick_refl, c_dr * inv_adr, ts_ * tp_ * inv_adt)
             rs_die = torch.where(pick_refl, s_dr * inv_adr, 0.0)
             specf = torch.where(is_die | is_con, 1.0, 0.0)
+            passf = torch.where(is_pass, 1.0, 0.0)  # a neutral attenuator
             M6 = [[] for _ in range(6)]
             for ch in range(3):
                 a_c, b_c, c_c, s_c = _fres_pol(torch.abs(cos_i),
@@ -1151,7 +1212,8 @@ def _make_bounce_step(C: _Consts):
                 rs_ = torch.where(is_die, rs_die, s_c * inv_ac)
                 w_ch = w_s[ch]
                 for k, m in enumerate((w_ch, w_ch * rb * specf, w_ch * rb * specf,
-                                       w_ch * specf, w_ch * (rc * specf), w_ch * rs_ * specf)):
+                                       w_ch * (specf + passf), w_ch * (rc * specf + passf),
+                                       w_ch * rs_ * specf)):
                     M6[k].append(m)
             T_new, basis_new = _mueller_chain(T, basis, _scale(d, -1.0), _scale(d_new, -1.0),
                                               [torch.stack(m) for m in M6])
@@ -1172,6 +1234,8 @@ def _make_bounce_step(C: _Consts):
             thr=_where3(alive, thr_new, (zeros, zeros, zeros)), L=L,
             active=alive, prev_pdf=pdf_s, prev_delta=delta_s,
             eta_scale=eta_scale, ray_count=ray_count)
+        if C.env_textured:
+            out.update(esc_d=esc_d, esc_thr=esc_thr)
         if C.stokes:
             # a dead lane's T is exact zeros
             out.update(T=T_new * torch.where(alive, 1.0, 0.0), S=S,
@@ -1270,6 +1334,41 @@ def stokes_sample_trace_plain(tables: FilmTables, seed: int):
     return torch.cat([st["S"].reshape(12, -1), torch.stack([st["ray_count"], jx, jy])])
 
 
+def _escape_planes(st):
+    """The escape record's planes, esc_d then esc_thr (textured
+    environments only)."""
+    return list(st["esc_d"]) + list(st["esc_thr"]) if "esc_d" in st else []
+
+
+def raygen_trace_plain(tables: FilmTables, seed: int):
+    """The plain PyTorch version of K5: one camera sample per pixel, as (6,
+    H*W) planes L (r, g, b), the ray count, the jitter jx, jy, and on a
+    textured environment 6 more, the escape direction and throughput
+    (pallas_path.pallas_raygen_trace's outputs)."""
+    _check_kind(tables, False, "raygen_trace")
+    st, jx, jy = next(_trace_samples(tables, seed, 1))
+    return torch.stack(list(st["L"]) + [st["ray_count"], jx, jy] + _escape_planes(st))
+
+
+def path_trace_plain(tables: FilmTables, o, d, seed: int):
+    """The plain PyTorch version of K4: the bounce loop on the rays o, d
+    ([N, 3] float32 on the tables' device), one sample a lane, every lane
+    active, no jitter and no far-plane clip; lane i draws the stream of
+    (seed, i // tile_lanes, i % tile_lanes).  Returns (4, N) planes L
+    (r, g, b) and the ray count, and on a textured environment 6 more, the
+    escape direction and throughput (pallas_path.pallas_path_trace's
+    outputs)."""
+    _check_kind(tables, False, "path_trace")
+    C = _Consts(tables)
+    idx = torch.arange(o.shape[0], dtype=torch.int64, device=o.device)
+    st, _ = _sample_state_init(C, _rng_init(seed, idx // C.tile_lanes, idx % C.tile_lanes),
+                               idx, rays=(o, d))
+    step = _make_bounce_step(C, raygen=False)
+    for depth in range(C.max_depth):
+        st = step(depth, st)
+    return torch.stack(list(st["L"]) + [st["ray_count"]] + _escape_planes(st))
+
+
 def sample_planes_split(planes):
     """K6's planes as (S [N, 4, 3], jitter [N, 2], the rays cast as a 0-d
     int64 tensor)."""
@@ -1290,14 +1389,16 @@ def _wrap_i32(x: int) -> int:
     return ((x + (1 << 31)) & _M32) - (1 << 31)
 
 
-# what the launch computes: K1's planes, K3's planes, or K6's sample planes
-_MODE_FILM, _MODE_STOKES_FILM, _MODE_STOKES_SAMPLE = 0, 1, 2
+# what the launch computes: K1's planes, K3's planes, K6's sample planes,
+# K5's sample planes or K4's planes on rays passed in
+_MODE_FILM, _MODE_STOKES_FILM, _MODE_STOKES_SAMPLE, _MODE_RAYGEN_SAMPLE, _MODE_RAYS_SAMPLE = range(5)
 
 
 def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_out: int,
-            name: str):
+            name: str, rays=None):
     """Launch ``csrc/path_film.cu`` (built at first use) in ``mode`` on the
-    tables' CUDA device.  Returns (planes, whether K2's loop ran)."""
+    tables' CUDA device, one lane a pixel, or one a ray of ``rays`` (6, N)
+    for K4.  Returns (planes, whether K2's loop ran)."""
     dev = tables.tab.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
@@ -1308,18 +1409,25 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
     if C and (mesh is None or mesh.device != dev or mesh.dtype != torch.float32
               or not mesh.is_contiguous() or mesh.numel() != C * (32 + 21 * _mk.CLUSTER)):
         raise ValueError(f"{name} needs the {C}-cluster mesh tables on {dev}")
+    n = tables.n_pix
+    if rays is not None:
+        if (rays.device != dev or rays.dtype != torch.float32 or rays.dim() != 2
+                or rays.shape[0] != 6 or not rays.is_contiguous() or rays.shape[1] < 1):
+            raise ValueError(f"{name} needs rays as a contiguous (6, N) float32 tensor on {dev}")
+        n = rays.shape[1]
     regen = tables.regen if regen is None else bool(regen)
     from tpu_rt_torch.ops import _build
 
     lib = _build.load_library()
-    out = torch.empty((n_out, tables.n_pix), dtype=torch.float32, device=dev)
+    out = torch.empty((n_out, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.path_film_launch(
             tables.hdr.data_ptr(), tables.hdr.numel(),
             tables.tab.data_ptr(), tables.tab.numel(),
             mesh.data_ptr() if C else None, mesh.numel() if C else 0,
-            out.data_ptr(), tables.n_pix, _wrap_i32(seed), n_samples,
+            None if rays is None else rays.data_ptr(),
+            out.data_ptr(), n, _wrap_i32(seed), n_samples,
             tables.radius, mode, int(regen), stream)
     if err != 0:
         raise RuntimeError("path_film kernel launch failed: "
@@ -1381,9 +1489,45 @@ def stokes_sample_trace(tables: FilmTables, seed: int):
     return out
 
 
+def raygen_trace(tables: FilmTables, seed: int):
+    """K5: one camera sample per pixel with the jitter drawn in the kernel,
+    as (6, H*W) planes (L, the ray count, jx, jy), 12 on a textured
+    environment (then the escape direction and throughput):
+    ``raygen_trace_plain``'s.  Plain version on a CPU tensor; on a CUDA
+    tensor the kernel or raise.  ``raygen_trace.launches`` counts
+    launches."""
+    _check_kind(tables, False, "raygen_trace")
+    if tables.tab.device.type == "cpu":
+        return raygen_trace_plain(tables, seed)
+    out, _ = _launch(tables, seed, 1, _MODE_RAYGEN_SAMPLE, False,
+                     12 if tables.env_textured else 6, "raygen_trace")
+    raygen_trace.launches += 1
+    return out
+
+
+def path_trace(tables: FilmTables, o, d, seed: int):
+    """K4: the bounce loop on the rays o, d ([N, 3] float32 on the tables'
+    device; N need not fill a tile), as (4, N) planes (L, the ray count),
+    10 on a textured environment: ``path_trace_plain``'s.  The tables'
+    camera is not used.  Plain version on a CPU tensor; on a CUDA tensor
+    the kernel or raise.  ``path_trace.launches`` counts launches."""
+    _check_kind(tables, False, "path_trace")
+    dev = tables.tab.device
+    if (o.shape != d.shape or o.dim() != 2 or o.shape[1] != 3 or o.device != dev
+            or d.device != dev or o.dtype != torch.float32 or d.dtype != torch.float32):
+        raise ValueError(f"path_trace needs o, d as [N, 3] float32 tensors on {dev}")
+    if dev.type == "cpu":
+        return path_trace_plain(tables, o, d, seed)
+    rays = torch.cat([o.T, d.T]).contiguous()
+    out, _ = _launch(tables, seed, 1, _MODE_RAYS_SAMPLE, False,
+                     10 if tables.env_textured else 4, "path_trace", rays=rays)
+    path_trace.launches += 1
+    return out
+
+
 film_trace.launches = film_trace.regen_launches = 0
 stokes_film_trace.launches = stokes_film_trace.regen_launches = 0
-stokes_sample_trace.launches = 0
+stokes_sample_trace.launches = raygen_trace.launches = path_trace.launches = 0
 
 
 def deposit(film, planes, tables: FilmTables):
@@ -1443,13 +1587,50 @@ def render_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     return img.contiguous(), n_rays
 
 
+def render_sample_film(scene: Scene, spp=None, seed=0, device="cuda", tile_rows=16,
+                       baked=None):
+    """Full render through the per-sample kernel K5, the route of a scene
+    with a textured environment (render_pallas :2600-2612, _get_render_fn
+    :2353-2383): sample j draws the stream of seed * 100003 + j; each
+    sample's radiance gets the environment seen at its path's escape, L +
+    esc_thr * eval_env(esc_d) (zero throughput where the path never
+    escaped); samples with a non-finite value are left out; the samples
+    are splatted at their jitter by ``sensor/film.py::splat_aligned`` with
+    the camera's filter, then developed.  Returns the (H, W, 3) image and
+    the ray count (0-d int64), both on ``device``."""
+    from tpu_rt_torch.emitter import sample as _em
+
+    bs = _baked(scene, baked)
+    c = scene.camera
+    spp = c.spp if spp is None else spp
+    H, W = c.height, c.width
+    tables = pack_tables(bs, c, tile_rows, device)
+    lookup = scene.to(device) if bs.env_textured else None
+    fv = torch.zeros((H, W, 3), dtype=torch.float32, device=device)
+    fw = torch.zeros((H, W), dtype=torch.float32, device=device)
+    n_rays = torch.zeros((), dtype=torch.int64, device=device)
+    seed0 = _wrap_i32(seed * 100003)
+    for j in range(spp):
+        planes = raygen_trace(tables, _wrap_i32(seed0 + j))
+        L = planes[0:3].T
+        if lookup is not None:
+            L = L + planes[9:12].T * _em.eval_env(lookup, planes[6:9].T)
+        ok = torch.isfinite(L).all(-1)
+        fv, fw = _film.splat_aligned(fv, fw, planes[4:6].T.reshape(1, H, W, 2),
+                                     L.reshape(1, H, W, 3), ok.reshape(1, H, W),
+                                     c.filter_type)
+        n_rays += planes[3].to(torch.int64).sum()
+    return _film.develop(fv, fw), n_rays
+
+
 def stokes_in_scope(bs: Optional[BakedScene]) -> bool:
     """Scenes the Stokes kernel renders (pallas_path.stokes_in_scope): baked,
-    with no textured environment and no polarizer.  This package's bake
-    already rejects both (the polarizer's true Mueller transport stays on
-    the wavefront, ``integrator/stokes.py``), so every baked scene is in
-    scope."""
-    return bs is not None
+    with no textured environment (the Stokes kernels write no escape
+    record) and no polarizer (they would pass it as a neutral attenuator;
+    its true Mueller transport stays on the wavefront,
+    ``integrator/stokes.py``).  A ``null`` BSDF is in scope."""
+    return (bs is not None and not bs.env_textured
+            and not any(bt == BSDF_POLARIZER for bt, _ in bs.bsdfs))
 
 
 def render_stokes_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,

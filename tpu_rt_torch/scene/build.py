@@ -9,10 +9,11 @@ them, the ``ultrasound_sensor``, ``obj`` /
 ``ply`` / ``sphere`` / ``rectangle`` / ``disk`` / ``cylinder`` / ``cone``
 shapes, ``diffuse`` / ``dielectric`` / ``conductor`` / ``roughconductor`` /
 ``polarizer`` / ``null`` / ``ultrasound_bsdf`` / ``twosided`` BSDFs,
-``area`` / ``point`` /
-``constant`` emitters and the
-``ultraray`` / ``ultrasound_emitter`` transducer props.  Every other
-plugin raises ``ValueError`` naming the ROADMAP.md item that will port it.
+``area`` / ``point`` / ``constant`` / ``envmap`` emitters (the envmap's EXR
+read by ``scene/exr.py``, times its ``scale``, in the frame of its
+``to_world``) and the ``ultraray`` / ``ultrasound_emitter`` transducer
+props.  Every other plugin raises ``ValueError`` naming the ROADMAP.md item
+that will port it.
 
 Meshes are transformed to world space (vertex normals by the inverse
 transpose), the BVH is built by the same native builder, the mesh cluster
@@ -50,7 +51,6 @@ _INTEGRATORS = {"path": T.INTEGRATOR_PATH, "direct": T.INTEGRATOR_DIRECT,
 # Plugins of tpu_rt that this package does not load yet -> ROADMAP.md item.
 _LATER = {
     "bsplinecurve": "A8 (asset readers, curves)",
-    "envmap": "A7 (textured environment, K5)",
     "bitmap": "A8 (asset readers and textures)",
 }
 
@@ -267,8 +267,15 @@ class _Builder:
             self.point_pos.append(
                 np.asarray(ed.get("position", (0.0, 0.0, 0.0)), np.float32))
             self.point_intensity.append(_rgb(ed.get("intensity"), 1.0))
+        elif etype == "envmap":
+            from tpu_rt_torch.scene.exr import load_exr_or_fallback
+
+            img = load_exr_or_fallback(ed["filename"])
+            self.env = {"map": img * float(ed.get("scale", 1.0)),
+                        "to_world": tf.as_matrix(ed.get("to_world"))}
         elif etype == "constant":
-            self.env = _rgb(ed.get("radiance"), 1.0).reshape(1, 1, 3)
+            self.env = {"map": _rgb(ed.get("radiance"), 1.0).reshape(1, 1, 3),
+                        "to_world": np.eye(4, dtype=np.float32)}
         elif etype in _TRANSDUCER_EMITTERS:
             self.us_emitter = {k: v for k, v in ed.items() if k != "type"}
         else:
@@ -469,8 +476,12 @@ class _Builder:
             em_offsets.append(em_offsets[-1] + hi - lo)
             area_total.append(total)
         n_area = len(self.area_radiance)
-        env_map = (np.asarray(self.env, np.float32) if self.env is not None
-                   else np.zeros((1, 1, 3), np.float32))
+        if self.env is not None:
+            env_map = np.asarray(self.env["map"], np.float32)
+            env_to_world = np.asarray(self.env["to_world"], np.float32)
+        else:
+            env_map = np.zeros((1, 1, 3), np.float32)
+            env_to_world = np.eye(4, dtype=np.float32)
         # the lat-long sampling CDFs, as tpu_rt builds them (luminance x sin
         # theta per texel); a constant environment is one texel
         H = env_map.shape[0]
@@ -492,8 +503,8 @@ class _Builder:
             point_intensity=(np.stack(self.point_intensity) if self.point_pos
                              else np.zeros((0, 3), np.float32)),
             env_map=env_map,
-            env_to_world=np.eye(4, dtype=np.float32),
-            env_to_local=tf.inverse(np.eye(4, dtype=np.float32)),
+            env_to_world=env_to_world,
+            env_to_local=tf.inverse(env_to_world),
             env_cdf_rows=(np.cumsum(row_w) / row_w.sum()).astype(np.float32),
             env_cdf_cols=(np.cumsum(w, axis=1) / w.sum(axis=1, keepdims=True)).astype(np.float32),
             env_scale=np.float32(1.0),
