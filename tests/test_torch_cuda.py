@@ -23,7 +23,9 @@ atol 1e-6 and the same rays cast; the mesh-intersect kernel bit-equal
 Stokes kernels K3 and K6 and K2's loop bit-equal to their plain versions,
 and K2's loop bit-equal to the per-sample loop for K1 and K3; K5 and K4
 under a textured environment, K1 with polarizer / null pass-through and
-K3 with a null BSDF bit-equal to their plain versions.
+K3 with a null BSDF bit-equal to their plain versions; the rough
+conductor's lane and cone prims in K1, K2's loop, K3, K6, K5 and K4, and
+cones in the acquisition kernel, bit-equal to their plain versions.
 """
 
 import os
@@ -39,7 +41,8 @@ from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 from tpu_rt_torch.sensor import camera
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
 from tpu_rt_torch.us.pipeline import us_render
-from torch_port_scenes import envmap_desc, mixed_desc, polarizer_desc, usmain_desc
+from torch_port_scenes import (cone_box_desc, envmap_desc, envmap_rough_cone_desc, mixed_desc,
+                               polarizer_desc, usmain_desc)
 
 torch.set_num_threads(1)
 
@@ -554,3 +557,107 @@ def test_render_textured_environment_on_cuda_goes_through_k5():
     assert bool(torch.isfinite(img).all()) and img.max().item() > 5.0
     rays = tpu_rt_torch.render.last_ray_count
     assert rays.device.type == "cuda" and int(rays) >= 32 * 32 * 3
+
+
+CBOX_ROUGH = os.path.join(os.path.dirname(__file__), "assets", "cbox", "cbox_rough.xml")
+POL_ROUGH = os.path.join(os.path.dirname(__file__), "assets", "cbox_pol", "cbox_pol_rough.xml")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_type,depth,regen", [
+    (1, None, False), (0, 3, False), (2, None, False), (1, 16, True), (1, 16, False)],
+    ids=["tent", "box_depth3", "gaussian", "depth16_regen", "depth16_per_sample"])
+def test_film_kernel_rough_cone_is_bit_equal_to_plain_version(filter_type, depth, regen):
+    """K1's rough conductor and cone lanes on cbox_rough.xml, and K2's loop
+    around them at depth 16."""
+    _need_cuda()
+    tables = _film_tables(CBOX_ROUGH, 32, depth, filter_type, False)
+    assert tables.rough_cone and "cone" in {p.kind for p in path_kernel.bake_scene(
+        tpu_rt_torch.load_file(CBOX_ROUGH, res=8, spp=1)).prims}
+    before = path_kernel.film_trace.launches
+    got = path_kernel.film_trace(tables, 9, 3, regen=regen)
+    torch.cuda.synchronize()
+    assert path_kernel.film_trace.launches == before + 1
+    assert torch.equal(got, path_kernel.film_trace_plain(tables, 9, 3))
+    assert got[-1].sum().item() > 3 * 32 * 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_type", [0, 2], ids=["box", "gaussian"])
+@pytest.mark.parametrize("regen", [True, False], ids=["K2_loop", "per_sample_loop"])
+def test_stokes_kernel_rough_is_bit_equal_to_plain_version(filter_type, regen):
+    """K3's rough lane, with the NEE Mueller chain, on cbox_pol_rough.xml at
+    depth 16, in both loop forms; and K6 on the same tables."""
+    _need_cuda()
+    tables = _film_tables(POL_ROUGH, 24, None, filter_type, True)
+    assert tables.rough_cone and tables.regen
+    got = path_kernel.stokes_film_trace(tables, 4, 3, regen=regen)
+    assert torch.equal(got, path_kernel.stokes_film_trace_plain(tables, 4, 3))
+    assert got[1:12].abs().max().item() > 1e-4
+    one = path_kernel.stokes_sample_trace(tables, 77)
+    assert torch.equal(one, path_kernel.stokes_sample_trace_plain(tables, 77))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,seed", [(24, 4), (40, -6)])
+def test_per_sample_kernels_rough_cone_are_bit_equal_to_plain_version(res, seed):
+    """K5 and K4 on the rough ball and the cone under the textured
+    environment (envmap_rough_cone_desc)."""
+    _need_cuda()
+    st = tpu_rt_torch.load_dict(envmap_rough_cone_desc(tpu_rt_torch.ScalarTransform4f, ENVMAP,
+                                                       res))
+    tables = path_kernel.pack_tables(path_kernel.bake_scene(st), st.camera, 16, "cuda")
+    assert tables.rough_cone and tables.env_textured
+    got = path_kernel.raygen_trace(tables, seed)
+    assert torch.equal(got, path_kernel.raygen_trace_plain(tables, seed))
+    gen = torch.Generator()
+    gen.manual_seed(res)
+    o = torch.tensor([0.0, 1.0, -4.0]) + (torch.rand((3000, 3), generator=gen) - 0.5) * 0.2
+    d = torch.nn.functional.normalize(
+        torch.rand((3000, 3), generator=gen) * torch.tensor([3.0, 2.0, 3.0])
+        - torch.tensor([1.5, 1.0, 1.0]) - o, dim=-1)
+    o, d = o.cuda(), d.cuda()
+    got = path_kernel.path_trace(tables, o, d, seed)
+    assert torch.equal(got, path_kernel.path_trace_plain(tables, o, d, seed))
+    assert got[0:3].sum().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box,rpp,seed", [(True, 64, 0), (True, 8, -5), (False, 64, 3)],
+                         ids=["box-rpp64", "box-rpp8", "floating-rpp64"])
+def test_us_kernel_cone_is_bit_equal_to_plain_version(box, rpp, seed):
+    """The acquisition kernel on the Cone_Box / Cone_FLoating class
+    (20 480 or 2 560 lanes, depth 10)."""
+    _need_cuda()
+    st = tpu_rt_torch.load_dict(cone_box_desc(tpu_rt_torch.ScalarTransform4f, box))
+    tables = us_kernel.pack_us_tables(us_kernel.bake_us_scene(st), 8, "cuda")
+    b = plane_wave_rays(st.ultrasound)
+    rays = torch.repeat_interleave(torch.cat([b["o"].T, b["d"].T, b["tx_delay"][None]]),
+                                   rpp, dim=1).cuda()
+    got = us_kernel.us_trace(tables, rays, seed)
+    want = us_kernel.us_trace_plain(tables, rays, seed)
+    # pressures bit for bit; the time and element records where the echo
+    # is there (a dead lane's are don't-cares, which the kernel leaves 0)
+    assert torch.equal(got[0::3], want[0::3])
+    nz = got[0::3] != 0
+    assert nz.any()
+    assert torch.equal(got[1::3][nz], want[1::3][nz]) and torch.equal(got[2::3][nz], want[2::3][nz])
+
+
+@pytest.mark.cuda
+def test_render_rough_cone_and_cone_box_go_through_the_kernels():
+    """render(cbox_rough.xml) takes K1 alone; us_render on cone_box_desc
+    takes K10."""
+    _need_cuda()
+    st = tpu_rt_torch.load_file(CBOX_ROUGH, res=32, spp=10)
+    before = (path_kernel.film_trace.launches, mesh_kernel.mesh_intersect.launches)
+    img = tpu_rt_torch.render(st, seed=1, spp_per_pass=4)
+    assert (path_kernel.film_trace.launches, mesh_kernel.mesh_intersect.launches) == (
+        before[0] + 3, before[1])
+    assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
+    us = tpu_rt_torch.load_dict(cone_box_desc(tpu_rt_torch.ScalarTransform4f))
+    before = us_kernel.us_trace.launches
+    bm, ch, _ = us_render(us, seed=1, rays_per_pair=4, x_bounds=(-0.01, 0.01),
+                          z_bounds=(0.05, 0.09), device="cuda")
+    assert us_kernel.us_trace.launches == before + 1
+    assert bool(torch.isfinite(bm).all()) and ch.abs().sum().item() > 0

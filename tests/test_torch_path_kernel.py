@@ -73,9 +73,9 @@ def test_pack_tables_unchanged_by_the_shared_prim_packer(which):
     records moved into ``pack_prims`` (shared with the ultrasound kernel):
     tests/golden/film_tables_cbox_mixed.npz holds the earlier tables of the
     cbox fixture at 16x16 and of mixed_desc, tile_rows 8.  The header has
-    since grown by the Stokes, regen and textured-environment flags, all
-    off for these scalar scenes of depth 6 and 3 under no or a constant
-    environment."""
+    since grown by the Stokes, regen, textured-environment and rough
+    flags, all off for these scalar scenes of depth 6 and 3 under no or a
+    constant environment and without a rough conductor."""
     from torch_port_scenes import mixed_desc
 
     ref = np.load(os.path.join(os.path.dirname(__file__), "golden", "film_tables_cbox_mixed.npz"))
@@ -84,6 +84,6 @@ def test_pack_tables_unchanged_by_the_shared_prim_packer(which):
     t = path_kernel.pack_tables(path_kernel.bake_scene(sc), sc.camera, 8, "cpu")
     n_old = ref[which + "_hdr"].shape[0]
     np.testing.assert_array_equal(np.asarray(t.hdr_list[:n_old], np.int32), ref[which + "_hdr"])
-    assert t.hdr_list[n_old:] == [0, 0, 0] and n_old == path_kernel.HDR_STOKES
+    assert t.hdr_list[n_old:] == [0, 0, 0, 0] and n_old == path_kernel.HDR_STOKES
     assert np.asarray(t.tab_list, np.float32).tobytes() == ref[which + "_tab"].tobytes()
     assert t.tab.numpy().tobytes() == ref[which + "_tab"].tobytes()

@@ -172,20 +172,34 @@ def pallas_bake_as_port(sj):
         prims=[path_kernel.BakedPrim(p.kind, p.data, p.bsdf, p.emitter) for p in bj.prims],
         bsdfs=bj.bsdfs, em_radiance=bj.em_radiance, em_area=bj.em_area,
         em_tris=bj.em_tris, point_lights=bj.point_lights, env_rgb=bj.env_rgb,
-        n_lights=bj.n_lights, max_depth=bj.max_depth, rr_depth=bj.rr_depth,
+        env_textured=bj.env_textured, n_lights=bj.n_lights, max_depth=bj.max_depth, rr_depth=bj.rr_depth,
         hide_emitters=bj.hide_emitters)
 
 
-@pytest.mark.parametrize("shape", [
-    {"type": "sphere", "bsdf": {"type": "roughconductor", "alpha": 0.2}},
-    {"type": "cone", "bsdf": {"type": "diffuse"}},
-])
-def test_out_of_scope_scene(shape):
-    """Outside the film kernel's scope: the wavefront tracer renders it."""
+@pytest.mark.parametrize("shape,in_scope", [
+    ({"type": "sphere", "bsdf": {"type": "roughconductor", "alpha": 0.2}}, True),
+    ({"type": "cone", "bsdf": {"type": "diffuse"}}, True),
+    ({"type": "disk", "bsdf": {"type": "diffuse"}}, False),
+    ({"type": "cylinder", "bsdf": {"type": "diffuse"}}, False),
+], ids=["shape0", "shape1", "shape2", "shape3"])
+def test_out_of_scope_scene(shape, in_scope):
+    """The film kernel's scope is tpu_rt's: a rough conductor and a cone
+    are in it, and the port's bake and packed tables equal tpu_rt's bake's;
+    a disk and a cylinder are outside it in both packages, and the
+    wavefront tracer renders them."""
     desc = furnace_desc(tpu_rt.ScalarTransform4f)
     desc["sph"] = shape
-    carried = scene_from_arrays(*tpu_rt_arrays(tpu_rt.load_dict(desc)))
-    assert path_kernel.bake_scene(carried) is None
+    sj = tpu_rt.load_dict(desc)
+    carried = scene_from_arrays(*tpu_rt_arrays(sj))
+    bt = path_kernel.bake_scene(carried)
+    assert (bt is not None) == in_scope == (pallas_path.bake_scene(sj) is not None)
+    if in_scope:
+        _assert_bake_equal(pallas_path.bake_scene(sj), bt)
+        t1 = path_kernel.pack_tables(bt, carried.camera, 8, "cpu")
+        t2 = path_kernel.pack_tables(pallas_bake_as_port(sj), carried.camera, 8, "cpu")
+        assert t1.tab_list == t2.tab_list and t1.hdr_list == t2.hdr_list
+        assert t1.rough_cone
+        return
     img = torch_render(carried, spp=1, device="cpu")
     assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
 

@@ -15,6 +15,14 @@ largest |pressure| (at least 99% of entries), time-sample indices to 1e-6
 relative and receive elements exactly, both only where the pressure is
 non-zero (a dead lane's records are don't-cares).  Deposited RF buffers:
 total |RF| within 1e-3 relative, per-pair energy correlation >= 0.999.
+The Cone_Box-class records differ in the same way, by one to three ulps
+of the echo time, but there most first echoes come off the cone with
+amplitudes near the largest, so a phase error of 4e-4 rad (three ulps of
+t ~ 8e-5 s at 3 MHz) moves them by up to 1.5e-4 of the largest |pressure|:
+their pressures are held to 1e-3 of it.  A ray that grazes the cone takes
+its hit from the smaller root of a badly conditioned quadratic, which
+XLA's contracted multiply-adds move by up to ten ulps of the time-sample
+index: the cone's indices are held to rtol 2e-6.
 
 The CUDA kernel is held to the plain version on the card by
 tests/test_torch_cuda.py, which imports no JAX.
@@ -37,17 +45,21 @@ import tpu_rt_torch
 from tpu_rt.ops import pallas_us
 from tpu_rt.sensor.transducer import plane_wave_rays
 from tpu_rt_torch.ops import us_kernel
-from torch_port_scenes import usmain_desc
+from torch_port_scenes import cone_box_desc, usmain_desc
 
 torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "us_usmain_rpp64_seed0.npz")
+CONE_GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "us_cone_rpp64_seed0.npz")
 SEED, RPP = 0, 8
 
 
 def _desc(st, arc):
-    """USMain; with ``arc`` a convex array (radius 2 cm) whose elements a
-    transducer emitter spreads over a 40-degree opening angle."""
+    """USMain; with ``arc`` True a convex array (radius 2 cm) whose elements
+    a transducer emitter spreads over a 40-degree opening angle; with
+    ``arc`` "cone" the Cone_Box-class scene (a cone in the 5-wall box)."""
+    if arc == "cone":
+        return cone_box_desc(st)
     return usmain_desc(st, radius=0.02, opening_angle=40.0) if arc else usmain_desc(st)
 
 
@@ -101,14 +113,16 @@ def _pallas_records(max_depth, arc=False, seed=SEED, rpp=RPP, tile_rows=8):
     return records, rays
 
 
-def check_records(got, want):
-    """The module docstring's record tolerances."""
+def check_records(got, want, ptol=1e-4, trtol=1e-6):
+    """The module docstring's record tolerances (``ptol``: the pressure
+    budget, a share of the largest |pressure|; ``trtol``: the time-sample
+    indices' relative budget)."""
     pw, pg = want[0::3], got[0::3]
-    close = np.abs(pg - pw) <= 1e-4 * np.abs(pw).max()
+    close = np.abs(pg - pw) <= ptol * np.abs(pw).max()
     assert close.mean() >= 0.99, f"only {close.mean():.5f} of pressures agree"
     nz = (pw != 0.0) & (pg != 0.0)
     assert nz.any()
-    np.testing.assert_allclose(got[1::3][nz], want[1::3][nz], rtol=1e-6)
+    np.testing.assert_allclose(got[1::3][nz], want[1::3][nz], rtol=trtol)
     np.testing.assert_array_equal(got[2::3][nz], want[2::3][nz])
 
 
@@ -166,6 +180,22 @@ def test_bake_and_tables_match_tpu_rt():
     assert h[us_kernel.UH_TILE_LANES] == 1024
 
 
+def test_bake_cone_box_matches_tpu_rt():
+    """bake_us_scene takes the Cone_Box-class scene (it gave None while the
+    sweep lacked cones), with tpu_rt's prims, and packs the cone as the
+    film kernel's cone record."""
+    sj, st = _scenes(10, "cone")
+    bj, bt = pallas_us.bake_us_scene(sj), us_kernel.bake_us_scene(st)
+    assert bt is not None and [p.kind for p in bt.prims] == ["cone"] + ["rect"] * 5
+    assert [(p.kind, p.data, p.bsdf, p.emitter) for p in bt.prims] == \
+        [(p.kind, p.data, p.bsdf, p.emitter) for p in bj.prims]
+    tab = us_kernel.pack_us_tables(bt, 8, "cpu")
+    rec = tab.tab_list[tab.hdr_list[us_kernel.UH_OFF_PRIM]:][:20]
+    assert rec[0] == 3.0  # path_kernel.KIND_CONE
+    np.testing.assert_array_equal(np.asarray(rec[4:16], np.float32),
+                                  np.asarray(bj.prims[0].data, np.float32).ravel())
+
+
 def test_bake_scope():
     """Out of scope: an optical scene (no ultrasound configuration)."""
     cbox = os.path.join(os.path.dirname(__file__), "assets", "cbox", "cbox.xml")
@@ -175,19 +205,23 @@ def test_bake_scope():
                                        device="cpu")
 
 
-@pytest.mark.parametrize("max_depth,arc", [(10, False), (3, False), (3, True)],
-                         ids=["depth10", "depth3", "depth3-convex-arc"])
+@pytest.mark.parametrize("max_depth,arc", [(10, False), (3, False), (3, True), (3, "cone")],
+                         ids=["depth10", "depth3", "depth3-convex-arc", "cone-box-depth3"])
 def test_plain_records_match_pallas_interpret(max_depth, arc):
-    """Per-bounce records of 2 560 lanes (rpp 8) on the same rays."""
+    """Per-bounce records of 2 560 lanes (rpp 8) on the same rays; the cone
+    case sweeps the cone through the shared prim sweep."""
     want, rays = _pallas_records(max_depth, arc)
     st = _scenes(max_depth, arc)[1]
     tables = us_kernel.pack_us_tables(us_kernel.bake_us_scene(st), 8, "cpu")
     assert tables.hdr_list[us_kernel.UH_LAYOUT] == (
-        us_kernel.LAYOUT_CONVEX_OPEN if arc else us_kernel.LAYOUT_LINEAR)
+        us_kernel.LAYOUT_CONVEX_OPEN if arc is True else us_kernel.LAYOUT_LINEAR)
     got = us_kernel.us_trace(tables, torch.from_numpy(rays), SEED)
     assert got.shape == want.shape == (3 * max_depth, 5 * 64 * RPP)
     assert got.dtype == torch.float32
-    check_records(got.numpy(), want)
+    if arc == "cone":
+        check_records(got.numpy(), want, ptol=1e-3, trtol=2e-6)
+    else:
+        check_records(got.numpy(), want)
 
 
 def test_us_trace_cpu_runs_plain_version_without_launch():
@@ -226,3 +260,20 @@ def test_acquisition_matches_golden():
     assert np.corrcoef(a.sum(axis=(0, 1)), g["axial"])[0, 1] >= 0.999
     assert abs(a.sum() - g["total_abs"]) <= 0.01 * g["total_abs"]
     assert np.corrcoef(a.sum(axis=2).ravel(), g["pair"].ravel())[0, 1] >= 0.999
+
+
+def test_cone_acquisition_matches_golden():
+    """The Cone_Box-class acquisition (rpp 64, 20 480 lanes, seed 0)
+    against tests/golden/us_cone_rpp64_seed0.npz (tpu_rt's us_render in
+    interpret mode, tests/golden/make_us_cone_golden.py), with the limits
+    of the card's gate; the first echo lies where Cone_FLoating's does
+    (0.05-0.066 m, tests/test_all_scenes_smoke.py:78-93)."""
+    g = np.load(CONE_GOLDEN)
+    st = tpu_rt_torch.load_dict(cone_box_desc(tpu_rt_torch.ScalarTransform4f))
+    ch, _ = us_kernel.simulate_acquisition(st, seed=0, rays_per_pair=64, device="cpu")
+    a = np.abs(ch.numpy().astype(np.float64))
+    assert np.corrcoef(a.sum(axis=(0, 1)), g["axial"])[0, 1] >= 0.999
+    assert abs(a.sum() - g["total_abs"]) <= 0.01 * g["total_abs"]
+    us = st.ultrasound
+    first = np.nonzero(a.sum(axis=(0, 1)))[0].min() / float(us.sampling_rate)
+    assert 0.05 <= first * float(us.sound_speed) / 2 <= 0.066

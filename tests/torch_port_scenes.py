@@ -198,6 +198,80 @@ def envmap_desc(st, filename, res=16):
     }
 
 
+def envmap_rough_cone_desc(st, filename, res=16):
+    """``envmap_desc`` with its conductor ball made a GGX rough conductor
+    (alpha 0.3, the same eta / k) and a diffuse cone on the floor, its
+    to_world leaving a non-uniform scale: the rough and cone lanes of the
+    per-sample kernels under the textured environment."""
+    desc = envmap_desc(st, filename, res)
+    desc["ball"]["bsdf"] = dict(desc["ball"]["bsdf"], type="roughconductor", alpha=0.3)
+    desc["cone"] = {"type": "cone",
+                    "to_world": st().translate([-0.9, -1, 0.6]).rotate([1, 0, 0], -90)
+                    .scale([0.35, 0.25, 0.9]),
+                    "bsdf": {"type": "diffuse", "reflectance": np.array([0.3, 0.6, 0.4])}}
+    return desc
+
+
+def cone_box_desc(st, box=True):
+    """A Cone_Box / Cone_FLoating-class ultrasound scene (SURVEY.md:180;
+    the reference's MitsubaScenes XMLs are not in the repository):
+    ultrasound_integrator at max_depth 10, 50 MHz sampling, 3 MHz, c 1480,
+    attenuation 0.1; 64 elements at 0.12 mm pitch, 10 000 samples, 5
+    plane-wave angles over -15...15 degrees (USMain's count); every surface
+    ``ultrasound_bsdf`` of impedance 7.8.  The cone (the unit cone: base
+    radius 1 at z = 0, apex at z = 1) lies on its side across the beam,
+    its axis along x, base radius 12 mm and length 30 mm, centred at
+    z = 72 mm, so its surface starts near z = 0.06 m, where
+    tests/test_all_scenes_smoke.py:78-93 puts Cone_FLoating's first echo
+    (0.05-0.066 m).  With ``box`` the 5-wall rectangle box of the *_Box
+    scenes closes it in: a back wall at z = 0.1 m and four side walls at
+    |x|, |y| = 0.03 m, open toward the probe."""
+    bsdf = {"type": "ultrasound_bsdf", "impedance": 7.8}
+    desc = {
+        "type": "scene",
+        "integrator": {
+            "type": "ultrasound_integrator",
+            "max_depth": 10,
+            "sampling_rate": 50e6,
+            "frequency": 3e6,
+            "sound_speed": 1480,
+            "attenuation": 0.1,
+            "n_elements": 64,
+            "pitch": 0.00012,
+            "time_samples": 10000,
+            "angles": np.linspace(-15, 15, 5),
+        },
+        "sensor": {
+            "type": "ultrasound_sensor",
+            "center_frequency": 3e6,
+            "sound_speed": 1480,
+            "to_world": st().look_at(origin=[0, 0, 0.0], target=[0, 0, 0.03], up=[0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": 512, "height": 512,
+                     "pixel_format": "luminance"},
+        },
+        "cone": {"type": "cone",
+                 "to_world": (st().translate([-0.015, 0, 0.072]) @ st().rotate([0, 1, 0], 90)
+                              @ st().scale([0.012, 0.012, 0.03])),
+                 "bsdf": dict(bsdf)},
+    }
+    if box:
+        walls = {
+            "wall_back": st().translate([0, 0, 0.1]) @ st().rotate([0, 1, 0], 180)
+            @ st().scale([0.03, 0.03, 1]),
+            "wall_left": st().translate([-0.03, 0, 0.05]) @ st().rotate([0, 1, 0], 90)
+            @ st().scale([0.05, 0.03, 1]),
+            "wall_right": st().translate([0.03, 0, 0.05]) @ st().rotate([0, 1, 0], -90)
+            @ st().scale([0.05, 0.03, 1]),
+            "wall_top": st().translate([0, 0.03, 0.05]) @ st().rotate([1, 0, 0], 90)
+            @ st().scale([0.03, 0.05, 1]),
+            "wall_bottom": st().translate([0, -0.03, 0.05]) @ st().rotate([1, 0, 0], -90)
+            @ st().scale([0.03, 0.05, 1]),
+        }
+        for name, tw in walls.items():
+            desc[name] = {"type": "rectangle", "to_world": tw, "bsdf": dict(bsdf)}
+    return desc
+
+
 def render_stokes_per_sample(scene, spp, seed, device, tile_rows=16):
     """The JAX package's per-sample Stokes route (render_stokes_pallas:
     2257-2295), the reference that K3's film planes are held to: K6 once a

@@ -1,7 +1,9 @@
 """Integrator dispatch (Mitsuba's integrator plugin factory).
 
 Counterpart of ``tpu_rt/integrator/__init__.py``.  A ``path`` scene inside
-the film kernel's scope renders through ``ops/path_kernel.py``: through the
+the film kernel's scope, which is tpu_rt's (triangles, spheres, rectangles
+and cones; every BSDF but the acoustic one, rough conductors included; no
+bitmap texture), renders through ``ops/path_kernel.py``: through the
 film kernel K1 (a mesh scene of more than 64 prims through its
 clustered-mesh mode; polarizer and ``null`` BSDFs through its
 pass-through lane, as tpu_rt's ``render_pallas`` does), or, under a
@@ -10,7 +12,8 @@ textured environment, through the per-sample kernel K5 of
 after the kernel, the samples splatted and developed); a ``direct``
 (or ``direct_projective``, whose image is the direct one) scene of meshes
 lit by point lights renders through the direct mesh kernel of
-``ops/mesh_kernel.py``.  Every other ``path`` scene, and every other
+``ops/mesh_kernel.py``.  Every other ``path`` scene (disks, cylinders,
+curves, a mesh the clustered mode cannot take), and every other
 ``direct`` scene at max_depth 2, renders through the wavefront path
 tracer of ``integrator/path.py`` (whose mesh queries run through the
 clustered mesh-intersect kernel).  An ultrasound scene returns the B-mode

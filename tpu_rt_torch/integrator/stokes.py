@@ -4,7 +4,9 @@ Counterpart of ``tpu_rt/integrator/stokes.py``: the ``stokes`` integrator
 wrapping ``path`` (cbox_pol-class scenes) and the ``polarizer`` BSDF.
 
 ``render_stokes`` sends a scene inside the Stokes kernel's scope (baked by
-``ops/path_kernel.py``, no explicit ``max_depth``) to
+``ops/path_kernel.py``: rough conductors, with their Mueller chain through
+the NEE scattering plane, and cones included; no polarizer, no textured
+environment, no explicit ``max_depth``) to
 ``path_kernel.render_stokes_film`` (K3, in K2's loop from depth 8).
 Everything else, above all true polarizer transport, renders through the
 wavefront tracer below, one PyTorch pass a bounce over the scalar
@@ -20,9 +22,10 @@ unpolarized, so each emission adds Le * T[..., :, 0].  The output basis is
 the camera's horizontal axis projected perpendicular to each primary ray.
 Directions are sampled by the scalar BSDF sampler; each Mueller matrix is
 normalized by its own M00 and scaled by the scalar weight, so Stokes-I is
-the unpolarized estimate.  Unlike the film kernel, NEE here chains a copy
-of T through the light's scattering plane (tpu_rt keeps each route's
-form).
+the unpolarized estimate.  NEE here chains a copy of T through the
+light's scattering plane for every lobe; the film kernel does so for the
+rough conductor and takes the depolarized shortcut T[:, 0] w for a
+diffuse lobe (tpu_rt keeps each route's form).
 
 Randomness is explicit, as in ``integrator/path.py``: ``render_stokes``
 seeds one ``torch.Generator`` on the device, which draws each wave's

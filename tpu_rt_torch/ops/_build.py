@@ -116,8 +116,8 @@ def load_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     # hdr, n_hdr, tab, n_tab, mesh, n_mesh, rays (K4's, else NULL), out,
     # n_pix, seed, n_samples, radius, mode (K1 / K3 / K6 / K5 / K4), regen
-    # (K2's loop), stream
-    lib.path_film_launch.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i, i, i, p]
+    # (K2's loop), rough_cone (the rough conductor's lane and cones), stream
+    lib.path_film_launch.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i, i, i, i, p]
     lib.path_film_launch.restype = i
     lib.us_acq_launch.argtypes = [p, i, p, i, p, p, i, i, p]
     lib.us_acq_launch.restype = i

@@ -2,8 +2,10 @@
 // acquisition kernel (us_acq.cu), the direct mesh kernel (mesh_direct.cu)
 // and the mesh-intersect kernel (mesh_isect.cu): float3 arithmetic, the
 // SplitMix32 random streams of tpu_rt's Pallas kernels, the shading frame,
-// the closest-hit / any-hit sweep over the packed prim records, and the
-// per-ray cull and Baldwin-Weber test of the mesh cluster tables.
+// the GGX half vector drawn from the visible normals, the closest-hit /
+// any-hit sweep over the packed prim records (triangles, spheres,
+// rectangles, cones), and the per-ray cull and Baldwin-Weber test of the
+// mesh cluster tables.
 //
 // The prim record layout (PRIM_STRIDE floats: kind, bsdf, emitter, pad,
 // then the shape's data) is written by path_kernel.py::pack_prims.
@@ -19,7 +21,7 @@
 namespace {
 
 enum { PRIM_STRIDE = 20 };
-enum { KIND_TRI = 0, KIND_SPHERE = 1, KIND_RECT = 2 };
+enum { KIND_TRI = 0, KIND_SPHERE = 1, KIND_RECT = 2, KIND_CONE = 3 };
 constexpr double kPi = 3.14159265358979323846;
 constexpr float kBig = 1e8f;
 
@@ -82,7 +84,54 @@ __device__ __forceinline__ float rng_next(uint32_t& state) {
   return __uint_as_float((z >> 9) | 0x3F800000u) - 1.0f;
 }
 
-// One prim's intersection test: hit or not, and the hit distance t.
+// A GGX half vector drawn from the distribution of visible normals (Heitz's
+// spherical cap) in the local frame, two-sided: wi is flipped into the
+// upper hemisphere (flip = +-1) and the half vector flipped back.  The
+// rough conductor of path_film.cu and the acoustic BSDF of us_acq.cu draw
+// it the same way (path_kernel.py::_vndf_half).
+__device__ __forceinline__ V3 vndf_half(V3 wi_l, float alpha, float u_a, float u_b,
+                                        float& flip) {
+  flip = wi_l.z >= 0.0f ? 1.0f : -1.0f;
+  V3 wif = scale(wi_l, flip);
+  V3 vh = normalize({alpha * wif.x, alpha * wif.y, wif.z});
+  float lensq = vh.x * vh.x + vh.y * vh.y;
+  float inv_len = 1.0f / sqrtf(fmaxf(lensq, 1e-20f));
+  bool big = lensq > 1e-20f;
+  V3 t1v = {big ? -vh.y * inv_len : 1.0f, big ? vh.x * inv_len : 0.0f, 0.0f};
+  V3 t2v = cross(vh, t1v);
+  float r_h = sqrtf(fmaxf(u_a, 0.0f));
+  float phi_h = (float)(2.0 * kPi) * u_b;
+  float p1h = r_h * cosf(phi_h);
+  float p2h = r_h * sinf(phi_h);
+  float s_h = 0.5f * (1.0f + vh.z);
+  p2h = (1.0f - s_h) * safe_sqrt(1.0f - p1h * p1h) + s_h * p2h;
+  V3 nh = add(add(scale(t1v, p1h), scale(t2v, p2h)),
+              scale(vh, safe_sqrt(1.0f - p1h * p1h - p2h * p2h)));
+  return scale(normalize({alpha * nh.x, alpha * nh.y, fmaxf(nh.z, 1e-6f)}), flip);
+}
+
+// A ray in the object space of a cone record, whose q[0..11] are the rows
+// m0, m1, m2 of to_object.
+struct ObjRay {
+  float ox, oy, oz, dx, dy, dz;
+};
+__device__ __forceinline__ ObjRay to_object(const float* q, V3 o, V3 d) {
+  const float* m0 = q;
+  const float* m1 = q + 4;
+  const float* m2 = q + 8;
+  return {m0[0] * o.x + m0[1] * o.y + m0[2] * o.z + m0[3],
+          m1[0] * o.x + m1[1] * o.y + m1[2] * o.z + m1[3],
+          m2[0] * o.x + m2[1] * o.y + m2[2] * o.z + m2[3],
+          m0[0] * d.x + m0[1] * d.y + m0[2] * d.z,
+          m1[0] * d.x + m1[1] * d.y + m1[2] * d.z,
+          m2[0] * d.x + m2[1] * d.y + m2[2] * d.z};
+}
+
+// One prim's intersection test: hit or not, and the hit distance t.  kCone
+// compiles the cone test in; the film kernel leaves it out for scenes
+// without one, since the extra branch in its sweep loop slowed K1 on the
+// cbox by 18% (PERF.md).
+template <bool kCone = true>
 __device__ __forceinline__ bool intersect(const float* rec, V3 o, V3 d,
                                           float tmin, float tmax, float& t) {
   const float* q = rec + 4;
@@ -111,6 +160,28 @@ __device__ __forceinline__ bool intersect(const float* rec, V3 o, V3 d,
     t = (t0 > tmin && t0 < tmax) ? t0 : t1;
     return disc >= 0.0f && t > tmin && t < tmax;
   }
+  if (kCone && kind == KIND_CONE) {
+    // the unit cone x^2 + y^2 = (1 - z)^2, z in [0, 1]: the nearer root on
+    // the cone's height inside (tmin, tmax), else the farther; |a| >= 1e-12
+    ObjRay r = to_object(q, o, d);
+    float kk = 1.0f - r.oz;
+    float a = r.dx * r.dx + r.dy * r.dy - r.dz * r.dz;
+    float b = 2.0f * (r.ox * r.dx + r.oy * r.dy + kk * r.dz);
+    float c = r.ox * r.ox + r.oy * r.oy - kk * kk;
+    float disc = b * b - 4.0f * a * c;
+    float sq = safe_sqrt(disc);
+    float a2 = 2.0f * clamp_abs(a, 1e-12f);
+    float r0 = (-b - sq) / a2;
+    float r1 = (-b + sq) / a2;
+    float tn = fminf(r0, r1);
+    float tf = fmaxf(r0, r1);
+    float zn = r.oz + tn * r.dz;
+    float zf = r.oz + tf * r.dz;
+    bool vn = disc >= 0.0f && tn > tmin && tn < tmax && zn >= 0.0f && zn <= 1.0f;
+    bool vf = disc >= 0.0f && tf > tmin && tf < tmax && zf >= 0.0f && zf <= 1.0f;
+    t = vn ? tn : tf;
+    return vn || vf;
+  }
   // rectangle: rows m0, m1, m2 of to_object
   const float* m0 = q;
   const float* m1 = q + 4;
@@ -128,6 +199,7 @@ __device__ __forceinline__ bool intersect(const float* rec, V3 o, V3 d,
          fabsf(yh) <= 1.0f;
 }
 
+template <bool kCone = true>
 __device__ __forceinline__ V3 prim_normal(const float* rec, V3 o, V3 d, float t) {
   const float* q = rec + 4;
   int kind = (int)rec[0];
@@ -135,29 +207,39 @@ __device__ __forceinline__ V3 prim_normal(const float* rec, V3 o, V3 d, float t)
   if (kind == KIND_SPHERE)
     return {(o.x + t * d.x - q[0]) * q[4], (o.y + t * d.y - q[1]) * q[4],
             (o.z + t * d.z - q[2]) * q[4]};
+  if (kCone && kind == KIND_CONE) {  // the object normal (x, y, 1 - z) through M_obj^T
+    ObjRay r = to_object(q, o, d);
+    float xh = r.ox + t * r.dx;
+    float yh = r.oy + t * r.dy;
+    float zh = 1.0f - (r.oz + t * r.dz);
+    return normalize({q[0] * xh + q[4] * yh + q[8] * zh, q[1] * xh + q[5] * yh + q[9] * zh,
+                      q[2] * xh + q[6] * yh + q[10] * zh});
+  }
   return {q[12], q[13], q[14]};
 }
 
 // Closest hit: returns the prim index or -1; t and the normal by reference.
+template <bool kCone = true>
 __device__ int closest_hit(const float* prims, int n_prims, V3 o, V3 d,
                            float& best_t, V3& n) {
   best_t = kBig;
   int best = -1;
   for (int pi = 0; pi < n_prims; ++pi) {
     float t;
-    if (intersect(prims + pi * PRIM_STRIDE, o, d, 1e-4f, kBig, t) && t < best_t) {
+    if (intersect<kCone>(prims + pi * PRIM_STRIDE, o, d, 1e-4f, kBig, t) && t < best_t) {
       best_t = t;
       best = pi;
     }
   }
-  if (best >= 0) n = prim_normal(prims + best * PRIM_STRIDE, o, d, best_t);
+  if (best >= 0) n = prim_normal<kCone>(prims + best * PRIM_STRIDE, o, d, best_t);
   return best;
 }
 
+template <bool kCone = true>
 __device__ bool any_hit(const float* prims, int n_prims, V3 o, V3 d, float tmax) {
   for (int pi = 0; pi < n_prims; ++pi) {
     float t;
-    if (intersect(prims + pi * PRIM_STRIDE, o, d, 1e-4f, tmax, t) && t < kBig)
+    if (intersect<kCone>(prims + pi * PRIM_STRIDE, o, d, 1e-4f, tmax, t) && t < kBig)
       return true;
   }
   return false;

@@ -22,12 +22,30 @@
 //       scene; the lat-long lookup runs after the kernel);
 //   K4  pallas_path_trace: K5's bounce loop on rays passed in, one sample a
 //       lane, no jitter and no far-plane clip.
-// One file, one bounce: bounce<Stokes, Esc> below serves all six, selected
-// by template flags, so no second copy of the transport exists.  The
-// bounce has the JAX kernel's pass-through lane: a polarizer (its
-// intensity fallback, weight 0.5 x transmittance) or a null BSDF sends
-// the ray straight on as a delta lobe, and in the Stokes form acts as a
-// neutral attenuator.
+// One file, one bounce: bounce<Stokes, Esc, RoughCone> below serves all six,
+// selected by template flags, so no second copy of the transport exists.
+// The bounce has every lane of the JAX kernel's: diffuse, smooth
+// dielectric, smooth conductor, the GGX rough conductor, and the
+// pass-through lane (a polarizer, its intensity fallback of weight 0.5 x
+// transmittance, or a null BSDF sends the ray straight on as a delta lobe,
+// and in the Stokes form acts as a neutral attenuator); the sweep
+// (common.cuh) takes triangles, spheres, rectangles and cones.
+//
+// The rough conductor (pallas_path.py:1263-1313, 1387-1477, 1524-1602,
+// 1635).  Its BSDF sample draws a half vector from the visible normals
+// (common.cuh::vndf_half, from the bounce's u7, u8), mirrors wi about it
+// and weighs F(cos_im) G2 / G1 with a real pdf, so the lobe is not delta and
+// emitter hits after it are weighed by MIS; its NEE evaluates
+// spec F(cos_ih) D G2 / (4 cos_i) toward the light with the VNDF pdf on
+// the BSDF side of MIS, and in the Stokes form chains the specular Mueller
+// matrix through the NEE scattering plane (only T's first column is
+// read).  As tpu_rt compiles that code only for a scene that has a rough
+// conductor (its static has_rough), the kRoughCone template flag carries
+// it, together with the cone test of the prim sweep (on the TPU a sweep
+// unrolls only the prims a scene has; here the cone branch in the sweep
+// loop alone slowed K1 on the cbox by 18%).  The header's rough-cone flag
+// picks the instantiation at launch, so a scene with neither runs the code
+// it ran before the two lanes existed.
 //
 // Design.  One thread per pixel index.  The per-sample form runs a depth
 // loop that breaks once the path is dead; that equals the TPU's unrolled
@@ -58,8 +76,9 @@
 // Polarized transport (pallas_path.py:1024-1039, 1194-1233, 1439-1477,
 // 1616-1709).  A Stokes lane carries T (3, 4, 4), the camera-side Mueller
 // matrix per RGB channel, the Stokes basis and S (4, 3).  Every emission it
-// meets adds Le * T[:, :, 0] (emitters are unpolarized); the kernel's NEE
-// is diffuse-only and depolarizing, so its contribution is T[:, 0] * w.
+// meets adds Le * T[:, :, 0] (emitters are unpolarized); diffuse NEE is
+// depolarizing, so its contribution is T[:, 0] * w, and rough-conductor NEE
+// adds the first column of T R(phi) M through the light's scattering plane.
 // Each bounce chains T <- T R(phi) M with M the interaction's sparse
 // Mueller matrix per channel (m00, m01, m10, m11, mc, ms), M00-normalized
 // to the scalar sampling weight; cos 2 phi and sin 2 phi come from dot and
@@ -106,8 +125,9 @@ enum {
   HDR_RR_DEPTH = 4, HDR_HIDE_EMITTERS = 5, HDR_HAS_ENV = 6, HDR_HAS_FAR = 7,
   HDR_W = 8, HDR_H = 9, HDR_TILE_LANES = 10, HDR_OFF_PRIM = 11,
   HDR_OFF_BSDF = 12, HDR_OFF_EM = 13, HDR_OFF_PT = 14, HDR_MESH_C = 15,
-  HDR_STOKES = 16, HDR_REGEN = 17, HDR_ENV_TEXTURED = 18, HDR_LEN = 19
-};  // HDR_STOKES and HDR_REGEN are the host's: mode and regen are launch arguments
+  HDR_STOKES = 16, HDR_REGEN = 17, HDR_ENV_TEXTURED = 18, HDR_ROUGH_CONE = 19, HDR_LEN = 20
+};  // HDR_STOKES, HDR_REGEN and HDR_ROUGH_CONE are the host's: mode, regen and
+    // rough_cone are launch arguments
 // float table: global block
 enum {
   G_ENV = 0, G_INV_NL = 3, G_NL = 5, G_NL_M1 = 6, G_R = 8,
@@ -115,8 +135,9 @@ enum {
   G_FAR_NEAR = 25, G_GAUSS_TAIL = 26, G_MESH_BSDF = 27, G_CAM_X = 28
 };
 enum { BSDF_STRIDE = 16, EM_STRIDE = 32, PT_STRIDE = 8 };
-enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2, BSDF_POLARIZER = 4,
-       BSDF_NULL = 6 };
+enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2, BSDF_ROUGH_CONDUCTOR = 3,
+       BSDF_POLARIZER = 4, BSDF_NULL = 6 };
+enum { B_ALPHA = 15 };  // a rough conductor's GGX alpha in its BSDF record
 // launch modes (path_kernel.py _MODE_*)
 enum {
   MODE_FILM = 0, MODE_STOKES_FILM = 1, MODE_STOKES_SAMPLE = 2, MODE_RAYGEN_SAMPLE = 3,
@@ -126,6 +147,7 @@ constexpr int kMaxTableFloats = 12 * 1024;
 constexpr int kThreads = 128;
 
 constexpr float kInvPi = (float)(1.0 / kPi);
+constexpr float kPiF = (float)kPi;
 constexpr float kPi4 = (float)(kPi / 4.0);
 constexpr float kPi2 = (float)(kPi / 2.0);
 constexpr float kShadowShrink = (float)(1.0 - 1e-3);
@@ -216,6 +238,24 @@ __device__ __forceinline__ float fres_cond(float cos_f, float eta, float k,
   return mirror ? 1.0f : 0.5f * (rs + rp);
 }
 
+// GGX D of an upper-hemisphere half vector, the cancellation-free form.
+__device__ __forceinline__ float ggx_d_up(float cz, float alpha) {
+  float c2 = cz * cz;
+  float s2 = fmaxf(1.0f - c2, 0.0f);
+  float a2 = alpha * alpha;
+  float den = a2 * c2 + s2;
+  float dd = a2 / fmaxf(kPiF * den * den, 1e-18f);
+  return cz > 0.0f ? dd : 0.0f;
+}
+
+// Smith G1 of isotropic GGX at the local cosine cz: zero below the surface,
+// or with two_sided only at cz == 0 (the sampled lobe, cz after the flip).
+__device__ __forceinline__ float ggx_g1(float cz, float alpha, bool two_sided = false) {
+  float tan2 = fmaxf(1.0f - cz * cz, 0.0f) / fmaxf(cz * cz, 1e-12f);
+  float lam = 0.5f * (safe_sqrt(1.0f + alpha * alpha * tan2) - 1.0f);
+  return (two_sided ? cz != 0.0f : cz > 0.0f) ? 1.0f / (1.0f + lam) : 0.0f;
+}
+
 // ---- polarized transport (path_kernel.py _perp_basis ... _mueller_chain) ----
 
 // ref projected perpendicular to the unit w and normalized; the
@@ -278,19 +318,29 @@ __device__ __forceinline__ void add_emission(Pol& q, const float w[3]) {
   }
 }
 
+// The rotation R(phi) that turns the carried basis onto the scattering
+// plane's s axis around pB: cos 2 phi and sin 2 phi, the s axis and whether
+// the plane is degenerate.
+__device__ __forceinline__ void chain_rotation(V3 basis, V3 pB, V3 pA, float& C2, float& S2,
+                                               V3& s_axis, bool& degen) {
+  V3 s_raw = cross(pA, pB);
+  float ln2 = dot(s_raw, s_raw);
+  degen = ln2 < 1e-12f;
+  s_axis = degen ? perp_basis(pB, basis) : scale(s_raw, 1.0f / sqrtf(fmaxf(ln2, 1e-24f)));
+  float cs = dot(s_axis, basis);
+  float sn = dot(cross(s_axis, basis), pB);
+  float n2 = fmaxf(cs * cs + sn * sn, 1e-20f);
+  C2 = (cs * cs - sn * sn) / n2;
+  S2 = 2.0f * cs * sn / n2;
+}
+
 // T <- T R(phi) M, M per channel (m00, m01, m10, m11, mc, ms); phi turns
 // the carried basis onto the scattering plane's s axis around pB.
 __device__ void mueller_chain(Pol& q, V3 pB, V3 pA, float M6[3][6]) {
-  V3 s_raw = cross(pA, pB);
-  float ln2 = dot(s_raw, s_raw);
-  bool degen = ln2 < 1e-12f;
-  V3 s_axis = degen ? perp_basis(pB, q.basis)
-                    : scale(s_raw, 1.0f / sqrtf(fmaxf(ln2, 1e-24f)));
-  float cs = dot(s_axis, q.basis);
-  float sn = dot(cross(s_axis, q.basis), pB);
-  float n2 = fmaxf(cs * cs + sn * sn, 1e-20f);
-  float C2 = (cs * cs - sn * sn) / n2;
-  float S2 = 2.0f * cs * sn / n2;
+  float C2, S2;
+  V3 s_axis;
+  bool degen;
+  chain_rotation(q.basis, pB, pA, C2, S2, s_axis, degen);
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
     const float* m = &M6[ch][0];
@@ -363,14 +413,16 @@ __device__ void start_sample(const Scene& sc, int idx, float jx, float jy, Path&
 // instead and chains its Mueller matrix.  With kEsc (K4, K5) an escaping
 // path records its direction and throughput: a path escapes once, on the
 // bounce where it dies, so the record is written before the return.
-template <bool kStokes, bool kEsc = false>
+// With kRoughCone the rough conductor's lane (NEE and sampling) and the
+// sweep's cone test are compiled in.
+template <bool kStokes, bool kEsc = false, bool kRoughCone = false>
 __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& q) {
   const float* g = sc.g;
   const float* R = g + G_R;
   V3 o = p.o, d = p.d, thr = p.thr;
   float t;
   V3 n = {0.0f, 0.0f, 0.0f};
-  int prim = closest_hit(sc.prims, sc.n_prims, o, d, t, n);
+  int prim = closest_hit<kRoughCone>(sc.prims, sc.n_prims, o, d, t, n);
   V3 ng = n;  // the geometric normal, which the spawn offsets follow
   if (sc.mesh_c > 0) mesh_closest(sc, o, d, t, prim, n, ng);
   bool hit = prim >= 0;
@@ -437,10 +489,13 @@ __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& 
 #pragma unroll
   for (int k = 0; k < 9; ++k) u[k] = rng_next(rng);
   bool is_diffuse = btype == BSDF_DIFFUSE;
+  bool is_rough = kRoughCone && btype == BSDF_ROUGH_CONDUCTOR;
   V3 refl = {b[1], b[2], b[3]};
 
-  // ---- NEE: one light sample on diffuse lanes (not on the last bounce) ----
-  if (sc.n_lights > 0 && depth + 2 <= sc.max_depth && is_diffuse && cos_i > 0.0f) {
+  // ---- NEE: one light sample on diffuse and rough-conductor lanes (not on
+  // the last bounce) ----
+  if (sc.n_lights > 0 && depth + 2 <= sc.max_depth && (is_diffuse || is_rough) &&
+      cos_i > 0.0f) {
     int li = (int)fminf(floorf(u[0] * g[G_NL]), g[G_NL_M1]);
     V3 lp = {0.0f, 0.0f, 0.0f}, ln = {0.0f, 0.0f, 0.0f}, l_rad;
     float pdf_a;  // area pdf 1/area; 0 marks a delta light
@@ -479,23 +534,60 @@ __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& 
       float off = 1e-4f * (dot(ng, wl) >= 0.0f ? 1.0f : -1.0f);
       V3 so = {ph.x + ng.x * off, ph.y + ng.y * off, ph.z + ng.z * off};
       float tmax = dist * kShadowShrink;
-      if (!any_hit(sc.prims, sc.n_prims, so, wl, tmax) &&
+      if (!any_hit<kRoughCone>(sc.prims, sc.n_prims, so, wl, tmax) &&
           !(sc.mesh_c > 0 && mesh_any_hit(sc, so, wl, tmax))) {
         float pdf_nee = is_delta ? g[G_INV_NL]
                                  : pdf_a * dist2 / fmaxf(cos_ll, 1e-6f) * g[G_INV_NL];
         float fs = kInvPi * fmaxf(cos_sl, 0.0f);
         float pdf_bsdf = fmaxf(cos_sl, 0.0f) * kInvPi;
+        V3 nee_f = {refl.x * fs, refl.y * fs, refl.z * fs};
+        float cos_ih = 0.0f;  // the rough lane's |cos| at the half vector
+        if (is_rough) {
+          // f cos = spec F(cos_ih) D G2 / (4 cos_i), pdf G1(wi) D / (4 cos_i)
+          float alpha = b[B_ALPHA];
+          bool mirror = b[11] != 0.0f;
+          V3 wl_l = {dot(wl, s_fr), dot(wl, t_fr), dot(wl, n)};
+          V3 hn = normalize(add(wi_l, wl_l));
+          float D = ggx_d_up(hn.z, alpha);
+          float g1_i = ggx_g1(cos_i, alpha);
+          float base = D * (g1_i * ggx_g1(wl_l.z, alpha)) / fmaxf(4.0f * cos_i, 1e-12f);
+          cos_ih = fabsf(dot(wi_l, hn));
+          nee_f = {b[12] * fres_cond(cos_ih, b[5], b[8], mirror) * base,
+                   b[13] * fres_cond(cos_ih, b[6], b[9], mirror) * base,
+                   b[14] * fres_cond(cos_ih, b[7], b[10], mirror) * base};
+          pdf_bsdf = g1_i * D / fmaxf(4.0f * cos_i, 1e-12f);
+        }
         float sc_w = is_delta ? g[G_NL] / dist2
                               : mis(pdf_nee, pdf_bsdf) / fmaxf(pdf_nee, 1e-20f);
         if constexpr (kStokes) {
-          // diffuse NEE depolarizes: (T R M_dep)[:, 0] = T[:, 0] w
-          float w[3] = {refl.x * fs * l_rad.x * sc_w, refl.y * fs * l_rad.y * sc_w,
-                        refl.z * fs * l_rad.z * sc_w};
-          add_emission(q, w);
+          float w[3] = {nee_f.x * l_rad.x * sc_w, nee_f.y * l_rad.y * sc_w,
+                        nee_f.z * l_rad.z * sc_w};
+          if (is_rough) {
+            // T R(phi) M through the light's scattering plane; only the
+            // first column reaches S: t0 m00 + (t1 C2 - t2 S2) m10
+            float C2, S2;
+            V3 s_axis;
+            bool degen;
+            chain_rotation(q.basis, scale(d, -1.0f), scale(wl, -1.0f), C2, S2, s_axis, degen);
+            bool mirror = b[11] != 0.0f;
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) {
+              float a, bb, c, s;
+              fres_pol(cos_ih, mirror ? 1e6f : b[5 + ch], mirror ? 1e8f : b[8 + ch], a, bb, c, s);
+              float m10 = w[ch] * bb * (1.0f / fmaxf(a, 1e-12f));
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float* ti = q.T[ch][i];
+                q.S[i][ch] = q.S[i][ch] + (ti[0] * w[ch] + (ti[1] * C2 - ti[2] * S2) * m10);
+              }
+            }
+          } else {
+            add_emission(q, w);  // diffuse NEE depolarizes: T[:, 0] w
+          }
         } else {
-          p.L.x = p.L.x + thr.x * (refl.x * fs) * l_rad.x * sc_w;
-          p.L.y = p.L.y + thr.y * (refl.y * fs) * l_rad.y * sc_w;
-          p.L.z = p.L.z + thr.z * (refl.z * fs) * l_rad.z * sc_w;
+          p.L.x = p.L.x + thr.x * nee_f.x * l_rad.x * sc_w;
+          p.L.y = p.L.y + thr.y * nee_f.y * l_rad.y * sc_w;
+          p.L.z = p.L.z + thr.z * nee_f.z * l_rad.z * sc_w;
         }
       }
     }
@@ -609,16 +701,35 @@ __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& 
         M6[ch][5] = 0.0f;
       }
     }
-  } else {  // smooth conductor: mirror reflection
+  } else {  // conductor: smooth (mirror reflection) or rough (GGX)
     float cf = fabsf(cos_i);
     bool mirror = b[11] != 0.0f;
-    wo_l = {-wi_l.x, -wi_l.y, wi_l.z};
+    float w_g = 1.0f;  // the rough lobe's G2 / G1
+    if (is_rough) {
+      // wi mirrored about a VNDF half vector drawn from u7, u8; Fresnel at
+      // the half vector; the lobe's pdf G1(wi) D / (4 cos_i), not a delta
+      float alpha = b[B_ALPHA];
+      float flip;
+      V3 mh = vndf_half(wi_l, alpha, u[7], u[8], flip);
+      float cos_im = dot(wi_l, mh);
+      V3 mh2 = scale(mh, 2.0f * cos_im);
+      wo_l = {mh2.x - wi_l.x, mh2.y - wi_l.y, mh2.z - wi_l.z};
+      float g1_i = ggx_g1(wi_l.z * flip, alpha, true);
+      w_g = g1_i * ggx_g1(wo_l.z * flip, alpha, true) / fmaxf(g1_i, 1e-12f);
+      cf = fabsf(cos_im);
+      pdf_s = ggx_g1(cos_i, alpha) * ggx_d_up(mh.z, alpha) / fmaxf(4.0f * cos_i, 1e-12f);
+      valid = cos_i > 0.0f && wo_l.z > 0.0f;
+      delta = false;
+    } else {
+      wo_l = {-wi_l.x, -wi_l.y, wi_l.z};
+      pdf_s = 1.0f;
+      valid = cos_i > 0.0f;
+      delta = true;
+    }
     w_s = {fres_cond(cf, b[5], b[8], mirror) * b[12],
            fres_cond(cf, b[6], b[9], mirror) * b[13],
            fres_cond(cf, b[7], b[10], mirror) * b[14]};
-    pdf_s = 1.0f;
-    valid = cos_i > 0.0f;
-    delta = true;
+    if (is_rough) w_s = scale(w_s, w_g);
     if constexpr (kStokes) {  // complex Fresnel per channel (mirror: 1e6 + 1e8 i)
       const float wv[3] = {w_s.x, w_s.y, w_s.z};
 #pragma unroll
@@ -786,8 +897,8 @@ __device__ __forceinline__ Scene load_scene(const int* hdr, const float* tab,
 // asks for 5 resident blocks a multiprocessor (at most 96 registers a
 // thread): more warps to hide the sweep's latency outweigh the spills that
 // cap brings (PERF.md has the measurements).  K3 keeps the compiler's
-// choice.
-template <int R, bool kStokes, bool kRegen>
+// choice.  kRoughCone compiles the rough conductor's lane and cones in.
+template <int R, bool kStokes, bool kRegen, bool kRoughCone>
 __global__ void __launch_bounds__(kThreads, kStokes ? 1 : 5)
 path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
                  int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
@@ -812,7 +923,7 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
     start_sample<kStokes>(sc, idx, jx, jy, p, q);
     int si = 0, depth = 0;
     while (true) {
-      bool alive = bounce<kStokes>(sc, depth, rng, p, q);
+      bool alive = bounce<kStokes, false, kRoughCone>(sc, depth, rng, p, q);
       ++depth;
       if (alive && depth < sc.max_depth) continue;
       sample_values<kStokes>(p, q, v);
@@ -831,7 +942,7 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
       float jy = rng_next(rng);
       start_sample<kStokes>(sc, idx, jx, jy, p, q);
       for (int depth = 0; depth < sc.max_depth; ++depth)
-        if (!bounce<kStokes>(sc, depth, rng, p, q)) break;
+        if (!bounce<kStokes, false, kRoughCone>(sc, depth, rng, p, q)) break;
       sample_values<kStokes>(p, q, v);
       splat<R, NV>(acc, v, p.ray_count, jx, jy, gauss_tail);
     }
@@ -842,6 +953,7 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
 
 // K6: one polarized sample of pixel idx, as 15 planes: S row-major, the
 // ray count, the jitter jx, jy.
+template <bool kRoughCone>
 __global__ void __launch_bounds__(kThreads)
 stokes_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
                      int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
@@ -854,7 +966,7 @@ stokes_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ ta
   float jy = rng_next(rng);
   start_sample<true>(sc, idx, jx, jy, p, q);
   for (int depth = 0; depth < sc.max_depth; ++depth)
-    if (!bounce<true>(sc, depth, rng, p, q)) break;
+    if (!bounce<true, false, kRoughCone>(sc, depth, rng, p, q)) break;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -873,7 +985,7 @@ stokes_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ ta
 // count.  On a textured environment both add the escape record: esc_d
 // (3), esc_thr (3), zero where the path never escaped.  The RNG keys are
 // the film kernel's, (seed, idx / tile_lanes, idx % tile_lanes).
-template <bool kRays>
+template <bool kRays, bool kRoughCone>
 __global__ void __launch_bounds__(kThreads)
 path_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g, int n_tab,
                    const float* __restrict__ mesh, const float* __restrict__ rays,
@@ -902,7 +1014,7 @@ path_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_
   p.esc_d = {0.0f, 0.0f, 0.0f};
   p.esc_thr = {0.0f, 0.0f, 0.0f};
   for (int depth = 0; depth < sc.max_depth; ++depth)
-    if (!bounce<false, true>(sc, depth, rng, p, q)) break;
+    if (!bounce<false, true, kRoughCone>(sc, depth, rng, p, q)) break;
   constexpr int kVals = kRays ? 4 : 6;  // K4 writes no jitter
   const float vals[12] = {p.L.x, p.L.y, p.L.z, p.ray_count, jx, jy,
                           p.esc_d.x, p.esc_d.y, p.esc_d.z,
@@ -915,30 +1027,61 @@ path_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_
   }
 }
 
-template <int R, bool kStokes, bool kRegen>
+template <int R, bool kStokes, bool kRegen, bool kRoughCone>
 void launch_film(dim3 grid, size_t smem, cudaStream_t s, const int* h, const float* t,
                  int n_tab, const float* m, float* o, int n_pix, int seed, int n_samples) {
-  path_film_kernel<R, kStokes, kRegen><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix,
-                                                                    seed, n_samples);
+  path_film_kernel<R, kStokes, kRegen, kRoughCone><<<grid, kThreads, smem, s>>>(
+      h, t, n_tab, m, o, n_pix, seed, n_samples);
 }
 
-template <bool kStokes, bool kRegen>
+template <bool kStokes, bool kRegen, bool kRoughCone>
 int launch_radius(int radius, dim3 grid, size_t smem, cudaStream_t s, const int* h,
                   const float* t, int n_tab, const float* m, float* o, int n_pix, int seed,
                   int n_samples) {
   switch (radius) {
     case 0:
-      launch_film<0, kStokes, kRegen>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed, n_samples);
+      launch_film<0, kStokes, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                              n_samples);
       return 0;
     case 1:
-      launch_film<1, kStokes, kRegen>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed, n_samples);
+      launch_film<1, kStokes, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                              n_samples);
       return 0;
     case 2:
-      launch_film<2, kStokes, kRegen>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed, n_samples);
+      launch_film<2, kStokes, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                              n_samples);
       return 0;
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The launch of one mode, with or without the rough conductor's lane and
+// cones.
+template <bool kRC>
+int launch_mode(int mode, int regen, int radius, dim3 grid, size_t smem, cudaStream_t s,
+                const int* h, const float* t, int n_tab, const float* m, const float* r,
+                float* o, int n_pix, int seed, int n_samples) {
+  if (mode == MODE_STOKES_SAMPLE) {
+    stokes_sample_kernel<kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed);
+  } else if (mode == MODE_RAYGEN_SAMPLE) {
+    path_sample_kernel<false, kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix,
+                                                                seed);
+  } else if (mode == MODE_RAYS_SAMPLE) {
+    path_sample_kernel<true, kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix,
+                                                               seed);
+  } else if (mode == MODE_STOKES_FILM) {
+    return regen ? launch_radius<true, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                                  n_pix, seed, n_samples)
+                 : launch_radius<true, false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                                   n_pix, seed, n_samples);
+  } else {
+    return regen ? launch_radius<false, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                                   n_pix, seed, n_samples)
+                 : launch_radius<false, false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                                    n_pix, seed, n_samples);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -946,11 +1089,13 @@ int launch_radius(int radius, dim3 grid, size_t smem, cudaStream_t s, const int*
 // mode: MODE_FILM (K1), MODE_STOKES_FILM (K3), MODE_STOKES_SAMPLE (K6),
 // MODE_RAYGEN_SAMPLE (K5), MODE_RAYS_SAMPLE (K4, on the (6, n_pix) rays;
 // NULL for every other mode); the per-sample modes take n_samples 1 and
-// ignore radius; regen: K2's loop for the film modes.
+// ignore radius; regen: K2's loop for the film modes; rough_cone: the
+// header's rough-cone flag, the kernels with the rough conductor's lane and
+// cones.
 extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
                                 int n_tab, const void* mesh, int n_mesh, const void* rays,
                                 void* out, int n_pix, int seed, int n_samples, int radius,
-                                int mode, int regen, void* stream) {
+                                int mode, int regen, int rough_cone, void* stream) {
   if (n_hdr < HDR_LEN || n_tab <= 0 || n_tab > kMaxTableFloats || n_pix <= 0 ||
       n_samples < 1 || n_mesh < 0 || (n_mesh > 0 && mesh == nullptr) || mode < 0 ||
       mode > MODE_RAYS_SAMPLE || ((mode == MODE_RAYS_SAMPLE) != (rays != nullptr)))
@@ -961,26 +1106,12 @@ extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
   const int* h = (const int*)hdr;
   const float* t = (const float*)tab;
   const float* m = (const float*)mesh;
-  float* o = (float*)out;
-  int err = 0;
   const float* r = (const float*)rays;
-  if (mode == MODE_STOKES_SAMPLE) {
-    stokes_sample_kernel<<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed);
-  } else if (mode == MODE_RAYGEN_SAMPLE) {
-    path_sample_kernel<false><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix, seed);
-  } else if (mode == MODE_RAYS_SAMPLE) {
-    path_sample_kernel<true><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix, seed);
-  } else if (mode == MODE_STOKES_FILM) {
-    err = regen ? launch_radius<true, true>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix,
-                                            seed, n_samples)
-                : launch_radius<true, false>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix,
-                                             seed, n_samples);
-  } else {
-    err = regen ? launch_radius<false, true>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix,
-                                             seed, n_samples)
-                : launch_radius<false, false>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                              n_pix, seed, n_samples);
-  }
+  float* o = (float*)out;
+  int err = rough_cone ? launch_mode<true>(mode, regen, radius, grid, smem, s, h, t, n_tab, m, r,
+                                           o, n_pix, seed, n_samples)
+                       : launch_mode<false>(mode, regen, radius, grid, smem, s, h, t, n_tab, m, r,
+                                            o, n_pix, seed, n_samples);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }

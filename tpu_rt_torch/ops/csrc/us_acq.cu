@@ -11,6 +11,9 @@
 // deposit (a two-tap scatter into [A, E, T]) stays outside the kernel, in
 // us_kernel.py::deposit_rf, as the TPU kernel leaves it to XLA.
 //
+// The sweep (common.cuh) takes triangles, spheres, rectangles and cones, so
+// the reference's Cone_Box / Cone_FLoating scenes run here.
+//
 // Design.  One thread per lane; a depth loop that breaks once the lane
 // misses or dies.  The wrapper zeroes the [3 * max_depth, N] records, so a
 // dead lane's remaining bounces keep zero pressure (their time and element
@@ -60,7 +63,6 @@ constexpr int kMaxTableFloats = 12 * 1024;
 constexpr int kThreads = 128;
 
 constexpr float kPiF = (float)kPi;
-constexpr float kTwoPi = (float)(2.0 * kPi);
 constexpr float kShadowShrink = (float)(1.0 - 1e-3);
 
 // Abramowitz-Stegun 4.4.45 arccos (the TPU kernel's), x in [-1, 1].
@@ -153,24 +155,9 @@ us_acq_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
     V3 wi_l = {dot(wi, s_fr), dot(wi, t_fr), dot(wi, n)};
     float cos_wi = wi_l.z;
 
-    // VNDF sample (Heitz spherical cap; two-sided via flip)
-    float flip = cos_wi >= 0.0f ? 1.0f : -1.0f;
-    V3 wif = scale(wi_l, flip);
-    V3 vh = normalize({alpha * wif.x, alpha * wif.y, wif.z});
-    float lensq = vh.x * vh.x + vh.y * vh.y;
-    float inv_len = 1.0f / sqrtf(fmaxf(lensq, 1e-20f));
-    bool big = lensq > 1e-20f;
-    V3 t1v = {big ? -vh.y * inv_len : 1.0f, big ? vh.x * inv_len : 0.0f, 0.0f};
-    V3 t2v = cross(vh, t1v);
-    float r_h = sqrtf(fmaxf(s2a, 0.0f));
-    float phi_h = kTwoPi * s2b;
-    float p1h = r_h * cosf(phi_h);
-    float p2h = r_h * sinf(phi_h);
-    float s_h = 0.5f * (1.0f + vh.z);
-    p2h = (1.0f - s_h) * safe_sqrt(1.0f - p1h * p1h) + s_h * p2h;
-    V3 nh = add(add(scale(t1v, p1h), scale(t2v, p2h)),
-                scale(vh, safe_sqrt(1.0f - p1h * p1h - p2h * p2h)));
-    V3 mh = scale(normalize({alpha * nh.x, alpha * nh.y, fmaxf(nh.z, 1e-6f)}), flip);
+    // VNDF sample (Heitz spherical cap; two-sided via flip; common.cuh)
+    float flip;
+    V3 mh = vndf_half(wi_l, alpha, s2a, s2b, flip);
 
     // impedance Fresnel: reflect or refract
     float cos_im = dot(wi_l, mh);

@@ -8,13 +8,17 @@ its rays-in form: K4; ``pallas_stokes_trace``: K6) and the render loops
 around them (``render_pallas``, ``render_stokes_pallas``).
 
 * ``bake_scene`` extracts the kernel's constants, as the JAX package does.
-  BSDFs: diffuse, smooth dielectric, smooth conductor, and the polarizer
-  and ``null`` as delta pass-through (the polarizer's intensity fallback:
-  straight on, weight 0.5 x transmittance).  Environments: constant, or
-  textured (``env_textured``: the kernels record each path's escape
-  direction and throughput, and the lat-long lookup runs after them).
-  Scenes outside this port's scope give ``None``: cones, rough conductors
-  and bitmap textures.  A scene of more than 64 prims takes the
+  Prims: triangles, spheres of a uniform scale, rectangles and cones.
+  BSDFs: diffuse, smooth dielectric, smooth conductor, the GGX rough
+  conductor (VNDF sampling, NEE with MIS on both sides), and
+  the polarizer and ``null`` as delta pass-through (the polarizer's
+  intensity fallback: straight on, weight 0.5 x transmittance).
+  Environments: constant, or textured (``env_textured``: the kernels
+  record each path's escape direction and throughput, and the lat-long
+  lookup runs after them).  Scenes outside the scope give ``None``: disks,
+  cylinders, curves, bitmap textures.  The header's rough-cone flag marks a
+  scene with a rough conductor or a cone: the launch takes the kernels that
+  carry those lanes, and every other scene runs kernels without them.  A scene of more than 64 prims takes the
   clustered-mesh mode (``_bake_mesh``): its non-emissive triangles, which
   must share one BSDF, move into cluster tables of at most 64 clusters
   that the kernel sweeps per ray (root box, quarter boxes, Baldwin-Weber
@@ -68,6 +72,8 @@ from tpu_rt_torch.scene.types import (
     BSDF_DIFFUSE,
     BSDF_NULL,
     BSDF_POLARIZER,
+    BSDF_ROUGH_CONDUCTOR,
+    CONE,
     FILTER_GAUSSIAN,
     FILTER_TENT,
     RECTANGLE,
@@ -82,8 +88,8 @@ _MAX_LIGHT_TRIS = 8
 _MAX_DEPTH = 16
 _BIG = 1e8
 _GAUSS_TAIL = float(np.float32(np.exp(-8.0)))  # Mitsuba gaussian's offset at radius 2
-_SUPPORTED_BSDFS = {BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_POLARIZER,
-                    BSDF_NULL}
+_SUPPORTED_BSDFS = {BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_ROUGH_CONDUCTOR,
+                    BSDF_POLARIZER, BSDF_NULL}
 # In-kernel film footprint radius per filter: box keeps the sample in its
 # own pixel, tent touches 3x3, Mitsuba's gaussian (stddev 0.5, radius 2)
 # touches 5x5.
@@ -96,8 +102,11 @@ _FILTER_FOOT = {"box": 0, "tent": 1, "gaussian": 2}
 
 @dataclass
 class BakedPrim:
-    kind: str  # 'tri' | 'sphere' | 'rect'
-    data: tuple  # tri: (p0, e1, e2, ng); sphere: (center, radius); rect: rows of to_object + world normal
+    kind: str  # 'tri' | 'sphere' | 'rect' | 'cone'
+    # tri: (p0, e1, e2, ng); sphere: (center, radius); rect: rows of
+    # to_object + world normal; cone: rows of to_object (the world normal
+    # is computed per hit from the object normal through M_obj^T)
+    data: tuple
     bsdf: int
     emitter: int  # area-emitter index or -1
 
@@ -160,14 +169,14 @@ def _bake_mesh(scene: Scene) -> Optional[dict]:
 
 
 def bake_prims(scene: Scene, with_emitters=True, skip=None) -> Optional[List[BakedPrim]]:
-    """The scene's triangles, spheres and rectangles as kernel prims, in
-    prim-id order, leaving out the triangles where ``skip`` is set; None
-    when a prim is outside the sweep's scope (another analytic type, or a
-    sphere without a uniform scale).  With ``with_emitters=False`` every
-    prim's emitter is -1."""
+    """The scene's triangles, spheres, rectangles and cones as kernel
+    prims, in prim-id order, leaving out the triangles where ``skip`` is
+    set; None when a prim is outside the sweep's scope (another analytic
+    type, or a sphere without a uniform scale).  With
+    ``with_emitters=False`` every prim's emitter is -1."""
     g = scene.geometry
     an_type = g.an_type.numpy()
-    if not set(an_type.tolist()) <= {SPHERE, RECTANGLE}:
+    if not set(an_type.tolist()) <= {SPHERE, RECTANGLE, CONE}:
         return None
     shape_bsdf = scene.shape_bsdf.numpy()
     shape_emitter = scene.shape_emitter.numpy()
@@ -203,6 +212,11 @@ def bake_prims(scene: Scene, with_emitters=True, skip=None) -> Optional[List[Bak
                 return None  # the sphere path needs a uniform scale
             prims.append(BakedPrim("sphere", (tuple(m[:3, 3].tolist()), float(sx)),
                                    int(shape_bsdf[sid]), emitter(sid)))
+        elif int(an_type[i]) == CONE:  # object transform rows
+            mo = an_to_object[i]
+            prims.append(BakedPrim(
+                "cone", (tuple(mo[0].tolist()), tuple(mo[1].tolist()), tuple(mo[2].tolist())),
+                int(shape_bsdf[sid]), emitter(sid)))
         else:  # rectangle: object transform rows + world normal
             mo = an_to_object[i]
             nw = np.linalg.inv(an_to_world[i][:3, :3]).T @ np.array([0.0, 0.0, 1.0])
@@ -317,7 +331,11 @@ HDR_MESH_C = 15  # clusters of the mesh tables; 0 without a mesh
 # and loop form as launch arguments and reads neither.
 HDR_STOKES, HDR_REGEN = 16, 17
 HDR_ENV_TEXTURED = 18  # 1: a textured environment, K4 / K5 write escape records
-HDR_LEN = 19
+# 1: the scene has a rough conductor (tpu_rt's static ``has_rough``) or a
+# cone; the launch takes the kernels that carry the rough lane and the
+# sweep's cone test.  Host-side, as HDR_STOKES.
+HDR_ROUGH_CONE = 19
+HDR_LEN = 20
 
 # float32 table: a global block, then prim, bsdf, emitter, point records
 G_ENV, G_INV_NL, G_NL, G_NL_M1 = 0, 3, 5, 6
@@ -329,7 +347,8 @@ G_LEN = 32
 # K2's loop (a lane restarts on its next sample as soon as its path ends)
 REGEN_AUTO_DEPTH = 8
 PRIM_STRIDE, BSDF_STRIDE, EM_STRIDE, PT_STRIDE = 20, 16, 32, 8
-KIND_TRI, KIND_SPHERE, KIND_RECT = 0, 1, 2
+KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_CONE = 0, 1, 2, 3
+B_ALPHA = 15  # a rough conductor's GGX alpha in its BSDF record
 # The kernel stages the table in shared memory: 48 KB without opt-in.
 _MAX_TABLE_FLOATS = 12 * 1024
 
@@ -375,6 +394,10 @@ class FilmTables:
         return bool(self.hdr_list[HDR_ENV_TEXTURED])
 
     @property
+    def rough_cone(self):
+        return bool(self.hdr_list[HDR_ROUGH_CONE])
+
+    @property
     def n_val(self):
         """Planes per filter offset: the sample's values (r, g, b, or the
         12 Stokes values I, Q, U, V x r, g, b) and the filter weight."""
@@ -391,9 +414,10 @@ def _f32(x):
 
 def pack_prims(prims: List[BakedPrim]) -> list:
     """Prim records of PRIM_STRIDE floats: kind, bsdf, emitter, pad, then
-    tri (p0, e1, e2, ng), sphere (center, r*r, 1/r) or rectangle (rows of
-    to_object, world normal).  Constants the JAX kernel derives from
-    Python floats (r*r, 1/r) are derived in float64 and rounded once."""
+    tri (p0, e1, e2, ng), sphere (center, r*r, 1/r), rectangle (rows of
+    to_object, world normal) or cone (rows of to_object).  Constants the
+    JAX kernel derives from Python floats (r*r, 1/r) are derived in
+    float64 and rounded once."""
     tab = []
     for p in prims:
         rec = [0.0] * PRIM_STRIDE
@@ -405,6 +429,9 @@ def pack_prims(prims: List[BakedPrim]) -> list:
             (c, r) = p.data
             rec[0] = KIND_SPHERE
             rec[4:9] = [_f32(c[0]), _f32(c[1]), _f32(c[2]), _f32(r * r), _f32(1.0 / r)]
+        elif p.kind == "cone":
+            rec[0] = KIND_CONE
+            rec[4:16] = [_f32(x) for v in p.data for x in v]
         else:
             rec[0] = KIND_RECT
             rec[4:19] = [_f32(x) for v in p.data for x in v]
@@ -469,13 +496,15 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device,
         elif bt == BSDF_POLARIZER:
             # the intensity fallback's tint: half the transmittance
             rec[1:4] = [_f32(x * 0.5) for x in prm[3:6]]
-        else:  # conductor
+        else:  # conductor, smooth or rough
             if prm[0] < 0.0:  # perfect mirror marker
                 rec[11] = 1.0
             else:
                 rec[5:8] = [_f32(x) for x in prm[0:3]]
                 rec[8:11] = [_f32(x) for x in prm[3:6]]
             rec[12:15] = [_f32(x) for x in prm[6:9]]
+            if bt == BSDF_ROUGH_CONDUCTOR:
+                rec[B_ALPHA] = _f32(max(prm[9], 1e-3))
         bsdf_tab += rec
 
     em_tab = []
@@ -519,6 +548,8 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device,
     hdr[HDR_STOKES] = int(bool(stokes))
     hdr[HDR_REGEN] = int(use_regen(bs))
     hdr[HDR_ENV_TEXTURED] = int(bs.env_textured)
+    hdr[HDR_ROUGH_CONE] = int(any(bt == BSDF_ROUGH_CONDUCTOR for bt, _ in bs.bsdfs)
+                              or any(p.kind == "cone" for p in bs.prims))
     return FilmTables(
         hdr=torch.tensor(hdr, dtype=torch.int32, device=device),
         tab=torch.tensor(tab, dtype=torch.float32, device=device),
@@ -563,6 +594,8 @@ class _Consts:
 
         self.prims = recs(h[HDR_OFF_PRIM], h[HDR_OFF_BSDF], PRIM_STRIDE)
         self.bsdfs = recs(h[HDR_OFF_BSDF], h[HDR_OFF_EM], BSDF_STRIDE)
+        # tpu_rt's static has_rough: the rough lane's code runs only then
+        self.has_rough = any(int(rec[0]) == BSDF_ROUGH_CONDUCTOR for rec in self.bsdfs)
         self.ems = recs(h[HDR_OFF_EM], h[HDR_OFF_PT], EM_STRIDE)
         self.points = recs(h[HDR_OFF_PT], len(t), PT_STRIDE)
         self.mesh_c = h[HDR_MESH_C]
@@ -671,6 +704,45 @@ def _to_world(n, s, t, v):
             s[2] * v[0] + t[2] * v[1] + n[2] * v[2])
 
 
+def _cone_hit(q, o, d, tmin, tmax):
+    """The unit cone x^2 + y^2 = (1 - z)^2, z in [0, 1] in object space
+    (rows m0, m1, m2 of to_object in q[0:12]; pallas_path.py:524-560):
+    (t, hit, world normal).  The nearer root where it lies in (tmin, tmax)
+    and on the cone's height, else the farther; the quadratic's leading
+    coefficient kept >= 1e-12 in magnitude (rays along the cone's side);
+    the normal M_obj^T (x, y, 1 - z) normalised."""
+    m0, m1, m2 = q[0:4], q[4:8], q[8:12]
+    oxp = m0[0] * o[0] + m0[1] * o[1] + m0[2] * o[2] + m0[3]
+    oyp = m1[0] * o[0] + m1[1] * o[1] + m1[2] * o[2] + m1[3]
+    ozp = m2[0] * o[0] + m2[1] * o[1] + m2[2] * o[2] + m2[3]
+    dxp = m0[0] * d[0] + m0[1] * d[1] + m0[2] * d[2]
+    dyp = m1[0] * d[0] + m1[1] * d[1] + m1[2] * d[2]
+    dzp = m2[0] * d[0] + m2[1] * d[1] + m2[2] * d[2]
+    kk = 1.0 - ozp
+    a_ = dxp * dxp + dyp * dyp - dzp * dzp
+    b_ = 2.0 * (oxp * dxp + oyp * dyp + kk * dzp)
+    c_ = oxp * oxp + oyp * oyp - kk * kk
+    disc = b_ * b_ - 4.0 * a_ * c_
+    sq = _safe_sqrt(disc)
+    a2 = 2.0 * _clamp_abs(a_, 1e-12)
+    r0 = (-b_ - sq) / a2
+    r1 = (-b_ + sq) / a2
+    tn_ = torch.minimum(r0, r1)
+    tf_ = torch.maximum(r0, r1)
+    z_n = ozp + tn_ * dzp
+    z_f = ozp + tf_ * dzp
+    v_n = (disc >= 0.0) & (tn_ > tmin) & (tn_ < tmax) & (z_n >= 0.0) & (z_n <= 1.0)
+    v_f = (disc >= 0.0) & (tf_ > tmin) & (tf_ < tmax) & (z_f >= 0.0) & (z_f <= 1.0)
+    t = torch.where(v_n, tn_, tf_)
+    xh = oxp + t * dxp
+    yh = oyp + t * dyp
+    zh = 1.0 - (ozp + t * dzp)
+    pn = _normalize((m0[0] * xh + m1[0] * yh + m2[0] * zh,
+                     m0[1] * xh + m1[1] * yh + m2[1] * zh,
+                     m0[2] * xh + m1[2] * yh + m2[2] * zh))
+    return t, v_n | v_f, pn
+
+
 def _sweep(C: _Consts, o, d, tmin, tmax, any_hit=False):
     """Closest hit over every prim: (t, prim index as float or -1, normal).
     With any_hit=True only the hit mask."""
@@ -707,6 +779,8 @@ def _sweep(C: _Consts, o, d, tmin, tmax, any_hit=False):
             pn = ((o[0] + t * d[0] - cx) * inv_r,
                   (o[1] + t * d[1] - cy) * inv_r,
                   (o[2] + t * d[2] - cz) * inv_r)
+        elif kind == KIND_CONE:
+            t, ok, pn = _cone_hit(q, o, d, tmin, tmax)
         else:  # rectangle: rows m0, m1, m2 of to_object; world normal nw
             m0, m1, m2, nw = q[0:4], q[4:8], q[8:12], q[12:15]
             ozp = m2[0] * o[0] + m2[1] * o[1] + m2[2] * o[2] + m2[3]
@@ -945,6 +1019,55 @@ def _fres_cond(cos_f, c_eta, c_k, is_mirror):
     return tuple(out)
 
 
+def _ggx_d_up(cz, alpha):
+    """GGX D of an upper-hemisphere half vector, the cancellation-free form
+    (pallas_path.py:1300-1308)."""
+    c2 = cz * cz
+    s2 = torch.clamp(1.0 - c2, min=0.0)
+    a2 = alpha * alpha
+    den = a2 * c2 + s2
+    dd = a2 / torch.clamp(math.pi * den * den, min=1e-18)
+    return torch.where(cz > 0.0, dd, 0.0)
+
+
+def _ggx_g1(cz, alpha, two_sided=False):
+    """Smith G1 of isotropic GGX at the local cosine cz: zero below the
+    surface (pallas_path.py:1310-1313), or with ``two_sided`` only at
+    cz == 0 (the sampled lobe's form, :1553-1557, cz taken after the
+    flip)."""
+    tan2 = torch.clamp(1.0 - cz * cz, min=0.0) / torch.clamp(cz * cz, min=1e-12)
+    lam = 0.5 * (_safe_sqrt(1.0 + alpha * alpha * tan2) - 1.0)
+    return torch.where((cz != 0.0) if two_sided else (cz > 0.0), 1.0 / (1.0 + lam), 0.0)
+
+
+def _vndf_half(wi_l, alpha, u_a, u_b):
+    """A GGX half vector drawn from the distribution of visible normals
+    (Heitz's spherical cap) in the local frame, two-sided: wi is flipped
+    into the upper hemisphere and the half vector flipped back.  Returns
+    (m, flip).  The rough conductor (pallas_path.py:1524-1549) and the
+    acoustic BSDF (pallas_us.py) draw it the same way; ``1 / sqrt`` stands
+    for the JAX package's ``rsqrt``, so the card rounds it the same way."""
+    flip = torch.where(wi_l[2] >= 0.0, 1.0, -1.0)
+    wif = _scale(wi_l, flip)
+    vh = _normalize((alpha * wif[0], alpha * wif[1], wif[2]))
+    lensq = vh[0] * vh[0] + vh[1] * vh[1]
+    inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
+    big = lensq > 1e-20
+    t1v = (torch.where(big, -vh[1] * inv_len, 1.0),
+           torch.where(big, vh[0] * inv_len, 0.0), torch.zeros_like(lensq))
+    t2v = _cross(vh, t1v)
+    r_h = torch.sqrt(torch.clamp(u_a, min=0.0))
+    phi_h = (2.0 * math.pi) * u_b
+    p1h = r_h * torch.cos(phi_h)
+    p2h = r_h * torch.sin(phi_h)
+    s_h = 0.5 * (1.0 + vh[2])
+    p2h = (1.0 - s_h) * _safe_sqrt(1.0 - p1h * p1h) + s_h * p2h
+    nh = _add(_add(_scale(t1v, p1h), _scale(t2v, p2h)),
+              _scale(vh, _safe_sqrt(1.0 - p1h * p1h - p2h * p2h)))
+    mh = _normalize((alpha * nh[0], alpha * nh[1], torch.clamp(nh[2], min=1e-6)))
+    return _scale(mh, flip), flip
+
+
 def _make_bounce_step(C: _Consts, raygen=True):
     """step(depth, st) -> st: one bounce (sweep, emitter hit + MIS, one NEE
     sample with a shadow ray, BSDF sampling, Russian roulette) at a static
@@ -1027,6 +1150,7 @@ def _make_bounce_step(C: _Consts, raygen=True):
         c_eta = (zeros, zeros, zeros)
         c_k = (ones, ones, ones)
         is_mirror = zeros > 1.0
+        alpha_rc = zeros + 1e-3  # the rough conductor's GGX alpha
         spec_c = (ones, ones, ones)
         pass_t = (ones, ones, ones)  # pass-through tint (polarizer / null)
         for bi, rec in enumerate(C.bsdfs):
@@ -1046,6 +1170,8 @@ def _make_bounce_step(C: _Consts, raygen=True):
                     c_eta = _where3(m, [x + zeros for x in rec[5:8]], c_eta)
                     c_k = _where3(m, [x + zeros for x in rec[8:11]], c_k)
                 spec_c = _where3(m, [x + zeros for x in rec[12:15]], spec_c)
+                if bt == BSDF_ROUGH_CONDUCTOR:
+                    alpha_rc = torch.where(m, rec[B_ALPHA], alpha_rc)
 
         s_fr, t_fr = _frame(n)
         wi_l = _to_local(n, s_fr, t_fr, wi)
@@ -1054,10 +1180,11 @@ def _make_bounce_step(C: _Consts, raygen=True):
         for _ in range(9):
             rng, ui = _rng_next(rng)
             u.append(ui)
-        u0, u1, u2, u3, u4, u5, u6, _u7, _u8 = u
+        u0, u1, u2, u3, u4, u5, u6, u7, u8 = u
         is_diffuse = btype == float(BSDF_DIFFUSE)
+        is_rough = btype == float(BSDF_ROUGH_CONDUCTOR)
 
-        # ---- NEE: one light sample, diffuse lanes ---------------------
+        # ---- NEE: one light sample, diffuse and rough-conductor lanes --
         if C.n_lights > 0 and depth + 2 <= C.max_depth:
             li_f = torch.clamp(torch.floor(u0 * g[G_NL]), max=g[G_NL_M1])
             lp = ln = l_rad = (zeros, zeros, zeros)
@@ -1099,7 +1226,26 @@ def _make_bounce_step(C: _Consts, raygen=True):
                 pdf_a * dist2 / torch.clamp(cos_ll, min=1e-6) * inv_nl)
             nee_f = _scale(refl, _INV_PI * torch.clamp(cos_sl, min=0.0))
             pdf_bsdf_l = torch.clamp(cos_sl, min=0.0) * _INV_PI
-            nee_ok = hit & is_diffuse & (cos_i > 0.0) & (cos_sl > 0.0)
+            nee_lanes = is_diffuse & (cos_i > 0.0)
+            if C.has_rough:
+                # the rough conductor toward the light (pallas_path.py:
+                # 1387-1408): f cos = spec F(cos_ih) D G2 / (4 cos_i), pdf
+                # G1(wi) D / (4 cos_i) in the VNDF's measure
+                wl_l = _to_local(n, s_fr, t_fr, wl)
+                hn = _normalize(_add(wi_l, wl_l))
+                D_l = _ggx_d_up(hn[2], alpha_rc)
+                G2_l = _ggx_g1(cos_i, alpha_rc) * _ggx_g1(wl_l[2], alpha_rc)
+                cos_ih_l = torch.abs(_dot(wi_l, hn))
+                F_l = _fres_cond(cos_ih_l, c_eta, c_k, is_mirror)
+                base = D_l * G2_l / torch.clamp(4.0 * cos_i, min=1e-12)
+                rough_nee = is_rough & (cos_i > 0.0) & (wl_l[2] > 0.0)
+                nee_f = _where3(rough_nee, [spec_c[c] * F_l[c] * base for c in range(3)], nee_f)
+                pdf_bsdf_l = torch.where(
+                    rough_nee,
+                    _ggx_g1(cos_i, alpha_rc) * D_l / torch.clamp(4.0 * cos_i, min=1e-12),
+                    pdf_bsdf_l)
+                nee_lanes = nee_lanes | rough_nee
+            nee_ok = hit & nee_lanes & (cos_sl > 0.0)
             nee_ok = nee_ok & (is_delta_l | (cos_ll > 1e-6))
             shadow_o = _add(p_hit, _scale(
                 n_g, 1e-4 * torch.where(_dot(n_g, wl) >= 0, 1.0, -1.0)))
@@ -1114,9 +1260,30 @@ def _make_bounce_step(C: _Consts, raygen=True):
             scf = torch.where(vis, torch.where(is_delta_l, scale_delta, scale_area), 0.0)
             L = tuple(L[c] + thr[c] * nee_f[c] * l_rad[c] * scf for c in range(3))
             if C.stokes:
-                # diffuse NEE depolarizes: (T R M_dep)[:, 0] = T[:, 0] w
-                S = _add_emission(S, T, torch.stack([nee_f[c] * l_rad[c] * scf
-                                                     for c in range(3)]))
+                # diffuse NEE depolarizes: (T R M_dep)[:, 0] = T[:, 0] w;
+                # rough-conductor NEE chains its specular Mueller matrix
+                # through the NEE scattering plane (pallas_path.py:1439-1477)
+                nee_w = torch.stack([nee_f[c] * l_rad[c] * scf for c in range(3)])
+                if C.has_rough:
+                    rough_f = torch.where(rough_nee, 1.0, 0.0)
+                    M6n = [[] for _ in range(6)]
+                    for ch in range(3):
+                        a_c, b_c, c_c, s_c = _fres_pol(cos_ih_l,
+                                                       torch.where(is_mirror, 1e6, c_eta[ch]),
+                                                       torch.where(is_mirror, 1e8, c_k[ch]))
+                        inv_a = 1.0 / torch.clamp(a_c, min=1e-12)
+                        w_ch = nee_w[ch]
+                        for k, m in enumerate((w_ch, w_ch * b_c * inv_a * rough_f,
+                                               w_ch * b_c * inv_a * rough_f, w_ch * rough_f,
+                                               w_ch * c_c * inv_a * rough_f,
+                                               w_ch * s_c * inv_a * rough_f)):
+                            M6n[k].append(m)
+                    T_nee, _ = _mueller_chain(T, basis, _scale(d, -1.0), _scale(wl, -1.0),
+                                              [torch.stack(m) for m in M6n])
+                    S = S + torch.where(rough_nee, T_nee[:, :, 0].transpose(0, 1),
+                                        T[:, :, 0].transpose(0, 1) * nee_w)
+                else:
+                    S = _add_emission(S, T, nee_w)
 
         # ---- BSDF sampling --------------------------------------------
         # diffuse: cosine hemisphere via the concentric disk
@@ -1155,25 +1322,50 @@ def _make_bounce_step(C: _Consts, raygen=True):
         w_die_s = torch.where(pick_refl, 1.0, eta_ti * eta_ti)
         eta_fac = torch.where(pick_refl, 1.0, eta_it)
 
-        # smooth conductor: mirror reflection
+        # smooth conductor: mirror reflection; Fresnel at |cos_i|, for a
+        # rough conductor at the half vector
         wo_con = (-wi_l[0], -wi_l[1], wi_l[2])
-        Fc = _fres_cond(torch.abs(cos_i), c_eta, c_k, is_mirror)
+        cos_f = torch.abs(cos_i)
+        if C.has_rough:
+            # rough conductor: a VNDF half vector from u7, u8, wo mirrored
+            # about it, weight F G2 / G1 (pallas_path.py:1524-1561)
+            mh, flip_rc = _vndf_half(wi_l, alpha_rc, u7, u8)
+            cos_im_rc = _dot(wi_l, mh)
+            mh2 = _scale(mh, 2.0 * cos_im_rc)
+            wo_rc = (mh2[0] - wi_l[0], mh2[1] - wi_l[1], mh2[2] - wi_l[2])
+            g1_i = _ggx_g1(wi_l[2] * flip_rc, alpha_rc, two_sided=True)
+            w_g = g1_i * _ggx_g1(wo_rc[2] * flip_rc, alpha_rc, two_sided=True) / torch.clamp(
+                g1_i, min=1e-12)
+            valid_rc = (cos_i > 0.0) & (wo_rc[2] > 0.0)
+            cos_f = torch.where(is_rough, torch.abs(cos_im_rc), cos_f)
+        Fc = _fres_cond(cos_f, c_eta, c_k, is_mirror)
         Fc = (Fc[0] * spec_c[0], Fc[1] * spec_c[1], Fc[2] * spec_c[2])
 
         is_die = btype == float(BSDF_DIELECTRIC)
         is_con = btype == float(BSDF_CONDUCTOR)
         is_pass = (btype == float(BSDF_POLARIZER)) | (btype == float(BSDF_NULL))
-        wo_l = _where3(is_diffuse, wo_diff, _where3(is_die, wo_die, wo_con))
+        wo_spec = wo_con
+        if C.has_rough:
+            wo_spec = _where3(is_rough, wo_rc, wo_con)
+        wo_l = _where3(is_diffuse, wo_diff, _where3(is_die, wo_die, wo_spec))
         # pass-through: straight on
         wo_l = _where3(is_pass, (-wi_l[0], -wi_l[1], -wi_l[2]), wo_l)
         pdf_s = torch.where(is_diffuse, pdf_diff, torch.where(
             is_die, torch.where(pick_refl, F, 1.0 - F), 1.0))
-        w_s = _where3(is_diffuse, refl,
-                      _where3(is_die, (w_die_s, w_die_s, w_die_s), Fc))
-        w_s = _where3(is_pass, pass_t, w_s)
+        w_spec = Fc
         delta_s = ~is_diffuse
         valid_s = ((is_diffuse & (cos_i > 0.0)) | (is_con & (cos_i > 0.0)) | is_die
                    | is_pass)
+        if C.has_rough:
+            # the rough lobe carries its VNDF pdf, so both MIS sides see it
+            pdf_s = torch.where(is_rough, _ggx_g1(cos_i, alpha_rc) * _ggx_d_up(mh[2], alpha_rc)
+                                / torch.clamp(4.0 * cos_i, min=1e-12), pdf_s)
+            w_spec = _where3(is_rough, _scale(Fc, w_g), Fc)
+            delta_s = delta_s & ~is_rough
+            valid_s = valid_s | (is_rough & valid_rc)
+        w_s = _where3(is_diffuse, refl,
+                      _where3(is_die, (w_die_s, w_die_s, w_die_s), w_spec))
+        w_s = _where3(is_pass, pass_t, w_s)
         eta_s = torch.where(is_die, eta_fac, 1.0)
 
         d_new = _normalize(_to_world(n, s_fr, t_fr, wo_l))
@@ -1199,12 +1391,11 @@ def _make_bounce_step(C: _Consts, raygen=True):
             rb_die = torch.where(pick_refl, b_dr * inv_adr, 0.5 * (Ts_ - Tp_) * inv_adt)
             rc_die = torch.where(pick_refl, c_dr * inv_adr, ts_ * tp_ * inv_adt)
             rs_die = torch.where(pick_refl, s_dr * inv_adr, 0.0)
-            specf = torch.where(is_die | is_con, 1.0, 0.0)
+            specf = torch.where(is_die | is_con | is_rough, 1.0, 0.0)
             passf = torch.where(is_pass, 1.0, 0.0)  # a neutral attenuator
             M6 = [[] for _ in range(6)]
             for ch in range(3):
-                a_c, b_c, c_c, s_c = _fres_pol(torch.abs(cos_i),
-                                               torch.where(is_mirror, 1e6, c_eta[ch]),
+                a_c, b_c, c_c, s_c = _fres_pol(cos_f, torch.where(is_mirror, 1e6, c_eta[ch]),
                                                torch.where(is_mirror, 1e8, c_k[ch]))
                 inv_ac = 1.0 / torch.clamp(a_c, min=1e-12)
                 rb = torch.where(is_die, rb_die, b_c * inv_ac)
@@ -1398,7 +1589,8 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
             name: str, rays=None):
     """Launch ``csrc/path_film.cu`` (built at first use) in ``mode`` on the
     tables' CUDA device, one lane a pixel, or one a ray of ``rays`` (6, N)
-    for K4.  Returns (planes, whether K2's loop ran)."""
+    for K4; the header's rough-cone flag picks the kernels with the rough
+    conductor's lane and cones.  Returns (planes, whether K2's loop ran)."""
     dev = tables.tab.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
@@ -1428,7 +1620,7 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
             mesh.data_ptr() if C else None, mesh.numel() if C else 0,
             None if rays is None else rays.data_ptr(),
             out.data_ptr(), n, _wrap_i32(seed), n_samples,
-            tables.radius, mode, int(regen), stream)
+            tables.radius, mode, int(regen), int(tables.rough_cone), stream)
     if err != 0:
         raise RuntimeError("path_film kernel launch failed: "
                            + lib.path_film_error_string(err).decode())
@@ -1628,7 +1820,8 @@ def stokes_in_scope(bs: Optional[BakedScene]) -> bool:
     with no textured environment (the Stokes kernels write no escape
     record) and no polarizer (they would pass it as a neutral attenuator;
     its true Mueller transport stays on the wavefront,
-    ``integrator/stokes.py``).  A ``null`` BSDF is in scope."""
+    ``integrator/stokes.py``).  A ``null`` BSDF, rough conductors and
+    cones are in scope."""
     return (bs is not None and not bs.env_textured
             and not any(bt == BSDF_POLARIZER for bt, _ in bs.bsdfs))
 

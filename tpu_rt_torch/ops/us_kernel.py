@@ -5,7 +5,9 @@ Counterpart of ``tpu_rt/ops/pallas_us.py`` (``bake_us_scene``,
 
 * ``bake_us_scene`` extracts the kernel's constants; scenes outside its
   scope give ``None`` (no ultrasound configuration, no prims or more than
-  64, a BSDF other than ``ultrasound_bsdf``, a prim the sweep lacks).
+  64, a BSDF other than ``ultrasound_bsdf``, a prim the sweep lacks: it
+  takes triangles, spheres of a uniform scale, rectangles and cones, so
+  the reference's Cone_Box / Cone_FLoating scenes are in scope).
 * ``pack_us_tables`` turns the baked scene into an int32 header and one
   float32 table: a block of acquisition constants, then the film kernel's
   prim records (``path_kernel.pack_prims``), then one record per acoustic
@@ -25,7 +27,8 @@ Counterpart of ``tpu_rt/ops/pallas_us.py`` (``bake_us_scene``,
   kernel, the deposit.
 
 The plain version reuses the film kernel's helpers (``_sweep``, the
-SplitMix32 ``_rng_init`` / ``_rng_next``, ``_frame``), so it draws the JAX
+SplitMix32 ``_rng_init`` / ``_rng_next``, ``_frame``, the VNDF half vector
+``_vndf_half``), so it draws the JAX
 kernel's random streams bit for bit, keyed on (seed, lane // tile_lanes,
 lane % tile_lanes) with tile_lanes = tile_rows * 128.
 """
@@ -42,7 +45,6 @@ import torch
 from tpu_rt_torch.ops.path_kernel import (
     BakedPrim,
     _add,
-    _cross,
     _dot,
     _f32,
     _frame,
@@ -55,6 +57,7 @@ from tpu_rt_torch.ops.path_kernel import (
     _sweep,
     _to_local,
     _to_world,
+    _vndf_half,
     _where3,
     _wrap_i32,
     bake_prims,
@@ -332,25 +335,7 @@ def us_trace_plain(tables: USTables, rays, seed: int):
         cos_wi = wi_l[2]
 
         # VNDF sample (Heitz spherical cap; two-sided via flip)
-        flip = torch.where(cos_wi >= 0.0, 1.0, -1.0)
-        wif = _scale(wi_l, flip)
-        vh = _normalize((alpha * wif[0], alpha * wif[1], wif[2]))
-        lensq = vh[0] * vh[0] + vh[1] * vh[1]
-        inv_len = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
-        big = lensq > 1e-20
-        t1v = (torch.where(big, -vh[1] * inv_len, 1.0),
-               torch.where(big, vh[0] * inv_len, 0.0), zeros)
-        t2v = _cross(vh, t1v)
-        r_h = torch.sqrt(torch.clamp(s2a, min=0.0))
-        phi_h = (2.0 * math.pi) * s2b
-        p1h = r_h * torch.cos(phi_h)
-        p2h = r_h * torch.sin(phi_h)
-        s_h = 0.5 * (1.0 + vh[2])
-        p2h = (1.0 - s_h) * _safe_sqrt(1.0 - p1h * p1h) + s_h * p2h
-        nh = _add(_add(_scale(t1v, p1h), _scale(t2v, p2h)),
-                  _scale(vh, _safe_sqrt(1.0 - p1h * p1h - p2h * p2h)))
-        mh = _normalize((alpha * nh[0], alpha * nh[1], torch.clamp(nh[2], min=1e-6)))
-        mh = _scale(mh, flip)
+        mh, _ = _vndf_half(wi_l, alpha, s2a, s2b)
 
         # impedance Fresnel: reflect or refract
         cos_im = _dot(wi_l, mh)
