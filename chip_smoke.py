@@ -5,13 +5,17 @@
 Phases (any failure raises and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the kernels (tpu_rt_torch/ops/csrc/path_film.cu with K1, K2,
-     K3, K4, K5 and K6; us_acq.cu, mesh_direct.cu, mesh_isect.cu), one nvcc per
-     source, started together, and the host BVH builder
+     K3, K4, K5, K6 and film_splat; us_acq.cu, mesh_direct.cu, mesh_isect.cu),
+     one nvcc per source, started together, and the host BVH builder
      (tpu_rt_torch/ops/native/bvh_builder.cpp) with g++; ptxas's registers
      and spills of every kernel instantiation;
   3. the kernel against its plain PyTorch version on the card: the cbox
      fixture rendered at 64x64, 4 spp, and the raw film planes of one
-     main-path launch (512x512, 64 samples);
+     main-path launch (512x512, 64 samples); its two kernels (the trace
+     kernel writing sample records, film_splat adding them onto the
+     planes) timed apart and film_splat held to its plain version on the
+     launch's records, bit for bit, as on every main-path launch of
+     phases 11, 17 and 25;
   4. the golden gate: 128x128, box filter, 2048 spp, seed 9, relative RMSE
      of 8x8 block means against tests/golden/cbox_128_gi_independent.npy
      must be <= 1%;
@@ -83,8 +87,9 @@ Phases (any failure raises and the script exits non-zero):
      256x256, 512 spp, gaussian, depth 16 (K3 in K2's loop) — one warm-up,
      five timed renders, launch counts; the same with the per-sample loop
      forced, and both forms at max_depth 6; three renders under
-     torch.profiler (the kernel's share, the deposit's, idle); the
-     per-sample route (K6 + splat_aligned) at the same size;
+     torch.profiler (the trace kernel's share, film_splat's, the
+     deposit's, idle); the per-sample route (K6 + splat_aligned) at the
+     same size;
  20. the polarizer Stokes wavefront: render_stokes(polarizers_const.xml)
      at 128x128, 10 spp — one warm-up, five timed renders (its own line,
      not the polarizers cell, which is phase 24);
@@ -138,8 +143,9 @@ Phases (any failure raises and the script exits non-zero):
      64 rays per pair with its split (acquisition, DAS, envelope) — each
      one warm-up, five timed runs, launch counts.
 Each main path (phases 5, 9, 13, 16, 19, 20, 24 and 27) runs with every launch
-count set to 0 just before it and read just after.  The line before the last is a
-JSON record of the kernels, each with its bound: the larger of its
+count set to 0 just before it and read just after; a film launch counts one
+trace-kernel launch (path_film or stokes_film) and one film_splat.  The
+line before the last is a JSON record of the kernels, each with its bound: the larger of its
 operations over 67 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100
 SXM's data-sheet peaks), counted from this run's inputs; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -204,10 +210,12 @@ def develop_planes(planes, tables):
 def _counters():
     from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 
-    # K1, K3, K6, K5, K4, K10, K9, K7; K2's loop, around K1 or K3, is
-    # counted by the two film wrappers' regen_launches
+    # K1, K3 (their trace kernels), film_splat, K6, K5, K4, K10, K9, K7;
+    # K2's loop, around K1 or K3, is counted by the two film wrappers'
+    # regen_launches
     return {"path_film": path_kernel.film_trace,
             "stokes_film": path_kernel.stokes_film_trace,
+            "film_splat": path_kernel.film_splat,
             "stokes_sample": path_kernel.stokes_sample_trace,
             "raygen_sample": path_kernel.raygen_trace,
             "rays_sample": path_kernel.path_trace,
@@ -240,19 +248,37 @@ def check_counts(counts, **want):
     assert counts == expect, f"launch counts {counts}, expected {expect}"
 
 
-def film_trace_bound(tables, planes, ray_row=-1, n_in=0):
-    """A path_film launch's bound (K1, and K5 / K4 with their ray-count
-    row and ``n_in`` input floats): every ray the launch cast (its own
-    count) tests every unrolled prim and every mesh cluster's box at least
-    once; bytes are the tables and inputs in and the planes out."""
+def film_trace_bound(tables, planes, ray_row=-1, n_in=0, n_samples=0):
+    """A path_film launch's bound (K1 with its ``n_samples`` a pixel, and
+    K5 / K4 with their ray-count row and ``n_in`` input floats): every ray
+    the launch cast (its own count) tests every unrolled prim and every
+    mesh cluster's box at least once, and a film launch splats its samples
+    (``splat_work``); bytes are the tables and inputs in, the planes out
+    and a film launch's records."""
     from tpu_rt_torch.ops import path_kernel as pk
 
     rays = planes[ray_row].double().sum().item()
     h = tables.hdr_list
-    ops = rays * (h[pk.HDR_N_PRIMS] * OPS_PRIM + h[pk.HDR_MESH_C] * OPS_SLAB)
+    s_ops, s_bytes = splat_work(tables, n_samples)
+    ops = rays * (h[pk.HDR_N_PRIMS] * OPS_PRIM + h[pk.HDR_MESH_C] * OPS_SLAB) + s_ops
     nbytes = 4 * (tables.tab.numel() + tables.hdr.numel() + planes.numel() + n_in
-                  + (0 if tables.mesh is None else tables.mesh.numel()))
+                  + (0 if tables.mesh is None else tables.mesh.numel())) + s_bytes
     return bound(ops, nbytes)
+
+
+def splat_work(tables, n_samples):
+    """The filter splat of ``n_samples`` samples a pixel: (FP32
+    operations, bytes of the records the trace kernel writes and
+    film_splat reads).  Per sample: box, NV value adds, the weight and the ray count;
+    tent and gaussian, per offset NV multiply-adds, the weight's add and the
+    two multiplies of w = wy wx okf, plus 2 (2R + 1) 1-D weights and the
+    ray count."""
+    from tpu_rt_torch.ops import path_kernel as pk
+
+    samples = n_samples * tables.n_pix
+    nv, r = tables.n_val - 1, tables.radius
+    per = nv + 2 if r == 0 else (2 * r + 1) ** 2 * (2 * nv + 3) + 2 * (2 * r + 1) * OPS_W1D + 1
+    return samples * per, 2 * 4 * tables.n_val * samples
 
 
 def bound(ops, nbytes):
@@ -269,6 +295,10 @@ def bound(ops, nbytes):
 # tests are counted at the cheapest kind's 20, so their bounds are lower
 # bounds.
 OPS_SLAB, OPS_TRI, OPS_PRIM = 25, 39, 20
+# A 1-D filter weight, path_film.cu::film_w1d: x = (d + 0.5) - j, the tent's
+# |x|, sub and max, or the gaussian's two multiplies, exp, sub, |x|, compare
+# and select (the exp counted as one).
+OPS_W1D = 8
 # The Mueller chain a bounce, read off path_film.cu::mueller_chain: the s
 # axis and cos / sin 2 phi (about 50) and 12 rows of rot_a, rot_b and four
 # outputs (216).
@@ -331,8 +361,9 @@ def main():
     ray_rel = abs(rk - rp) / rp
     print(f"kernel vs plain, 64x64 4 spp: pixels within rtol 1e-3 atol 1e-5 "
           f"{frac:.6f}, image mean rel diff {mean_rel:.3e}, ray count rel diff "
-          f"{ray_rel:.3e} ({rk:.0f} vs {rp:.0f})")
-    assert frac >= 0.99 and mean_rel <= 1e-3 and ray_rel <= 5e-3, "kernel disagrees"
+          f"{ray_rel:.3e} ({rk:.0f} vs {rp:.0f}), bit-equal "
+          f"{bool(torch.equal(planes_k, planes_p))}")
+    assert torch.equal(planes_k, planes_p), "K1 differs from its plain version"
 
     sc512 = tt.load_file(FIXTURE, res=512, spp=256)
     tab512 = pk.pack_tables(pk.bake_scene(sc512), sc512.camera, 16, dev)
@@ -351,11 +382,14 @@ def main():
                 / planes_p.double().sum(1).abs().clamp(min=1e-30)).max().item()
     print(f"kernel vs plain, 512x512 x 64 samples (one main-path launch): "
           f"entries within rtol 1e-4 atol 1e-6 {frac_planes:.6f}, max abs err "
-          f"{max_abs_err:.3e}, max plane-sum rel diff {sums_rel:.3e}; kernel "
+          f"{max_abs_err:.3e}, max plane-sum rel diff {sums_rel:.3e}, bit-equal "
+          f"{bool(torch.equal(planes_k, planes_p))}; kernel "
           f"{kernel_ms:.3f} ms (median of 5, min {min(r[0] for r in runs):.3f}, max "
           f"{max(r[0] for r in runs):.3f}), plain {plain_ms:.1f} ms")
-    assert frac_planes >= 0.99 and sums_rel <= 1e-3, "kernel disagrees at 512x512"
-    film_bound = film_trace_bound(tab512, planes_k)
+    assert torch.equal(planes_k, planes_p), "K1 differs from its plain version at 512x512"
+    film_bound = film_trace_bound(tab512, planes_k, n_samples=64)
+    cbox_parts = film_parts(tab512, seed512, 64)
+    print(f"path_film cbox 512x512 x 64 samples apart: {parts_line(cbox_parts)}")
 
     # ---- 4. golden gate ------------------------------------------------------
     sc128 = tt.load_file(FIXTURE, res=128, spp=2048)
@@ -382,9 +416,9 @@ def main():
         times.append(ms)
         rays.append(int(tt.render.last_ray_count))
     counts = launch_counts()
-    launches = counts["path_film"]
+    launches, cbox_splats = counts["path_film"], counts["film_splat"]
     print(f"launch counts over the cbox main path: {counts}")
-    check_counts(counts, path_film=20)
+    check_counts(counts, path_film=20, film_splat=20)
     med = statistics.median(times)
     print(f"main path 512x512 256 spp tent: median {med:.3f} ms "
           f"(min {min(times):.3f}, max {max(times):.3f}, n 5), rays/render "
@@ -412,6 +446,17 @@ def main():
     env = envmap_phases(tt, dev, k1_ms=kernel_ms, k3_ms=pol["k3_ms"])
     rc = rough_cone_phases(tt, dev)
 
+    # film_splat's figures are those of cbox_pol's main-path launch (K3 in
+    # K2's loop), the path that launches it most; each film launch's beside
+    splat_parts = {"cbox_pol": pol["k2_parts"], "cbox_pol_per_sample": pol["k3_parts"],
+                   "cbox": cbox_parts, "mesh_gi": mesh["gi"]["parts"],
+                   "cbox_rough": rc["k1"]["parts"], "cbox_pol_rough": rc["k2"]["parts"],
+                   "cbox_pol_rough_per_sample": rc["k3"]["parts"]}
+    main_splat = splat_parts["cbox_pol"]
+    splat_by_path = {"cbox": cbox_splats, "mesh_gi": mesh["gi_splat_launches"],
+                     "cbox_pol": pol["splat_launches"], "cbox_rough": rc["k1_splat_launches"],
+                     "cbox_pol_rough": rc["k3_splat_launches"]}
+
     print(json.dumps({"kernels": [{
         "name": "path_film", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
@@ -421,8 +466,18 @@ def main():
                              "cbox_rough": rc["k1_launches"]},
         "max_abs_err": max(max_abs_err, mesh["gi"]["max_abs_err"], rc["k1"]["max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms,
+        "ms_trace": cbox_parts["trace_ms"], "ms_splat": cbox_parts["splat_ms"],
         "bound_ms": film_bound[0], "bound_by": film_bound[1], "library_ms": None,
         "mesh_mode": mesh["gi"], "rough_cone": rc["k1"],
+    }, {
+        "name": "film_splat", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/path_film.cu",
+        "replaces": "tpu_rt/ops/pallas_path.py:1815",
+        "launches": sum(splat_by_path.values()), "launches_by_path": splat_by_path,
+        "max_abs_err": max(p["splat_err"] for p in splat_parts.values()),
+        "ms": main_splat["splat_ms"], "plain_ms": main_splat["splat_plain_ms"],
+        "bound_ms": main_splat["splat_bound_ms"], "bound_by": main_splat["splat_bound_by"],
+        "library_ms": None, "by_launch": splat_parts,
     }, {
         "name": "us_acq", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/us_acq.cu",
@@ -460,6 +515,7 @@ def main():
         "launches_by_path": {"cbox_pol": pol["k3_launches"], "cbox_pol_rough": rc["k3_launches"]},
         "max_abs_err": max(pol["k3_err"], rc["k3"]["max_abs_err"]),
         "ms": pol["k3_ms"], "plain_ms": pol["plain_ms"],
+        "ms_trace": pol["k3_parts"]["trace_ms"], "ms_splat": pol["k3_parts"]["splat_ms"],
         "bound_ms": pol["bound_ms"], "bound_by": pol["bound_by"], "library_ms": None,
         "launch_128": pol["launch_128"], "rough": rc["k3"],
     }, {
@@ -470,6 +526,7 @@ def main():
         "launches_by_path": {"cbox_pol": pol["k2_launches"], "cbox_pol_rough": rc["k2_launches"]},
         "max_abs_err": max(pol["k2_err"], rc["k2"]["max_abs_err"]),
         "ms": pol["k2_ms"], "plain_ms": pol["plain_ms"],
+        "ms_trace": pol["k2_parts"]["trace_ms"], "ms_splat": pol["k2_parts"]["splat_ms"],
         "bound_ms": pol["bound_ms"], "bound_by": pol["bound_by"], "library_ms": None,
         "k1_depth16": pol["k1_depth16"], "rough": rc["k2"],
     }, {
@@ -671,7 +728,7 @@ def mesh_phases(tt, dev):
           f"({tab64.hdr_list[pk.HDR_MESH_C]} clusters, {tab64.hdr_list[pk.HDR_N_PRIMS]} "
           f"unrolled prims): pixels within rtol 1e-3 atol 1e-5 {frac64:.6f}, bit-equal "
           f"{bool(torch.equal(planes_k, planes_p))}, ray count rel diff {ray_rel64:.3e}")
-    assert frac64 >= 0.99 and ray_rel64 <= 5e-3, "path_film mesh mode disagrees"
+    assert torch.equal(planes_k, planes_p), "K1's mesh mode differs from its plain version"
 
     gi = tt.load_file(gi_xml)  # 256x256, 64 spp, depth 3
     tab = pk.pack_tables(pk.bake_scene(gi), gi.camera, 16, dev)
@@ -683,10 +740,13 @@ def mesh_phases(tt, dev):
     g_frac = torch.isclose(planes_k, planes_p, rtol=1e-4, atol=1e-6).float().mean().item()
     g_sums = ((planes_k.double().sum(1) - planes_p.double().sum(1)).abs()
               / planes_p.double().sum(1).abs().clamp(min=1e-30)).max().item()
+    g_parts = film_parts(tab, seed1, 64)
     print(f"path_film mesh mode vs plain, 256x256 x 64 samples (one main-path launch): "
           f"entries within rtol 1e-4 atol 1e-6 {g_frac:.6f}, max abs err {g_err:.3e}, max "
-          f"plane-sum rel diff {g_sums:.3e}; kernel {g_ms:.3f} ms, plain {g_plain_ms:.1f} ms")
-    assert g_frac >= 0.99 and g_sums <= 1e-3, "path_film mesh mode disagrees at 256x256"
+          f"plane-sum rel diff {g_sums:.3e}, bit-equal {bool(torch.equal(planes_k, planes_p))}; "
+          f"kernel {g_ms:.3f} ms, plain {g_plain_ms:.1f} ms; {parts_line(g_parts)}")
+    assert torch.equal(planes_k, planes_p), \
+        "K1's mesh mode differs from its plain version on a main-path launch"
 
     # ---- 12. mesh golden gates --------------------------------------------
     want = np.load(os.path.join(ROOT, "tests", "golden", gates.DIRECT["out"]))
@@ -723,15 +783,16 @@ def mesh_phases(tt, dev):
     print(f"mesh GI main path mesh_gi.xml 256x256 64 spp depth 3 box: median {med:.3f} ms "
           f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    check_counts(counts, path_film=5)
+    check_counts(counts, path_film=5, film_splat=5)
     assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all())
     assert img.mean().item() > 0
     return dict(
         direct_launches=direct_launches, gi_launches=counts["path_film"],
+        gi_splat_launches=counts["film_splat"],
         direct=dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound[0],
                     bound_by=d_bound[1]),
         gi=dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms,
-                bound_ms=film_trace_bound(tab, planes_k)[0]))
+                bound_ms=film_trace_bound(tab, planes_k, n_samples=64)[0], parts=g_parts))
 
 
 def count_mesh_work(bounds, trisw, o, d, tmax):
@@ -960,18 +1021,53 @@ def stokes_bound(tables, planes, n_samples):
     """A Stokes launch's bound: K1's count (every ray tests every prim)
     plus the Mueller chain on at least rays / 2 - samples continuing
     bounces (a segment casts at most one shadow ray, a sample's last
-    segment ends it) and the splat of each sample's values; bytes are the
-    tables in and the planes out.  ``planes[ray_row]`` is the ray count."""
+    segment ends it) and, for K3, the splat of each sample's values
+    (``splat_work``); bytes are the tables in, the planes out and K3's
+    records.  ``planes[ray_row]`` is the ray count."""
     from tpu_rt_torch.ops import path_kernel as pk
 
-    ray_row = -1 if planes.shape[0] != 15 else 12
-    rays = planes[ray_row].double().sum().item()
+    film = planes.shape[0] != 15  # K6 writes 15 planes and splats nothing
+    rays = planes[-1 if film else 12].double().sum().item()
     samples = n_samples * tables.n_pix
-    foot = (2 * tables.radius + 1) ** 2 if planes.shape[0] != 15 else 0
+    s_ops, s_bytes = splat_work(tables, n_samples) if film else (0, 0)
     ops = (rays * tables.hdr_list[pk.HDR_N_PRIMS] * OPS_PRIM
-           + max(rays / 2 - samples, 0.0) * OPS_MUELLER + samples * foot * (2 * 12 + 3))
-    nbytes = 4 * (tables.tab.numel() + tables.hdr.numel() + planes.numel())
+           + max(rays / 2 - samples, 0.0) * OPS_MUELLER + s_ops)
+    nbytes = 4 * (tables.tab.numel() + tables.hdr.numel() + planes.numel()) + s_bytes
     return bound(ops, nbytes)
+
+
+def film_parts(tables, seed, n_samples, regen=None, reps=3):
+    """A film launch's two kernels apart: the trace kernel (film_records)
+    and film_splat on its records, each the median of ``reps`` CUDA-event
+    timings after a warm-up; film_splat held to film_splat_plain on the
+    same records, bit for bit.  Returns dict(trace_ms, splat_ms,
+    splat_plain_ms, splat_err, the splat's bound)."""
+    from tpu_rt_torch.ops import path_kernel as pk
+
+    recs = pk.film_records(tables, seed, n_samples, regen=regen)
+    trace_ms = statistics.median(
+        cuda_ms(lambda: pk.film_records(tables, seed, n_samples, regen=regen))[0]
+        for _ in range(reps))
+    planes = torch.zeros((tables.n_acc + 1, tables.n_pix), dtype=torch.float32,
+                         device=recs.device)
+    got = pk.film_splat(recs, planes.clone(), tables, seed)
+    splat_ms = statistics.median(cuda_ms(lambda: pk.film_splat(recs, planes, tables, seed))[0]
+                                 for _ in range(reps))
+    splat_plain_ms, want = cuda_ms(lambda: pk.film_splat_plain(recs, torch.zeros_like(planes),
+                                                               tables, seed))
+    _, err = equal_stats(got, want)
+    assert torch.equal(got, want), "film_splat differs from its plain version"
+    b_ms, b_by = bound(splat_work(tables, n_samples)[0],
+                       4 * (recs.numel() + 2 * planes.numel()) + 4 * tables.tab.numel())
+    return dict(trace_ms=trace_ms, splat_ms=splat_ms, splat_plain_ms=splat_plain_ms,
+                splat_err=err, splat_bound_ms=b_ms, splat_bound_by=b_by)
+
+
+def parts_line(parts):
+    """The trace / splat split of a film launch for a printed line."""
+    return (f"trace kernel {parts['trace_ms']:.3f} ms + film_splat {parts['splat_ms']:.3f} ms "
+            f"(plain splat {parts['splat_plain_ms']:.1f} ms, bit-equal; splat bound "
+            f"{parts['splat_bound_ms']:.5f} ms, {parts['splat_bound_by']})")
 
 
 def stokes_phases(tt, dev):
@@ -1039,6 +1135,10 @@ def stokes_phases(tt, dev):
     assert torch.equal(main_k, main_p) and torch.equal(main_u, main_p), \
         "the Stokes kernel differs from its plain version on a main-path launch"
     del main_k, main_u, main_p
+    m2_parts = film_parts(t256, 0, 64, regen=True)
+    m3_parts = film_parts(t256, 0, 64, regen=False)
+    print(f"stokes_film cbox_pol 256x256 x 64 samples apart: K2 loop {parts_line(m2_parts)}; "
+          f"per-sample loop {parts_line(m3_parts)}")
 
     cb = tt.load_file(FIXTURE, res=128, spp=16).replace(max_depth=16)
     tcb = pk.pack_tables(pk.bake_scene(cb), cb.camera, 16, dev)
@@ -1131,7 +1231,7 @@ def stokes_phases(tt, dev):
     print(f"cbox_pol main path 256x256 512 spp gaussian depth 16 (K3 in K2's loop): median "
           f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    check_counts(counts, stokes_film=5 * 8, regen=5 * 8)
+    check_counts(counts, stokes_film=5 * 8, regen=5 * 8, film_splat=5 * 8)
     assert S.shape == (256, 256, 4, 3) and bool(torch.isfinite(S).all())
     assert S[..., 0, :].mean().item() > 0
     main_counts = counts
@@ -1163,9 +1263,12 @@ def stokes_phases(tt, dev):
 
     busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
     kern = sum(dev_us(e) for e in prof.key_averages() if "path_film_kernel" in e.key) / 1e3
+    splat = sum(dev_us(e) for e in prof.key_averages() if "film_splat_kernel" in e.key) / 1e3
+    rest = busy - kern - splat
     print(f"profile of 3 cbox_pol renders: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
-          f"path_film_kernel {kern:.3f} ms ({kern / max(busy, 1e-9):.4f} of busy), the rest "
-          f"(deposit, develop) {busy - kern:.3f} ms ({(busy - kern) / max(busy, 1e-9):.4f}), "
+          f"path_film_kernel {kern:.3f} ms ({kern / max(busy, 1e-9):.4f} of busy), "
+          f"film_splat_kernel {splat:.3f} ms ({splat / max(busy, 1e-9):.4f}), the rest "
+          f"(deposit, develop) {rest:.3f} ms ({rest / max(busy, 1e-9):.4f}), "
           f"idle share {1.0 - busy / wall_ms:.4f}")
     for e in sorted(prof.key_averages(), key=dev_us, reverse=True)[:6]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
@@ -1205,8 +1308,10 @@ def stokes_phases(tt, dev):
     assert Sz[..., 0, :].mean().item() > 0.01
 
     return dict(k3_launches=main_counts["stokes_film"], k2_launches=main_counts["regen"],
+                splat_launches=main_counts["film_splat"],
                 k6_launches=ps_counts["stokes_sample"],
                 k3_err=max(errs[False], k3_err, m3_err), k2_err=max(errs[True], k2_err, m2_err),
+                k3_parts=m3_parts, k2_parts=m2_parts, main_ms=med,
                 k6_err=k6_err, k3_ms=m3_ms, k2_ms=m2_ms, plain_ms=m_plain_ms, bound_ms=m_b_ms,
                 bound_by=m_b_by,
                 launch_128=dict(k3_ms=k3_ms, k2_ms=k2_ms, plain_ms=plain_ms, bound_ms=b_ms),
@@ -1432,16 +1537,18 @@ def rough_cone_phases(tt, dev):
     k1_ms, planes_k = statistics.median(r[0] for r in runs), runs[-1][1]
     k1_plain_ms, planes_p = cuda_ms(lambda: pk.film_trace_plain(t512, seed1, 64))
     _, k1_err = equal_stats(planes_k, planes_p)
-    b_ms, b_by = film_trace_bound(t512, planes_k)
+    b_ms, b_by = film_trace_bound(t512, planes_k, n_samples=64)
     print(f"path_film (K1) rough + cone vs plain, cbox_rough 512x512 x 64 samples (one "
           f"main-path launch): bit-equal {bool(torch.equal(planes_k, planes_p))}, max |d| "
           f"{k1_err:.3e}; kernel {k1_ms:.3f} ms (median of 5, min {min(r[0] for r in runs):.3f}, "
           f"max {max(r[0] for r in runs):.3f}), plain {k1_plain_ms:.1f} ms; bound {b_ms:.5f} ms "
           f"({b_by}); rays {planes_k[-1].sum().item():.0f}")
     assert torch.equal(planes_k, planes_p), "K1's rough / cone lanes differ on a main-path launch"
-    out["k1"] = dict(ms=k1_ms, plain_ms=k1_plain_ms, max_abs_err=k1_err, bound_ms=b_ms,
-                     bound_by=b_by)
     del planes_k, planes_p
+    k1_parts = film_parts(t512, seed1, 64)
+    print(f"path_film (K1) cbox_rough 512x512 x 64 samples apart: {parts_line(k1_parts)}")
+    out["k1"] = dict(ms=k1_ms, plain_ms=k1_plain_ms, max_abs_err=k1_err, bound_ms=b_ms,
+                     bound_by=b_by, parts=k1_parts)
     # what each lane costs: the same launch with the rough sphere made a
     # smooth conductor (the cone alone, the kernels without the rough
     # lane), and the cbox fixture with its mirror made rough (alpha 0.1,
@@ -1495,10 +1602,14 @@ def rough_cone_phases(tt, dev):
           f"{main_k[-1].sum().item():.0f}")
     assert torch.equal(main_k, main_p) and torch.equal(main_u, main_p), \
         "the Stokes kernel's rough lane differs from its plain version on a main-path launch"
+    rparts = {key: film_parts(t256, 0, 64, regen=regen) for key, regen in (("k2", True),
+                                                                          ("k3", False))}
+    print(f"stokes_film rough cbox_pol_rough 256x256 x 64 samples apart: K2 loop "
+          f"{parts_line(rparts['k2'])}; per-sample loop {parts_line(rparts['k3'])}")
     # the JSON numbers are the main-path launch's; the 64x64 check's beside them
     for key, ms, err in (("k2", m2_ms, m2_err), ("k3", m3_ms, m3_err)):
         out[key] = dict(ms=ms, plain_ms=m_plain_ms, max_abs_err=max(err, out[key]["max_abs_err"]),
-                        bound_ms=mb[0], bound_by=mb[1], launch_64=out[key])
+                        bound_ms=mb[0], bound_by=mb[1], launch_64=out[key], parts=rparts[key])
     del main_k, main_u, main_p
 
     e128 = tt.load_dict(envmap_rough_cone_desc(st, os.path.join(os.path.dirname(POLARIZERS),
@@ -1612,19 +1723,21 @@ def rough_cone_phases(tt, dev):
     print(f"cbox_rough main path 512x512 256 spp tent (K1 with the rough and cone lanes): median "
           f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}; wavefront renders none")
-    check_counts(counts, path_film=4 * 5)
+    check_counts(counts, path_film=4 * 5, film_splat=4 * 5)
     assert wavefront.render.last_ray_count is None
     assert img.shape == (512, 512, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
     out["k1_launches"], out["k1"]["main_ms"] = counts["path_film"], med
+    out["k1_splat_launches"] = counts["film_splat"]
 
     med, lo, hi, nr, counts, S = timed_main_path(tt, p256, 512)
     print(f"launch counts over the cbox_pol_rough main path: {counts}")
     print(f"cbox_pol_rough main path 256x256 512 spp gaussian depth 16 (K3 in K2's loop): "
           f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    check_counts(counts, stokes_film=5 * 8, regen=5 * 8)
+    check_counts(counts, stokes_film=5 * 8, regen=5 * 8, film_splat=5 * 8)
     assert S.shape == (256, 256, 4, 3) and bool(torch.isfinite(S).all())
     out["k3_launches"], out["k2_launches"] = counts["stokes_film"], counts["regen"]
+    out["k3_splat_launches"] = counts["film_splat"]
     out["k2"]["main_ms"] = med
 
     kw = dict(rays_per_pair=64, x_bounds=gu.X_BOUNDS, z_bounds=gu.Z_BOUNDS, device=dev)

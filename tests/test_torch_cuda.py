@@ -25,7 +25,10 @@ and K2's loop bit-equal to the per-sample loop for K1 and K3; K5 and K4
 under a textured environment, K1 with polarizer / null pass-through and
 K3 with a null BSDF bit-equal to their plain versions; the rough
 conductor's lane and cone prims in K1, K2's loop, K3, K6, K5 and K4, and
-cones in the acquisition kernel, bit-equal to their plain versions.
+cones in the acquisition kernel, bit-equal to their plain versions; the
+film kernels' two launches, the trace kernel's sample records and
+film_splat on given records, bit-equal to their plain versions, also
+across a chunk boundary.
 """
 
 import os
@@ -661,3 +664,66 @@ def test_render_rough_cone_and_cone_box_go_through_the_kernels():
                           z_bounds=(0.05, 0.09), device="cuda")
     assert us_kernel.us_trace.launches == before + 1
     assert bool(torch.isfinite(bm).all()) and ch.abs().sum().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_type", [0, 1, 2], ids=["box", "tent", "gaussian"])
+@pytest.mark.parametrize("stokes", [False, True], ids=["K1", "K3"])
+def test_film_splat_kernel_is_bit_equal_to_plain_splat(filter_type, stokes):
+    """film_splat against film_splat_plain on the same records, added onto
+    the planes of an earlier chunk (cbox / cbox_pol at 40x40, 6 samples)."""
+    _need_cuda()
+    tables = _film_tables(CBOX_POL if stokes else CBOX, 40, 6, filter_type, stokes)
+    recs = path_kernel.film_records_plain(tables, 21, 6)
+    start = path_kernel.film_trace_plain(tables, 15, 6) if not stokes else \
+        path_kernel.stokes_film_trace_plain(tables, 15, 6)
+    before = path_kernel.film_splat.launches
+    got = path_kernel.film_splat(recs, start.clone(), tables, 21)
+    torch.cuda.synchronize()
+    assert path_kernel.film_splat.launches == before + 1
+    want = path_kernel.film_splat_plain(recs, start.clone(), tables, 21)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_type", [0, 1, 2], ids=["box", "tent", "gaussian"])
+@pytest.mark.parametrize("path,stokes,regen", [
+    (CBOX, False, False), (CBOX, False, True), (CBOX_POL, True, True), (CBOX_POL, True, False),
+    (POL_ROUGH, True, True), (CBOX_ROUGH, False, False), (MESH_GI, False, False)],
+    ids=["K1", "K1_K2_loop", "K3_K2_loop", "K3", "K3_rough_K2_loop", "K1_rough", "K1_mesh"])
+def test_trace_kernel_records_equal_plain_records(path, stokes, regen, filter_type):
+    """The trace kernel writes the plain version's records, bit for bit, at
+    depth 16 ([value][sample][pixel]), in every form: K1's clustered-mesh
+    mode on mesh_gi.xml too."""
+    _need_cuda()
+    tables = _film_tables(path, 24, 16, filter_type, stokes)
+    counter = path_kernel.stokes_film_trace if stokes else path_kernel.film_trace
+    before = (counter.launches, counter.regen_launches)
+    got = path_kernel.film_records(tables, 3, 4, regen=regen)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.regen_launches) == (before[0] + 1, before[1] + int(regen))
+    want = path_kernel.film_records_plain(tables, 3, 4)
+    assert got.shape == want.shape == (tables.n_val, 4, 24 * 24)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stokes", [False, True], ids=["K1", "K3"])
+def test_film_launch_across_a_chunk_boundary_is_bit_equal(stokes, monkeypatch):
+    """A launch of more samples than one record buffer holds (70 > 64
+    samples: two chunks), and the same split into chunks of 3 samples,
+    bit-equal to the plain version."""
+    _need_cuda()
+    tables = _film_tables(CBOX_POL if stokes else CBOX, 16, 3, 2, stokes)
+    trace_fn = path_kernel.stokes_film_trace if stokes else path_kernel.film_trace
+    plain_fn = path_kernel.stokes_film_trace_plain if stokes else path_kernel.film_trace_plain
+    n = path_kernel.RECORD_CHUNK + 6
+    before = (trace_fn.launches, path_kernel.film_splat.launches)
+    got = trace_fn(tables, -2, n)
+    assert (trace_fn.launches, path_kernel.film_splat.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, plain_fn(tables, -2, n))
+    monkeypatch.setattr(path_kernel, "RECORD_CHUNK", 3)
+    small = path_kernel.split_film(tables, 8, 7, path_kernel.film_records,
+                                   path_kernel.film_splat)
+    assert torch.equal(small, plain_fn(tables, 8, 7))

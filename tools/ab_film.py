@@ -1,0 +1,296 @@
+"""Interleaved same-process A/B of builds of the film kernels on one GPU.
+
+    python tools/ab_film.py --variant NAME=DIR [--variant NAME=DIR ...]
+                            [--unchecked NAME ...] [--out build/ab_film.json]
+                            [--reps 5] [--no-renders]
+
+Each DIR holds a ``path_film.cu`` and the ``common.cuh`` it includes: the
+package's own (``tpu_rt_torch/ops/csrc``), the parent commit's (``git show
+HEAD:tpu_rt_torch/ops/csrc/path_film.cu``), or a copy with other register
+caps (kFilmMinBlocks) or a lane taken out.  Every variant is compiled by
+its own nvcc, all started together, with the package's flags
+(``_build.NVCC_FLAGS``) into ``DIR/ab_film.so``; ptxas's registers and
+spills are printed per kernel.  A variant built before the film kernels
+were split (no ``film_splat_launch``) is launched as one kernel writing
+the planes.
+
+Then, on the main paths' launches (K1: cbox 512^2 x 64 tent, mesh_gi
+256^2 x 64 box, cbox_rough 512^2 x 64 tent; K3: cbox_pol and
+cbox_pol_rough 256^2 x 64 at filter radius 0, 1 and 2 in both loop forms;
+K6, K5 and K4 one sample), each variant's launch is timed by CUDA events,
+two warm-ups each, then five rounds in which the variants take turns; the
+median is kept, and for a build with film_splat the trace kernel and
+film_splat are also timed apart.  Every variant's planes must equal the
+first variant's (``torch.equal``), or the tool fails; a variant named by
+``--unchecked`` changes the output on purpose (a lane taken out to time
+it) and is only timed, with its ray count printed.  Then the same for
+whole renders (render(cbox), render(cbox_rough), render(mesh_gi),
+render(cbox_pol), render(cbox_pol_rough) at their fixtures' sizes), each
+variant's kernels patched into the package.  The card's name and power
+limit are printed, and everything goes to ``--out`` as JSON.
+"""
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+from contextlib import contextmanager
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import tpu_rt_torch as tt  # noqa: E402
+from tpu_rt_torch.ops import _build  # noqa: E402
+from tpu_rt_torch.ops import path_kernel as pk  # noqa: E402
+
+ASSETS = os.path.join(ROOT, "tests", "assets")
+CBOX = os.path.join(ASSETS, "cbox", "cbox.xml")
+CBOX_ROUGH = os.path.join(ASSETS, "cbox", "cbox_rough.xml")
+MESH_GI = os.path.join(ASSETS, "mesh", "mesh_gi.xml")
+CBOX_POL = os.path.join(ASSETS, "cbox_pol", "cbox_pol.xml")
+CBOX_POL_ROUGH = os.path.join(ASSETS, "cbox_pol", "cbox_pol_rough.xml")
+POLARIZERS = os.path.join(ASSETS, "polarizers", "polarizers.xml")
+SEED = 100003  # the first chunk seed of render(seed=1)
+
+
+def build(variants):
+    """nvcc every variant's path_film.cu at once; returns {name: ctypes lib}
+    and prints ptxas's registers and spills."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    nvcc = _build._nvcc()
+    procs = {}
+    for name, d in variants.items():
+        procs[name] = subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", os.path.join(d, "ab_film.so"),
+             os.path.join(d, "path_film.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, ptxas = {}, {}
+    for name, p in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        lib = ctypes.CDLL(os.path.join(variants[name], "ab_film.so"))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.path_film_launch.argtypes = [vp, i, vp, i, vp, i, vp, vp, i, i, i, i, i, i, i, vp]
+        lib.path_film_launch.restype = i
+        lib.path_film_error_string.argtypes = [i]
+        lib.path_film_error_string.restype = ctypes.c_char_p
+        if hasattr(lib, "film_splat_launch"):
+            lib.film_splat_launch.argtypes = [vp, vp, i, vp, i, i, i, i, i, i, vp]
+            lib.film_splat_launch.restype = i
+        libs[name] = lib
+        ptxas[name] = {k: list(v) for k, v in smoke.ptxas_summary(log).items()}
+        for k, (regs, st, ld) in ptxas[name].items():
+            print(f"ptxas {name} {k}: {regs} registers, spill stores {st} B, loads {ld} B")
+    return libs, ptxas
+
+
+def is_split(lib):
+    return hasattr(lib, "film_splat_launch")
+
+
+def old_film(lib):
+    """A film wrapper for a build whose film kernels write the planes."""
+    def trace(tables, seed, n_samples, regen=None):
+        regen = tables.regen if regen is None else bool(regen)
+        out = torch.empty((tables.n_acc + 1, tables.n_pix), dtype=torch.float32,
+                          device=tables.tab.device)
+        err = lib.path_film_launch(
+            tables.hdr.data_ptr(), tables.hdr.numel(), tables.tab.data_ptr(),
+            tables.tab.numel(), tables.mesh.data_ptr() if tables.mesh is not None else None,
+            tables.mesh.numel() if tables.mesh is not None else 0, None, out.data_ptr(),
+            tables.n_pix, pk._wrap_i32(seed), n_samples, tables.radius,
+            pk._MODE_STOKES_FILM if tables.stokes else pk._MODE_FILM, int(regen),
+            int(tables.rough_cone), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(lib.path_film_error_string(err).decode())
+        return out
+    return trace
+
+
+@contextmanager
+def use(lib):
+    """The package's wrappers launching ``lib``'s kernels."""
+    saved = (_build.load_library, pk.film_trace, pk.stokes_film_trace)
+    _build.load_library = lambda: lib
+    if not is_split(lib):
+        pk.film_trace = pk.stokes_film_trace = old_film(lib)
+    try:
+        yield
+    finally:
+        _build.load_library, pk.film_trace, pk.stokes_film_trace = saved
+
+
+def event_ms(fn):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def tables_of(path, res=None, filter_type=None, stokes=False):
+    sc = tt.load_file(path) if res is None else tt.load_file(path, res=res, spp=1)
+    if filter_type is not None:
+        sc = sc.replace(camera=sc.camera.replace(filter_type=filter_type))
+    return pk.pack_tables(pk.bake_scene(sc), sc.camera, 16, "cuda", stokes=stokes)
+
+
+def cases():
+    """(name, tables, samples, regen) of the main paths' film launches."""
+    out = [("K1 cbox 512x512x64 tent", tables_of(CBOX), 64, None),
+           ("K1 mesh_gi 256x256x64 box", tables_of(MESH_GI), 64, None),
+           ("K1 cbox_rough 512x512x64 tent", tables_of(CBOX_ROUGH), 64, None)]
+    for path in (CBOX_POL, CBOX_POL_ROUGH):
+        for ft in (2, 1, 0):
+            t = tables_of(path, filter_type=ft, stokes=True)
+            for regen in (True, False):
+                out.append((f"K3 {os.path.basename(path)[:-4]} 256x256x64 radius {t.radius} "
+                            f"{'K2 loop' if regen else 'per-sample loop'}", t, 64, regen))
+    return out
+
+
+def ab_launches(libs, reps, unchecked=()):
+    res = {}
+    for name, tables, n, regen in cases():
+        fns = {}
+        for v, lib in libs.items():
+            def full(lib=lib):
+                with use(lib):
+                    trace = pk.stokes_film_trace if tables.stokes else pk.film_trace
+                    return trace(tables, SEED, n, regen=regen)
+            fns[v] = full
+        times = {v: [] for v in libs}
+        parts = {v: ([], []) for v in libs if is_split(libs[v])}
+        first, rays = None, {}
+        for v, fn in fns.items():  # two warm-ups; every variant equals the first
+            fn()
+            got = fn()
+            torch.cuda.synchronize()
+            if v in unchecked:
+                rays[v] = got[-1].double().sum().item()
+            elif first is None:
+                first = got
+            elif not torch.equal(got, first):
+                raise AssertionError(f"{name}: variant {v} differs from {next(iter(libs))}")
+            del got
+        for _ in range(reps):
+            for v, fn in fns.items():
+                times[v].append(event_ms(fn)[0])
+                if v in parts:
+                    with use(libs[v]):
+                        ms_t, rec = event_ms(lambda: pk.film_records(tables, SEED, n, regen))
+                        planes = torch.zeros((tables.n_acc + 1, tables.n_pix), device="cuda")
+                        ms_s, _ = event_ms(lambda: pk.film_splat(rec, planes, tables, SEED))
+                        parts[v][0].append(ms_t)
+                        parts[v][1].append(ms_s)
+                        del rec, planes
+        res[name] = {}
+        for v in libs:
+            r = {"ms": statistics.median(times[v]), "all_ms": times[v]}
+            if v in parts and parts[v][0]:
+                r["trace_ms"] = statistics.median(parts[v][0])
+                r["splat_ms"] = statistics.median(parts[v][1])
+            r["rays"] = rays.get(v, first[-1].double().sum().item())
+            res[name][v] = r
+        print(f"{name}: " + ", ".join(
+            f"{v} {r['ms']:.3f} ms" + (f" (trace {r['trace_ms']:.3f} + splat {r['splat_ms']:.3f})"
+                                       if "trace_ms" in r else "")
+            + (f" [{r['rays']:.0f} rays]" if v in unchecked else "")
+            for v, r in res[name].items()), flush=True)
+        del first
+    # the per-sample kernels K6, K5 and K4 (on chip_smoke's rays, made by
+    # the envmap golden's script), 20 launches a timing
+    spec = importlib.util.spec_from_file_location(
+        "make_envmap_golden", os.path.join(ROOT, "tests", "golden", "make_envmap_golden.py"))
+    env = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(env)
+
+    def rays_of(o, d):
+        return torch.cat([torch.from_numpy(o).T, torch.from_numpy(d).T]).contiguous().cuda()
+
+    t_pol = tables_of(POLARIZERS, res=128)
+    for name, tables, mode, n_out, rays in (
+            ("K6 cbox_pol 256x256", tables_of(CBOX_POL, stokes=True), pk._MODE_STOKES_SAMPLE, 15,
+             None),
+            ("K5 cbox 512x512", tables_of(CBOX), pk._MODE_RAYGEN_SAMPLE, 6, None),
+            ("K5 polarizers 128x128", t_pol, pk._MODE_RAYGEN_SAMPLE, 12, None),
+            ("K4 cbox 262144 rays", tables_of(CBOX), pk._MODE_RAYS_SAMPLE, 4,
+             rays_of(*env.k4_cbox3_rays(512 * 512))),
+            ("K4 polarizers 16384 rays", t_pol, pk._MODE_RAYS_SAMPLE, 10,
+             rays_of(*env.k4_env_rays(128 * 128)))):
+        def one(lib):
+            with use(lib):
+                return pk._launch(tables, 3, 1, mode, False, n_out, name, rays=rays)[0]
+        want = one(next(iter(libs.values())))
+        times = {v: [] for v in libs}
+        for v, lib in libs.items():
+            assert v in unchecked or torch.equal(one(lib), want), f"{name}: variant {v} differs"
+        for _ in range(reps):
+            for v, lib in libs.items():
+                times[v].append(event_ms(lambda: [one(lib) for _ in range(20)])[0] / 20)
+        res[name] = {v: {"ms": statistics.median(t), "all_ms": t} for v, t in times.items()}
+        print(f"{name}: " + ", ".join(f"{v} {r['ms']:.4f} ms" for v, r in res[name].items()),
+              flush=True)
+    return res
+
+
+def ab_renders(libs, reps):
+    res = {}
+    for path in (CBOX, CBOX_ROUGH, MESH_GI, CBOX_POL, CBOX_POL_ROUGH):
+        sc = tt.load_file(path)
+        times = {v: [] for v in libs}
+        for v, lib in libs.items():
+            with use(lib):
+                tt.render(sc, seed=1000, device="cuda")
+        for rep in range(reps):
+            for v, lib in libs.items():
+                with use(lib):
+                    times[v].append(event_ms(lambda: tt.render(sc, seed=rep, device="cuda"))[0])
+        name = f"render({os.path.basename(path)})"
+        res[name] = {v: {"ms": statistics.median(t), "all_ms": t} for v, t in times.items()}
+        print(f"{name}: " + ", ".join(f"{v} {r['ms']:.3f} ms" for v, r in res[name].items()),
+              flush=True)
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append", required=True, help="NAME=DIR")
+    ap.add_argument("--unchecked", action="append", default=[],
+                    help="a variant that changes the output on purpose: timed only")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab_film.json"))
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--no-renders", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_film: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    variants = dict(v.split("=", 1) for v in args.variant)
+    libs, ptxas = build(variants)
+    out = {"card": smi, "variants": variants, "ptxas": ptxas,
+           "unchecked": args.unchecked,
+           "launches": ab_launches(libs, args.reps, set(args.unchecked))}
+    if not args.no_renders:
+        out["renders"] = ab_renders(libs, args.reps)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -119,6 +119,10 @@ def load_library():
     # (K2's loop), rough_cone (the rough conductor's lane and cones), stream
     lib.path_film_launch.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i, i, i, i, p]
     lib.path_film_launch.restype = i
+    # records, tab, n_tab, planes, n_pix, n_samples, nv, radius, seed,
+    # tile_lanes, stream
+    lib.film_splat_launch.argtypes = [p, p, i, p, i, i, i, i, i, i, p]
+    lib.film_splat_launch.restype = i
     lib.us_acq_launch.argtypes = [p, i, p, i, p, p, i, i, p]
     lib.us_acq_launch.restype = i
     lib.mesh_direct_launch.argtypes = [p, i, p, p, p, i, p, i, p, p]

@@ -88,9 +88,11 @@ __device__ __forceinline__ float rng_next(uint32_t& state) {
 // spherical cap) in the local frame, two-sided: wi is flipped into the
 // upper hemisphere (flip = +-1) and the half vector flipped back.  The
 // rough conductor of path_film.cu and the acoustic BSDF of us_acq.cu draw
-// it the same way (path_kernel.py::_vndf_half).
-__device__ __forceinline__ V3 vndf_half(V3 wi_l, float alpha, float u_a, float u_b,
-                                        float& flip) {
+// it the same way (path_kernel.py::_vndf_half).  vndf_half_disk takes the
+// disk sample (p1h, p2h) = sqrt(u_a) (cos, sin)(2 pi u_b) drawn already:
+// the film kernel draws it where it draws the diffuse lobe's.
+__device__ __forceinline__ V3 vndf_half_disk(V3 wi_l, float alpha, float p1h, float p2h,
+                                             float& flip) {
   flip = wi_l.z >= 0.0f ? 1.0f : -1.0f;
   V3 wif = scale(wi_l, flip);
   V3 vh = normalize({alpha * wif.x, alpha * wif.y, wif.z});
@@ -99,15 +101,17 @@ __device__ __forceinline__ V3 vndf_half(V3 wi_l, float alpha, float u_a, float u
   bool big = lensq > 1e-20f;
   V3 t1v = {big ? -vh.y * inv_len : 1.0f, big ? vh.x * inv_len : 0.0f, 0.0f};
   V3 t2v = cross(vh, t1v);
-  float r_h = sqrtf(fmaxf(u_a, 0.0f));
-  float phi_h = (float)(2.0 * kPi) * u_b;
-  float p1h = r_h * cosf(phi_h);
-  float p2h = r_h * sinf(phi_h);
   float s_h = 0.5f * (1.0f + vh.z);
   p2h = (1.0f - s_h) * safe_sqrt(1.0f - p1h * p1h) + s_h * p2h;
   V3 nh = add(add(scale(t1v, p1h), scale(t2v, p2h)),
               scale(vh, safe_sqrt(1.0f - p1h * p1h - p2h * p2h)));
   return scale(normalize({alpha * nh.x, alpha * nh.y, fmaxf(nh.z, 1e-6f)}), flip);
+}
+__device__ __forceinline__ V3 vndf_half(V3 wi_l, float alpha, float u_a, float u_b,
+                                        float& flip) {
+  float r_h = sqrtf(fmaxf(u_a, 0.0f));
+  float phi_h = (float)(2.0 * kPi) * u_b;
+  return vndf_half_disk(wi_l, alpha, r_h * cosf(phi_h), r_h * sinf(phi_h), flip);
 }
 
 // A ray in the object space of a cone record, whose q[0..11] are the rows

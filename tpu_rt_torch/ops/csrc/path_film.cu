@@ -33,7 +33,7 @@
 //
 // The rough conductor (pallas_path.py:1263-1313, 1387-1477, 1524-1602,
 // 1635).  Its BSDF sample draws a half vector from the visible normals
-// (common.cuh::vndf_half, from the bounce's u7, u8), mirrors wi about it
+// (common.cuh::vndf_half_disk, from the bounce's u7, u8), mirrors wi about it
 // and weighs F(cos_im) G2 / G1 with a real pdf, so the lobe is not delta and
 // emitter hits after it are weighed by MIS; its NEE evaluates
 // spec F(cos_ih) D G2 / (4 cos_i) toward the light with the VNDF pdf on
@@ -51,18 +51,26 @@
 // loop that breaks once the path is dead; that equals the TPU's unrolled
 // form, where dead lanes add exact zeros and their later random draws are
 // never read.  K2's form steps one bounce an iteration at the lane's own
-// depth and, when the path ends (dead, roulette, depth cap), splats the
+// depth and, when the path ends (dead, roulette, depth cap), finishes the
 // sample, re-keys the RNG to seed + (sample index) and starts the next
 // one: a warp then waits for its longest per-lane total instead of, at
-// every sample, its longest path.  Each lane meets its samples in order
-// and every accumulator is added in the same order, so K2's planes are
-// bit-equal to the per-sample form's.  The filter accumulators live in the
-// thread (the filter radius is a template parameter): 4, 36 or 100 floats
-// for K1, 13, 117 or 325 for K3, plus the ray count.  K3's gaussian
-// footprint does not fit in registers; the compiler keeps what does not in
-// the thread's local memory (cached, and private to the thread, so the add
-// order stays), and ptxas reports the spill.  Each thread writes its column
-// of the (n_acc + 1, H*W) output once at the end.
+// every sample, its longest path.
+//
+// Two launches.  The TPU kernel splats each sample into filter planes it
+// holds in VMEM.  A thread here would hold them in registers, 4, 36 or 100
+// floats for K1 and 13, 117 or 325 for K3, and K3's gaussian footprint
+// spilled to local memory at 255 registers, two blocks a multiprocessor.
+// So the trace kernel holds no accumulator: it writes each finished
+// sample's record (its values and ray count, [value][sample][pixel]) to
+// global memory, and film_splat, a second kernel, adds a chunk of records
+// onto the planes with one thread per (pixel, filter offset row).  film_splat
+// adds each accumulator's samples in sample order with the plain version's
+// arithmetic, so the planes are bit-equal to the plain version's and K2's
+// to the per-sample form's; the wrapper streams a launch in chunks of at
+// most 64 samples, each continuing the stored sums exactly.  Without the
+// accumulators each form takes the register cap that ran fastest
+// (kFilmMinBlocks); K3's Stokes state stays in registers, which ran as fast
+// as a shared-memory slab on cbox_pol and faster on cbox_pol_rough.
 //
 // The scene is not compiled into the code as the TPU's Python-float
 // constants were: the host packs prims, BSDFs, emitters, point lights,
@@ -99,17 +107,17 @@
 // also sweeps the mesh.  A dead path never reaches the sweeps, so the TPU's
 // collapsed bounds for dead lanes have no counterpart.
 //
-// What bounds them.  Per ray the kernels read a few KB of tables from
-// shared memory and write nothing until the end, so K1 is bound by FP32
-// ALU work (the prim sweep, shading, the special functions) and by warp
-// divergence: neighbouring pixels take different BSDF branches and die at
-// different depths.  K3 adds the Mueller chain (about 230 operations a
-// bounce) and, in its gaussian form, the traffic of 325 accumulators in
-// local memory a sample.  K2 removes the per-sample wait at the depth loop;
-// it does nothing about divergence inside a bounce.  K6 writes 15 planes a
-// sample and is bound like K3's box form.  Occupancy tuning and a
-// wavefront or persistent-thread design across pixels are left to later
-// work.
+// What bounds them.  Per ray the trace kernels read a few KB of tables
+// from shared memory and write a record of 4 (K1) or 13 (K3) floats a
+// sample, so they are bound by FP32 ALU work (the prim sweep, shading, the
+// special functions), by warp divergence (neighbouring pixels take
+// different BSDF branches and die at different depths) and by how many
+// warps their registers let a multiprocessor hold to hide the latency.
+// K3 adds the Mueller chain (about 266 operations a bounce) and its
+// 63-float Stokes state.  K2 removes the per-sample wait at the depth loop;
+// it does nothing about divergence inside a bounce.  film_splat is bound by
+// the records' bytes.  K6 writes 15 planes a sample.  A wavefront or
+// persistent-thread design across pixels is left to later work.
 //
 // Arithmetic follows the plain PyTorch version operation by operation
 // (same association order, IEEE division and square root, no fast math);
@@ -598,17 +606,29 @@ __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& 
   float pdf_s, eta_s = 1.0f;
   bool valid, delta;
   float M6[3][6];
-  if (is_diffuse) {  // cosine hemisphere via the concentric disk
+  // The disk sample a sampled lobe turns into a direction: the diffuse
+  // lobe's concentric map of (u4, u5), the rough lobe's VNDF disk (sqrt
+  // u7, 2 pi u8).  Its cos and sin run here, once, ahead of the lobes'
+  // branches, so that a warp holding both lobes runs them once.
+  float r_disk, phi_disk;
+  if (is_rough) {
+    r_disk = sqrtf(fmaxf(u[7], 0.0f));
+    phi_disk = (float)(2.0 * kPi) * u[8];
+  } else {
     float sx = 2.0f * u[4] - 1.0f;
     float sy = 2.0f * u[5] - 1.0f;
     bool quad_x = fabsf(sx) > fabsf(sy);
-    float r_d = quad_x ? sx : sy;
+    r_disk = quad_x ? sx : sy;
     float safe_sx = sx == 0.0f ? 1.0f : sx;
     float safe_sy = sy == 0.0f ? 1.0f : sy;
-    float phi = quad_x ? kPi4 * (sy / safe_sx) : kPi2 - kPi4 * (sx / safe_sy);
-    if (sx == 0.0f && sy == 0.0f) phi = 0.0f;
-    float dx = r_d * cosf(phi);
-    float dy = r_d * sinf(phi);
+    phi_disk = quad_x ? kPi4 * (sy / safe_sx) : kPi2 - kPi4 * (sx / safe_sy);
+    if (sx == 0.0f && sy == 0.0f) phi_disk = 0.0f;
+  }
+  float disk_x = r_disk * cosf(phi_disk);
+  float disk_y = r_disk * sinf(phi_disk);
+  if (is_diffuse) {  // cosine hemisphere via the concentric disk
+    float dx = disk_x;
+    float dy = disk_y;
     float dz = safe_sqrt(1.0f - dx * dx - dy * dy);
     float sign_i = cos_i == 0.0f ? 1.0f : (cos_i > 0.0f ? 1.0f : -1.0f);
     wo_l = {dx * sign_i, dy * sign_i, dz * sign_i};
@@ -710,7 +730,7 @@ __device__ bool bounce(const Scene& sc, int depth, uint32_t& rng, Path& p, Pol& 
       // the half vector; the lobe's pdf G1(wi) D / (4 cos_i), not a delta
       float alpha = b[B_ALPHA];
       float flip;
-      V3 mh = vndf_half(wi_l, alpha, u[7], u[8], flip);
+      V3 mh = vndf_half_disk(wi_l, alpha, disk_x, disk_y, flip);
       float cos_im = dot(wi_l, mh);
       V3 mh2 = scale(mh, 2.0f * cos_im);
       wo_l = {mh2.x - wi_l.x, mh2.y - wi_l.y, mh2.z - wi_l.z};
@@ -796,47 +816,7 @@ __device__ __forceinline__ float film_w1d(int dd, float j, float gauss_tail) {
   return fabsf(x) <= 2.0f ? fmaxf(0.0f, gw) : 0.0f;
 }
 
-// One sample's filter splat of its NV values into the accumulators: per
-// offset (dy, dx) the weighted values and the weight, then the ray count.
-// A sample with a non-finite value is left out of value and weight.
-template <int R, int NV>
-__device__ __forceinline__ void splat(float* acc, const float* v, float rc, float jx,
-                                      float jy, float gauss_tail) {
-  constexpr int kFoot = 2 * R + 1;
-  bool ok = true;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) ok = ok && isfinite(v[k]);
-  float okf = ok ? 1.0f : 0.0f;
-  float vv[NV];
-#pragma unroll
-  for (int k = 0; k < NV; ++k) vv[k] = ok ? v[k] : 0.0f;
-  if constexpr (R == 0) {
-#pragma unroll
-    for (int k = 0; k < NV; ++k) acc[k] += vv[k];
-    acc[NV] += okf;
-  } else {
-    float wx[kFoot], wy[kFoot];
-#pragma unroll
-    for (int k = 0; k < kFoot; ++k) {
-      wx[k] = film_w1d<R>(k - R, jx, gauss_tail);
-      wy[k] = film_w1d<R>(k - R, jy, gauss_tail);
-    }
-#pragma unroll
-    for (int a = 0; a < kFoot; ++a) {
-#pragma unroll
-      for (int c = 0; c < kFoot; ++c) {
-        float w = wy[a] * wx[c] * okf;
-        float* slot = acc + (a * kFoot + c) * (NV + 1);
-#pragma unroll
-        for (int k = 0; k < NV; ++k) slot[k] += w * vv[k];
-        slot[NV] += w;
-      }
-    }
-  }
-  acc[kFoot * kFoot * (NV + 1)] += rc;
-}
-
-// The values a sample splats: L (K1) or S row-major, (I, Q, U, V) x rgb.
+// The values a sample records: L (K1) or S row-major, (I, Q, U, V) x rgb.
 template <bool kStokes>
 __device__ __forceinline__ void sample_values(const Path& p, const Pol& q, float* v) {
   if constexpr (kStokes) {
@@ -850,6 +830,15 @@ __device__ __forceinline__ void sample_values(const Path& p, const Pol& q, float
     v[1] = p.L.y;
     v[2] = p.L.z;
   }
+}
+
+// A finished sample's record: its NV values and its ray count, stride
+// floats apart.
+template <int NV>
+__device__ __forceinline__ void record(float* r, size_t stride, const float* v, float rc) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k) r[k * stride] = v[k];
+  r[NV * stride] = rc;
 }
 
 __device__ __forceinline__ Scene load_scene(const int* hdr, const float* tab,
@@ -892,31 +881,38 @@ __device__ __forceinline__ Scene load_scene(const int* hdr, const float* tab,
   uint32_t tile = (uint32_t)(idx / sc.tile_lanes);                              \
   uint32_t lane = (uint32_t)(idx % sc.tile_lanes);
 
+// The blocks of kThreads a multiprocessor must hold for a film form,
+// so at most 65536 / (kThreads kFilmMinBlocks) registers a thread, from
+// the A/B on the H100 in PERF.md §6: without the accumulators K3 runs best
+// at 4 (128 registers), K1 at 8 (64) with a tent or gaussian film and at 4
+// with a box (kBox, which K3 ignores); more warps to hide the sweep's
+// latency outweigh the spills the caps bring.
+template <bool kBox, bool kStokes>
+constexpr int kFilmMinBlocks = kStokes ? 4 : (kBox ? 4 : 8);
+
 // K1 (kStokes false) and K3 (true), with K2's loop when kRegen: n_samples
-// samples of pixel idx splatted into the (n_acc + 1, n_pix) planes.  K1
-// asks for 5 resident blocks a multiprocessor (at most 96 registers a
-// thread): more warps to hide the sweep's latency outweigh the spills that
-// cap brings (PERF.md has the measurements).  K3 keeps the compiler's
-// choice.  kRoughCone compiles the rough conductor's lane and cones in.
-template <int R, bool kStokes, bool kRegen, bool kRoughCone>
-__global__ void __launch_bounds__(kThreads, kStokes ? 1 : 5)
+// samples of pixel idx, each recorded when it finishes: sample si's NV
+// values and its ray count go to rec[(k * n_samples + si) * n_pix + idx]
+// (k = 0 .. NV), laid out [value][sample][pixel] so that a warp's stores
+// and film_splat's loads are coalesced.  Every lane below n_pix finishes
+// each of its n_samples samples once, so every record is written.  The
+// jitter is not recorded: film_splat draws it again from the sample's
+// keys.  kRoughCone compiles the rough conductor's lane and cones in.
+template <bool kBox, bool kStokes, bool kRegen, bool kRoughCone>
+__global__ void __launch_bounds__(kThreads, (kFilmMinBlocks<kBox, kStokes>))
 path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
-                 int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
+                 int n_tab, const float* __restrict__ mesh, float* __restrict__ rec,
                  int n_pix, int seed, int n_samples) {
   STAGE_TABLES()
   constexpr int NV = kStokes ? 12 : 3;
-  constexpr int kAcc = (2 * R + 1) * (2 * R + 1) * (NV + 1);
-  float acc[kAcc + 1];
-#pragma unroll
-  for (int i = 0; i <= kAcc; ++i) acc[i] = 0.0f;
-  float gauss_tail = tab[G_GAUSS_TAIL];
+  const size_t stride = (size_t)n_samples * n_pix;  // between a record's values
   Path p;
   Pol q;
   float v[NV];
   // sample i of a launch seeded s draws the stream of seed s + i
   if constexpr (kRegen) {
     // one bounce an iteration at the lane's own depth; a finished sample
-    // is splatted and the lane starts its next one at once
+    // is recorded and the lane starts its next one at once
     uint32_t rng = rng_init((uint32_t)seed, tile, lane);
     float jx = rng_next(rng);
     float jy = rng_next(rng);
@@ -927,7 +923,7 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
       ++depth;
       if (alive && depth < sc.max_depth) continue;
       sample_values<kStokes>(p, q, v);
-      splat<R, NV>(acc, v, p.ray_count, jx, jy, gauss_tail);
+      record<NV>(rec + (size_t)si * n_pix + idx, stride, v, p.ray_count);
       if (++si >= n_samples) break;
       rng = rng_init((uint32_t)seed + (uint32_t)si, tile, lane);
       jx = rng_next(rng);
@@ -944,11 +940,88 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
       for (int depth = 0; depth < sc.max_depth; ++depth)
         if (!bounce<kStokes, false, kRoughCone>(sc, depth, rng, p, q)) break;
       sample_values<kStokes>(p, q, v);
-      splat<R, NV>(acc, v, p.ray_count, jx, jy, gauss_tail);
+      record<NV>(rec + (size_t)i * n_pix + idx, stride, v, p.ray_count);
     }
   }
+}
+
+// film_splat: the records (NV + 1, n_samples, n_pix) of a film launch
+// added, in sample order, onto the planes (kFoot^2 (NV + 1) + 1, n_pix),
+// with the plain version's arithmetic (path_kernel.py::splat_upd: the
+// finiteness mask, film_w1d, w = wy[a] wx[c] okf, slot[k] += w v[k], then
+// the ray count), so the planes are bit-equal to its; a launch onto planes
+// that hold an earlier chunk's sums continues them exactly.  One thread per
+// (pixel, offset row): a block holds kSplatPix pixels (threadIdx.x) by
+// kFoot rows (threadIdx.y), so a warp reads one 128-byte line per value
+// and sample, which the block's other rows then find in L1, and each
+// thread keeps kFoot (NV + 1) accumulators, 65 for K3's gaussian (the
+// row-0 thread also the ray count).  Each thread draws the jitter again
+// from the sample's keys, rng_init(seed + s, tile, lane), as the trace
+// kernel drew it, once for its row (a thread per offset, drawing it and
+// reading the record once per offset, took twice as long).  Bound by the
+// records' bytes: each is read once from HBM.
+template <int R>
+constexpr int kSplatPix = R == 0 ? 128 : 32;
+
+template <int R, int NV>
+__global__ void __launch_bounds__(kSplatPix<R>*(2 * R + 1))
+film_splat_kernel(const float* __restrict__ rec, const float* __restrict__ tab,
+                  float* __restrict__ planes, int n_pix, int n_samples, int seed,
+                  int tile_lanes) {
+  constexpr int kFoot = 2 * R + 1;
+  int idx = blockIdx.x * kSplatPix<R> + threadIdx.x;
+  if (idx >= n_pix) return;
+  const int a = threadIdx.y;  // the offset row: offsets (a - R, c - R), c = 0 .. 2R
+  const bool has_rc = a == 0;
+  const float gauss_tail = tab[G_GAUSS_TAIL];
+  const uint32_t tile = (uint32_t)(idx / tile_lanes), lane = (uint32_t)(idx % tile_lanes);
+  const size_t rec_stride = (size_t)n_samples * n_pix;
+  float* slot = planes + (size_t)a * kFoot * (NV + 1) * n_pix + idx;
+  float* rc_slot = planes + (size_t)kFoot * kFoot * (NV + 1) * n_pix + idx;
+  float acc[kFoot][NV + 1];
 #pragma unroll
-  for (int i = 0; i <= kAcc; ++i) out[(size_t)i * n_pix + idx] = acc[i];
+  for (int c = 0; c < kFoot; ++c) {
+#pragma unroll
+    for (int k = 0; k <= NV; ++k) acc[c][k] = slot[(size_t)(c * (NV + 1) + k) * n_pix];
+  }
+  float acc_rc = has_rc ? *rc_slot : 0.0f;
+  for (int s = 0; s < n_samples; ++s) {
+    const float* r = rec + (size_t)s * n_pix + idx;
+    float v[NV];
+    bool ok = true;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      v[k] = r[k * rec_stride];
+      ok = ok && isfinite(v[k]);
+    }
+    float okf = ok ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[k] = ok ? v[k] : 0.0f;
+    if constexpr (R == 0) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) acc[0][k] += v[k];
+      acc[0][NV] += okf;
+    } else {
+      uint32_t rng = rng_init((uint32_t)seed + (uint32_t)s, tile, lane);
+      float jx = rng_next(rng);
+      float jy = rng_next(rng);
+      float wy = film_w1d<R>(a - R, jy, gauss_tail);
+#pragma unroll
+      for (int c = 0; c < kFoot; ++c) {
+        float w = wy * film_w1d<R>(c - R, jx, gauss_tail) * okf;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) acc[c][k] += w * v[k];
+        acc[c][NV] += w;
+      }
+    }
+    if (has_rc) acc_rc += r[NV * rec_stride];
+  }
+#pragma unroll
+  for (int c = 0; c < kFoot; ++c) {
+#pragma unroll
+    for (int k = 0; k <= NV; ++k) slot[(size_t)(c * (NV + 1) + k) * n_pix] = acc[c][k];
+  }
+  if (has_rc) *rc_slot = acc_rc;
 }
 
 // K6: one polarized sample of pixel idx, as 15 planes: S row-major, the
@@ -1027,33 +1100,30 @@ path_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_
   }
 }
 
-template <int R, bool kStokes, bool kRegen, bool kRoughCone>
+template <bool kBox, bool kStokes, bool kRegen, bool kRoughCone>
 void launch_film(dim3 grid, size_t smem, cudaStream_t s, const int* h, const float* t,
                  int n_tab, const float* m, float* o, int n_pix, int seed, int n_samples) {
-  path_film_kernel<R, kStokes, kRegen, kRoughCone><<<grid, kThreads, smem, s>>>(
+  path_film_kernel<kBox, kStokes, kRegen, kRoughCone><<<grid, kThreads, smem, s>>>(
       h, t, n_tab, m, o, n_pix, seed, n_samples);
 }
 
+// The trace kernel of a film mode: the filter's radius (0, 1 or 2) picks
+// only K1's register cap, since the film is splatted by film_splat.
 template <bool kStokes, bool kRegen, bool kRoughCone>
-int launch_radius(int radius, dim3 grid, size_t smem, cudaStream_t s, const int* h,
-                  const float* t, int n_tab, const float* m, float* o, int n_pix, int seed,
-                  int n_samples) {
-  switch (radius) {
-    case 0:
-      launch_film<0, kStokes, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
-                                              n_samples);
-      return 0;
-    case 1:
-      launch_film<1, kStokes, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
-                                              n_samples);
-      return 0;
-    case 2:
-      launch_film<2, kStokes, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
-                                              n_samples);
-      return 0;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+int launch_trace(int radius, dim3 grid, size_t smem, cudaStream_t s, const int* h,
+                 const float* t, int n_tab, const float* m, float* o, int n_pix, int seed,
+                 int n_samples) {
+  if (radius < 0 || radius > 2) return (int)cudaErrorInvalidValue;
+  if constexpr (kStokes)
+    launch_film<false, true, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                                 n_samples);
+  else if (radius == 0)
+    launch_film<true, false, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                                 n_samples);
+  else
+    launch_film<false, false, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix,
+                                                  seed, n_samples);
+  return 0;
 }
 
 // The launch of one mode, with or without the rough conductor's lane and
@@ -1071,17 +1141,26 @@ int launch_mode(int mode, int regen, int radius, dim3 grid, size_t smem, cudaStr
     path_sample_kernel<true, kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix,
                                                                seed);
   } else if (mode == MODE_STOKES_FILM) {
-    return regen ? launch_radius<true, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                                  n_pix, seed, n_samples)
-                 : launch_radius<true, false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                                   n_pix, seed, n_samples);
+    return regen ? launch_trace<true, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                                 n_pix, seed, n_samples)
+                 : launch_trace<true, false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                                  n_pix, seed, n_samples);
   } else {
-    return regen ? launch_radius<false, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                                   n_pix, seed, n_samples)
-                 : launch_radius<false, false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                                    n_pix, seed, n_samples);
+    return regen ? launch_trace<false, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                                  n_pix, seed, n_samples)
+                 : launch_trace<false, false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
+                                                   n_pix, seed, n_samples);
   }
   return 0;
+}
+
+template <int R, int NV>
+void launch_splat(const float* rec, const float* tab, float* planes, int n_pix, int n_samples,
+                  int seed, int tile_lanes, cudaStream_t s) {
+  dim3 grid((n_pix + kSplatPix<R> - 1) / kSplatPix<R>);
+  dim3 block(kSplatPix<R>, 2 * R + 1);
+  film_splat_kernel<R, NV><<<grid, block, 0, s>>>(rec, tab, planes, n_pix, n_samples, seed,
+                                                  tile_lanes);
 }
 
 }  // namespace
@@ -1091,7 +1170,8 @@ int launch_mode(int mode, int regen, int radius, dim3 grid, size_t smem, cudaStr
 // NULL for every other mode); the per-sample modes take n_samples 1 and
 // ignore radius; regen: K2's loop for the film modes; rough_cone: the
 // header's rough-cone flag, the kernels with the rough conductor's lane and
-// cones.
+// cones.  A film mode writes its sample records, (nv + 1, n_samples,
+// n_pix) with nv 3 (K1) or 12 (K3), to out.
 extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
                                 int n_tab, const void* mesh, int n_mesh, const void* rays,
                                 void* out, int n_pix, int seed, int n_samples, int radius,
@@ -1113,6 +1193,33 @@ extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
                        : launch_mode<false>(mode, regen, radius, grid, smem, s, h, t, n_tab, m, r,
                                             o, n_pix, seed, n_samples);
   if (err != 0) return err;
+  return (int)cudaGetLastError();
+}
+
+// film_splat: the records (nv + 1, n_samples, n_pix) of a launch seeded
+// seed added onto the planes ((2 radius + 1)^2 (nv + 1) + 1, n_pix) in
+// place; nv 3 (K1) or 12 (K3); tab is the launch's scene table (its
+// gaussian tail), tile_lanes the header's.
+extern "C" int film_splat_launch(const void* rec, const void* tab, int n_tab, void* planes,
+                                 int n_pix, int n_samples, int nv, int radius, int seed,
+                                 int tile_lanes, void* stream) {
+  if (rec == nullptr || planes == nullptr || tab == nullptr || n_tab <= G_GAUSS_TAIL ||
+      n_pix <= 0 || n_samples < 1 || tile_lanes < 1 || (nv != 3 && nv != 12) || radius < 0 ||
+      radius > 2)
+    return (int)cudaErrorInvalidValue;
+  const float* rc = (const float*)rec;
+  const float* t = (const float*)tab;
+  float* pl = (float*)planes;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nv == 3) {
+    if (radius == 0) launch_splat<0, 3>(rc, t, pl, n_pix, n_samples, seed, tile_lanes, s);
+    if (radius == 1) launch_splat<1, 3>(rc, t, pl, n_pix, n_samples, seed, tile_lanes, s);
+    if (radius == 2) launch_splat<2, 3>(rc, t, pl, n_pix, n_samples, seed, tile_lanes, s);
+  } else {
+    if (radius == 0) launch_splat<0, 12>(rc, t, pl, n_pix, n_samples, seed, tile_lanes, s);
+    if (radius == 1) launch_splat<1, 12>(rc, t, pl, n_pix, n_samples, seed, tile_lanes, s);
+    if (radius == 2) launch_splat<2, 12>(rc, t, pl, n_pix, n_samples, seed, tile_lanes, s);
+  }
   return (int)cudaGetLastError();
 }
 

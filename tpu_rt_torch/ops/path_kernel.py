@@ -43,6 +43,13 @@ around them (``render_pallas``, ``render_stokes_pallas``).
   ``csrc/path_film.cu`` or raise.  K2 needs no
   plain version of its own: it computes K1's and K3's function, each lane
   meeting its samples in order.
+* On the card K1 and K3 (either loop form) run as two kernels: the
+  trace kernel (``film_records``) writes one record per finished sample,
+  its values and ray count laid out [value][sample][pixel], and
+  ``film_splat`` adds the records onto the planes in sample order;
+  ``split_film`` streams a launch in chunks of at most ``RECORD_CHUNK``
+  samples.  Their plain versions, ``film_records_plain`` and
+  ``film_splat_plain``, give ``film_trace_plain``'s planes bit for bit.
 * The plain version keeps the JAX kernel's math in its order, over flat
   ``(N,)`` tensors, one per component, with ``torch.where`` masks.  Its
   SplitMix32 RNG emulates uint32 arithmetic in int64 (CPU torch has no
@@ -94,6 +101,9 @@ _SUPPORTED_BSDFS = {BSDF_DIFFUSE, BSDF_DIELECTRIC, BSDF_CONDUCTOR, BSDF_ROUGH_CO
 # own pixel, tent touches 3x3, Mitsuba's gaussian (stddev 0.5, radius 2)
 # touches 5x5.
 _FILTER_FOOT = {"box": 0, "tent": 1, "gaussian": 2}
+# The most samples a film launch on the card traces into one record buffer
+# before film_splat adds them: (n_val, 64, H*W) floats, 218 MB for K3 at 256^2.
+RECORD_CHUNK = 64
 
 
 # ---------------------------------------------------------------------------
@@ -1500,6 +1510,60 @@ def _film_plain(tables: FilmTables, seed: int, n_samples: int):
     return torch.stack(acc)
 
 
+def film_records_plain(tables: FilmTables, seed: int, n_samples: int):
+    """The plain version of K1's and K3's trace kernel (by the tables,
+    either loop form): (n_val, n_samples, H*W) sample records
+    laid out [value][sample][pixel], per sample its values (r, g, b, or the
+    12 Stokes values) and its ray count.  No jitter: ``film_splat_plain``
+    draws it again from the sample's keys."""
+    recs = torch.empty((tables.n_val, n_samples, tables.n_pix), dtype=torch.float32,
+                       device=tables.tab.device)
+    for i, (st, _, _) in enumerate(_trace_samples(tables, seed, n_samples)):
+        recs[:, i] = torch.stack(_sample_vals(st) + [st["ray_count"]])
+    return recs
+
+
+def film_splat_plain(records, planes, tables: FilmTables, seed: int):
+    """The plain version of ``film_splat``: the records of a launch seeded
+    ``seed`` (``film_records_plain``'s layout) added, sample by sample in
+    order, onto the (n_acc + 1, H*W) planes in place, each with the jitter
+    its trace drew (the first two draws of the stream of seed + i) and
+    ``splat_upd``'s arithmetic; returns the planes.  Onto zeros this gives
+    ``film_trace_plain``'s planes bit for bit, and a chunk added onto the
+    planes of the chunks before it continues their sums exactly."""
+    n_val, n_samples, n_pix = records.shape
+    if n_val != tables.n_val or n_pix != tables.n_pix or planes.shape != (tables.n_acc + 1,
+                                                                         n_pix):
+        raise ValueError("film_splat needs records (n_val, n, H*W) and planes (n_acc + 1, H*W) "
+                         "of these tables")
+    C = tables.hdr_list[HDR_TILE_LANES]
+    idx = torch.arange(n_pix, dtype=torch.int64, device=records.device)
+    tile, lane = idx // C, idx % C
+    for i in range(n_samples):
+        jx = jy = None
+        if tables.radius:
+            rng, jx = _rng_next(_rng_init(seed + i, tile, lane))
+            _, jy = _rng_next(rng)
+        planes += torch.stack(splat_upd(list(records[:-1, i]), records[-1, i], jx, jy,
+                                        tables.radius))
+    return planes
+
+
+def split_film(tables: FilmTables, seed: int, n_samples: int, records, splat):
+    """The planes of a film launch on the card: chunks of at most
+    RECORD_CHUNK samples, each traced into records by ``records(tables,
+    seed, k)`` and added onto the planes by ``splat(recs, planes, tables,
+    seed)``; chunk j is seeded seed + j * RECORD_CHUNK, so sample i still
+    draws the stream of seed + i."""
+    chunk = RECORD_CHUNK
+    planes = torch.zeros((tables.n_acc + 1, tables.n_pix), dtype=torch.float32,
+                         device=tables.tab.device)
+    for c0 in range(0, n_samples, chunk):
+        s = _wrap_i32(seed + c0)
+        splat(records(tables, s, min(chunk, n_samples - c0)), planes, tables, s)
+    return planes
+
+
 def film_trace_plain(tables: FilmTables, seed: int, n_samples: int):
     """The plain PyTorch version of K1 (and of K2's loop around it):
     (n_acc + 1, H*W) planes."""
@@ -1585,12 +1649,14 @@ def _wrap_i32(x: int) -> int:
 _MODE_FILM, _MODE_STOKES_FILM, _MODE_STOKES_SAMPLE, _MODE_RAYGEN_SAMPLE, _MODE_RAYS_SAMPLE = range(5)
 
 
-def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_out: int,
+def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_out,
             name: str, rays=None):
     """Launch ``csrc/path_film.cu`` (built at first use) in ``mode`` on the
     tables' CUDA device, one lane a pixel, or one a ray of ``rays`` (6, N)
     for K4; the header's rough-cone flag picks the kernels with the rough
-    conductor's lane and cones.  Returns (planes, whether K2's loop ran)."""
+    conductor's lane and cones.  ``n_out``: the output's planes, or its
+    shape (the film modes' records).  Returns (output, whether K2's loop
+    ran)."""
     dev = tables.tab.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
@@ -1611,7 +1677,8 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
     from tpu_rt_torch.ops import _build
 
     lib = _build.load_library()
-    out = torch.empty((n_out, n), dtype=torch.float32, device=dev)
+    shape = (n_out, n) if isinstance(n_out, int) else n_out
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.path_film_launch(
@@ -1627,6 +1694,55 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
     return out, regen
 
 
+def film_records(tables: FilmTables, seed: int, n_samples: int, regen=None):
+    """The trace kernel of K1 or K3 (by the tables; in K2's loop by
+    ``regen`` as in ``film_trace``): (n_val, n_samples, H*W) sample
+    records, ``film_records_plain``'s.  Plain version on a CPU tensor; on a
+    CUDA tensor the kernel, counted in ``film_trace.launches`` or
+    ``stokes_film_trace.launches`` (and ``regen_launches``), or raise."""
+    if tables.tab.device.type == "cpu":
+        return film_records_plain(tables, seed, n_samples)
+    out, regen = _launch(tables, seed, n_samples,
+                         _MODE_STOKES_FILM if tables.stokes else _MODE_FILM, regen,
+                         (tables.n_val, n_samples, tables.n_pix), "film_records")
+    counter = stokes_film_trace if tables.stokes else film_trace
+    counter.launches += 1
+    counter.regen_launches += int(regen)
+    return out
+
+
+def film_splat(records, planes, tables: FilmTables, seed: int):
+    """film_splat: the (n_val, n, H*W) records of a launch seeded ``seed``
+    added in sample order onto the (n_acc + 1, H*W) planes, in place
+    (``film_splat_plain``).  Plain version on a CPU tensor; on a CUDA
+    tensor ``csrc/path_film.cu``'s splat kernel or raise.
+    ``film_splat.launches`` counts launches."""
+    if records.device.type == "cpu":
+        return film_splat_plain(records, planes, tables, seed)
+    from tpu_rt_torch.ops import _build
+
+    dev = records.device
+    n_val, n, n_pix = records.shape
+    for x in (records, planes):
+        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"film_splat needs contiguous float32 tensors on {dev}")
+    if (tables.tab.device != dev or n_val != tables.n_val or n_pix != tables.n_pix
+            or planes.shape != (tables.n_acc + 1, n_pix) or n < 1):
+        raise ValueError("film_splat needs records (n_val, n, H*W) and planes (n_acc + 1, H*W) "
+                         f"of these tables on {dev}")
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.film_splat_launch(
+            records.data_ptr(), tables.tab.data_ptr(), tables.tab.numel(), planes.data_ptr(),
+            n_pix, n, n_val - 1, tables.radius, _wrap_i32(seed),
+            tables.hdr_list[HDR_TILE_LANES], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("film_splat kernel launch failed: "
+                           + lib.path_film_error_string(err).decode())
+    film_splat.launches += 1
+    return planes
+
+
 def film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
     """Trace ``n_samples`` paths per pixel and accumulate the filter
     splat: returns (n_acc + 1, H*W) float32 planes on the tables' device,
@@ -1637,17 +1753,16 @@ def film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
     per-sample depth loop, which give the same planes.
 
     On a CPU tensor this runs the plain version.  On a CUDA tensor it
-    launches ``csrc/path_film.cu`` (built at first use) or raises.
-    ``film_trace.launches`` counts kernel launches, ``regen_launches``
-    those in K2's loop."""
+    launches ``csrc/path_film.cu`` (built at first use) or raises: the
+    trace kernel (``film_records``) and ``film_splat`` on each chunk of at
+    most RECORD_CHUNK samples (``split_film``).  ``film_trace.launches``
+    counts K1's trace-kernel launches, ``regen_launches`` those in K2's
+    loop; ``film_splat.launches`` the splat's."""
     _check_kind(tables, False, "film_trace")
     if tables.tab.device.type == "cpu":
         return film_trace_plain(tables, seed, n_samples)
-    out, regen = _launch(tables, seed, n_samples, _MODE_FILM, regen, tables.n_acc + 1,
-                         "film_trace")
-    film_trace.launches += 1
-    film_trace.regen_launches += int(regen)
-    return out
+    return split_film(tables, seed, n_samples,
+                      lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
 
 
 def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
@@ -1655,16 +1770,14 @@ def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None)
     (``pack_tables(..., stokes=True)``): (13 * offsets + 1, H*W) planes,
     per offset the 12 weighted Stokes values and the weight, then the ray
     count.  ``regen`` as in ``film_trace`` (K2 around K3).  Plain version
-    on a CPU tensor; on a CUDA tensor the kernel or raise.
-    ``stokes_film_trace.launches`` / ``regen_launches`` count launches."""
+    on a CPU tensor; on a CUDA tensor the kernels (as ``film_trace``) or
+    raise.  ``stokes_film_trace.launches`` / ``regen_launches`` count K3's
+    launches."""
     _check_kind(tables, True, "stokes_film_trace")
     if tables.tab.device.type == "cpu":
         return stokes_film_trace_plain(tables, seed, n_samples)
-    out, regen = _launch(tables, seed, n_samples, _MODE_STOKES_FILM, regen,
-                         tables.n_acc + 1, "stokes_film_trace")
-    stokes_film_trace.launches += 1
-    stokes_film_trace.regen_launches += int(regen)
-    return out
+    return split_film(tables, seed, n_samples,
+                      lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
 
 
 def stokes_sample_trace(tables: FilmTables, seed: int):
@@ -1717,7 +1830,7 @@ def path_trace(tables: FilmTables, o, d, seed: int):
     return out
 
 
-film_trace.launches = film_trace.regen_launches = 0
+film_trace.launches = film_trace.regen_launches = film_splat.launches = 0
 stokes_film_trace.launches = stokes_film_trace.regen_launches = 0
 stokes_sample_trace.launches = raygen_trace.launches = path_trace.launches = 0
 
