@@ -34,9 +34,12 @@ Phases (any failure raises and the script exits non-zero):
      into acquisition / DAS / envelope + log compression, lanes per
      second, and the gather DAS beside the matmul DAS;
  10. the direct mesh kernel (mesh_direct.cu) against its plain version on
-     the card: tests/assets/mesh/simple.xml (the knot under two point
-     lights) at 256x256, one 64-spp pass of the main path on identical
-     rays;
+     the card, bit for bit (all four planes): tests/assets/mesh/simple.xml
+     (the knot under two point lights) at 256x256, one 64-spp pass of the
+     main path on identical rays; its bound from the box tests its walk
+     through the cull hierarchy makes and the triangle tests (primaries
+     and the shadow rays cast), beside the bound from the plain version's
+     root, quarter and triangle tests;
  11. the film kernel's clustered-mesh mode against its plain version:
      tests/assets/mesh/mesh_gi.xml at 64x64, 4 spp, depth 3, and the raw
      planes of one main-path launch (256x256, 64 samples);
@@ -53,8 +56,10 @@ Phases (any failure raises and the script exits non-zero):
      version on the card, bit for bit: tests/assets/mesh/mesh_big_gi.xml
      (the 69 632-triangle knot, 800 clusters) at 256x256 in three waves
      (primaries, cosine bounce rays from their hits, shadow rays toward
-     the light with tmax), and the one call against the chain of
-     128-cluster segments;
+     the light with tmax), each with the box tests the kernel's walk makes
+     through the cull hierarchy beside the plain walk's 800 root tests a
+     ray, and the bound from each walk's tests; a tie fixture (duplicated triangles inside a cluster and across
+     two); and the one call against the chain of 128-cluster segments;
  15. the wavefront gates: render(mesh_big_gi.xml) at 32x32, 256 spp, seed
      0 against tests/golden/make_wavefront_golden.py (relative RMSE of
      8x8 block means; statistical, other RNG); the wavefront against the
@@ -295,6 +300,10 @@ def bound(ops, nbytes):
 # tests are counted at the cheapest kind's 20, so their bounds are lower
 # bounds.
 OPS_SLAB, OPS_TRI, OPS_PRIM = 25, 39, 20
+# A Moller-Trumbore test, read off mesh_direct.cu::mt: the cross products
+# p = d x e2 and q = tv x e1 (9 each), det (5), the guarded reciprocal (4),
+# tv (3), u, v and t (6 each), the five compares and u + v (6).
+OPS_MT = 54
 # A 1-D filter weight, path_film.cu::film_w1d: x = (d + 0.5) - j, the tent's
 # |x|, sub and max, or the gaussian's two multiplies, exp, sub, |x|, compare
 # and select (the exp counted as one).
@@ -496,7 +505,7 @@ def main():
         "max_abs_err": mesh["direct"]["max_abs_err"],
         "ms": mesh["direct"]["ms"], "plain_ms": mesh["direct"]["plain_ms"],
         "bound_ms": mesh["direct"]["bound_ms"], "bound_by": mesh["direct"]["bound_by"],
-        "library_ms": None,
+        "plain_walk_bound_ms": mesh["direct"]["plain_walk_bound_ms"], "library_ms": None,
     }, {
         "name": "mesh_isect", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/mesh_isect.cu",
@@ -505,7 +514,8 @@ def main():
         "launches": wave["launches"], "launches_by_path": wave["launches_by_path"],
         "max_abs_err": wave["max_abs_err"],
         "ms": wave["ms"], "plain_ms": wave["plain_ms"],
-        "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"], "library_ms": None,
+        "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"],
+        "plain_walk_bound_ms": wave["plain_walk_bound_ms"], "library_ms": None,
         "waves": wave["waves"],
     }, {
         "name": "stokes_film", "route": "cuda",
@@ -704,15 +714,26 @@ def mesh_phases(tt, dev):
     d_ms, _ = cuda_ms(lambda: mk.direct_trace(ds, rays), reps=10)
     d_plain_ms, _ = cuda_ms(lambda: mk.direct_trace_plain(ds, rays))
     lit = (out_p[:3].sum(0) > 0).float().mean().item()
+    d_equal = bool(torch.equal(out_k, out_p))
     print(f"mesh_direct vs plain, simple.xml 256x256 x 64 spp ({rays.shape[1]} rays, "
           f"{ds.n_clusters} clusters): rays within rtol 1e-4 atol 1e-6 {d_frac:.6f}, "
-          f"bit-equal {bool(torch.equal(out_k, out_p))}, max abs err {d_err:.3e}, rays cast "
+          f"bit-equal {d_equal}, max abs err {d_err:.3e}, rays cast "
           f"{n_k} vs {n_p}, lit share {lit:.4f}; kernel {d_ms:.3f} ms, plain {d_plain_ms:.1f} ms")
-    assert d_frac >= 0.999 and n_k == n_p and lit > 0.05, "mesh_direct disagrees"
-    # every ray cast tests every cluster's box at least once
-    d_bound = bound(n_k * ds.n_clusters * OPS_SLAB,
-                    4 * (rays.numel() + out_k.numel() + ds.bounds.numel() + ds.tris.numel()
-                         + ds.shade.numel() + ds.lights.numel()))
+    assert d_equal and lit > 0.05, "mesh_direct differs from its plain version"
+    work = count_direct_work(ds, rays)
+    n_rays = rays.shape[1]
+    d_bytes = 4 * (rays.numel() + out_k.numel() + ds.bounds.numel() + ds.tris.numel()
+                   + ds.shade.numel() + ds.lights.numel() + ds.tree.numel())
+    # the box tests of the kernel's walk, and beside it the plain walk's
+    tri_ops = n_rays * 9 + work["triangle"] * OPS_MT
+    d_ops = tri_ops + (work["node"] + work["tree_root"] + work["tree_quarter"]) * OPS_SLAB
+    d_plain_ops = tri_ops + (work["root"] + work["quarter"]) * OPS_SLAB
+    d_bound, d_plain_bound = bound(d_ops, d_bytes), bound(d_plain_ops, d_bytes)
+    print(f"mesh_direct work ({n_k} rays cast): box tests by the kernel's walk "
+          f"{work['node']} node + {work['tree_root']} root + {work['tree_quarter']} quarter, by "
+          f"the plain walk {work['root']} root + {work['quarter']} quarter; triangle tests "
+          f"{work['triangle']}; bound {d_bound[0]:.5f} ms ({d_bound[1]}), by the plain walk's "
+          f"tests {d_plain_bound[0]:.5f} ms ({d_plain_bound[1]})")
 
     # ---- 11. the film kernel's clustered-mesh mode vs plain version -------
     gi64 = tt.load_file(gi_xml, res=64, spp=4)
@@ -790,27 +811,99 @@ def mesh_phases(tt, dev):
         direct_launches=direct_launches, gi_launches=counts["path_film"],
         gi_splat_launches=counts["film_splat"],
         direct=dict(max_abs_err=d_err, ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound[0],
-                    bound_by=d_bound[1]),
+                    bound_by=d_bound[1], plain_walk_bound_ms=d_plain_bound[0],
+                    tree_node_tests=work["node"], tree_root_tests=work["tree_root"],
+                    tree_quarter_tests=work["tree_quarter"], root_tests=work["root"],
+                    quarter_tests=work["quarter"], triangle_tests=work["triangle"], ops=d_ops,
+                    plain_walk_ops=d_plain_ops, bytes=d_bytes),
         gi=dict(max_abs_err=g_err, ms=g_ms, plain_ms=g_plain_ms,
                 bound_ms=film_trace_bound(tab, planes_k, n_samples=64)[0], parts=g_parts))
 
 
-def count_mesh_work(bounds, trisw, o, d, tmax):
+class TreeWalkCount:
+    """The box tests of the kernels' walk through the cull hierarchy
+    (common.cuh::wide_walk), counted beside a plain walk over the clusters
+    in table order: ``step`` at each cluster c, from c = 0 on, with the
+    plain walk's best distance there (the kernel's walk holds the same
+    one) and the rays still walking.  The walk tests the top node, then on
+    entering a node its children that lie in range (at level 1 the
+    clusters' root boxes) against the best distance it holds there, and
+    the four quarter boxes of each cluster it reaches.  Counts (device
+    tensors): node, root, quarter."""
+
+    def __init__(self, bounds, tree):
+        from tpu_rt_torch.ops import mesh_kernel as mk
+
+        self.mk, self.bounds = mk, bounds
+        self.real, self.levels = mk.tree_levels(tree.cpu())
+        self.rows = tree.cpu().tolist()
+        self.top = max(len(self.levels), 1)
+        self.B = 1 << mk.TREE_LOG2
+        zero = torch.zeros((), dtype=torch.int64, device=bounds.device)
+        self.node, self.root, self.quarter = zero.clone(), zero.clone(), zero.clone()
+
+    def step(self, c, oc, invd, best_t, tmin, alive):
+        mk, top, B = self.mk, self.top, self.B
+        if c >= self.real:
+            return
+        if c == 0:  # a walk starts: its top node
+            self.entered = [None] * (top + 2)  # per level: the rays in the node holding c
+            self.passed = [None] * (top + 2)  # per level: its children passed, a bit each
+            if self.levels:
+                box = self.rows[self.levels[top - 1][0]][0:6]
+                self.entered[top + 1] = alive & mk.slab(oc, invd, best_t, box, tmin)
+                self.node += alive.sum()
+            else:
+                self.entered[top + 1] = alive
+            self.passed[top + 1] = torch.ones_like(best_t, dtype=torch.int64)
+        entered, passed = self.entered, self.passed
+        for lv in range(top, 0, -1):
+            width = B ** lv
+            if c % width:
+                continue
+            j = 0 if lv == top else (c // width) % B
+            entered[lv] = entered[lv + 1] & ((passed[lv + 1] >> j) & 1).bool() & alive
+            bits = torch.zeros_like(best_t, dtype=torch.int64)
+            for jj in range(B):
+                cs = c + jj * (width // B)
+                if cs >= self.real:
+                    break
+                box = (self.bounds[cs, 0:6].tolist() if lv == 1 else
+                       self.rows[self.levels[lv - 2][0] + cs // (width // B)][0:6])
+                bits |= (mk.slab(oc, invd, best_t, box, tmin) & entered[lv]).long() << jj
+                if lv == 1:
+                    self.root += entered[lv].sum()
+                else:
+                    self.node += entered[lv].sum()
+            passed[lv] = bits
+        reached = entered[1] & ((passed[1] >> (c % B)) & 1).bool() & alive
+        self.quarter += 4 * reached.sum()
+
+    def counts(self):
+        return dict(node=int(self.node), root=int(self.root), quarter=int(self.quarter))
+
+
+def count_mesh_work(bounds, trisw, o, d, tmax, tree):
     """The box and triangle tests K7 makes on these rays, by the plain
-    version's walk: every ray tests every cluster's root box, the four
+    version's walk (every ray tests every cluster's root box, the four
     quarter boxes of each cluster whose root box it passes, and the
-    triangles of its live span.  Returns (root, quarter, triangle) test
-    counts."""
+    triangles of its live span) and by the kernel's through the cull
+    hierarchy (TreeWalkCount; the same triangles).  Returns a dict of
+    test counts: root, quarter, triangle, and the kernel's walk's node,
+    tree_root and tree_quarter."""
     from tpu_rt_torch.ops import mesh_kernel as mk
 
     oc, dc = [o[:, i] for i in range(3)], [d[:, i] for i in range(3)]
     invd = [mk._inv(x) for x in dc]
     best_t = tmax.clone()
     roots = 0
-    quarters = torch.zeros((), dtype=torch.int64, device=o.device)
-    tris = torch.zeros_like(quarters)
+    zero = torch.zeros((), dtype=torch.int64, device=o.device)
+    quarters, tris = zero.clone(), zero.clone()
+    walk = TreeWalkCount(bounds, tree)
+    every = torch.ones_like(best_t, dtype=torch.bool)  # the kernel walks dead lanes too
     for c, brow in enumerate(bounds.tolist()):
         roots += o.shape[0]
+        walk.step(c, oc, invd, best_t, mk._TMIN, every)
         quarters += 4 * mk.slab(oc, invd, best_t, brow[0:6]).sum()
         rows, s, e = mk.cluster_candidates(brow, oc, invd, best_t)
         if rows.numel() == 0:
@@ -820,7 +913,46 @@ def count_mesh_work(bounds, trisw, o, d, tmax):
                                  [x[rows] for x in dc], best_t[rows], s, e)
         hit, lane = mk.first_min(ok, t)
         best_t[rows[hit]] = t[hit][torch.arange(int(hit.sum()), device=o.device), lane[hit]]
-    return roots, int(quarters), int(tris)
+    w = walk.counts()
+    return dict(root=roots, quarter=int(quarters), triangle=int(tris), node=w["node"],
+                tree_root=w["root"], tree_quarter=w["quarter"])
+
+
+def count_direct_work(ds, rays):
+    """K9's root, quarter and triangle tests by its plain version's walk
+    (mesh_kernel.direct_trace_plain): the primaries over every cluster,
+    then each light's shadow rays that are cast, each over the clusters
+    until one occludes it; and the box tests of the kernel's walk of the
+    same rays through the cull hierarchy (TreeWalkCount), which tests the
+    same triangles.  The plain any-hit walk hands the lanes it does not
+    test the collapsed segment [tmin, tmin]; they are not counted.
+    Returns a dict: root, quarter, triangle, node, tree_root,
+    tree_quarter."""
+    from tpu_rt_torch.ops import mesh_kernel as mk
+
+    counts = torch.zeros(3, dtype=torch.int64, device=rays.device)
+    plain = mk.cluster_candidates
+    walk = TreeWalkCount(ds.bounds, ds.tree)
+    calls = [0]  # every walk of the plain version visits the clusters 0 .. C - 1 in turn
+
+    def counting(brow, o, invd, best_t, tmin=mk._TMIN):
+        tested = best_t > tmin
+        walk.step(calls[0] % ds.n_clusters, o, invd, best_t, tmin, tested)
+        calls[0] += 1
+        root = mk.slab(o, invd, best_t, brow[0:6], tmin) & tested
+        rows, s, e = plain(brow, o, invd, best_t, tmin)
+        counts.add_(torch.stack([tested.sum(), 4 * root.sum(), (e - s)[tested[rows]].sum()]))
+        return rows, s, e
+
+    mk.cluster_candidates = counting
+    try:
+        mk.direct_trace_plain(ds, rays)
+    finally:
+        mk.cluster_candidates = plain
+    roots, quarters, tris = [int(x) for x in counts.tolist()]
+    w = walk.counts()
+    return dict(root=roots, quarter=quarters, triangle=tris, node=w["node"],
+                tree_root=w["root"], tree_quarter=w["quarter"])
 
 
 def mesh_isect_waves(scene, dev, seed):
@@ -881,21 +1013,34 @@ def wavefront_phases(tt, dev):
         same = ((got[0] == t) & (got[1] == prim) & (got[2] == u) & (got[3] == v)).float()
         k_ms, _ = cuda_ms(lambda: mk.mesh_intersect(cl, o, d, tmax=tmax), reps=10)
         p_ms, _ = cuda_ms(lambda: mk.mesh_intersect_plain(cl["bounds"], cl["trisw"], o, d, tmax))
-        roots, quarters, tris = count_mesh_work(cl["bounds"], cl["trisw"], o, d, tmax)
+        work = count_mesh_work(cl["bounds"], cl["trisw"], o, d, tmax, tree=cl["tree"])
+        roots, quarters, tris = work["root"], work["quarter"], work["triangle"]
         n = o.shape[0]
-        ops = n * 9 + (roots + quarters) * OPS_SLAB + tris * OPS_TRI
-        nbytes = 4 * (cl["bounds"].numel() + cl["trisw"].numel() + 7 * n + 4 * n)
+        boxes = work["node"] + work["tree_root"] + work["tree_quarter"]
+        ops = n * 9 + boxes * OPS_SLAB + tris * OPS_TRI
+        plain_ops = n * 9 + (roots + quarters) * OPS_SLAB + tris * OPS_TRI
+        nbytes = 4 * (cl["bounds"].numel() + cl["trisw"].numel() + cl["tree"].numel()
+                      + 7 * n + 4 * n)
         b_ms, b_by = bound(ops, nbytes)
+        pb_ms = bound(plain_ops, nbytes)[0]
         waves[name] = dict(rays=n, hit_share=(got[1] >= 0).float().mean().item(),
                            bit_equal_share=same.mean().item(),
                            max_abs_dt=(got[0] - t).abs().max().item(), ms=k_ms, plain_ms=p_ms,
                            root_tests=roots, quarter_tests=quarters, triangle_tests=tris,
-                           ops=ops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+                           tree_node_tests=work["node"], tree_root_tests=work["tree_root"],
+                           tree_quarter_tests=work["tree_quarter"],
+                           ops=ops, plain_walk_ops=plain_ops, bytes=nbytes, bound_ms=b_ms,
+                           bound_by=b_by, plain_walk_bound_ms=pb_ms)
         print(f"mesh_isect vs plain, mesh_big_gi.xml 256x256 {name} wave ({n} rays, {C} "
               f"clusters): bit-equal share {same.mean().item():.6f}, max |dt| "
               f"{waves[name]['max_abs_dt']:.3e}, hit share {waves[name]['hit_share']:.4f}; "
               f"kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms; tests: root {roots}, quarter "
-              f"{quarters}, triangle {tris}; bound {b_ms:.5f} ms ({b_by})")
+              f"{quarters}, triangle {tris}; bound {b_ms:.5f} ms ({b_by}), by the plain "
+              f"walk's tests {pb_ms:.5f} ms")
+        print(f"  box tests a ray: the kernel's walk {work['node'] / n:.2f} node + "
+              f"{work['tree_root'] / n:.2f} root + {work['tree_quarter'] / n:.2f} quarter, the "
+              f"plain walk {roots / n:.0f} root + {quarters / n:.2f} quarter; triangle "
+              f"{tris / n:.2f}")
         assert same.mean().item() == 1.0, f"mesh_isect differs from its plain version ({name})"
     o, d, tmax = mesh_isect_waves(sc, dev, 1)["bounce"]
     one = mk.mesh_intersect(cl, o, d, tmax=tmax)
@@ -909,6 +1054,23 @@ def wavefront_phases(tt, dev):
     print(f"mesh_isect one call vs {-(-C // 128)} chained 128-cluster segments (bounce wave): "
           f"bit-equal {chain_equal}")
     assert chain_equal, "the one-call form differs from the chained segments"
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import tie_fixture
+
+    tcl, to_, td = tie_fixture()
+    tie = {k: torch.from_numpy(np.asarray(tcl[k])).to(dev) for k in ("bounds", "trisw", "prim",
+                                                                       "tree")}
+    to_, td = torch.from_numpy(to_).to(dev), torch.from_numpy(td).to(dev)
+    tm = torch.full((to_.shape[0],), 0.99 * 1e8, device=dev)
+    got = mk.mesh_intersect(tie, to_, td, tmax=tm)
+    t, lid, u, v = mk.mesh_intersect_plain(tie["bounds"], tie["trisw"], to_, td, tm)
+    prim = torch.where(lid >= 0, tie["prim"][lid.clamp(min=0).long()], -1).to(torch.int32)
+    tie_equal = all(torch.equal(a, b) for a, b in zip(got, (t, prim, u, v)))
+    winners = set(got[1].tolist())
+    print(f"mesh_isect tie fixture (triangle 70 a copy of 5 in one cluster, 140 a copy of 10 "
+          f"in the next; {to_.shape[0]} rays): bit-equal {tie_equal}, winners among the "
+          f"copies {sorted(winners & {5, 10, 70, 140})}")
+    assert tie_equal and winners & {5, 10, 70, 140} == {5, 10}, "mesh_isect breaks a tie otherwise"
 
     # ---- 15. wavefront gates ------------------------------------------------
     g = load_golden_module(WAVE_GOLDEN_SCRIPT)
@@ -984,12 +1146,14 @@ def wavefront_phases(tt, dev):
     for e in top:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
-    tot = {k: sum(w[k] for w in waves.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    tot = {k: sum(w[k] for w in waves.values())
+           for k in ("ms", "plain_ms", "bound_ms", "plain_walk_bound_ms")}
     return dict(launches=gi_launches + direct_launches,
                 launches_by_path={"mesh_big_gi": gi_launches, "simple_big": direct_launches},
                 max_abs_err=max(w["max_abs_dt"] for w in waves.values()),
                 ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-                bound_by=waves["bounce"]["bound_by"], waves=waves,
+                bound_by=waves["bounce"]["bound_by"],
+                plain_walk_bound_ms=tot["plain_walk_bound_ms"], waves=waves,
                 main=dict(gi_ms=med, gi_rays=nr, direct_ms=med2, direct_rays=nr2,
                           profile=dict(wall_ms=wall_ms, busy_ms=busy, mesh_isect_ms=k7)))
 

@@ -301,3 +301,31 @@ def render_stokes_per_sample(scene, spp, seed, device, tile_rows=16):
                                     ok.reshape(1, H, W), c.filter_type)
         n_rays += n
     return film.develop(fv, fw).reshape(H, W, 4, 3), n_rays
+
+
+def tie_fixture():
+    """Cluster tables with exact ties: 300 small triangles on a grid in
+    z = 0, in triangle order (clusters of 128, no BVH), triangle 70 a copy
+    of 5 (the same cluster) and 140 a copy of 10 (the next cluster); 56
+    rays straight down onto the centroids of 5, 10, their copies and
+    three others.  Returns (``mesh_kernel.build_clusters``' tables, o, d
+    (56, 3) float32)."""
+    from tpu_rt_torch.ops import mesh_kernel
+
+    rng = np.random.default_rng(4)
+    ij = np.stack(np.meshgrid(np.arange(20), np.arange(15), indexing="ij"), -1).reshape(-1, 2)
+    p0 = np.concatenate([ij * 1.0, np.zeros((300, 1))], 1) + rng.uniform(0, 0.1, (300, 3))
+    p0[:, 2] = 0.0
+    e1 = np.stack([rng.uniform(0.5, 0.8, 300), rng.uniform(-0.1, 0.1, 300), np.zeros(300)], 1)
+    e2 = np.stack([rng.uniform(-0.1, 0.1, 300), rng.uniform(0.5, 0.8, 300), np.zeros(300)], 1)
+    for dup, src in ((70, 5), (140, 10)):
+        p0[dup], e1[dup], e2[dup] = p0[src], e1[src], e2[src]
+    p0, e1, e2 = (x.astype(np.float32) for x in (p0, e1, e2))
+    cl = mesh_kernel.build_clusters(p0, e1, e2)
+    targets = np.array([5, 10, 70, 140, 3, 200, 299])
+    cen = p0[targets] + (e1[targets] + e2[targets]) / 3.0
+    cen = np.repeat(cen, 8, 0) + rng.uniform(-0.05, 0.05, (len(targets) * 8, 3))
+    o = cen + np.array([0.0, 0.0, 2.0]) + rng.uniform(-0.2, 0.2, cen.shape) * [1, 1, 0]
+    d = cen - o
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return cl, o.astype(np.float32), d.astype(np.float32)

@@ -155,7 +155,8 @@ def _trace_bruteforce(geom, o, d, tmin, tmax) -> Hit:
 
 def mesh_clusters(geom):
     """The geometry's cluster tables as ``mesh_intersect`` takes them."""
-    return {"bounds": geom.cl_bounds, "trisw": geom.cl_trisw, "prim": geom.cl_prim}
+    return {"bounds": geom.cl_bounds, "trisw": geom.cl_trisw, "prim": geom.cl_prim,
+            "tree": geom.cl_tree}
 
 
 def _trace_mesh(geom, o, d, tmin, tmax) -> Hit:

@@ -125,9 +125,13 @@ def load_library():
     lib.film_splat_launch.restype = i
     lib.us_acq_launch.argtypes = [p, i, p, i, p, p, i, i, p]
     lib.us_acq_launch.restype = i
-    lib.mesh_direct_launch.argtypes = [p, i, p, p, p, i, p, i, p, p]
+    # rays, n, bounds, tris, shade, tree, tree rows, clusters, lights, n
+    # lights, out, stream
+    lib.mesh_direct_launch.argtypes = [p, i, p, p, p, p, i, i, p, i, p, p]
     lib.mesh_direct_launch.restype = i
-    lib.mesh_isect_launch.argtypes = [p, p, i, i, p, p, p, ctypes.c_float, i, p, p, p, p, p]
+    # bounds, trisw, tree, c0, c1, o, d, tmax, tmin, n, t, lid, u, v, stream
+    lib.mesh_isect_launch.argtypes = [p, p, p, i, i, p, p, p, ctypes.c_float, i, p, p, p, p,
+                                      p]
     lib.mesh_isect_launch.restype = i
     for name in ("path_film_error_string", "us_acq_error_string",
                  "mesh_direct_error_string", "mesh_isect_error_string"):

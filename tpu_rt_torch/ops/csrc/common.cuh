@@ -4,8 +4,9 @@
 // SplitMix32 random streams of tpu_rt's Pallas kernels, the shading frame,
 // the GGX half vector drawn from the visible normals, the closest-hit /
 // any-hit sweep over the packed prim records (triangles, spheres,
-// rectangles, cones), and the per-ray cull and Baldwin-Weber test of the
-// mesh cluster tables.
+// rectangles, cones), the per-ray cull and Baldwin-Weber test of the mesh
+// cluster tables, and the walk of K7 and K9 through the clusters' cull
+// hierarchy with a group of lanes a ray.
 //
 // The prim record layout (PRIM_STRIDE floats: kind, bsdf, emitter, pad,
 // then the shape's data) is written by path_kernel.py::pack_prims.
@@ -312,6 +313,143 @@ __device__ __forceinline__ bool bw(const float* __restrict__ tw, int k, V3 o, V3
   u = row(tw, 6, k) * qx + row(tw, 7, k) * qy + row(tw, 8, k) * qz;
   v = row(tw, 9, k) * qx + row(tw, 10, k) * qy + row(tw, 11, k) * qz;
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmin && t < bt;
+}
+
+// ---- the cull hierarchy over contiguous cluster ranges (K7, K9) ----
+// mesh_kernel.py::build_cluster_tree: an implicit tree of branching
+// 8 = 2^kTreeLog2 over the R real clusters in table order; node j of
+// level l covers the clusters [j 8^l, (j + 1) 8^l) with the exact float32
+// min / max of their root boxes.  Header rows 0-1 (16 floats): R, the
+// level count L (at most 8), kTreeLog2 (the wrappers check it), 0, then
+// the row offset of each level 1 .. L; node rows of 8 floats (min xyz,
+// max xyz, 0, 0).  K1's mesh mode does not use it.
+
+constexpr int kTreeLog2 = 3;
+constexpr int kTreeMaxLevels = 8;
+
+struct ClusterTree {
+  int real, levels;
+  int off[kTreeMaxLevels + 1];
+};
+
+// The header of a cluster tree, staged in shared memory by one thread.
+__device__ __forceinline__ void load_tree_header(const float* __restrict__ tree,
+                                                 ClusterTree& h) {
+  h.real = (int)tree[0];
+  h.levels = (int)tree[1];
+  for (int l = 1; l <= kTreeMaxLevels; ++l) h.off[l] = l <= h.levels ? (int)tree[3 + l] : 0;
+}
+
+// The mask of the children of the level-lvl node starting at cluster base
+// whose boxes the ray passes against [tmin, bt] (at level 1 the children
+// are clusters: their root boxes), those outside [c0, cend) left out.  A
+// group of kGroup lanes splits the tests and ORs the bits.
+template <int kGroup>
+__device__ __forceinline__ unsigned children_mask(const float* __restrict__ bounds,
+                                                  const float* __restrict__ tree,
+                                                  const ClusterTree& h, int lvl, int base,
+                                                  int c0, int cend, V3 o, V3 invd, float bt,
+                                                  float tmin, int sub, unsigned gmask) {
+  const int width = 1 << ((lvl - 1) * kTreeLog2);
+  unsigned mine = 0;
+  for (int j = sub; j < (1 << kTreeLog2); j += kGroup) {
+    int cs = base + j * width;
+    if (cs >= cend || cs + width <= c0) continue;
+    const float* box =
+        lvl == 1 ? bounds + cs * 32
+                 : tree + (size_t)(h.off[lvl - 1] + (cs >> ((lvl - 1) * kTreeLog2))) * 8;
+    if (slab(box, o, invd, bt, tmin)) mine |= 1u << j;
+  }
+#pragma unroll
+  for (int m = kGroup / 2; m > 0; m >>= 1) mine |= __shfl_xor_sync(gmask, mine, m, kGroup);
+  return mine;
+}
+
+// The walk of K7 and K9 over the clusters [c0, cend), which a ray's group
+// of lanes makes together: depth first, left to right in table order, a
+// node's 8 children tested at once when the walk enters it.  They are
+// tested against the best distance at the parent's entry, which is no
+// smaller than the one the walk holds when it reaches each child; the
+// tests are monotone in best_t and a node's box holds its clusters' boxes,
+// so a child that fails here covers only clusters whose root boxes fail at
+// their turn, and one that passes here but would fail at its turn covers
+// only clusters whose quarter boxes all fail at their turn.  At each
+// cluster the quarter boxes are tested against the running best, giving
+// the span of common.cuh::cluster_span (an empty span where the root box
+// fails), and span(c, s, e) tests its triangles, returning true to end
+// the walk (an any-hit query).  So the triangles tested, their order and
+// every best_t are the plain walk's (mesh_kernel.py::
+// mesh_intersect_plain).  Each level keeps a mask of its untested
+// children, 8 bits a level of a 64-bit word.
+template <int kGroup, typename Span>
+__device__ __forceinline__ void wide_walk(const float* __restrict__ bounds,
+                                          const float* __restrict__ tree, const ClusterTree& h,
+                                          int c0, int cend, V3 o, V3 invd, const float& best_t,
+                                          float tmin, int sub, unsigned gmask, Span&& span) {
+  const int top = h.levels > 0 ? h.levels : 1;
+  if (h.levels > 0 && !slab(tree + (size_t)h.off[top] * 8, o, invd, best_t, tmin)) return;
+  unsigned long long masks = (unsigned long long)children_mask<kGroup>(
+      bounds, tree, h, top, 0, c0, cend, o, invd, best_t, tmin, sub, gmask) << (8 * (top - 1));
+  int lvl = top, base = 0;
+  for (;;) {
+    unsigned m = (unsigned)(masks >> (8 * (lvl - 1))) & 0xffu;
+    if (m == 0) {
+      if (++lvl > top) return;
+      base &= ~((1 << (lvl * kTreeLog2)) - 1);
+      continue;
+    }
+    int j = __ffs(m) - 1;
+    masks &= ~(1ull << (8 * (lvl - 1) + j));
+    int cs = base + (j << ((lvl - 1) * kTreeLog2));
+    if (lvl > 1) {  // enter the child node
+      --lvl;
+      base = cs;
+      masks |= (unsigned long long)children_mask<kGroup>(bounds, tree, h, lvl, base, c0, cend,
+                                                         o, invd, best_t, tmin, sub, gmask)
+               << (8 * (lvl - 1));
+      continue;
+    }
+    // cluster cs: its quarter boxes against the running best
+    const float* b = bounds + cs * 32;
+    unsigned q = 0;
+    for (int qi = sub; qi < 4; qi += kGroup)
+      if (slab(b + 8 + 6 * qi, o, invd, best_t, tmin)) q |= 1u << qi;
+#pragma unroll
+    for (int mm = kGroup / 2; mm > 0; mm >>= 1) q |= __shfl_xor_sync(gmask, q, mm, kGroup);
+    if (q == 0) continue;
+    int k = (int)b[6];
+    int q1 = k / 4, q2 = k / 2, q3 = (3 * k) / 4;
+    int s = (q & 1) ? 0 : ((q & 2) ? q1 : ((q & 4) ? q2 : q3));
+    int e = (q & 8) ? k : ((q & 4) ? q3 : ((q & 2) ? q2 : q1));
+    if (span(cs, s, e)) return;
+  }
+}
+
+// ---- span tests shared by a group of lanes (K7, K9) ----
+// A ray's kGroup lanes (a power of two, consecutive lanes of one warp)
+// walk the same clusters with the same best distance and split each span
+// among themselves, lane j taking triangles s + j, s + j + kGroup, ...
+
+// The mask of this lane's group.
+template <int kGroup>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+  return kGroup == 32 ? 0xffffffffu : ((1u << kGroup) - 1u) << (lane & ~(kGroup - 1));
+}
+
+// The lexicographic minimum of (t, k) over the group; lanes without a hit
+// hold (inf, INT_MAX).  Ties in t go to the lowest k: the triangle a
+// sequential sweep with a strict t < best keeps (mesh_kernel.first_min).
+template <int kGroup>
+__device__ __forceinline__ void group_min_tk(unsigned mask, float& t, int& k) {
+#pragma unroll
+  for (int m = kGroup / 2; m > 0; m >>= 1) {
+    float ot = __shfl_xor_sync(mask, t, m, kGroup);
+    int ok = __shfl_xor_sync(mask, k, m, kGroup);
+    if (ot < t || (ot == t && ok < k)) {
+      t = ot;
+      k = ok;
+    }
+  }
 }
 
 }  // namespace

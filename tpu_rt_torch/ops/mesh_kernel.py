@@ -11,6 +11,10 @@ Host side (numpy, the JAX package's arithmetic):
   table, a 12-row Baldwin-Weber table (``_bw_table``, float64 constants
   rounded once), a 32-column bounds row (cluster box, triangle count, four
   quarter boxes) and its global triangle ids.
+* ``build_cluster_tree`` gives the cull hierarchy over the clusters that
+  K7 and K9 walk: an implicit 8-way tree over consecutive clusters in
+  table order, each node's box the exact float32 min / max of its
+  children's; ``tree_levels`` reads its header.
 * ``build_shading_table`` gives the 12-row table of vertex normals and
   albedo that K9 reads at a hit.
 
@@ -43,14 +47,19 @@ shadow ray per point light, all lights summed with the Lambert term.
 
 The TPU kernel's Mosaic machinery is not carried over: no host live lists,
 no front-to-back order, no tile permutation, no pad lanes, no tile-wide
-culls.  Each ray tests each cluster's root box, then its four quarter boxes,
-and sweeps the contiguous live quarter span, against its own running best
-distance.  The tile-wide culls were conservative, so the hits are the same;
-only which of two triangles at exactly the same distance wins can differ,
-since that follows the order in which they are visited.
+culls.  In the plain versions each ray tests each cluster's root box, then
+its four quarter boxes, and sweeps the contiguous live quarter span,
+against its own running best distance.  The tile-wide culls were
+conservative, so the hits are the same; only which of two triangles at
+exactly the same distance wins can differ, since that follows the order in
+which they are visited.  The CUDA kernels walk the cluster tree in table
+order and split each span among a group of lanes, and give the plain
+versions' bits (``tests/test_torch_cluster_tree.py`` emulates that walk).
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -202,7 +211,68 @@ def build_clusters(tri_p0, tri_e1, tri_e2, bvh=None, max_count=CLUSTER):
         [bmin, bmax, counts, np.zeros((Cp, 1), np.float32), qboxes], axis=1
     ).astype(np.float32)
     return {"tris": tris, "trisw": _bw_table(tris), "bounds": bounds,
-            "prim": prim.reshape(-1), "n_tris": T}
+            "prim": prim.reshape(-1), "tree": build_cluster_tree(bounds), "n_tris": T}
+
+
+TREE_LOG2 = 3  # the cull hierarchy's branching factor 8 = 1 << TREE_LOG2 (common.cuh)
+TREE_MAX_LEVELS = 8  # the kernels keep 8 bits of untested children a level in 64
+TREE_HEADER_ROWS = 2
+
+
+def build_cluster_tree(bounds):
+    """The cull hierarchy over contiguous cluster ranges that K7 and K9
+    walk (``csrc/common.cuh::wide_walk``): an implicit tree of branching
+    factor B = 8 (``1 << TREE_LOG2``) over the real clusters in table
+    order (pads, count 0, stay out).  Level l >= 1 holds ceil(R / B^l)
+    nodes; node j of level l covers the clusters [j B^l, (j + 1) B^l)
+    and its box is the exact float32 min / max of their root boxes
+    (``bounds[:, 0:6]``), so it contains each of them: a ray that fails
+    it against its running best fails every cluster under it.  The top
+    level is one node.
+
+    Returns (2 + nodes, 8) float32: row 0 [R, L, TREE_LOG2, 0, and the
+    row offsets of levels 1 .. 4], row 1 [levels 5 .. 8, 0 ...]; node rows
+    [min xyz, max xyz, 0, 0].  At most 8 levels (8^8 clusters)."""
+    b = np.asarray(bounds, np.float32)
+    counts = b[:, 6]
+    real = int((counts > 0).sum())
+    if not (counts[:real] > 0).all():
+        raise ValueError("build_cluster_tree: pad clusters must follow the real ones")
+    box = b[:real, 0:6]
+    B = 1 << TREE_LOG2
+    levels = []
+    while box.shape[0] > 1:
+        n = -(-box.shape[0] // B)
+        pad = n * B - box.shape[0]
+        lo = np.concatenate([box[:, 0:3], np.repeat(box[-1:, 0:3], pad, 0)])
+        hi = np.concatenate([box[:, 3:6], np.repeat(box[-1:, 3:6], pad, 0)])
+        box = np.concatenate([lo.reshape(n, -1, 3).min(1), hi.reshape(n, -1, 3).max(1)], 1)
+        levels.append(box)
+    if len(levels) > TREE_MAX_LEVELS:
+        raise ValueError(f"build_cluster_tree: {len(levels)} levels, at most {TREE_MAX_LEVELS}")
+    hdr = np.zeros((TREE_HEADER_ROWS, 8), np.float32)
+    flat = hdr.reshape(-1)
+    flat[0:3] = real, len(levels), TREE_LOG2
+    row = TREE_HEADER_ROWS
+    for li, nodes in enumerate(levels):
+        flat[4 + li] = row
+        row += nodes.shape[0]
+    rows = [np.concatenate([x, np.zeros((x.shape[0], 2), np.float32)], 1) for x in levels]
+    return np.concatenate([hdr] + rows).astype(np.float32)
+
+
+def tree_levels(tree):
+    """(R, [(row offset, node count) of levels 1 .. L]) of a
+    ``build_cluster_tree`` table; raises where its header is not one of
+    an 8-way tree, the only one the kernels walk."""
+    flat = np.asarray(tree, np.float32)[:TREE_HEADER_ROWS].reshape(-1)
+    real, n_lev, lb = int(flat[0]), int(flat[1]), int(flat[2])
+    if lb != TREE_LOG2 or not 0 <= n_lev <= TREE_MAX_LEVELS:
+        raise ValueError(f"cluster tree header: branching 2^{lb} with {n_lev} levels; the "
+                         f"kernels walk 2^{TREE_LOG2}-way trees of at most "
+                         f"{TREE_MAX_LEVELS} levels (build_cluster_tree)")
+    return real, [(int(flat[4 + li]), -(-real // (1 << (TREE_LOG2 * (li + 1)))))
+                  for li in range(n_lev)]
 
 
 def _bw_table(tris):
@@ -239,14 +309,16 @@ MAX_POINT_LIGHTS = 32  # lights the kernel stages in shared memory
 
 class DirectScene:
     """K9's tables on one device: bounds (C, 32), tris (C, 9, 128), shade
-    (C, 12, 128) and lights (P, 6) float32 (position, intensity), plus
-    host copies of the bounds and lights as Python floats, which the plain
+    (C, 12, 128), lights (P, 6) float32 (position, intensity) and the cull
+    hierarchy over the cluster boxes (``build_cluster_tree``), plus host
+    copies of the bounds and lights as Python floats, which the plain
     version reads."""
 
-    def __init__(self, bounds, tris, shade, lights, device="cpu"):
+    def __init__(self, bounds, tris, shade, lights, tree, device="cpu"):
         as_t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
-        self.bounds, self.tris, self.shade, self.lights = (
-            as_t(bounds), as_t(tris), as_t(shade), as_t(lights))
+        self.bounds, self.tris, self.shade, self.lights, self.tree = (
+            as_t(bounds), as_t(tris), as_t(shade), as_t(lights), as_t(tree))
+        tree_levels(tree)
         self.bounds_list = np.asarray(bounds, np.float32).tolist()
         self.lights_list = np.asarray(lights, np.float32).tolist()
 
@@ -256,7 +328,8 @@ class DirectScene:
 
     def to(self, device):
         return DirectScene(self.bounds.cpu().numpy(), self.tris.cpu().numpy(),
-                           self.shade.cpu().numpy(), self.lights.cpu().numpy(), device)
+                           self.shade.cpu().numpy(), self.lights.cpu().numpy(),
+                           self.tree.cpu().numpy(), device)
 
 
 def bake_direct_scene(scene) -> "DirectScene | None":
@@ -290,7 +363,7 @@ def bake_direct_scene(scene) -> "DirectScene | None":
     shade = build_shading_table(g.cl_prim.numpy(), with_fallback(g.tri_n0),
                                 with_fallback(g.tri_n1), with_fallback(g.tri_n2), tri_alb)
     lights = np.concatenate([em.point_pos.numpy(), em.point_intensity.numpy()], 1)
-    return DirectScene(g.cl_bounds.numpy(), g.cl_tris.numpy(), shade, lights)
+    return DirectScene(g.cl_bounds.numpy(), g.cl_tris.numpy(), shade, lights, g.cl_tree.numpy())
 
 
 def _clamp_abs(x, eps):
@@ -507,12 +580,15 @@ def direct_trace(ds: DirectScene, rays):
         raise ValueError("direct_trace needs contiguous float32 rays of shape (6, N)")
     n = rays.shape[1]
     C, P = ds.n_clusters, ds.lights.shape[0]
-    tabs = (ds.bounds, ds.tris, ds.shade, ds.lights)
+    tabs = (ds.bounds, ds.tris, ds.shade, ds.lights, ds.tree)
     if any(x.device != dev or not x.is_contiguous() for x in tabs):
         raise ValueError("direct_trace needs its tables contiguous on the rays' device")
     if not (0 < C <= DIRECT_C and 0 < P <= MAX_POINT_LIGHTS and 0 < n < 2 ** 31):
         raise ValueError(f"direct_trace takes 1..{DIRECT_C} clusters, 1..{MAX_POINT_LIGHTS} "
                          f"lights and fewer than 2^31 rays (got {C}, {P}, {n})")
+    if tuple(ds.tree.shape[1:]) != (8,) or ds.tree.shape[0] > TREE_HEADER_ROWS + DIRECT_C:
+        raise ValueError(f"direct_trace needs a cluster tree of at most "
+                         f"{TREE_HEADER_ROWS + DIRECT_C} rows of 8 (got {tuple(ds.tree.shape)})")
     from tpu_rt_torch.ops import _build
 
     lib = _build.load_library()
@@ -521,7 +597,8 @@ def direct_trace(ds: DirectScene, rays):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mesh_direct_launch(
             rays.data_ptr(), n, ds.bounds.data_ptr(), ds.tris.data_ptr(),
-            ds.shade.data_ptr(), C, ds.lights.data_ptr(), P, out.data_ptr(), stream)
+            ds.shade.data_ptr(), ds.tree.data_ptr(), ds.tree.shape[0], C,
+            ds.lights.data_ptr(), P, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("mesh_direct kernel launch failed: "
                            + lib.mesh_direct_error_string(err).decode())
@@ -624,7 +701,8 @@ def mesh_intersect(clusters, o, d, tmin=_TMIN, tmax=None, c0=0, c1=None):
     """Closest hit of rays o, d [N, 3] float32 over the clusters [c0, c1)
     (all by default) of ``clusters`` (a dict of tensors on the rays'
     device: ``bounds`` (C, 32), ``trisw`` (C, 12, 128), ``prim`` (C * 128,)
-    global triangle ids).  ``tmax`` is a scalar or [N], by default
+    global triangle ids, and for the kernel ``tree``, the cull hierarchy
+    of ``build_cluster_tree``).  ``tmax`` is a scalar or [N], by default
     0.99 * 1e8.  Returns (t, prim, u, v) [N], detached: prim the global
     triangle id, -1 on a miss, where t stays the incoming tmax.
 
@@ -645,7 +723,8 @@ def mesh_intersect(clusters, o, d, tmin=_TMIN, tmax=None, c0=0, c1=None):
         if dev.type == "cpu":
             t, lid, u, v = mesh_intersect_plain(bounds, trisw, o, d, tmax, tmin, c0, c1)
         elif dev.type == "cuda":
-            t, lid, u, v = _mesh_intersect_cuda(bounds, trisw, o, d, tmax, tmin, c0, c1)
+            t, lid, u, v = _mesh_intersect_cuda(bounds, trisw, clusters.get("tree"), o, d,
+                                                tmax, tmin, c0, c1)
         else:
             raise ValueError(f"mesh_intersect runs on cpu or cuda, not {dev.type}")
         prim = torch.where(lid >= 0, prim_map[torch.clamp(lid, min=0).to(torch.int64)], -1)
@@ -655,12 +734,22 @@ def mesh_intersect(clusters, o, d, tmin=_TMIN, tmax=None, c0=0, c1=None):
 mesh_intersect.launches = 0
 
 
-def _mesh_intersect_cuda(bounds, trisw, o, d, tmax, tmin, c0, c1):
+_TREES_READ = weakref.WeakValueDictionary()  # id -> a tree tensor whose header was checked
+
+
+def _mesh_intersect_cuda(bounds, trisw, tree, o, d, tmax, tmin, c0, c1):
     dev = o.device
     n = o.shape[0]
+    if tree is None:
+        raise ValueError("mesh_intersect on CUDA needs the clusters' tree "
+                         "(build_cluster_tree)")
+    if _TREES_READ.get(id(tree)) is not tree:  # its header, read once a tensor
+        tree_levels(tree[:TREE_HEADER_ROWS].cpu())
+        _TREES_READ[id(tree)] = tree
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("tmax", tmax, (n,)),
                            ("bounds", bounds, (bounds.shape[0], 32)),
-                           ("trisw", trisw, (bounds.shape[0], 12, CLUSTER))):
+                           ("trisw", trisw, (bounds.shape[0], 12, CLUSTER)),
+                           ("tree", tree, (tree.shape[0], 8))):
         if (x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape
                 or not x.is_contiguous()):
             raise ValueError(f"mesh_intersect needs {name} as contiguous float32 of shape "
@@ -677,9 +766,9 @@ def _mesh_intersect_cuda(bounds, trisw, o, d, tmax, tmin, c0, c1):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mesh_isect_launch(
-            bounds.data_ptr(), trisw.data_ptr(), c0, c1, o.data_ptr(), d.data_ptr(),
-            tmax.data_ptr(), float(tmin), n, t.data_ptr(), lid.data_ptr(), u.data_ptr(),
-            v.data_ptr(), stream)
+            bounds.data_ptr(), trisw.data_ptr(), tree.data_ptr(), c0, c1, o.data_ptr(),
+            d.data_ptr(), tmax.data_ptr(), float(tmin), n, t.data_ptr(), lid.data_ptr(),
+            u.data_ptr(), v.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("mesh_isect kernel launch failed: "
                            + lib.mesh_isect_error_string(err).decode())

@@ -363,7 +363,7 @@ class _Builder:
             cl = mesh_kernel.build_clusters(
                 tri_p0, tri_e1, tri_e2, bvh=bvh,
                 max_count=mesh_kernel.treelet_size(bvh, n_tris))
-            clusters = {"cl_" + k: cl[k] for k in ("tris", "bounds", "prim", "trisw")}
+            clusters = {"cl_" + k: cl[k] for k in ("tris", "bounds", "prim", "trisw", "tree")}
         arrays = dict(
             tri_p0=tri_p0, tri_e1=tri_e1, tri_e2=tri_e2,
             tri_n0=cat("n0", 3), tri_n1=cat("n1", 3), tri_n2=cat("n2", 3),

@@ -7,15 +7,17 @@ takes ``np.asarray`` of each field of a ``tpu_rt`` scene, so this package
 never sees a JAX array.
 
 Array names: the ``Geometry`` and ``Emitters`` tensor fields (the
-optional mesh cluster tables may be absent or None), ``shape_bsdf``,
-``shape_emitter``, ``bsdf_type``, ``bsdf_params``, ``shape_to_world``
-(optional: the polarizer's axis frame), and ``camera_<field>``
-for the camera's tensor fields, ``us_<field>`` for the ultrasound
-configuration's.  ``meta`` holds the ints and flags: ``n_tris``,
-``n_analytic``, ``n_area``, ``n_point``, ``has_env``, ``has_textures``,
-``integrator``, ``max_depth``, ``rr_depth``, ``hide_emitters``, ``camera``
-(a dict of the camera's static fields, or absent) and ``ultrasound`` (a
-dict of the ultrasound configuration's static fields, or absent).  The
+optional mesh cluster tables may be absent or None; their cull hierarchy
+``cl_tree`` is built from ``cl_bounds`` where it is absent),
+``shape_bsdf``, ``shape_emitter``, ``bsdf_type``, ``bsdf_params``,
+``shape_to_world`` (optional: the polarizer's axis frame), and
+``camera_<field>`` for the camera's tensor fields, ``us_<field>`` for
+the ultrasound configuration's.  ``meta`` holds the ints and flags:
+``n_tris``, ``n_analytic``, ``n_area``, ``n_point``, ``has_env``,
+``has_textures``, ``integrator``, ``max_depth``, ``rr_depth``,
+``hide_emitters``, ``camera`` (a dict of the camera's static fields, or
+absent) and ``ultrasound`` (a dict of the ultrasound configuration's
+static fields, or absent).  The
 sets of analytic shape types and of BSDF types present are computed here
 from ``an_type`` and ``bsdf_type``.
 """
@@ -34,19 +36,34 @@ def _tensor_fields(cls):
     return [f.name for f in dataclasses.fields(cls) if f.type == "torch.Tensor"]
 
 
+# optional fields derived from the others, not carried: the cull hierarchy
+# over the cluster boxes
+_DERIVED = ("cl_tree",)
+
+
 def optional_tensor_fields(cls):
-    """Fields that hold a tensor or None (the mesh cluster tables)."""
-    return [f.name for f in dataclasses.fields(cls) if f.type == "Optional[torch.Tensor]"]
+    """Fields that a caller carries as a tensor or None (the mesh cluster
+    tables; not ``cl_tree``, which is built from them)."""
+    return [f.name for f in dataclasses.fields(cls)
+            if f.type == "Optional[torch.Tensor]" and f.name not in _DERIVED]
 
 
 def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
     def t(name):
         return torch.from_numpy(np.array(arrays[name]))
 
+    cl_tree = None
+    if arrays.get("cl_tree") is not None:
+        cl_tree = t("cl_tree")
+    elif arrays.get("cl_bounds") is not None:  # a scene handed over from tpu_rt
+        from tpu_rt_torch.ops.mesh_kernel import build_cluster_tree
+
+        cl_tree = torch.from_numpy(build_cluster_tree(np.asarray(arrays["cl_bounds"])))
     geometry = Geometry(
         **{k: t(k) for k in _tensor_fields(Geometry)},
         **{k: None if arrays.get(k) is None else t(k)
            for k in optional_tensor_fields(Geometry)},
+        cl_tree=cl_tree,
         n_tris=int(meta["n_tris"]), n_analytic=int(meta["n_analytic"]),
         analytic_types=tuple(sorted(set(np.asarray(arrays["an_type"]).tolist()))),
     )

@@ -106,6 +106,7 @@ class Geometry(_Replace):
     cl_bounds: Optional[torch.Tensor] = None  # [C, 32]
     cl_prim: Optional[torch.Tensor] = None  # [C * 128] global triangle ids
     cl_trisw: Optional[torch.Tensor] = None  # [C, 12, 128] Baldwin-Weber rows
+    cl_tree: Optional[torch.Tensor] = None  # [2 + nodes, 8] the cull hierarchy over them
 
 
 @dataclass(frozen=True)
