@@ -78,9 +78,13 @@ Phases (any failure raises and the script exits non-zero):
      both loop forms; the raw planes of one 128x128 x 16-sample launch and
      of one main-path launch (256x256 x 64 samples, the kernels line's
      numbers), kernel ms in both forms and plain ms; K1 at depth 16 on the cbox
-     fixture in both forms; K6 at 32x32 and 256x256; K6 + splat_aligned
-     against K3 with spp_per_pass 1; diffuse-only Stokes-I against K1's
-     radiance within 1e-5 of the mean;
+     fixture in both forms; K6 at 32x32 and 256x256, one sample; K6 on a
+     chunk of samples (one launch): 4 samples at 32x32 against the plain
+     chunk, the per-sample route's 64 at 256x256 against 64 one-sample
+     launches, every plane equal; the per-sample route (K6 +
+     splat_in_order) against K3 with spp_per_pass 1, and in one 4-sample
+     chunk against one sample a chunk (bit-equal); diffuse-only Stokes-I
+     against K1's radiance within 1e-5 of the mean;
  18. the Stokes gates: render(cbox_pol) at 32x32, 32 spp, seed 0,
      tile_rows 8 against tests/golden/make_stokes_golden.py (tpu_rt's
      kernels in interpret mode, the same streams; I, Q, U block means);
@@ -93,8 +97,9 @@ Phases (any failure raises and the script exits non-zero):
      five timed renders, launch counts; the same with the per-sample loop
      forced, and both forms at max_depth 6; three renders under
      torch.profiler (the trace kernel's share, film_splat's, the
-     deposit's, idle); the per-sample route (K6 + splat_aligned) at the
-     same size;
+     deposit's, idle); the per-sample route (K6 in 64-sample chunks +
+     splat_in_order) at the same size, three renders, 8 K6 launches each,
+     with its peak device memory;
  20. the polarizer Stokes wavefront: render_stokes(polarizers_const.xml)
      at 128x128, 10 spp — one warm-up, five timed renders (its own line,
      not the polarizers cell, which is phase 24);
@@ -104,6 +109,10 @@ Phases (any failure raises and the script exits non-zero):
      EXR envmap) at 32x32 and 128x128, all 12 planes; K4 on 128x128 rays
      through the sheets (10 planes) and on 16 384 rays inside the cbox
      fixture (4 planes); each kernel's ms, its plain version's and its
+     bound; then each on a chunk of samples (one launch): 4 samples (K4 on
+     the first 1 024 rays) against the plain chunk, and the routes' 10
+     (K5 at 128x128, K4 on both ray sets) against ten one-sample launches
+     and against the plain chunk, with the chunk's ms, ms a sample and
      bound;
  22. the lanes: K1's film planes on polarizers_const.xml as a path scene
      (the pass-through lane) at 64x64 x 4 samples, and K3 with a null BSDF
@@ -114,11 +123,12 @@ Phases (any failure raises and the script exits non-zero):
      tests/golden/make_envmap_golden.py (tpu_rt's kernels in interpret
      mode, the same streams): 8x8 block means;
  24. the polarizers cell at full width: render(polarizers.xml) at 128x128,
-     10 spp (K5 once a sample, the lat-long lookup, splat_aligned,
-     develop) — one warm-up, five timed renders, K5's launch count 10 a
-     render; three renders under torch.profiler (K5's share, the rest, the
-     idle share); then the rays-in route: K4 on the 128x128 rays at ten
-     seeds;
+     10 spp (K5 once, a 10-sample chunk, the lat-long lookup,
+     splat_in_order, develop) — one warm-up, five timed renders, K5's
+     launch count 1 a render; the render bit-equal to one sample a pass;
+     three renders under torch.profiler (K5's share, the rest, the idle
+     share); then the rays-in route: K4 on the 128x128 rays at ten seeds,
+     one chunk;
  25. the rough conductor's lane and cone prims against their plain
      versions on the card, bit for bit: K1 on tests/assets/cbox/
      cbox_rough.xml (the rough sphere and the cone) at 64x64 x 4 samples
@@ -126,9 +136,12 @@ Phases (any failure raises and the script exits non-zero):
      beside its cone alone and the cbox's rough lane alone; K3 in both loop
      forms and K6 on tests/assets/cbox_pol/cbox_pol_rough.xml at 64x64
      (depth 16, the NEE Mueller chain), and K3 in both loop forms on one
-     main-path launch (256x256 x 64 samples); K5 and K4 on
-     tests/torch_port_scenes.py::envmap_rough_cone_desc at 128x128; K10 on
-     cone_box_desc (the Cone_Box class) at 20 480 lanes;
+     main-path launch (256x256 x 64 samples); K6's chunk at 32x32 x 4
+     against the plain chunk and at 256x256 x 64 against one-sample
+     launches; K5 and K4 on
+     tests/torch_port_scenes.py::envmap_rough_cone_desc at 128x128, one
+     sample and a chunk (4 against the plain chunk, 10 against one-sample
+     launches); K10 on cone_box_desc (the Cone_Box class) at 20 480 lanes;
  26. the gates: us_render of cone_box_desc at 64 rays per pair, seed 0,
      against tests/golden/make_us_cone_golden.py (tpu_rt's kernel route:
      axial |RF| correlation >= 0.999, total |RF| within 1%, B-mode block
@@ -149,10 +162,13 @@ Phases (any failure raises and the script exits non-zero):
      one warm-up, five timed runs, launch counts.
 Each main path (phases 5, 9, 13, 16, 19, 20, 24 and 27) runs with every launch
 count set to 0 just before it and read just after; a film launch counts one
-trace-kernel launch (path_film or stokes_film) and one film_splat.  The
-line before the last is a JSON record of the kernels, each with its bound: the larger of its
-operations over 67 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100
-SXM's data-sheet peaks), counted from this run's inputs; the last line is
+trace-kernel launch (path_film or stokes_film) and one film_splat, and a
+per-sample kernel's chunk one launch.  Then comes a JSON record of the
+kernels, each with its bound: the larger of its operations over 67
+TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100 SXM's data-sheet
+peaks), counted from this run's inputs; K6, K5 and K4 also with their
+routes' chunk (ms, ms a sample, the chunk's bound, launches a render).
+The line before the last is the script's run time; the last is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -323,6 +339,9 @@ def load_golden_module(path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+T_START = time.perf_counter()
 
 
 def main():
@@ -546,7 +565,7 @@ def main():
         "launches": pol["k6_launches"], "max_abs_err": max(pol["k6_err"], rc["k6"]["max_abs_err"]),
         "ms": pol["k6_ms"], "plain_ms": pol["k6_plain_ms"],
         "bound_ms": pol["k6_bound_ms"], "bound_by": pol["k6_bound_by"], "library_ms": None,
-        "rough": rc["k6"],
+        "chunk": pol["k6_chunk"], "rough": rc["k6"],
     }, {
         "name": "raygen_sample", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
@@ -554,7 +573,7 @@ def main():
         "launches": env["k5_launches"], "max_abs_err": max(env["k5_err"], rc["k5"]["max_abs_err"]),
         "ms": env["k5_ms"], "plain_ms": env["k5_plain_ms"],
         "bound_ms": env["k5_bound"][0], "bound_by": env["k5_bound"][1], "library_ms": None,
-        "rough_cone": rc["k5"],
+        "chunk": env["k5_chunk"], "rough_cone": rc["k5"],
     }, {
         "name": "rays_sample", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
@@ -562,8 +581,10 @@ def main():
         "launches": env["k4_launches"], "max_abs_err": max(env["k4_err"], rc["k4"]["max_abs_err"]),
         "ms": env["k4_ms"], "plain_ms": env["k4_plain_ms"],
         "bound_ms": env["k4_bound"][0], "bound_by": env["k4_bound"][1], "library_ms": None,
-        "cbox": env["k4_cbox"], "rough_cone": rc["k4"],
+        "chunk": env["k4_chunk"]["polarizers"],
+        "cbox": dict(env["k4_cbox"], chunk=env["k4_chunk"]["cbox"]), "rough_cone": rc["k4"],
     }]}))
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -1181,6 +1202,45 @@ def kernel_vs_plain(name, kernel, plain, reps=3):
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err), got
 
 
+def chunk_vs_singles(name, call, seed, k, reps=5):
+    """A per-sample kernel's chunk of ``k`` samples (``call(seed, k)``, one
+    launch) against ``k`` one-sample launches seeded seed + i: bit-equal
+    on every plane.  Returns dict(samples, ms, ms_per_sample, singles_ms)
+    and the chunk (ms: median of ``reps`` CUDA-event timings after a
+    warm-up; singles_ms: the k launches, timed once after a warm-up).  A
+    chunk of under 2^20 lanes (samples x pixels or rays) runs for tens of
+    microseconds, near the host's launch overhead, so each of its timings
+    covers 20 calls, as tools/ab_film.py's do."""
+    from tpu_rt_torch.ops import path_kernel as pk
+
+    def singles():
+        return torch.stack([call(pk._wrap_i32(seed + i)) for i in range(k)], 1)
+
+    got, want = call(seed, k), singles()
+    torch.cuda.synchronize()
+    share, _ = equal_stats(got, want)
+    per = 20 if got[0].numel() < 1 << 20 else 1
+    ms = statistics.median(cuda_ms(lambda: call(seed, k), reps=per)[0] for _ in range(reps))
+    singles_ms, _ = cuda_ms(singles, reps=per)
+    print(f"{name}: a {k}-sample chunk vs {k} one-sample launches: bit-equal share {share:.6f}; "
+          f"chunk {ms:.4f} ms ({ms / k:.4f} a sample), one-sample launches {singles_ms:.4f} ms "
+          f"({singles_ms / k:.4f} a sample)")
+    assert torch.equal(got, want), f"{name}: the chunk differs from one-sample launches"
+    return dict(samples=k, ms=ms, ms_per_sample=ms / k, singles_ms=singles_ms), got
+
+
+def chunk_vs_plain(name, call, plain, seed, k):
+    """A chunk launch against its plain chunk on the same inputs, bit for
+    bit (``call`` / ``plain`` as in ``chunk_vs_singles``)."""
+    got, want = call(seed, k), plain(seed, k)
+    torch.cuda.synchronize()
+    share, err = equal_stats(got, want)
+    print(f"{name}: a {k}-sample chunk vs its plain version: bit-equal share {share:.6f}, max "
+          f"|d| {err:.3e}")
+    assert torch.equal(got, want), f"{name}: the chunk differs from its plain version"
+    return err
+
+
 def stokes_bound(tables, planes, n_samples):
     """A Stokes launch's bound: K1's count (every ray tests every prim)
     plus the Mueller chain on at least rays / 2 - samples continuing
@@ -1329,14 +1389,31 @@ def stokes_phases(tt, dev):
           f"{k6_plain_ms:.1f} ms (256x256, one sample, depth 16); bound {k6_b[0]:.5f} ms "
           f"({k6_b[1]})")
     assert torch.equal(s256, s256p)
+    # the route's chunks: four samples against the plain chunk, and the
+    # main-path chunk (64 samples at 256x256) against 64 one-sample launches
+    k6_err = max(k6_err, chunk_vs_plain(
+        "stokes_sample (K6) cbox_pol 32x32, depth 16",
+        lambda s, n=None: pk.stokes_sample_trace(t32, s, n),
+        lambda s, n=None: pk.stokes_sample_trace_plain(t32, s, n), 5, 4))
+    k6_chunk, c256 = chunk_vs_singles("stokes_sample (K6) cbox_pol 256x256, depth 16",
+                                      lambda s, n=None: pk.stokes_sample_trace(t256, s, n), 0, 64)
+    k6_chunk["bound_ms"], k6_chunk["bound_by"] = stokes_bound(t256, c256, 64)
+    print(f"  the chunk's bound {k6_chunk['bound_ms']:.5f} ms ({k6_chunk['bound_by']}; one "
+          f"sample's {k6_b[0]:.5f}); planes {c256.numel() * 4 / 1e6:.1f} MB")
+    del c256
     S_film, r_film = pk.render_stokes_film(pol32, spp=4, seed=5, device=dev, spp_per_pass=1)
     S_ps, r_ps = render_stokes_per_sample(pol32, 4, 5, dev)
     share, ps_err = equal_stats(S_film, S_ps)
     close = torch.isclose(S_film, S_ps, rtol=2e-5, atol=2e-6).float().mean().item()
-    print(f"K6 + splat_aligned vs K3 (spp_per_pass 1), cbox_pol 32x32 4 spp: within rtol "
-          f"2e-5 atol 2e-6 {close:.6f}, bit-equal share {share:.6f}, max |d| {ps_err:.3e}, "
-          f"rays {int(r_ps)} vs {int(r_film)}")
+    print(f"the per-sample route (K6 + splat_in_order) vs K3 (spp_per_pass 1), cbox_pol 32x32 4 "
+          f"spp: within rtol 2e-5 atol 2e-6 {close:.6f}, bit-equal share {share:.6f}, max |d| "
+          f"{ps_err:.3e}, rays {int(r_ps)} vs {int(r_film)}")
     assert close == 1.0 and int(r_ps) == int(r_film)
+    S_one, r_one = render_stokes_per_sample(pol32, 4, 5, dev, spp_per_pass=1)
+    print(f"the per-sample route in one chunk vs one sample a chunk, cbox_pol 32x32 4 spp: "
+          f"bit-equal {bool(torch.equal(S_ps, S_one))}, rays {int(r_ps)} vs {int(r_one)}")
+    assert torch.equal(S_ps, S_one) and int(r_ps) == int(r_one), \
+        "the per-sample route's chunk differs from its one-sample passes"
 
     dif = tt.load_file(FIXTURE, res=64, spp=4).replace(max_depth=16)
     dif = dif.replace(bsdf_type=torch.full_like(dif.bsdf_type, TT.BSDF_DIFFUSE))
@@ -1437,16 +1514,23 @@ def stokes_phases(tt, dev):
     for e in sorted(prof.key_averages(), key=dev_us, reverse=True)[:6]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
-    render_stokes_per_sample(pol256, 4, 0, dev)  # warm-up
+    render_stokes_per_sample(pol256, 64, 0, dev)  # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    ps_ms, (S_ps, nr_ps) = cuda_ms(lambda: render_stokes_per_sample(pol256, 512, 2, dev))
+    runs = [cuda_ms(lambda: render_stokes_per_sample(pol256, 512, 2 + rep, dev))
+            for rep in range(3)]
     ps_counts = launch_counts()
-    print(f"launch counts over the per-sample route (K6 + splat_aligned): {ps_counts}")
-    print(f"cbox_pol 256x256 512 spp through K6 + splat_aligned: {ps_ms:.3f} ms, rays "
-          f"{int(nr_ps)}, rays/s {int(nr_ps) / (ps_ms / 1e3):.4e}")
-    check_counts(ps_counts, stokes_sample=512)
+    ps_ms = statistics.median(r[0] for r in runs)
+    S_ps, nr_ps = runs[-1][1]
+    print(f"launch counts over the per-sample route (K6 + splat_in_order, 3 renders): {ps_counts}")
+    print(f"cbox_pol 256x256 512 spp through K6 in 64-sample chunks + splat_in_order: median "
+          f"{ps_ms:.3f} ms (min {min(r[0] for r in runs):.3f}, max {max(r[0] for r in runs):.3f}, "
+          f"n 3), rays {int(nr_ps)}, rays/s {int(nr_ps) / (ps_ms / 1e3):.4e}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check_counts(ps_counts, stokes_sample=8 * 3)
     assert bool(torch.isfinite(S_ps).all())
+    k6_chunk.update(launches_per_render=ps_counts["stokes_sample"] // 3, route_ms=ps_ms)
 
     # ---- 20. the polarizer wavefront: polarizers_const.xml 128x128, 10 spp -------
     pz = tt.load_file(os.path.join(POL_DIR, "polarizers_const.xml"))
@@ -1480,7 +1564,8 @@ def stokes_phases(tt, dev):
                 bound_by=m_b_by,
                 launch_128=dict(k3_ms=k3_ms, k2_ms=k2_ms, plain_ms=plain_ms, bound_ms=b_ms),
                 k1_depth16=dict(regen_ms=r1_ms, unrolled_ms=u1_ms),
-                k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_bound_ms=k6_b[0], k6_bound_by=k6_b[1])
+                k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_bound_ms=k6_b[0], k6_bound_by=k6_b[1],
+                k6_chunk=k6_chunk)
 
 
 
@@ -1522,10 +1607,10 @@ def envmap_phases(tt, dev, k1_ms, k3_ms):
     g = load_golden_module(ENV_GOLDEN_SCRIPT)
 
     # ---- 21. K5 and K4 against their plain versions, bit for bit ----------
-    k5 = {}
+    k5, tabs = {}, {}
     for res in (32, 128):
         sc = tt.load_file(POLARIZERS, res=res, spp=1)
-        tab = pk.pack_tables(pk.bake_scene(sc), sc.camera, 16, dev)
+        tab = tabs[res] = pk.pack_tables(pk.bake_scene(sc), sc.camera, 16, dev)
         assert tab.env_textured and tab.hdr_list[pk.HDR_MAX_DEPTH] == 16
         r, got = kernel_vs_plain(  # the first sample of render(seed=0)
             f"raygen_sample (K5) vs plain, polarizers.xml {res}x{res}, one sample, depth 16, "
@@ -1537,9 +1622,21 @@ def envmap_phases(tt, dev, k1_ms, k3_ms):
         print(f"  escaped share {escaped:.4f}, rays {got[3].sum().item():.0f}; bound {b_ms:.6f} "
               f"ms ({b_by})")
         assert escaped > 0.5
+    # the route's chunk: four samples against the plain chunk, the
+    # polarizers cell's 10 samples against ten one-sample launches
+    k5_chunk_err = chunk_vs_plain(
+        "raygen_sample (K5) polarizers.xml 32x32",
+        lambda s, n=None: pk.raygen_trace(tabs[32], s, n),
+        lambda s, n=None: pk.raygen_trace_plain(tabs[32], s, n), 0, 4)
+    k5_chunk, got = chunk_vs_singles("raygen_sample (K5) polarizers.xml 128x128",
+                                     lambda s, n=None: pk.raygen_trace(tabs[128], s, n), 0, 10)
+    k5_chunk["plain_ms"], want = cuda_ms(lambda: pk.raygen_trace_plain(tabs[128], 0, 10))
+    k5_chunk["bound_ms"], k5_chunk["bound_by"] = film_trace_bound(tabs[128], got, 3)
+    print(f"  plain chunk {k5_chunk['plain_ms']:.1f} ms, bit-equal {bool(torch.equal(got, want))}; "
+          f"the chunk's bound {k5_chunk['bound_ms']:.6f} ms ({k5_chunk['bound_by']})")
+    assert torch.equal(got, want), "K5's chunk differs from its plain version"
 
-    pol128 = tt.load_file(POLARIZERS, res=128, spp=1)
-    tab128 = pk.pack_tables(pk.bake_scene(pol128), pol128.camera, 16, dev)
+    tab128 = tabs[128]
     o, d = (torch.from_numpy(x).to(dev) for x in g.k4_env_rays(128 * 128))
     r, got = kernel_vs_plain(
         f"rays_sample (K4) vs plain, {o.shape[0]} rays through the polarizers.xml sheets, "
@@ -1562,6 +1659,23 @@ def envmap_phases(tt, dev, k1_ms, k3_ms):
     cb_bound = film_trace_bound(tcb, got, 3, n_in=6 * oc.shape[0])
     print(f"  mean L {got[0:3].mean().item():.5f}; bound {cb_bound[0]:.6f} ms ({cb_bound[1]})")
     assert got.shape == (4, 128 * 128)
+    k4_chunk = {}
+    for key, tk, ok, dk in (("polarizers", tab128, o, d), ("cbox", tcb, oc, dc)):
+        n = ok.shape[0]
+        k4_chunk_err = chunk_vs_plain(
+            f"rays_sample (K4) {key}, 1024 rays", lambda s, m=None: pk.path_trace(
+                tk, ok[:1024], dk[:1024], s, m),
+            lambda s, m=None: pk.path_trace_plain(tk, ok[:1024], dk[:1024], s, m), 2, 4)
+        k4_chunk[key], got = chunk_vs_singles(f"rays_sample (K4) {key}, {n} rays",
+                                              lambda s, m=None: pk.path_trace(tk, ok, dk, s, m),
+                                              0, 10)
+        k4_chunk[key]["plain_ms"], want = cuda_ms(lambda: pk.path_trace_plain(tk, ok, dk, 0, 10))
+        b_ms, b_by = film_trace_bound(tk, got, 3, n_in=6 * n)
+        k4_chunk[key].update(bound_ms=b_ms, bound_by=b_by)
+        print(f"  plain chunk {k4_chunk[key]['plain_ms']:.1f} ms, bit-equal "
+              f"{bool(torch.equal(got, want))}; the chunk's bound {b_ms:.6f} ms ({b_by})")
+        assert torch.equal(got, want), "K4's chunk differs from its plain version"
+        k4_err = max(k4_err, k4_chunk_err)
 
     # ---- 22. the pass-through and null lanes; K1 and K3 re-timed ------------
     pc = tt.load_file(os.path.join(POL_DIR, "polarizers_const.xml"), res=64, spp=4)
@@ -1623,14 +1737,19 @@ def envmap_phases(tt, dev, k1_ms, k3_ms):
     polar = tt.load_file(POLARIZERS)  # 128x128, 10 spp, gaussian
     med, lo, hi, nr, counts, img = timed_main_path(tt, polar, 10)
     print(f"launch counts over the polarizers main path: {counts}")
-    print(f"polarizers main path polarizers.xml 128x128 10 spp gaussian (K5 per sample): "
+    print(f"polarizers main path polarizers.xml 128x128 10 spp gaussian (K5, one chunk): "
           f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}; image mean {img.mean().item():.5f}, max "
           f"{img.max().item():.3f}")
-    check_counts(counts, raygen_sample=10 * 5)
+    check_counts(counts, raygen_sample=5)
     assert img.shape == (128, 128, 3) and bool(torch.isfinite(img).all())
     assert img.max().item() > 5.0  # the sun, through to_world and scale
     k5_launches = counts["raygen_sample"]
+    k5_chunk.update(launches_per_render=k5_launches // 5, route_ms=med)
+    one = tt.render(polar, seed=3, device="cuda", spp_per_pass=1)
+    same = torch.equal(tt.render(polar, seed=3, device="cuda"), one)
+    print(f"render(polarizers.xml) in one 10-sample chunk vs one sample a pass: bit-equal {same}")
+    assert same, "the polarizers route's chunk differs from its one-sample passes"
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1643,24 +1762,27 @@ def envmap_phases(tt, dev, k1_ms, k3_ms):
     kern = sum(dev_us(e) for e in prof.key_averages() if "path_sample_kernel" in e.key) / 1e3
     print(f"profile of 3 polarizers renders: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
           f"path_sample_kernel (K5) {kern:.3f} ms ({kern / max(busy, 1e-9):.4f} of busy), the "
-          f"rest (eval_env, splat_aligned, develop) {busy - kern:.3f} ms "
+          f"rest (eval_env, splat_in_order, develop) {busy - kern:.3f} ms "
           f"({(busy - kern) / max(busy, 1e-9):.4f}), idle share {1.0 - busy / wall_ms:.4f}")
     for e in sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
-    # the rays-in route: K4 on the 128x128 rays at ten seeds, as a caller
-    # tracing its own rays does
-    pk.path_trace(tab128, o, d, 1000)  # warm-up
+    # the rays-in route: K4 on the 128x128 rays at ten seeds, one chunk, as
+    # a caller tracing its own rays does
+    pk.path_trace(tab128, o, d, 1000, 10)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
-    r_ms, planes = cuda_ms(lambda: [pk.path_trace(tab128, o, d, s) for s in range(10)])
+    r_ms, planes = cuda_ms(lambda: pk.path_trace(tab128, o, d, 0, 10))
     counts = launch_counts()
-    print(f"launch counts over the rays-in route (K4, 10 seeds): {counts}")
+    print(f"launch counts over the rays-in route (K4, 10 seeds in one chunk): {counts}")
     print(f"rays-in route, {o.shape[0]} rays x 10 seeds: {r_ms:.3f} ms, rays "
-          f"{sum(p[3].sum().item() for p in planes):.0f}")
-    check_counts(counts, rays_sample=10)
+          f"{planes[3].sum().item():.0f}")
+    check_counts(counts, rays_sample=1)
+    k4_chunk["polarizers"].update(launches_per_render=counts["rays_sample"], route_ms=r_ms)
 
-    return dict(k5_launches=k5_launches, k5_err=max(v["err"] for v in k5.values()),
+    return dict(k5_launches=k5_launches,
+                k5_err=max(max(v["err"] for v in k5.values()), k5_chunk_err),
+                k5_chunk=k5_chunk, k4_chunk=k4_chunk,
                 k5_ms=k5[128]["ms"], k5_plain_ms=k5[128]["plain_ms"], k5_bound=k5[128]["bound"],
                 k4_launches=counts["rays_sample"], k4_err=max(k4_err, cb_err), k4_ms=k4_ms,
                 k4_plain_ms=k4_plain_ms, k4_bound=k4_bound,
@@ -1749,6 +1871,11 @@ def rough_cone_phases(tt, dev):
                                      lambda: pk.stokes_sample_trace(tp, 5),
                                      lambda: pk.stokes_sample_trace_plain(tp, 5))
     out["k6"]["bound_ms"], out["k6"]["bound_by"] = stokes_bound(tp, s64, 1)
+    p32 = tt.load_file(os.path.join(POL_DIR, "cbox_pol_rough.xml"), res=32, spp=4)
+    t32 = pk.pack_tables(pk.bake_scene(p32), p32.camera, 16, dev, stokes=True)
+    out["k6"]["max_abs_err"] = max(out["k6"]["max_abs_err"], chunk_vs_plain(
+        "stokes_sample (K6) rough, cbox_pol_rough 32x32", lambda s, n=None: pk.stokes_sample_trace(
+            t32, s, n), lambda s, n=None: pk.stokes_sample_trace_plain(t32, s, n), 5, 4))
     # K3 at the rough fixture's main-path shape: render(seed=0)'s first chunk
     p256 = tt.load_file(os.path.join(POL_DIR, "cbox_pol_rough.xml"))  # 256x256, 512 spp
     t256 = pk.pack_tables(pk.bake_scene(p256), p256.camera, 16, dev, stokes=True)
@@ -1775,6 +1902,9 @@ def rough_cone_phases(tt, dev):
         out[key] = dict(ms=ms, plain_ms=m_plain_ms, max_abs_err=max(err, out[key]["max_abs_err"]),
                         bound_ms=mb[0], bound_by=mb[1], launch_64=out[key], parts=rparts[key])
     del main_k, main_u, main_p
+    out["k6"]["chunk"], _ = chunk_vs_singles(
+        "stokes_sample (K6) rough, cbox_pol_rough 256x256",
+        lambda s, n=None: pk.stokes_sample_trace(t256, s, n), 0, 64)
 
     e128 = tt.load_dict(envmap_rough_cone_desc(st, os.path.join(os.path.dirname(POLARIZERS),
                                                                 "envmap.exr"), 128))
@@ -1784,12 +1914,26 @@ def rough_cone_phases(tt, dev):
         "raygen_sample (K5) rough + cone vs plain, envmap_rough_cone 128x128, one sample",
         lambda: pk.raygen_trace(te, 4), lambda: pk.raygen_trace_plain(te, 4), reps=20)
     out["k5"]["bound_ms"], out["k5"]["bound_by"] = film_trace_bound(te, got, 3)
+    out["k5"]["max_abs_err"] = max(out["k5"]["max_abs_err"], chunk_vs_plain(
+        "raygen_sample (K5) rough + cone, envmap_rough_cone 128x128",
+        lambda s, n=None: pk.raygen_trace(te, s, n),
+        lambda s, n=None: pk.raygen_trace_plain(te, s, n), 4, 4))
+    out["k5"]["chunk"], _ = chunk_vs_singles("raygen_sample (K5) rough + cone, envmap_rough_cone "
+                                             "128x128", lambda s, n=None: pk.raygen_trace(te, s, n),
+                                             4, 10)
     o, d = (torch.from_numpy(x).to(dev) for x in g.k4_rays(128 * 128))
     out["k4"], got = kernel_vs_plain(
         f"rays_sample (K4) rough + cone vs plain, {o.shape[0]} rays in envmap_rough_cone",
         lambda: pk.path_trace(te, o, d, 2), lambda: pk.path_trace_plain(te, o, d, 2), reps=20)
     out["k4"]["bound_ms"], out["k4"]["bound_by"] = film_trace_bound(te, got, 3,
                                                                     n_in=6 * o.shape[0])
+    out["k4"]["max_abs_err"] = max(out["k4"]["max_abs_err"], chunk_vs_plain(
+        "rays_sample (K4) rough + cone, 1024 rays in envmap_rough_cone",
+        lambda s, n=None: pk.path_trace(te, o[:1024], d[:1024], s, n),
+        lambda s, n=None: pk.path_trace_plain(te, o[:1024], d[:1024], s, n), 2, 4))
+    out["k4"]["chunk"], _ = chunk_vs_singles(
+        f"rays_sample (K4) rough + cone, {o.shape[0]} rays in envmap_rough_cone",
+        lambda s, n=None: pk.path_trace(te, o, d, s, n), 2, 10)
 
     cone = tt.load_dict(cone_box_desc(st))
     usc = cone.ultrasound

@@ -30,9 +30,12 @@ conductor's lane and cone prims in K1, K2's loop, K3, K6, K5 and K4, and
 cones in the acquisition kernel, bit-equal to their plain versions; the
 film kernels' two launches, the trace kernel's sample records and
 film_splat on given records, bit-equal to their plain versions, also
-across a chunk boundary.
+across a chunk boundary; K6, K5 and K4 on a chunk of samples a launch,
+bit-equal to their plain chunks and to one-sample launches, and the
+textured-environment route launching K5 once a chunk.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -617,7 +620,7 @@ def test_render_textured_environment_on_cuda_goes_through_k5():
     before = (path_kernel.raygen_trace.launches, path_kernel.film_trace.launches)
     img = tpu_rt_torch.render(st, seed=1)
     assert (path_kernel.raygen_trace.launches, path_kernel.film_trace.launches) == (
-        before[0] + 3, before[1])  # one K5 launch a sample, no film kernel
+        before[0] + 1, before[1])  # one K5 launch for the 3-sample chunk, no film kernel
     assert img.device.type == "cuda" and img.shape == (32, 32, 3)
     assert bool(torch.isfinite(img).all()) and img.max().item() > 5.0
     rays = tpu_rt_torch.render.last_ray_count
@@ -789,3 +792,75 @@ def test_film_launch_across_a_chunk_boundary_is_bit_equal(stokes, monkeypatch):
     small = path_kernel.split_film(tables, 8, 7, path_kernel.film_records,
                                    path_kernel.film_splat)
     assert torch.equal(small, plain_fn(tables, 8, 7))
+
+
+def _chunk_checks(call, plain, seed, k):
+    """A chunk launch of ``call`` (a wrapper's partial; counted once)
+    against its plain chunk and against k one-sample launches seeded
+    seed + i, bit for bit; returns the chunk."""
+    before = call.func.launches
+    got = call(seed, k)
+    torch.cuda.synchronize()
+    assert call.func.launches == before + 1
+    assert got.dim() == 3 and got.shape[1] == k
+    assert torch.equal(got, plain(seed, k))
+    singles = torch.stack([call(path_kernel._wrap_i32(seed + i)) for i in range(k)], 1)
+    assert torch.equal(got, singles)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,depth,k,seed", [
+    (CBOX_POL, 3, 4, 11), (CBOX_POL, None, 3, 2**31 - 2), (POL_ROUGH, None, 3, -7)],
+    ids=["depth3", "depth16_wrapping", "rough_depth16"])
+def test_stokes_sample_chunk_is_bit_equal(path, depth, k, seed):
+    """K6 on a chunk of samples: cbox_pol at depths 3 and 16 and the rough
+    lane on cbox_pol_rough."""
+    _need_cuda()
+    tables = _film_tables(path, 24, depth, 2, True)
+    got = _chunk_checks(functools.partial(path_kernel.stokes_sample_trace, tables),
+                        functools.partial(path_kernel.stokes_sample_trace_plain, tables), seed, k)
+    assert got.shape == (15, k, 24 * 24) and got[1:12].abs().max().item() > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,k,seed", [("polarizers", 4, 0), ("rough_cone", 3, -6)])
+def test_raygen_and_rays_chunks_are_bit_equal(which, k, seed):
+    """K5 and K4 on a chunk of samples under the textured environment:
+    polarizers.xml (K4 on 1 024 rays through the sheets) and the rough ball
+    and cone of envmap_rough_cone_desc."""
+    _need_cuda()
+    if which == "polarizers":
+        tables = _envmap_tables("polarizers", 32)
+    else:
+        st = tpu_rt_torch.load_dict(envmap_rough_cone_desc(tpu_rt_torch.ScalarTransform4f,
+                                                           ENVMAP, 32))
+        tables = path_kernel.pack_tables(path_kernel.bake_scene(st), st.camera, 16, "cuda")
+        assert tables.rough_cone
+    got = _chunk_checks(functools.partial(path_kernel.raygen_trace, tables),
+                        functools.partial(path_kernel.raygen_trace_plain, tables), seed, k)
+    assert got.shape == (12, k, 32 * 32) and (got[9:12].sum(0) > 0).any()
+    gen = torch.Generator()
+    gen.manual_seed(k)
+    o = torch.tensor([0.0, 0.0, -3.0]) + (torch.rand((1024, 3), generator=gen) - 0.5) * 0.4
+    d = torch.nn.functional.normalize(
+        torch.randn((1024, 3), generator=gen) * 0.3 + torch.tensor([0.0, 0.0, 1.0]), dim=-1)
+    o, d = o.cuda(), d.cuda()
+    got = _chunk_checks(functools.partial(path_kernel.path_trace, tables, o, d),
+                        functools.partial(path_kernel.path_trace_plain, tables, o, d), seed, k)
+    assert got.shape == (10, k, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spp,spp_per_pass", [(5, 2), (5, 64), (10, 10)])
+def test_render_textured_environment_launches_k5_once_a_chunk(spp, spp_per_pass):
+    """render(polarizers.xml) launches K5 ceil(spp / spp_per_pass) times,
+    and its image is the one-sample-a-pass render's, bit for bit."""
+    _need_cuda()
+    st = tpu_rt_torch.load_file(POLARIZERS, res=32, spp=spp)
+    before = path_kernel.raygen_trace.launches
+    img = tpu_rt_torch.render(st, seed=2, spp_per_pass=spp_per_pass)
+    rays = int(tpu_rt_torch.render.last_ray_count)
+    assert path_kernel.raygen_trace.launches == before + -(-spp // spp_per_pass)
+    one = tpu_rt_torch.render(st, seed=2, spp_per_pass=1)
+    assert torch.equal(img, one) and rays == int(tpu_rt_torch.render.last_ray_count)

@@ -90,8 +90,10 @@ def test_textured_environment_takes_the_per_sample_route(monkeypatch):
     wave = _spy(monkeypatch, wavefront, "render")
     sc = tpu_rt_torch.load_file(G.POLARIZERS, res=16, spp=3)
     img = tpu_rt_torch.render(sc, seed=4, device="cpu", tile_rows=8)
+    # one K5 call for the 3-sample chunk (render's spp_per_pass, 64)
     assert [len(routes[k]) for k in ("render_sample_film", "render_film", "raygen_trace")] \
-        == [1, 0, 3]
+        == [1, 0, 1]
+    assert routes["render_sample_film"][0]["spp_per_pass"] == 64
     assert not wave and img.shape == (16, 16, 3) and img.mean() > 0
     assert pk.bake_scene(sc).env_textured
 

@@ -272,13 +272,15 @@ def cone_box_desc(st, box=True):
     return desc
 
 
-def render_stokes_per_sample(scene, spp, seed, device, tile_rows=16):
+def render_stokes_per_sample(scene, spp, seed, device, tile_rows=16, spp_per_pass=64):
     """The JAX package's per-sample Stokes route (render_stokes_pallas:
-    2257-2295), the reference that K3's film planes are held to: K6 once a
-    sample, its values splatted by ``sensor/film.py::splat_aligned``, then
-    developed.  Sample j draws the stream of seed * 100003 + j, as in the
-    film route.  Returns the (H, W, 4, 3) Stokes image and the ray count
-    (0-d int64)."""
+    2257-2295), the reference that K3's film planes are held to: K6
+    traces ``spp_per_pass`` samples a launch (the last chunk what is
+    left), their values splatted by ``sensor/film.py::splat_in_order``,
+    then developed.  Sample j draws the stream of seed * 100003 + j, as in
+    the film route; the image is bit-equal whatever the chunk (the glue is
+    elementwise and the samples land in order).  Returns the (H, W, 4, 3)
+    Stokes image and the ray count (0-d int64)."""
     import torch
 
     from tpu_rt_torch.ops import path_kernel as pk
@@ -291,14 +293,15 @@ def render_stokes_per_sample(scene, spp, seed, device, tile_rows=16):
     fw = torch.zeros((H, W), dtype=torch.float32, device=device)
     n_rays = torch.zeros((), dtype=torch.int64, device=device)
     seed0 = pk._wrap_i32(seed * 100003)
-    for j in range(spp):
-        planes = pk.stokes_sample_trace(tables, pk._wrap_i32(seed0 + j))
+    for j in range(0, spp, spp_per_pass):
+        k = min(spp_per_pass, spp - j)
+        planes = pk.stokes_sample_trace(tables, pk._wrap_i32(seed0 + j), k)
         S, jitter, n = pk.sample_planes_split(planes)
-        S = S.reshape(-1, 12)
+        S = S.reshape(k, -1, 12)
         ok = torch.isfinite(S).all(-1)
-        fv, fw = film.splat_aligned(fv, fw, jitter.reshape(1, H, W, 2),
-                                    torch.where(ok[:, None], S, 0.0).reshape(1, H, W, 12),
-                                    ok.reshape(1, H, W), c.filter_type)
+        fv, fw = film.splat_in_order(fv, fw, jitter.reshape(k, H, W, 2),
+                                     torch.where(ok[..., None], S, 0.0).reshape(k, H, W, 12),
+                                     ok.reshape(k, H, W), c.filter_type)
         n_rays += n
     return film.develop(fv, fw).reshape(H, W, 4, 3), n_rays
 

@@ -1,23 +1,34 @@
 """Interleaved same-process A/B of builds of the film kernels on one GPU.
 
-    python tools/ab_film.py --variant NAME=DIR [--variant NAME=DIR ...]
-                            [--unchecked NAME ...] [--out build/ab_film.json]
-                            [--reps 5] [--no-renders]
+    python tools/ab_film.py --variant NAME=DIR[:CONST=VALUE...] [--variant ...]
+                            [--unchunked NAME ...] [--unchecked NAME ...]
+                            [--out build/ab_film.json] [--reps 5] [--no-renders]
 
 Each DIR holds a ``path_film.cu`` and the ``common.cuh`` it includes: the
 package's own (``tpu_rt_torch/ops/csrc``), the parent commit's (``git show
-HEAD:tpu_rt_torch/ops/csrc/path_film.cu``), or a copy with other register
-caps (kFilmMinBlocks) or a lane taken out.  Every variant is compiled by
-its own nvcc, all started together, with the package's flags
+HEAD:tpu_rt_torch/ops/csrc/path_film.cu``), or a copy changed by hand (a
+lane taken out, another layout).  ``:CONST=VALUE`` items make a register-cap
+variant: DIR's two files are copied into ``build/ab/NAME`` with each
+``constexpr int CONST = ...;`` of ``path_film.cu`` set to VALUE (for
+example ``kStokesSampleMinBlocks=4`` or ``kSampleMinBlocks=8``; the tool
+fails if a constant is not found).  Every variant is compiled by its own
+nvcc, all started together, with the package's flags
 (``_build.NVCC_FLAGS``) into ``DIR/ab_film.so``; ptxas's registers and
 spills are printed per kernel.  A variant built before the film kernels
 were split (no ``film_splat_launch``) is launched as one kernel writing
-the planes.
+the planes; a variant named by ``--unchunked`` (built before the
+per-sample kernels took a chunk of samples a launch) has its per-sample
+chunks launched as that many one-sample launches, and its route renders
+run one sample a pass (``spp_per_pass`` 1), as that build's routes did.
 
 Then, on the main paths' launches (K1: cbox 512^2 x 64 tent, mesh_gi
 256^2 x 64 box, cbox_rough 512^2 x 64 tent; K3: cbox_pol and
 cbox_pol_rough 256^2 x 64 at filter radius 0, 1 and 2 in both loop forms;
-K6, K5 and K4 one sample), each variant's launch is timed by CUDA events,
+K6, K5 and K4 one sample, and their routes' chunks: K6 cbox_pol and
+cbox_pol_rough 256^2 x 64, K5 polarizers and envmap_rough_cone 128^2 x 10,
+K4 16 384 rays x 10 seeds, and the 64-sample chunks of a render at the
+default spp_per_pass: K5 polarizers 128^2 and K4 16 384 rays), each
+variant's launch is timed by CUDA events,
 two warm-ups each, then five rounds in which the variants take turns; the
 median is kept, and for a build with film_splat the trace kernel and
 film_splat are also timed apart.  Every variant's planes must equal the
@@ -25,9 +36,12 @@ first variant's (``torch.equal``), or the tool fails; a variant named by
 ``--unchecked`` changes the output on purpose (a lane taken out to time
 it) and is only timed, with its ray count printed.  Then the same for
 whole renders (render(cbox), render(cbox_rough), render(mesh_gi),
-render(cbox_pol), render(cbox_pol_rough) at their fixtures' sizes), each
-variant's kernels patched into the package.  The card's name and power
-limit are printed, and everything goes to ``--out`` as JSON.
+render(cbox_pol), render(cbox_pol_rough), render(polarizers) at their
+fixtures' sizes, and the per-sample Stokes route
+``tests/torch_port_scenes.py::render_stokes_per_sample`` on cbox_pol
+256^2 x 512), each variant's kernels patched into the package, every
+variant's image equal to the first's.  The card's name and power limit
+are printed, and everything goes to ``--out`` as JSON.
 """
 
 import argparse
@@ -35,6 +49,8 @@ import ctypes
 import importlib.util
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -44,10 +60,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import tpu_rt_torch as tt  # noqa: E402
 from tpu_rt_torch.ops import _build  # noqa: E402
 from tpu_rt_torch.ops import path_kernel as pk  # noqa: E402
+from torch_port_scenes import envmap_rough_cone_desc, render_stokes_per_sample  # noqa: E402
 
 ASSETS = os.path.join(ROOT, "tests", "assets")
 CBOX = os.path.join(ASSETS, "cbox", "cbox.xml")
@@ -57,6 +75,28 @@ CBOX_POL = os.path.join(ASSETS, "cbox_pol", "cbox_pol.xml")
 CBOX_POL_ROUGH = os.path.join(ASSETS, "cbox_pol", "cbox_pol_rough.xml")
 POLARIZERS = os.path.join(ASSETS, "polarizers", "polarizers.xml")
 SEED = 100003  # the first chunk seed of render(seed=1)
+
+
+def variant_dir(name, spec):
+    """DIR of ``DIR[:CONST=VALUE...]``; with constants, a copy of DIR's
+    sources in build/ab/NAME with each constant set."""
+    d, *consts = spec.split(":")
+    if not consts:
+        return d
+    out = os.path.join(ROOT, "build", "ab", name)
+    os.makedirs(out, exist_ok=True)
+    shutil.copy(os.path.join(d, "common.cuh"), out)
+    with open(os.path.join(d, "path_film.cu")) as f:
+        src = f.read()
+    for item in consts:
+        const, value = item.split("=", 1)
+        src, n = re.subn(rf"constexpr int {const} = [^;]+;", f"constexpr int {const} = {value};",
+                         src)
+        if n != 1:
+            raise ValueError(f"variant {name}: constexpr int {const} found {n} times")
+    with open(os.path.join(out, "path_film.cu"), "w") as f:
+        f.write(src)
+    return out
 
 
 def build(variants):
@@ -159,7 +199,7 @@ def cases():
     return out
 
 
-def ab_launches(libs, reps, unchecked=()):
+def ab_launches(libs, reps, unchecked=(), unchunked=()):
     res = {}
     for name, tables, n, regen in cases():
         fns = {}
@@ -208,8 +248,14 @@ def ab_launches(libs, reps, unchecked=()):
             + (f" [{r['rays']:.0f} rays]" if v in unchecked else "")
             for v, r in res[name].items()), flush=True)
         del first
-    # the per-sample kernels K6, K5 and K4 (on chip_smoke's rays, made by
-    # the envmap golden's script), 20 launches a timing
+    res.update(ab_sample_launches(libs, reps, unchecked, unchunked))
+    return res
+
+
+def sample_cases():
+    """(name, tables, mode, planes, rays, samples) of the per-sample
+    kernels' launches: one sample, and their routes' chunks (K4 on
+    chip_smoke's rays, made by the envmap golden's script)."""
     spec = importlib.util.spec_from_file_location(
         "make_envmap_golden", os.path.join(ROOT, "tests", "golden", "make_envmap_golden.py"))
     env = importlib.util.module_from_spec(spec)
@@ -218,56 +264,108 @@ def ab_launches(libs, reps, unchecked=()):
     def rays_of(o, d):
         return torch.cat([torch.from_numpy(o).T, torch.from_numpy(d).T]).contiguous().cuda()
 
-    t_pol = tables_of(POLARIZERS, res=128)
-    for name, tables, mode, n_out, rays in (
-            ("K6 cbox_pol 256x256", tables_of(CBOX_POL, stokes=True), pk._MODE_STOKES_SAMPLE, 15,
-             None),
-            ("K5 cbox 512x512", tables_of(CBOX), pk._MODE_RAYGEN_SAMPLE, 6, None),
-            ("K5 polarizers 128x128", t_pol, pk._MODE_RAYGEN_SAMPLE, 12, None),
-            ("K4 cbox 262144 rays", tables_of(CBOX), pk._MODE_RAYS_SAMPLE, 4,
-             rays_of(*env.k4_cbox3_rays(512 * 512))),
-            ("K4 polarizers 16384 rays", t_pol, pk._MODE_RAYS_SAMPLE, 10,
-             rays_of(*env.k4_env_rays(128 * 128)))):
-        def one(lib):
+    t_pol, t_cbox = tables_of(POLARIZERS, res=128), tables_of(CBOX)
+    t_k6 = tables_of(CBOX_POL, stokes=True)
+    erc = tt.load_dict(envmap_rough_cone_desc(tt.ScalarTransform4f, os.path.join(
+        ASSETS, "polarizers", "envmap.exr"), 128))
+    t_erc = pk.pack_tables(pk.bake_scene(erc), erc.camera, 16, "cuda")
+    env_rays = rays_of(*env.k4_env_rays(128 * 128))
+    return (("K6 cbox_pol 256x256", t_k6, pk._MODE_STOKES_SAMPLE, 15, None, 1),
+            ("K5 cbox 512x512", t_cbox, pk._MODE_RAYGEN_SAMPLE, 6, None, 1),
+            ("K5 polarizers 128x128", t_pol, pk._MODE_RAYGEN_SAMPLE, 12, None, 1),
+            ("K4 cbox 262144 rays", t_cbox, pk._MODE_RAYS_SAMPLE, 4,
+             rays_of(*env.k4_cbox3_rays(512 * 512)), 1),
+            ("K4 polarizers 16384 rays", t_pol, pk._MODE_RAYS_SAMPLE, 10, env_rays, 1),
+            ("K6 cbox_pol 256x256 x 64 chunk", t_k6, pk._MODE_STOKES_SAMPLE, 15, None, 64),
+            ("K6 cbox_pol_rough 256x256 x 64 chunk", tables_of(CBOX_POL_ROUGH, stokes=True),
+             pk._MODE_STOKES_SAMPLE, 15, None, 64),
+            ("K5 polarizers 128x128 x 10 chunk", t_pol, pk._MODE_RAYGEN_SAMPLE, 12, None, 10),
+            ("K5 envmap_rough_cone 128x128 x 10 chunk", t_erc, pk._MODE_RAYGEN_SAMPLE, 12, None,
+             10),
+            ("K4 polarizers 16384 rays x 10 chunk", t_pol, pk._MODE_RAYS_SAMPLE, 10, env_rays,
+             10),
+            ("K5 polarizers 128x128 x 64 chunk", t_pol, pk._MODE_RAYGEN_SAMPLE, 12, None, 64),
+            ("K4 polarizers 16384 rays x 64 chunk", t_pol, pk._MODE_RAYS_SAMPLE, 10, env_rays,
+             64))
+
+
+def ab_sample_launches(libs, reps, unchecked=(), unchunked=()):
+    """K6, K5 and K4 in turns: a chunk is one launch, or for an
+    ``unchunked`` variant that many one-sample launches seeded seed + i;
+    a timing covers 20 launches of under 2^20 lanes (samples x pixels or
+    rays), else 3."""
+    res = {}
+    for name, tables, mode, n_out, rays, k in sample_cases():
+        def one(lib, v):
             with use(lib):
-                return pk._launch(tables, 3, 1, mode, False, n_out, name, rays=rays)[0]
-        want = one(next(iter(libs.values())))
-        times = {v: [] for v in libs}
+                if k == 1 or v not in unchunked:
+                    return pk._launch(tables, 3, k, mode, False, n_out, name, rays=rays)[0]
+                return torch.cat([pk._launch(tables, pk._wrap_i32(3 + i), 1, mode, False, n_out,
+                                             name, rays=rays)[0] for i in range(k)], 1)
+        want = one(next(iter(libs.values())), next(iter(libs)))
         for v, lib in libs.items():
-            assert v in unchecked or torch.equal(one(lib), want), f"{name}: variant {v} differs"
+            assert v in unchecked or torch.equal(one(lib, v), want), f"{name}: variant {v} differs"
+        lanes = k * (tables.n_pix if rays is None else rays.shape[1])
+        per = 20 if lanes < 1 << 20 else 3  # small launches: more of them a timing
+        times = {v: [] for v in libs}
         for _ in range(reps):
             for v, lib in libs.items():
-                times[v].append(event_ms(lambda: [one(lib) for _ in range(20)])[0] / 20)
-        res[name] = {v: {"ms": statistics.median(t), "all_ms": t} for v, t in times.items()}
-        print(f"{name}: " + ", ".join(f"{v} {r['ms']:.4f} ms" for v, r in res[name].items()),
-              flush=True)
+                times[v].append(event_ms(lambda: [one(lib, v) for _ in range(per)])[0] / per)
+        res[name] = {v: {"ms": statistics.median(t), "all_ms": t, "samples": k,
+                         "ms_per_sample": statistics.median(t) / k} for v, t in times.items()}
+        print(f"{name}: " + ", ".join(
+            f"{v} {r['ms']:.4f} ms" + (f" ({r['ms_per_sample']:.4f} a sample)" if k > 1 else "")
+            for v, r in res[name].items()), flush=True)
+        del want
     return res
 
 
-def ab_renders(libs, reps):
+def ab_renders(libs, reps, unchunked=()):
+    """Whole renders in turns, each variant's image equal to the first's
+    (seed 1000, the warm-up); an ``unchunked`` variant renders the
+    per-sample routes one sample a pass."""
+    routes = [(f"render({os.path.basename(p)})", tt.load_file(p), "film")
+              for p in (CBOX, CBOX_ROUGH, MESH_GI, CBOX_POL, CBOX_POL_ROUGH)]
+    routes += [("render(polarizers.xml)", tt.load_file(POLARIZERS), "sample"),
+               ("render_stokes_per_sample(cbox_pol.xml, 512 spp)", tt.load_file(CBOX_POL),
+                "stokes")]
     res = {}
-    for path in (CBOX, CBOX_ROUGH, MESH_GI, CBOX_POL, CBOX_POL_ROUGH):
-        sc = tt.load_file(path)
+    for name, sc, kind in routes:
+        def render(v, seed):
+            kw = {"spp_per_pass": 1} if kind != "film" and v in unchunked else {}
+            if kind == "stokes":
+                return render_stokes_per_sample(sc, 512, seed, "cuda", **kw)[0]
+            return tt.render(sc, seed=seed, device="cuda", **kw)
+
         times = {v: [] for v in libs}
+        first = None
         for v, lib in libs.items():
             with use(lib):
-                tt.render(sc, seed=1000, device="cuda")
+                img = render(v, 1000)
+            torch.cuda.synchronize()
+            if first is None:
+                first = img
+            elif not torch.equal(img, first):
+                raise AssertionError(f"{name}: variant {v}'s image differs from the first's")
         for rep in range(reps):
             for v, lib in libs.items():
                 with use(lib):
-                    times[v].append(event_ms(lambda: tt.render(sc, seed=rep, device="cuda"))[0])
-        name = f"render({os.path.basename(path)})"
+                    times[v].append(event_ms(lambda: render(v, rep))[0])
         res[name] = {v: {"ms": statistics.median(t), "all_ms": t} for v, t in times.items()}
         print(f"{name}: " + ", ".join(f"{v} {r['ms']:.3f} ms" for v, r in res[name].items()),
               flush=True)
+        del first
     return res
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variant", action="append", required=True, help="NAME=DIR")
+    ap.add_argument("--variant", action="append", required=True,
+                    help="NAME=DIR[:CONST=VALUE...]")
     ap.add_argument("--unchecked", action="append", default=[],
                     help="a variant that changes the output on purpose: timed only")
+    ap.add_argument("--unchunked", action="append", default=[],
+                    help="a variant whose per-sample kernels trace one sample a launch")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab_film.json"))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--no-renders", action="store_true")
@@ -278,13 +376,15 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
-    variants = dict(v.split("=", 1) for v in args.variant)
+    specs = dict(v.split("=", 1) for v in args.variant)
+    variants = {name: variant_dir(name, spec) for name, spec in specs.items()}
     libs, ptxas = build(variants)
-    out = {"card": smi, "variants": variants, "ptxas": ptxas,
-           "unchecked": args.unchecked,
-           "launches": ab_launches(libs, args.reps, set(args.unchecked))}
+    unchunked = set(args.unchunked)
+    out = {"card": smi, "variants": specs, "ptxas": ptxas,
+           "unchecked": args.unchecked, "unchunked": args.unchunked,
+           "launches": ab_launches(libs, args.reps, set(args.unchecked), unchunked)}
     if not args.no_renders:
-        out["renders"] = ab_renders(libs, args.reps)
+        out["renders"] = ab_renders(libs, args.reps, unchunked)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

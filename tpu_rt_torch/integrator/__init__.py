@@ -61,13 +61,12 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     ``tile_rows`` only keys that RNG (tile = pixel // (tile_rows * 128)),
     so ``tile_rows=16`` reproduces the JAX package's TPU render and
     ``tile_rows=8`` its interpret-mode render; a scene with a textured
-    environment takes the per-sample kernel K5 (one launch a sample,
-    ``spp_per_pass`` not used) with the same seeding.  The direct mesh kernel and
-    the wavefront tracer draw their randomness from a ``torch.Generator``
-    seeded by ``seed`` (``tile_rows`` is not used), so they match the JAX
-    package's renders statistically.  The two kernels take
-    ``spp_per_pass`` samples per launch; the wavefront traces one sample
-    per pixel per wave.  An hdrfilm with ``pixel_format="luminance"``
+    environment takes the per-sample kernel K5 with the same seeding.  The
+    direct mesh kernel and the wavefront tracer draw their randomness from
+    a ``torch.Generator`` seeded by ``seed`` (``tile_rows`` is not used),
+    so they match the JAX package's renders statistically.  The kernels
+    (film, K5, direct mesh) take ``spp_per_pass`` samples per launch; the
+    wavefront traces one sample per pixel per wave.  An hdrfilm with ``pixel_format="luminance"``
     gives (H, W, 1).
 
     A Stokes scene gives the (H, W, 4, 3) Stokes image (I, Q, U, V by
@@ -115,7 +114,8 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
         return _render_wavefront(scene, spp, seed, device)
     if baked.env_textured:
         img, n_rays = path_kernel.render_sample_film(
-            scene, spp=spp, seed=seed, device=device, tile_rows=tile_rows, baked=baked)
+            scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
+            tile_rows=tile_rows, baked=baked)
     else:
         img, n_rays = path_kernel.render_film(
             scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,

@@ -15,13 +15,15 @@
 //       sample and depth loops flattened into one loop, a lane restarting
 //       on its next sample as soon as its path ends;
 //   K6  pallas_stokes_trace: one polarized sample a pixel, its 12 Stokes
-//       values, ray count and jitter;
+//       values, ray count and jitter; here a chunk of such samples a launch;
 //   K5  pallas_raygen_trace: one scalar camera sample a pixel, its
 //       radiance, ray count and jitter, and on a textured environment the
 //       path's escape record (direction and throughput where it left the
-//       scene; the lat-long lookup runs after the kernel);
+//       scene; the lat-long lookup runs after the kernel); here a chunk of
+//       samples a launch;
 //   K4  pallas_path_trace: K5's bounce loop on rays passed in, one sample a
-//       lane, no jitter and no far-plane clip.
+//       lane, no jitter and no far-plane clip; here a chunk of samples of
+//       each ray a launch, one seed each.
 // One file, one bounce: bounce<Stokes, Esc, RoughCone> below serves all six,
 // selected by template flags, so no second copy of the transport exists.
 // The bounce has every lane of the JAX kernel's: diffuse, smooth
@@ -116,7 +118,8 @@
 // K3 adds the Mueller chain (about 266 operations a bounce) and its
 // 63-float Stokes state.  K2 removes the per-sample wait at the depth loop;
 // it does nothing about divergence inside a bounce.  film_splat is bound by
-// the records' bytes.  K6 writes 15 planes a sample.  A wavefront or
+// the records' bytes.  K6 writes 15 planes a sample.  K6, K5 and K4 trace
+// a chunk of samples a launch (at the kernels, below).  A wavefront or
 // persistent-thread design across pixels is left to later work.
 //
 // Arithmetic follows the plain PyTorch version operation by operation
@@ -153,6 +156,7 @@ enum {
 };
 constexpr int kMaxTableFloats = 12 * 1024;
 constexpr int kThreads = 128;
+constexpr int kMaxChunk = 65535;  // a per-sample launch's samples: gridDim.y
 
 constexpr float kInvPi = (float)(1.0 / kPi);
 constexpr float kPiF = (float)kPi;
@@ -1024,17 +1028,48 @@ film_splat_kernel(const float* __restrict__ rec, const float* __restrict__ tab,
   if (has_rc) *rc_slot = acc_rc;
 }
 
-// K6: one polarized sample of pixel idx, as 15 planes: S row-major, the
-// ray count, the jitter jx, jy.
+// The per-sample kernels K6, K5 and K4 trace a chunk of n_samples samples
+// in one launch: a block holds kThreads consecutive pixels (or rays) of one
+// sample, blockIdx.y, so a warp's primary rays stay coherent, and sample s
+// of a launch seeded seed draws the stream of seed + s, as the film
+// kernel's per-sample loop does.  Plane k of sample s goes to
+// out[(k * n_samples + s) * n_pix + idx], the film records' [value][sample]
+// [pixel] layout, so a warp's stores are coalesced; one sample gives the
+// (planes, n_pix) output of a one-sample launch.  The TPU kernels trace one
+// sample a pixel a call, and so did their first port: K6 at 256^2 was 512
+// blocks, two waves at its 168 registers, and K5 at 128^2 128 blocks on 132
+// multiprocessors, one block of 4 warps each, every path one serial chain.
+// A chunk fills the card with independent samples, and the route runs
+// its glue once a chunk.
+//
+// The blocks of kThreads a multiprocessor must hold for K6 and for K5 / K4,
+// so at most 65536 / (kThreads blocks) registers a thread, from the A/B on
+// the H100 in PERF.md §6 (tools/ab_film.py, the routes' chunks).  K6 at the
+// compiler's choice takes 184 registers (2 blocks), at 3 blocks 168, at 4
+// 128, at 5 96 and at 6 80 with 784 B of spill: a 64-sample cbox_pol chunk
+// ran 0.220, 0.174, 0.163, 0.156 and 0.153 ms a sample, the Stokes state in
+// a shared slab (122 registers) 0.174; at 8 blocks (64 registers, 1 000 B
+// of spill) 0.174.  K5 / K4 at 6 blocks (80 registers, about 130 B of
+// spill) ran the 64-sample chunks of a render 2-10% faster than at 4 (125
+// registers) and 18-26% faster than at 8; the 10-sample chunks are within
+// their noise.  As for K3 (kFilmMinBlocks), more warps to hide the
+// bounce's latency outweigh the spills.
+constexpr int kStokesSampleMinBlocks = 6;
+constexpr int kSampleMinBlocks = 6;
+
+// K6: polarized samples, as 15 planes a sample: S row-major, the ray
+// count, the jitter jx, jy.
 template <bool kRoughCone>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kStokesSampleMinBlocks)
 stokes_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
                      int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
-                     int n_pix, int seed) {
+                     int n_pix, int seed, int n_samples) {
   STAGE_TABLES()
+  const size_t stride = (size_t)n_samples * n_pix;  // between a sample's planes
+  float* o = out + (size_t)blockIdx.y * n_pix + idx;
   Path p;
   Pol q;
-  uint32_t rng = rng_init((uint32_t)seed, tile, lane);
+  uint32_t rng = rng_init((uint32_t)seed + blockIdx.y, tile, lane);
   float jx = rng_next(rng);
   float jy = rng_next(rng);
   start_sample<true>(sc, idx, jx, jy, p, q);
@@ -1043,30 +1078,33 @@ stokes_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ ta
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) out[(size_t)(i * 3 + ch) * n_pix + idx] = q.S[i][ch];
+    for (int ch = 0; ch < 3; ++ch) o[(i * 3 + ch) * stride] = q.S[i][ch];
   }
-  out[(size_t)12 * n_pix + idx] = p.ray_count;
-  out[(size_t)13 * n_pix + idx] = jx;
-  out[(size_t)14 * n_pix + idx] = jy;
+  o[12 * stride] = p.ray_count;
+  o[13 * stride] = jx;
+  o[14 * stride] = jy;
 }
 
-// K5 (kRays false): one camera sample of pixel idx, as planes L (3), the
-// ray count, the jitter jx, jy.  K4 (kRays true): one sample on the ray
-// idx of the (6, n_pix) rays (o, d as planes), every lane active with
-// prev_delta set, no jitter drawn and no far-plane clip
-// (_sample_state_init with raygen=None), as planes L (3) and the ray
-// count.  On a textured environment both add the escape record: esc_d
-// (3), esc_thr (3), zero where the path never escaped.  The RNG keys are
-// the film kernel's, (seed, idx / tile_lanes, idx % tile_lanes).
+// K5 (kRays false): camera samples of pixel idx, as planes L (3), the ray
+// count, the jitter jx, jy.  K4 (kRays true): samples on the ray idx of the
+// (6, n_pix) rays (o, d as planes), sample s drawing the stream of seed + s
+// on the same ray, every lane active with prev_delta set, no jitter drawn
+// and no far-plane clip (_sample_state_init with raygen=None), as planes L
+// (3) and the ray count.  On a textured environment both add the escape
+// record: esc_d (3), esc_thr (3), zero where the path never escaped.  The
+// RNG keys are the film kernel's, (seed + s, idx / tile_lanes, idx %
+// tile_lanes).
 template <bool kRays, bool kRoughCone>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSampleMinBlocks)
 path_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g, int n_tab,
                    const float* __restrict__ mesh, const float* __restrict__ rays,
-                   float* __restrict__ out, int n_pix, int seed) {
+                   float* __restrict__ out, int n_pix, int seed, int n_samples) {
   STAGE_TABLES()
+  const size_t stride = (size_t)n_samples * n_pix;  // between a sample's planes
+  float* o = out + (size_t)blockIdx.y * n_pix + idx;
   Path p;
   Pol q;
-  uint32_t rng = rng_init((uint32_t)seed, tile, lane);
+  uint32_t rng = rng_init((uint32_t)seed + blockIdx.y, tile, lane);
   float jx = 0.0f, jy = 0.0f;
   if constexpr (kRays) {
     sc.has_far = false;
@@ -1093,10 +1131,10 @@ path_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_
                           p.esc_d.x, p.esc_d.y, p.esc_d.z,
                           p.esc_thr.x, p.esc_thr.y, p.esc_thr.z};
 #pragma unroll
-  for (int k = 0; k < kVals; ++k) out[(size_t)k * n_pix + idx] = vals[k];
+  for (int k = 0; k < kVals; ++k) o[k * stride] = vals[k];
   if (sc.env_textured) {
 #pragma unroll
-    for (int e = 0; e < 6; ++e) out[(size_t)(kVals + e) * n_pix + idx] = vals[6 + e];
+    for (int e = 0; e < 6; ++e) o[(kVals + e) * stride] = vals[6 + e];
   }
 }
 
@@ -1133,13 +1171,14 @@ int launch_mode(int mode, int regen, int radius, dim3 grid, size_t smem, cudaStr
                 const int* h, const float* t, int n_tab, const float* m, const float* r,
                 float* o, int n_pix, int seed, int n_samples) {
   if (mode == MODE_STOKES_SAMPLE) {
-    stokes_sample_kernel<kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed);
+    stokes_sample_kernel<kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
+                                                           n_samples);
   } else if (mode == MODE_RAYGEN_SAMPLE) {
     path_sample_kernel<false, kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix,
-                                                                seed);
+                                                                seed, n_samples);
   } else if (mode == MODE_RAYS_SAMPLE) {
     path_sample_kernel<true, kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix,
-                                                               seed);
+                                                               seed, n_samples);
   } else if (mode == MODE_STOKES_FILM) {
     return regen ? launch_trace<true, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
                                                  n_pix, seed, n_samples)
@@ -1167,20 +1206,24 @@ void launch_splat(const float* rec, const float* tab, float* planes, int n_pix, 
 
 // mode: MODE_FILM (K1), MODE_STOKES_FILM (K3), MODE_STOKES_SAMPLE (K6),
 // MODE_RAYGEN_SAMPLE (K5), MODE_RAYS_SAMPLE (K4, on the (6, n_pix) rays;
-// NULL for every other mode); the per-sample modes take n_samples 1 and
-// ignore radius; regen: K2's loop for the film modes; rough_cone: the
-// header's rough-cone flag, the kernels with the rough conductor's lane and
-// cones.  A film mode writes its sample records, (nv + 1, n_samples,
-// n_pix) with nv 3 (K1) or 12 (K3), to out.
+// NULL for every other mode); regen: K2's loop for the film modes;
+// rough_cone: the header's rough-cone flag, the kernels with the rough
+// conductor's lane and cones.  A film mode writes its sample records, (nv +
+// 1, n_samples, n_pix) with nv 3 (K1) or 12 (K3), to out; a per-sample mode
+// its planes (15 for K6; 6 for K5 and 4 for K4, each 6 more on a textured
+// environment), (planes, n_samples, n_pix), for at most kMaxChunk samples,
+// and ignores radius.
 extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
                                 int n_tab, const void* mesh, int n_mesh, const void* rays,
                                 void* out, int n_pix, int seed, int n_samples, int radius,
                                 int mode, int regen, int rough_cone, void* stream) {
+  const bool per_sample = mode >= MODE_STOKES_SAMPLE;
   if (n_hdr < HDR_LEN || n_tab <= 0 || n_tab > kMaxTableFloats || n_pix <= 0 ||
-      n_samples < 1 || n_mesh < 0 || (n_mesh > 0 && mesh == nullptr) || mode < 0 ||
-      mode > MODE_RAYS_SAMPLE || ((mode == MODE_RAYS_SAMPLE) != (rays != nullptr)))
+      n_samples < 1 || (per_sample && n_samples > kMaxChunk) || n_mesh < 0 ||
+      (n_mesh > 0 && mesh == nullptr) || mode < 0 || mode > MODE_RAYS_SAMPLE ||
+      ((mode == MODE_RAYS_SAMPLE) != (rays != nullptr)))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((n_pix + kThreads - 1) / kThreads);
+  dim3 grid((n_pix + kThreads - 1) / kThreads, per_sample ? n_samples : 1);
   size_t smem = (size_t)n_tab * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   const int* h = (const int*)hdr;

@@ -42,7 +42,8 @@ around them (``render_pallas``, ``render_stokes_pallas``).
   a CUDA tensor they launch the hand-written kernels of
   ``csrc/path_film.cu`` or raise.  K2 needs no
   plain version of its own: it computes K1's and K3's function, each lane
-  meeting its samples in order.
+  meeting its samples in order.  K6, K5 and K4 take ``n_samples`` for a
+  chunk of samples in one launch, sample i seeded seed + i.
 * On the card K1 and K3 (either loop form) run as two kernels: the
   trace kernel (``film_records``) writes one record per finished sample,
   its values and ray count laid out [value][sample][pixel], and
@@ -59,8 +60,9 @@ around them (``render_pallas``, ``render_stokes_pallas``).
   ``spp_per_pass``-sample chunks, deposit each chunk's filter planes into
   the film and develop the image (H, W, 3) or the Stokes image
   (H, W, 4, 3).  ``render_sample_film``, the route of a textured
-  environment, launches K5 once a sample, adds the environment seen at
-  each path's escape, splats the samples and develops.
+  environment, launches K5 once a chunk of ``spp_per_pass`` samples, adds
+  the environment seen at each path's escape, splats the chunk's samples
+  in order and develops.
 """
 
 from __future__ import annotations
@@ -1580,13 +1582,32 @@ def stokes_film_trace_plain(tables: FilmTables, seed: int, n_samples: int):
     return _film_plain(tables, seed, n_samples)
 
 
-def stokes_sample_trace_plain(tables: FilmTables, seed: int):
+def _chunk(n_samples) -> int:
+    """The samples of a per-sample launch: 1 for None (a one-sample call
+    with (planes, N) output), else an int >= 1 (output (planes, n, N))."""
+    k = 1 if n_samples is None else n_samples
+    if not isinstance(k, int) or isinstance(k, bool) or k < 1:
+        raise ValueError(f"n_samples must be None or an int >= 1, not {n_samples!r}")
+    return k
+
+
+def _sample_planes(planes, n_samples):
+    """A per-sample call's output: each sample's (P, N) planes stacked as
+    (P, n, N), or the one sample's (P, N) when ``n_samples`` is None."""
+    return planes[0] if n_samples is None else torch.stack(planes, 1)
+
+
+def stokes_sample_trace_plain(tables: FilmTables, seed: int, n_samples=None):
     """The plain PyTorch version of K6: one polarized sample per pixel,
     as (15, H*W) planes: S row-major (I, Q, U, V) x rgb, the ray count,
-    the jitter jx, jy (pallas_path.pallas_stokes_trace's outputs)."""
+    the jitter jx, jy (pallas_path.pallas_stokes_trace's outputs).  With
+    an int ``n_samples``, a chunk of that many samples, (15, n, H*W):
+    sample i draws the stream of seed + i, as the one-sample call seeded
+    seed + i does."""
     _check_kind(tables, True, "stokes_sample_trace")
-    st, jx, jy = next(_trace_samples(tables, seed, 1))
-    return torch.cat([st["S"].reshape(12, -1), torch.stack([st["ray_count"], jx, jy])])
+    return _sample_planes([
+        torch.cat([st["S"].reshape(12, -1), torch.stack([st["ray_count"], jx, jy])])
+        for st, jx, jy in _trace_samples(tables, seed, _chunk(n_samples))], n_samples)
 
 
 def _escape_planes(st):
@@ -1595,39 +1616,47 @@ def _escape_planes(st):
     return list(st["esc_d"]) + list(st["esc_thr"]) if "esc_d" in st else []
 
 
-def raygen_trace_plain(tables: FilmTables, seed: int):
+def raygen_trace_plain(tables: FilmTables, seed: int, n_samples=None):
     """The plain PyTorch version of K5: one camera sample per pixel, as (6,
     H*W) planes L (r, g, b), the ray count, the jitter jx, jy, and on a
     textured environment 6 more, the escape direction and throughput
-    (pallas_path.pallas_raygen_trace's outputs)."""
+    (pallas_path.pallas_raygen_trace's outputs).  With an int
+    ``n_samples``, a chunk, (P, n, H*W), sample i seeded seed + i."""
     _check_kind(tables, False, "raygen_trace")
-    st, jx, jy = next(_trace_samples(tables, seed, 1))
-    return torch.stack(list(st["L"]) + [st["ray_count"], jx, jy] + _escape_planes(st))
+    return _sample_planes([
+        torch.stack(list(st["L"]) + [st["ray_count"], jx, jy] + _escape_planes(st))
+        for st, jx, jy in _trace_samples(tables, seed, _chunk(n_samples))], n_samples)
 
 
-def path_trace_plain(tables: FilmTables, o, d, seed: int):
+def path_trace_plain(tables: FilmTables, o, d, seed: int, n_samples=None):
     """The plain PyTorch version of K4: the bounce loop on the rays o, d
     ([N, 3] float32 on the tables' device), one sample a lane, every lane
     active, no jitter and no far-plane clip; lane i draws the stream of
     (seed, i // tile_lanes, i % tile_lanes).  Returns (4, N) planes L
     (r, g, b) and the ray count, and on a textured environment 6 more, the
     escape direction and throughput (pallas_path.pallas_path_trace's
-    outputs)."""
+    outputs).  With an int ``n_samples``, a chunk, (P, n, N): sample i of
+    every ray seeded seed + i."""
     _check_kind(tables, False, "path_trace")
     C = _Consts(tables)
     idx = torch.arange(o.shape[0], dtype=torch.int64, device=o.device)
-    st, _ = _sample_state_init(C, _rng_init(seed, idx // C.tile_lanes, idx % C.tile_lanes),
-                               idx, rays=(o, d))
     step = _make_bounce_step(C, raygen=False)
-    for depth in range(C.max_depth):
-        st = step(depth, st)
-    return torch.stack(list(st["L"]) + [st["ray_count"]] + _escape_planes(st))
+    planes = []
+    for i in range(_chunk(n_samples)):
+        st, _ = _sample_state_init(
+            C, _rng_init(seed + i, idx // C.tile_lanes, idx % C.tile_lanes), idx, rays=(o, d))
+        for depth in range(C.max_depth):
+            st = step(depth, st)
+        planes.append(torch.stack(list(st["L"]) + [st["ray_count"]] + _escape_planes(st)))
+    return _sample_planes(planes, n_samples)
 
 
 def sample_planes_split(planes):
-    """K6's planes as (S [N, 4, 3], jitter [N, 2], the rays cast as a 0-d
-    int64 tensor)."""
-    return (planes[:12].T.reshape(-1, 4, 3), planes[13:15].T,
+    """K6's planes as (S [..., N, 4, 3], jitter [..., N, 2], the rays cast
+    as a 0-d int64 tensor); a chunk's (15, n, N) planes give a leading
+    sample dimension n."""
+    lead = planes.shape[1:]
+    return (planes[:12].movedim(0, -1).reshape(*lead, 4, 3), planes[13:15].movedim(0, -1),
             planes[12].to(torch.int64).sum())
 
 
@@ -1647,21 +1676,28 @@ def _wrap_i32(x: int) -> int:
 # what the launch computes: K1's planes, K3's planes, K6's sample planes,
 # K5's sample planes or K4's planes on rays passed in
 _MODE_FILM, _MODE_STOKES_FILM, _MODE_STOKES_SAMPLE, _MODE_RAYGEN_SAMPLE, _MODE_RAYS_SAMPLE = range(5)
+# the most samples a per-sample launch traces (path_film.cu kMaxChunk,
+# gridDim.y)
+MAX_SAMPLE_CHUNK = 65535
 
 
 def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_out,
             name: str, rays=None):
     """Launch ``csrc/path_film.cu`` (built at first use) in ``mode`` on the
     tables' CUDA device, one lane a pixel, or one a ray of ``rays`` (6, N)
-    for K4; the header's rough-cone flag picks the kernels with the rough
-    conductor's lane and cones.  ``n_out``: the output's planes, or its
-    shape (the film modes' records).  Returns (output, whether K2's loop
-    ran)."""
+    for K4, and a per-sample mode's lanes once for each of ``n_samples``
+    samples; the header's rough-cone flag picks the kernels with the rough
+    conductor's lane and cones.  ``n_out``: a per-sample mode's planes, the
+    output (n_out, n_samples, N); a film mode's records shape.  Returns
+    (output, whether K2's loop ran)."""
     dev = tables.tab.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
     if tables.radius not in (0, 1, 2) or n_samples < 1:
         raise ValueError(f"{name} needs a box/tent/gaussian film and n_samples >= 1")
+    per_sample = mode in (_MODE_STOKES_SAMPLE, _MODE_RAYGEN_SAMPLE, _MODE_RAYS_SAMPLE)
+    if per_sample and n_samples > MAX_SAMPLE_CHUNK:
+        raise ValueError(f"{name} traces at most {MAX_SAMPLE_CHUNK} samples a launch")
     C = tables.hdr_list[HDR_MESH_C]
     mesh = tables.mesh
     if C and (mesh is None or mesh.device != dev or mesh.dtype != torch.float32
@@ -1677,7 +1713,7 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
     from tpu_rt_torch.ops import _build
 
     lib = _build.load_library()
-    shape = (n_out, n) if isinstance(n_out, int) else n_out
+    shape = (n_out, n_samples, n) if per_sample else n_out
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1780,52 +1816,66 @@ def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None)
                       lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
 
 
-def stokes_sample_trace(tables: FilmTables, seed: int):
+def _sample_launch(tables: FilmTables, seed: int, n_samples, mode: int, n_out: int,
+                   name: str, rays=None):
+    """A per-sample kernel's launch on a chunk of ``n_samples`` samples
+    (None: one, as (P, N) planes)."""
+    out, _ = _launch(tables, seed, _chunk(n_samples), mode, False, n_out, name, rays=rays)
+    return out[:, 0] if n_samples is None else out
+
+
+def stokes_sample_trace(tables: FilmTables, seed: int, n_samples=None):
     """K6: one polarized sample per pixel on Stokes tables, (15, H*W)
     planes (``stokes_sample_trace_plain``; ``sample_planes_split`` turns
-    them into S, jitter and rays).  Plain version on a CPU tensor; on a
-    CUDA tensor the kernel or raise.  ``stokes_sample_trace.launches``
-    counts launches."""
+    them into S, jitter and rays); with an int ``n_samples`` a chunk of
+    that many samples in one launch, (15, n, H*W), sample i seeded seed +
+    i.  Plain version on a CPU tensor; on a CUDA tensor the kernel or
+    raise.  ``stokes_sample_trace.launches`` counts launches, one a
+    chunk."""
     _check_kind(tables, True, "stokes_sample_trace")
     if tables.tab.device.type == "cpu":
-        return stokes_sample_trace_plain(tables, seed)
-    out, _ = _launch(tables, seed, 1, _MODE_STOKES_SAMPLE, False, 15, "stokes_sample_trace")
+        return stokes_sample_trace_plain(tables, seed, n_samples)
+    out = _sample_launch(tables, seed, n_samples, _MODE_STOKES_SAMPLE, 15,
+                         "stokes_sample_trace")
     stokes_sample_trace.launches += 1
     return out
 
 
-def raygen_trace(tables: FilmTables, seed: int):
+def raygen_trace(tables: FilmTables, seed: int, n_samples=None):
     """K5: one camera sample per pixel with the jitter drawn in the kernel,
     as (6, H*W) planes (L, the ray count, jx, jy), 12 on a textured
     environment (then the escape direction and throughput):
-    ``raygen_trace_plain``'s.  Plain version on a CPU tensor; on a CUDA
-    tensor the kernel or raise.  ``raygen_trace.launches`` counts
-    launches."""
+    ``raygen_trace_plain``'s; with an int ``n_samples`` a chunk, (P, n,
+    H*W), sample i seeded seed + i.  Plain version on a CPU tensor; on a
+    CUDA tensor the kernel or raise.  ``raygen_trace.launches`` counts
+    launches, one a chunk."""
     _check_kind(tables, False, "raygen_trace")
     if tables.tab.device.type == "cpu":
-        return raygen_trace_plain(tables, seed)
-    out, _ = _launch(tables, seed, 1, _MODE_RAYGEN_SAMPLE, False,
-                     12 if tables.env_textured else 6, "raygen_trace")
+        return raygen_trace_plain(tables, seed, n_samples)
+    out = _sample_launch(tables, seed, n_samples, _MODE_RAYGEN_SAMPLE,
+                         12 if tables.env_textured else 6, "raygen_trace")
     raygen_trace.launches += 1
     return out
 
 
-def path_trace(tables: FilmTables, o, d, seed: int):
+def path_trace(tables: FilmTables, o, d, seed: int, n_samples=None):
     """K4: the bounce loop on the rays o, d ([N, 3] float32 on the tables'
     device; N need not fill a tile), as (4, N) planes (L, the ray count),
-    10 on a textured environment: ``path_trace_plain``'s.  The tables'
-    camera is not used.  Plain version on a CPU tensor; on a CUDA tensor
-    the kernel or raise.  ``path_trace.launches`` counts launches."""
+    10 on a textured environment: ``path_trace_plain``'s; with an int
+    ``n_samples`` a chunk, (P, n, N), sample i of every ray seeded seed +
+    i.  The tables' camera is not used.  Plain version on a CPU tensor; on
+    a CUDA tensor the kernel or raise.  ``path_trace.launches`` counts
+    launches, one a chunk."""
     _check_kind(tables, False, "path_trace")
     dev = tables.tab.device
     if (o.shape != d.shape or o.dim() != 2 or o.shape[1] != 3 or o.device != dev
             or d.device != dev or o.dtype != torch.float32 or d.dtype != torch.float32):
         raise ValueError(f"path_trace needs o, d as [N, 3] float32 tensors on {dev}")
     if dev.type == "cpu":
-        return path_trace_plain(tables, o, d, seed)
+        return path_trace_plain(tables, o, d, seed, n_samples)
     rays = torch.cat([o.T, d.T]).contiguous()
-    out, _ = _launch(tables, seed, 1, _MODE_RAYS_SAMPLE, False,
-                     10 if tables.env_textured else 4, "path_trace", rays=rays)
+    out = _sample_launch(tables, seed, n_samples, _MODE_RAYS_SAMPLE,
+                         10 if tables.env_textured else 4, "path_trace", rays=rays)
     path_trace.launches += 1
     return out
 
@@ -1892,17 +1942,21 @@ def render_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     return img.contiguous(), n_rays
 
 
-def render_sample_film(scene: Scene, spp=None, seed=0, device="cuda", tile_rows=16,
-                       baked=None):
+def render_sample_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
+                       tile_rows=16, baked=None):
     """Full render through the per-sample kernel K5, the route of a scene
     with a textured environment (render_pallas :2600-2612, _get_render_fn
-    :2353-2383): sample j draws the stream of seed * 100003 + j; each
+    :2353-2383): sample j draws the stream of seed * 100003 + j; K5 traces
+    ``spp_per_pass`` samples a launch (the last chunk what is left); each
     sample's radiance gets the environment seen at its path's escape, L +
     esc_thr * eval_env(esc_d) (zero throughput where the path never
     escaped); samples with a non-finite value are left out; the samples
-    are splatted at their jitter by ``sensor/film.py::splat_aligned`` with
-    the camera's filter, then developed.  Returns the (H, W, 3) image and
-    the ray count (0-d int64), both on ``device``."""
+    are splatted at their jitter by ``sensor/film.py::splat_in_order``
+    with the camera's filter, then developed.  The glue runs once a chunk,
+    and the image is bit-equal whatever the chunk: each element's
+    arithmetic is the per-sample loop's, and the samples land on the film
+    in order.  Returns the (H, W, 3) image and the ray count (0-d int64),
+    both on ``device``."""
     from tpu_rt_torch.emitter import sample as _em
 
     bs = _baked(scene, baked)
@@ -1915,16 +1969,18 @@ def render_sample_film(scene: Scene, spp=None, seed=0, device="cuda", tile_rows=
     fw = torch.zeros((H, W), dtype=torch.float32, device=device)
     n_rays = torch.zeros((), dtype=torch.int64, device=device)
     seed0 = _wrap_i32(seed * 100003)
-    for j in range(spp):
-        planes = raygen_trace(tables, _wrap_i32(seed0 + j))
-        L = planes[0:3].T
+    k = max(1, min(spp_per_pass, MAX_SAMPLE_CHUNK))
+    for j in range(0, spp, k):
+        n = min(k, spp - j)
+        planes = raygen_trace(tables, _wrap_i32(seed0 + j), n).movedim(0, -1)  # (n, H*W, P)
+        L = planes[..., 0:3]
         if lookup is not None:
-            L = L + planes[9:12].T * _em.eval_env(lookup, planes[6:9].T)
+            L = L + planes[..., 9:12] * _em.eval_env(lookup, planes[..., 6:9])
         ok = torch.isfinite(L).all(-1)
-        fv, fw = _film.splat_aligned(fv, fw, planes[4:6].T.reshape(1, H, W, 2),
-                                     L.reshape(1, H, W, 3), ok.reshape(1, H, W),
-                                     c.filter_type)
-        n_rays += planes[3].to(torch.int64).sum()
+        fv, fw = _film.splat_in_order(fv, fw, planes[..., 4:6].reshape(n, H, W, 2),
+                                      L.reshape(n, H, W, 3), ok.reshape(n, H, W),
+                                      c.filter_type)
+        n_rays += planes[..., 3].to(torch.int64).sum()
     return _film.develop(fv, fw), n_rays
 
 

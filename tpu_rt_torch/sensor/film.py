@@ -44,21 +44,18 @@ def _shift_add(acc, img, dy, dx):
 _FOOT_RADIUS = {FILTER_BOX: 0, FILTER_TENT: 1, FILTER_GAUSSIAN: 2}
 
 
-def splat_aligned(film_vals, film_wts, jitter, values, active, filter_type: int):
-    """Add samples taken at pixel + jitter (one per pixel, jitter in
-    [0, 1)^2) to the film; counterpart of ``tpu_rt.sensor.film.splat_aligned``.
-
-    ``jitter`` [..., H, W, 2], ``values`` [..., H, W, C], ``active``
-    [..., H, W]: leading dims are a batch of sample passes, summed into
-    ``film_vals`` [H, W, C] and ``film_wts`` [H, W].  Each output pixel
-    gathers its (2r+1)^2 neighbours' samples, each weighted by the filter
-    at its distance.  Returns the updated (film_vals, film_wts)."""
-    H, W = film_wts.shape
+def splat_terms(jitter, values, active, filter_type: int):
+    """What each sample pass of ``splat_aligned``'s batch adds to the film:
+    (values [..., H, W, C], weights [..., H, W]), with the batch dims of
+    ``values``.  Each output pixel gathers its (2r+1)^2 neighbours'
+    samples, each weighted by the filter at its distance; every operation
+    is elementwise, so a pass's terms do not depend on the batch around
+    it."""
+    H, W = values.shape[-3], values.shape[-2]
     r = _FOOT_RADIUS[filter_type]
-    batch = tuple(range(values.dim() - 3))
     vals = torch.where(active[..., None], values, 0.0)
     if r == 0:
-        return (film_vals + vals.sum(batch), film_wts + active.to(film_wts.dtype).sum(batch))
+        return vals, active.to(torch.float32)
 
     def pad(a, lead):  # zero-pad the H and W dims by r
         return torch.nn.functional.pad(a, (0, 0) * lead + (r, r, r, r))
@@ -75,7 +72,32 @@ def splat_aligned(film_vals, film_wts, jitter, values, active, filter_type: int)
             w = torch.where(ap[..., ys, xs], wx * wy, 0.0)
             out_v = out_v + w[..., None] * vp[..., ys, xs, :]
             out_w = out_w + w
+    return out_v, out_w
+
+
+def splat_aligned(film_vals, film_wts, jitter, values, active, filter_type: int):
+    """Add samples taken at pixel + jitter (one per pixel, jitter in
+    [0, 1)^2) to the film; counterpart of ``tpu_rt.sensor.film.splat_aligned``.
+
+    ``jitter`` [..., H, W, 2], ``values`` [..., H, W, C], ``active``
+    [..., H, W]: leading dims are a batch of sample passes, summed into
+    ``film_vals`` [H, W, C] and ``film_wts`` [H, W] (``splat_terms``).
+    Returns the updated (film_vals, film_wts)."""
+    out_v, out_w = splat_terms(jitter, values, active, filter_type)
+    batch = tuple(range(values.dim() - 3))
     return film_vals + out_v.sum(batch), film_wts + out_w.sum(batch)
+
+
+def splat_in_order(film_vals, film_wts, jitter, values, active, filter_type: int):
+    """``splat_aligned`` of a batch of n passes ([n, H, W, ...]) added onto
+    the film one pass at a time, in order, so the film equals n calls of
+    ``splat_aligned`` with one pass each, bit for bit (a batch's ``.sum``
+    rounds otherwise).  Returns the updated (film_vals, film_wts)."""
+    out_v, out_w = splat_terms(jitter, values, active, filter_type)
+    for v, w in zip(out_v, out_w):
+        film_vals = film_vals + v
+        film_wts = film_wts + w
+    return film_vals, film_wts
 
 
 def develop(film_vals, film_wts):
