@@ -5,7 +5,8 @@
 Phases (any failure raises and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the kernels (tpu_rt_torch/ops/csrc/path_film.cu with K1, K2,
-     K3, K4, K5, K6 and film_splat; us_acq.cu, mesh_direct.cu, mesh_isect.cu),
+     K3, K4, K5, K6 and film_splat; us_acq.cu, us_das.cu, mesh_direct.cu,
+     mesh_isect.cu),
      one nvcc per source, started together, and the host BVH builder
      (tpu_rt_torch/ops/native/bvh_builder.cpp) with g++; ptxas's registers
      and spills of every kernel instantiation;
@@ -23,16 +24,27 @@ Phases (any failure raises and the script exits non-zero):
      512x512, 256 spp, tent, max_depth 6 — one warm-up, five timed
      renders (CUDA events); the launch counter proves the kernel ran;
   6. the plain version's time per spp at 512x512 beside the kernel's;
-  7. the ultrasound acquisition kernel against its plain version on the
-     card: the full USMain acquisition (20 480 lanes, depth 10, seed 0);
+  7. the ultrasound acquisition kernel K10 against its plain version on the
+     card: the full USMain acquisition (20 480 lanes, depth 10, seed 0),
+     its records bit-equal (pressures; times and elements where the
+     pressure is non-zero), its deposit mode's RF within 1e-6 of the
+     largest |RF| of deposit_rf of those records and of its plain version
+     (atomics and index_add_ add in a run-dependent order), each mode timed
+     with its bound from the sweeps the plain version counts;
   8. the ultrasound golden gate: tpu_rt_torch.us_render of USMain at
      64 rays per pair, seed 0, against tests/golden/us_usmain_rpp64_seed0.npz
      (tpu_rt's kernel route): axial |RF| profile correlation >= 0.999,
      total |RF| within 1%, 8x8 B-mode block means within 0.02;
   9. the ultrasound main path at full width: us_render of USMain at 64
-     rays per pair — one warm-up, five timed runs (CUDA events), the split
-     into acquisition / DAS / envelope + log compression, lanes per
-     second, and the gather DAS beside the matmul DAS;
+     rays per pair (K10's deposit mode, the DAS kernel us_das.cu, the
+     envelope and log) — one warm-up, five timed runs (CUDA events), one
+     us_acq and one us_das launch a frame, the split into acquisition / DAS
+     / envelope + log compression, the frame's peak device memory, three
+     frames under torch.profiler (device busy, idle share; not measured
+     where the profiler missed a DAS launch in two windows); then the DAS
+     kernel on the frame's RF against its plain version: within 2e-5 of
+     the largest |pixel|, bit-equal with one angle and one element, timed
+     beside the plain version, its bound and the matmul form;
  10. the direct mesh kernel (mesh_direct.cu) against its plain version on
      the card, bit for bit (all four planes): tests/assets/mesh/simple.xml
      (the knot under two point lights) at 256x256, one 64-spp pass of the
@@ -141,7 +153,8 @@ Phases (any failure raises and the script exits non-zero):
      launches; K5 and K4 on
      tests/torch_port_scenes.py::envmap_rough_cone_desc at 128x128, one
      sample and a chunk (4 against the plain chunk, 10 against one-sample
-     launches); K10 on cone_box_desc (the Cone_Box class) at 20 480 lanes;
+     launches); K10 on cone_box_desc (the Cone_Box class) at 20 480 lanes,
+     as in phase 7;
  26. the gates: us_render of cone_box_desc at 64 rays per pair, seed 0,
      against tests/golden/make_us_cone_golden.py (tpu_rt's kernel route:
      axial |RF| correlation >= 0.999, total |RF| within 1%, B-mode block
@@ -158,12 +171,13 @@ Phases (any failure raises and the script exits non-zero):
  27. the new routes at full width: render(cbox_rough.xml) at 512x512, 256
      spp (K1 only: no wavefront render), render(cbox_pol_rough.xml) at
      256x256, 512 spp (K3 in K2's loop), and us_render of cone_box_desc at
-     64 rays per pair with its split (acquisition, DAS, envelope) — each
-     one warm-up, five timed runs, launch counts.
+     64 rays per pair as in phase 9, with the DAS kernel's phase on its
+     frame — each one warm-up, five timed runs, launch counts.
 Each main path (phases 5, 9, 13, 16, 19, 20, 24 and 27) runs with every launch
 count set to 0 just before it and read just after; a film launch counts one
-trace-kernel launch (path_film or stokes_film) and one film_splat, and a
-per-sample kernel's chunk one launch.  Then comes a JSON record of the
+trace-kernel launch (path_film or stokes_film) and one film_splat, a
+per-sample kernel's chunk one launch, and an ultrasound frame one us_acq
+(K10's deposit mode) and one us_das.  Then comes a JSON record of the
 kernels, each with its bound: the larger of its operations over 67
 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100 SXM's data-sheet
 peaks), counted from this run's inputs; K6, K5 and K4 also with their
@@ -219,6 +233,30 @@ def dev_us(evt):
         evt, "self_cuda_time_total", 0.0)
 
 
+def kernel_device_ms(fn, kernel, n=20):
+    """(device ms a launch, launches the profiler saw) of the kernels whose
+    name holds ``kernel``, over n calls of fn, from torch.profiler: where a
+    wrapper call takes about as long on the host as its kernel on the
+    card, CUDA events around the calls read the host.  The mean is over
+    the launches seen, as the profiler may miss some (late in a run of
+    this script it has seen 1 of 20 K10 launches, and none of 5 DAS
+    launches); a window that saw none is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key]
+        seen = sum(e.count for e in evs)
+        if seen:
+            return sum(dev_us(e) for e in evs) / 1e3 / seen, seen
+    raise AssertionError(f"the profiler saw no {kernel} launch in three windows")
+
+
 def develop_planes(planes, tables):
     from tpu_rt_torch.ops import path_kernel as pk
     from tpu_rt_torch.sensor.film import develop
@@ -230,9 +268,11 @@ def develop_planes(planes, tables):
 
 def _counters():
     from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
+    from tpu_rt_torch.us import beamform
 
-    # K1, K3 (their trace kernels), film_splat, K6, K5, K4, K10, K9, K7;
-    # K2's loop, around K1 or K3, is counted by the two film wrappers'
+    # K1, K3 (their trace kernels), film_splat, K6, K5, K4, K10 (its deposit
+    # mode, the acquisition's, and its records mode), the DAS kernel, K9,
+    # K7; K2's loop, around K1 or K3, is counted by the two film wrappers'
     # regen_launches
     return {"path_film": path_kernel.film_trace,
             "stokes_film": path_kernel.stokes_film_trace,
@@ -240,7 +280,9 @@ def _counters():
             "stokes_sample": path_kernel.stokes_sample_trace,
             "raygen_sample": path_kernel.raygen_trace,
             "rays_sample": path_kernel.path_trace,
-            "us_acq": us_kernel.us_trace,
+            "us_acq": us_kernel.us_trace_rf,
+            "us_acq_records": us_kernel.us_trace,
+            "us_das": beamform.das_beamform,
             "mesh_direct": mesh_kernel.direct_trace,
             "mesh_isect": mesh_kernel.mesh_intersect}
 
@@ -320,6 +362,10 @@ OPS_SLAB, OPS_TRI, OPS_PRIM = 25, 39, 20
 # p = d x e2 and q = tv x e1 (9 each), det (5), the guarded reciprocal (4),
 # tv (3), u, v and t (6 each), the five compares and u + v (6).
 OPS_MT = 54
+# A DAS tap, us_das.cu: dx, dz, their squares and sum (5), the square root
+# (1), the delay's 1 / c, sum, offset and fs (4), the floor and weight (2),
+# 1 - w, the two products and their sum (4), the accumulation (1).
+OPS_DAS = 17
 # A 1-D filter weight, path_film.cu::film_w1d: x = (d + 0.5) - j, the tent's
 # |x|, sub and max, or the gaussian's two multiplies, exp, sub, |x|, compare
 # and select (the exp counted as one).
@@ -512,10 +558,21 @@ def main():
         "replaces": "tpu_rt/ops/pallas_us.py:388",
         "launches": us["launches"] + rc["k10_launches"],
         "launches_by_path": {"usmain": us["launches"], "cone_box": rc["k10_launches"]},
-        "max_abs_err": max(us["max_abs_err"], rc["k10"]["max_abs_err"]),
-        "ms": us["ms"], "plain_ms": us["plain_ms"],
-        "bound_ms": us["bound_ms"], "bound_by": us["bound_by"], "library_ms": None,
-        "cone_box": rc["k10"],
+        "max_abs_err": max(us["acq"]["max_abs_err"], rc["k10"]["max_abs_err"]),
+        "ms": us["acq"]["ms"], "plain_ms": us["acq"]["plain_ms"],
+        "bound_ms": us["acq"]["bound_ms"], "bound_by": us["acq"]["bound_by"], "library_ms": None,
+        "records": us["acq"]["records"], "usmain": us["acq"], "cone_box": rc["k10"],
+    }, {
+        "name": "us_das", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/us_das.cu",
+        "replaces": "tpu_rt/us/beamform.py:34",
+        "replaces_note": "das_beamform: XLA in tpu_rt, not a Pallas kernel",
+        "launches": us["das_launches"] + rc["das_launches"],
+        "launches_by_path": {"usmain": us["das_launches"], "cone_box": rc["das_launches"]},
+        "max_abs_err": max(us["das"]["max_abs_err"], rc["das"]["max_abs_err"]),
+        "ms": us["das"]["ms"], "plain_ms": us["das"]["plain_ms"],
+        "bound_ms": us["das"]["bound_ms"], "bound_by": us["das"]["bound_by"], "library_ms": None,
+        "usmain": us["das"], "cone_box": rc["das"],
     }, {
         "name": "mesh_direct", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/mesh_direct.cu",
@@ -590,43 +647,219 @@ def main():
     return 0
 
 
-def ultrasound_phases(tt, dev):
-    """Phases 7-9; returns the acquisition kernel's JSON numbers."""
+def us_acq_check(label, scene, dev, rpp=64, seed=0):
+    """K10 on an acquisition's lanes (phases 7 and 25): the records mode
+    bit-equal to the plain version (pressures; time and element records
+    where the pressure is non-zero), the deposit mode's RF against
+    ``deposit_rf`` of those records and against its plain version
+    (``deposit_rf`` of the plain records), both within 1e-6 of the largest
+    |RF| (atomics and index_add_ add in a run-dependent order), each mode
+    timed beside its plain version, and the bounds: each traced bounce's
+    closest-hit sweep and each hit's any-hit sweep over the scene's prims
+    (counted by the plain version), and the bytes the kernel moves: the
+    rays and tables in, and out the records of the traced bounces (12 B
+    each) or, in the deposit mode, 8 B (an atomic's read and write) for
+    each tap of a visible echo that falls in [0, T) (counted from the
+    plain records); the RF's zeroing is the wrapper's own launch, outside
+    the kernel's time and bound.  A mode's ms is its kernel's device time
+    (torch.profiler); call_ms, CUDA events around 200 wrapper calls."""
     from tpu_rt_torch.ops import us_kernel as uk
-    from tpu_rt_torch.sensor.transducer import element_geometry, plane_wave_rays
+    from tpu_rt_torch.sensor.transducer import plane_wave_rays
+
+    usc = scene.ultrasound
+    A, E, T = usc.n_angles, usc.n_elements, usc.time_samples
+    tables = uk.pack_us_tables(uk.bake_us_scene(scene), 8, dev)
+    b = plane_wave_rays(usc)
+    rays = torch.cat([b["o"].T, b["d"].T, b["tx_delay"][None]]).to(dev)
+    lanes = torch.repeat_interleave(rays, rpp, dim=1)
+    angle_idx = torch.repeat_interleave(b["angle_idx"], rpp).to(dev)
+    rec_k = uk.us_trace(tables, lanes, seed)
+    sweeps = {}
+    rec_p = uk.us_trace_plain(tables, lanes, seed, sweeps=sweeps)
+    torch.cuda.synchronize()
+    nz = rec_k[0::3] != 0
+    p_eq = bool(torch.equal(rec_k[0::3], rec_p[0::3]))
+    tf_eq = bool(torch.equal(rec_k[1::3][nz], rec_p[1::3][nz]))
+    recv_eq = bool(torch.equal(rec_k[2::3][nz], rec_p[2::3][nz]))
+    _, rec_err = equal_stats(rec_k[0::3], rec_p[0::3])
+    rf_k = uk.us_trace_rf(tables, rays, seed, A, T, rpp)
+    rf_rec = uk.deposit_rf(rec_k, angle_idx, A, E, T)
+    rf_p = uk.us_trace_rf_plain(tables, rays, seed, A, T, rpp)
+    torch.cuda.synchronize()
+    scale = rf_p.abs().max().item()
+    rf_err_rec = (rf_k - rf_rec).abs().max().item()
+    rf_err = (rf_k - rf_p).abs().max().item()
+    uk.us_trace(tables, lanes, seed)  # warm-ups
+    uk.us_trace_rf(tables, rays, seed, A, T, rpp)
+    rec_call_ms, _ = cuda_ms(lambda: uk.us_trace(tables, lanes, seed), reps=200)
+    rf_call_ms, _ = cuda_ms(lambda: uk.us_trace_rf(tables, rays, seed, A, T, rpp), reps=200)
+    rec_ms, rec_seen = kernel_device_ms(lambda: uk.us_trace(tables, lanes, seed), "us_acq_kernel")
+    rf_ms, rf_seen = kernel_device_ms(lambda: uk.us_trace_rf(tables, rays, seed, A, T, rpp),
+                                      "us_acq_kernel")
+    rec_plain_ms, _ = cuda_ms(lambda: uk.us_trace_plain(tables, lanes, seed), reps=3)
+    rf_plain_ms, _ = cuda_ms(lambda: uk.us_trace_rf_plain(tables, rays, seed, A, T, rpp), reps=3)
+    ops = (sweeps["closest"] + sweeps["any"]) * tables.hdr_list[uk.UH_N_PRIMS] * OPS_PRIM
+    tab_b = 4 * (tables.tab.numel() + tables.hdr.numel())
+    # deposit_rf's taps: the index clamped to [-2, T + 2], a tap outside
+    # [0, T) dropped
+    t0 = torch.floor(torch.clamp(rec_p[1::3], -2.0, T + 2.0))
+    vis = torch.stack(sweeps["visible"])
+    taps = int((vis & (t0 >= 0) & (t0 < T)).sum() + (vis & (t0 + 1 >= 0) & (t0 + 1 < T)).sum())
+    rec_bound = bound(ops, tab_b + 4 * lanes.numel() + 12 * sweeps["any"])
+    rf_bound = bound(ops, tab_b + 4 * rays.numel() + 8 * taps)
+    print(f"us_acq (K10) vs plain, {label} {lanes.shape[1]} lanes x depth {usc.max_depth}: "
+          f"records: pressures bit-equal {p_eq}, max |d| {rec_err:.3e}, non-zero pressures "
+          f"{int(nz.sum())}, t_f equal {tf_eq}, recv equal {recv_eq}; kernel {rec_ms:.5f} ms "
+          f"on the card ({rec_seen} of 20 launches seen; a call {rec_call_ms:.5f} ms), plain "
+          f"{rec_plain_ms:.3f} ms, bound "
+          f"{rec_bound[0]:.6f} ms ({rec_bound[1]}); deposit mode: RF vs deposit_rf of the records "
+          f"max |d| {rf_err_rec:.3e}, vs its plain version {rf_err:.3e} (limit 1e-6 x max|RF| = "
+          f"{1e-6 * scale:.3e}); kernel {rf_ms:.5f} ms on the card ({rf_seen} of 20 launches "
+          f"seen; a call {rf_call_ms:.5f} ms), "
+          f"plain {rf_plain_ms:.3f} ms, bound {rf_bound[0]:.6f} ms ({rf_bound[1]}); sweeps "
+          f"closest-hit {sweeps['closest']}, any-hit {sweeps['any']}; taps deposited {taps}")
+    assert p_eq and tf_eq and recv_eq and int(nz.sum()) > 0, f"us_acq records differ ({label})"
+    assert scale > 0 and max(rf_err_rec, rf_err) <= 1e-6 * scale, f"us_acq deposit ({label})"
+    return dict(ms=rf_ms, call_ms=rf_call_ms, plain_ms=rf_plain_ms,
+                max_abs_err=max(rf_err, rec_err), bound_ms=rf_bound[0], bound_by=rf_bound[1],
+                records=dict(ms=rec_ms, call_ms=rec_call_ms, plain_ms=rec_plain_ms,
+                             max_abs_err=rec_err, bound_ms=rec_bound[0], bound_by=rec_bound[1]),
+                sweeps={"closest": sweeps["closest"], "any": sweeps["any"], "taps": taps})
+
+
+def das_check(label, ch, usc, xg, zg, pos, angles):
+    """The DAS kernel (us_das.cu) at a frame's shape, on that frame's RF:
+    within 2e-5 of the largest |pixel| of the plain version (the same taps,
+    the 320 terms summed in another order), and bit-equal to it with one
+    angle and one element (a one-term sum); the kernel (CUDA events around
+    calls, and its device time by torch.profiler), the plain version and
+    the matmul form timed, and the bound: about OPS_DAS operations a
+    (pixel, pair) and 5 a (pixel, angle), the RF, grids and positions in,
+    the image out."""
     from tpu_rt_torch.us import beamform as bf
 
+    args = (ch, angles, pos[:, 0], usc.sampling_rate, usc.sound_speed, xg, zg)
+    kw = dict(elem_z=pos[:, 2])
+    got = bf.das_beamform(*args, **kw)
+    want = bf.das_beamform_plain(*args, **kw)
+    a, e = usc.n_angles // 2, usc.n_elements // 2
+    one = (ch[a:a + 1, e:e + 1], angles[a:a + 1], pos[e:e + 1, 0], usc.sampling_rate,
+           usc.sound_speed, xg, zg)
+    one_plain = bf.das_beamform_plain(*one, elem_z=pos[e:e + 1, 2])
+    one_eq = bool(torch.equal(bf.das_beamform(*one, elem_z=pos[e:e + 1, 2]), one_plain))
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    ms = statistics.median(cuda_ms(lambda: bf.das_beamform(*args, **kw), reps=5)[0]
+                           for _ in range(3))
+    device_ms, _ = kernel_device_ms(lambda: bf.das_beamform(*args, **kw), "us_das_kernel", n=5)
+    plain_ms, _ = cuda_ms(lambda: bf.das_beamform_plain(*args, **kw), reps=3)
+    matmul_ms, _ = cuda_ms(lambda: bf.das_beamform_matmul(*args, **kw))
+    A, E, T = ch.shape
+    n_pix = xg.numel() * zg.numel()
+    das_bound = bound(n_pix * A * (E * OPS_DAS + 5),
+                      4 * (ch.numel() + xg.numel() + zg.numel() + 2 * E + 2 * A + n_pix))
+    print(f"us_das (DAS kernel) vs plain, {label} {A}x{E}x{T} on the {xg.numel()}x{zg.numel()} "
+          f"grid: max |d| {err:.3e} (limit 2e-5 x max|plain| = {2e-5 * scale:.3e}); one angle, "
+          f"one element bit-equal {one_eq}; kernel {ms:.4f} ms a call ({device_ms:.4f} ms on "
+          f"the card), plain {plain_ms:.3f} ms, matmul form {matmul_ms:.3f} ms; bound "
+          f"{das_bound[0]:.5f} ms ({das_bound[1]})")
+    assert one_eq and one_plain.abs().max().item() > 0, f"us_das differs at one pair ({label})"
+    assert scale > 0 and err <= 2e-5 * scale, f"us_das disagrees ({label})"
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, max_abs_err=err,
+                bound_ms=das_bound[0], bound_by=das_bound[1], matmul_ms=matmul_ms)
+
+
+def us_frame(label, tt, scene, dev, rpp, x_bounds, z_bounds):
+    """A US main path (phases 9 and 27): one warm-up, five frames timed by
+    CUDA events with every count 0 before them (us_acq and us_das once a
+    frame), the split (acquisition, DAS, envelope + log) timed alone with
+    the main path's arguments, the frame's peak device memory, and three
+    frames under torch.profiler (device busy, idle share, top
+    operations)."""
+    from tpu_rt_torch.ops import us_kernel as uk
+    from tpu_rt_torch.sensor.transducer import element_geometry
+    from tpu_rt_torch.us import beamform as bf
+
+    usc = scene.ultrasound
+    kw = dict(rays_per_pair=rpp, x_bounds=x_bounds, z_bounds=z_bounds, device=dev)
+    tt.us_render(scene, seed=99, **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times = []
+    for rep in range(5):
+        ms, (img, ch, tx) = cuda_ms(lambda: tt.us_render(scene, seed=rep + 1, **kw))
+        times.append(ms)
+    counts = launch_counts()
+    print(f"launch counts over the {label} main path: {counts}")
+    check_counts(counts, us_acq=5, us_das=5)
+    assert bool(torch.isfinite(img).all()) and 0.0 <= img.min().item() <= img.max().item() <= 1.0
+    med = statistics.median(times)
+
+    # the DAS's inputs on the card, as us_render keeps them for its frames
+    step = float(usc.sound_speed) / float(usc.frequency) / 4.0
+    xg, zg = (g.to(dev) for g in bf.grid_scan(x_bounds[0], x_bounds[1], z_bounds[0],
+                                                z_bounds[1], step, step))
+    pos = element_geometry(usc.n_elements, usc.pitch, usc.radius, usc.opening_angle)[0].to(dev)
+    angles = usc.angles.to(dev)
+    das_args = (ch, angles, pos[:, 0], usc.sampling_rate, usc.sound_speed, xg, zg)
+    acq_ms, _ = cuda_ms(lambda: uk.simulate_acquisition(scene, seed=7, rays_per_pair=rpp,
+                                                        device=dev), reps=5)
+    das_ms, bfimg = cuda_ms(lambda: bf.das_beamform(*das_args, elem_z=pos[:, 2]), reps=5)
+    env_ms, _ = cuda_ms(lambda: bf.log_compress(bf.hilbert_envelope(bfimg, axis=1)), reps=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    tt.us_render(scene, seed=6, **kw)
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+
+    from torch.profiler import ProfilerActivity, profile
+
+    # the profiler may miss launches in a window (kernel_device_ms); a
+    # window that missed one of the three DAS launches is taken again
+    # once, and if that one misses too, no busy time or idle share is kept
+    # (it would be undercounted)
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for rep in range(3):
+                tt.us_render(scene, seed=20 + rep, **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        das_seen = sum(e.count for e in prof.key_averages() if "us_das_kernel" in e.key)
+        if das_seen == 3:
+            break
+    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3 if das_seen == 3 else None
+    idle = 1.0 - busy / wall_ms if busy is not None else None
+    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:6]
+    print(f"{label} main path {usc.n_angles}x{usc.n_elements}x{usc.time_samples}, rpp {rpp}, "
+          f"grid {tuple(img.shape)}: median {med:.3f} ms (min {min(times):.3f}, max "
+          f"{max(times):.3f}, n 5); split: acquisition (K10 with its deposit, set-up) "
+          f"{acq_ms:.3f} ms, DAS kernel {das_ms:.3f} ms, envelope + log {env_ms:.3f} ms; "
+          f"peak device memory of a frame {peak_mb:.1f} MB above the {base_mb:.1f} MB held; "
+          f"profile of 3 frames: wall {wall_ms:.3f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f} ms'}, idle share "
+          f"{'not measured' if idle is None else f'{idle:.4f}'} (us_das launches seen by the "
+          f"profiler {das_seen} of 3, in {attempt + 1} windows)")
+    for e in top:
+        print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    return dict(frame_ms=med, acquisition_ms=acq_ms, das_ms=das_ms, envelope_ms=env_ms,
+                peak_mb=peak_mb, idle_share=idle, counts=counts, img=img, ch=ch,
+                xg=xg, zg=zg, pos=pos, angles=angles)
+
+
+def ultrasound_phases(tt, dev):
+    """Phases 7-9; returns the acquisition and DAS kernels' JSON numbers."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_port_scenes import usmain_desc
 
     scene = tt.load_dict(usmain_desc(tt.ScalarTransform4f))
     usc = scene.ultrasound
-    A, E, T, rpp = usc.n_angles, usc.n_elements, usc.time_samples, 64
+    rpp = 64
 
     # ---- 7. acquisition kernel vs plain version on the card ---------------
-    tables = uk.pack_us_tables(uk.bake_us_scene(scene), 8, dev)
-    base = plane_wave_rays(usc)
-    rays = torch.repeat_interleave(torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]]),
-                                   rpp, dim=1).to(dev)
-    n_lanes = rays.shape[1]
-    rec_k = uk.us_trace(tables, rays, 0)
-    rec_p = uk.us_trace_plain(tables, rays, 0)
-    torch.cuda.synchronize()
-    pk_, pp_ = rec_k[0::3], rec_p[0::3]
-    max_abs_err = (pk_ - pp_).abs().max().item()
-    frac = ((pk_ - pp_).abs() <= 1e-4 * pp_.abs().max()).float().mean().item()
-    nz = (pk_ != 0) & (pp_ != 0)
-    tf_eq = bool((rec_k[1::3][nz] == rec_p[1::3][nz]).all())
-    recv_eq = bool((rec_k[2::3][nz] == rec_p[2::3][nz]).all())
-    uk.us_trace(tables, rays, 0)  # warm-up
-    k_ms, _ = cuda_ms(lambda: uk.us_trace(tables, rays, 0), reps=200)
-    p_ms, _ = cuda_ms(lambda: uk.us_trace_plain(tables, rays, 0), reps=3)
-    print(f"us_acq vs plain, USMain {n_lanes} lanes x depth {usc.max_depth}: pressures "
-          f"within 1e-4 max|p| {frac:.6f}, bit-equal {bool((pk_ == pp_).all())}, max abs err "
-          f"{max_abs_err:.3e}, non-zero pressures {int(nz.sum())}, t_f equal {tf_eq}, "
-          f"recv equal {recv_eq}; kernel {k_ms:.5f} ms, plain {p_ms:.3f} ms; "
-          f"us_trace.launches {uk.us_trace.launches}")
-    assert frac >= 0.99 and tf_eq and recv_eq and int(nz.sum()) > 0, "us_acq disagrees"
+    acq = us_acq_check("USMain", scene, dev, rpp)
 
     # ---- 8. ultrasound golden gate --------------------------------------------
     img, ch, _ = tt.us_render(scene, seed=0, rays_per_pair=rpp, device=dev)
@@ -642,48 +875,17 @@ def ultrasound_phases(tt, dev):
           f"{img.mean().item():.6f} (golden {float(want['img_mean']):.6f})")
     assert corr >= 0.999 and tot_rel <= 0.01 and blk <= 0.02, "us golden gate failed"
 
-    # ---- 9. the ultrasound main path at full width ---------------------------
-    tt.us_render(scene, seed=99, rays_per_pair=rpp, device=dev)  # warm-up
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    times = []
-    for rep in range(5):
-        ms, (img, ch, tx) = cuda_ms(
-            lambda: tt.us_render(scene, seed=rep + 1, rays_per_pair=rpp, device=dev))
-        times.append(ms)
-    counts = launch_counts()
-    print(f"launch counts over the ultrasound main path: {counts}")
-    check_counts(counts, us_acq=5)
-    assert img.shape == (638, 1040) and bool(torch.isfinite(img).all())
-    assert 0.0 <= img.min().item() and img.max().item() <= 1.0
-    med = statistics.median(times)
-
-    # the split, each stage timed alone with the main path's arguments
-    step = float(usc.sound_speed) / float(usc.frequency) / 4.0
-    xg, zg = bf.grid_scan(-0.04, 0.04, 0.001, 0.05, step, step)
-    pos, _ = element_geometry(E, usc.pitch, usc.radius, usc.opening_angle)
-    das_args = (ch, usc.angles, pos[:, 0], usc.sampling_rate, usc.sound_speed, xg, zg)
-    acq_ms, _ = cuda_ms(lambda: uk.simulate_acquisition(scene, seed=7, rays_per_pair=rpp,
-                                                        device=dev), reps=5)
-    das_ms, bfimg = cuda_ms(lambda: bf.das_beamform_matmul(*das_args, elem_z=pos[:, 2]), reps=3)
-    env_ms, _ = cuda_ms(lambda: bf.log_compress(bf.hilbert_envelope(bfimg, axis=1)), reps=5)
-    gather_ms, _ = cuda_ms(lambda: bf.bmode_pipeline(*das_args, method="gather",
-                                                     elem_z=pos[:, 2]), reps=3)
-    matmul_ms, _ = cuda_ms(lambda: bf.bmode_pipeline(*das_args, method="matmul",
-                                                     elem_z=pos[:, 2]), reps=3)
-    print(f"us main path USMain {A}x{E}x{T}, rpp {rpp}, grid {tuple(img.shape)}: median "
-          f"{med:.3f} ms (min {min(times):.3f}, max {max(times):.3f}, n 5); split: "
-          f"acquisition (kernel + deposit) {acq_ms:.3f} ms, DAS matmul {das_ms:.3f} ms, "
-          f"envelope + log {env_ms:.3f} ms; {n_lanes} lanes, lanes/s over the acquisition "
-          f"{n_lanes / (acq_ms / 1e3):.4e}")
-    print(f"bmode_pipeline at the USMain grid: method='matmul' {matmul_ms:.3f} ms, "
-          f"method='gather' {gather_ms:.3f} ms")
-    # every lane tests every prim at least once; rays in, records out
-    us_ops = n_lanes * tables.hdr_list[uk.UH_N_PRIMS] * OPS_PRIM
-    us_bytes = 4 * (rays.numel() + rec_k.numel() + tables.tab.numel() + tables.hdr.numel())
-    us_bound = bound(us_ops, us_bytes)
-    return dict(launches=counts["us_acq"], max_abs_err=max_abs_err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=us_bound[0], bound_by=us_bound[1])
+    # ---- 9. the ultrasound main path at full width, then the DAS kernel -------
+    fr = us_frame("USMain", tt, scene, dev, rpp, (-0.04, 0.04), (0.001, 0.05))
+    assert fr["img"].shape == (638, 1040)
+    n_lanes = usc.n_angles * usc.n_elements * rpp
+    print(f"lanes/s over the USMain acquisition {n_lanes / (fr['acquisition_ms'] / 1e3):.4e}")
+    das = das_check("USMain", fr["ch"], usc, fr["xg"], fr["zg"], fr["pos"], fr["angles"])
+    acq.update(frame_ms=fr["frame_ms"], acquisition_ms=fr["acquisition_ms"])
+    das.update(frame_ms=fr["frame_ms"], das_ms_in_split=fr["das_ms"],
+               envelope_ms=fr["envelope_ms"], peak_mb=fr["peak_mb"], idle_share=fr["idle_share"])
+    return dict(launches=fr["counts"]["us_acq"], das_launches=fr["counts"]["us_das"], acq=acq,
+                das=das)
 
 
 def timed_main_path(tt, scene, spp, n=5, **kw):
@@ -1795,9 +1997,6 @@ def rough_cone_phases(tt, dev):
     """Phases 25-27; returns the new lanes' JSON numbers."""
     from tpu_rt_torch.integrator import path as wavefront
     from tpu_rt_torch.ops import path_kernel as pk
-    from tpu_rt_torch.ops import us_kernel as uk
-    from tpu_rt_torch.sensor.transducer import element_geometry, plane_wave_rays
-    from tpu_rt_torch.us import beamform as bf
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_port_scenes import cone_box_desc, envmap_rough_cone_desc
@@ -1936,30 +2135,7 @@ def rough_cone_phases(tt, dev):
         lambda s, n=None: pk.path_trace(te, o, d, s, n), 2, 10)
 
     cone = tt.load_dict(cone_box_desc(st))
-    usc = cone.ultrasound
-    ut = uk.pack_us_tables(uk.bake_us_scene(cone), 8, dev)
-    base = plane_wave_rays(usc)
-    rays = torch.repeat_interleave(torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]]),
-                                   64, dim=1).to(dev)
-    rec_k, rec_p = uk.us_trace(ut, rays, 0), uk.us_trace_plain(ut, rays, 0)
-    torch.cuda.synchronize()
-    nz = rec_k[0::3] != 0
-    p_eq = bool(torch.equal(rec_k[0::3], rec_p[0::3]))
-    tf_eq = bool(torch.equal(rec_k[1::3][nz], rec_p[1::3][nz]))
-    recv_eq = bool(torch.equal(rec_k[2::3][nz], rec_p[2::3][nz]))
-    _, us_err = equal_stats(rec_k[0::3], rec_p[0::3])
-    uk.us_trace(ut, rays, 0)  # warm-up
-    us_ms, _ = cuda_ms(lambda: uk.us_trace(ut, rays, 0), reps=200)
-    us_plain_ms, _ = cuda_ms(lambda: uk.us_trace_plain(ut, rays, 0), reps=3)
-    us_bound = bound(rays.shape[1] * ut.hdr_list[uk.UH_N_PRIMS] * OPS_PRIM,
-                     4 * (rays.numel() + rec_k.numel() + ut.tab.numel() + ut.hdr.numel()))
-    print(f"us_acq (K10) cone vs plain, cone_box {rays.shape[1]} lanes x depth {usc.max_depth}: "
-          f"pressures bit-equal {p_eq}, max |d| {us_err:.3e}, non-zero pressures "
-          f"{int(nz.sum())}, t_f equal {tf_eq}, recv equal {recv_eq}; kernel {us_ms:.5f} ms, "
-          f"plain {us_plain_ms:.3f} ms; bound {us_bound[0]:.6f} ms ({us_bound[1]})")
-    assert p_eq and tf_eq and recv_eq and int(nz.sum()) > 0, "us_acq differs on the cone scene"
-    out["k10"] = dict(ms=us_ms, plain_ms=us_plain_ms, max_abs_err=us_err, bound_ms=us_bound[0],
-                      bound_by=us_bound[1])
+    out["k10"] = us_acq_check("cone_box", cone, dev)
     print(f"phase 25 took {time.perf_counter() - t_start:.1f} s")
 
     # ---- 26. the gates ---------------------------------------------------------
@@ -2048,34 +2224,14 @@ def rough_cone_phases(tt, dev):
     out["k3_splat_launches"] = counts["film_splat"]
     out["k2"]["main_ms"] = med
 
-    kw = dict(rays_per_pair=64, x_bounds=gu.X_BOUNDS, z_bounds=gu.Z_BOUNDS, device=dev)
-    tt.us_render(cone, seed=99, **kw)  # warm-up
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    times = []
-    for rep in range(5):
-        ms, (img, ch, tx) = cuda_ms(lambda: tt.us_render(cone, seed=rep + 1, **kw))
-        times.append(ms)
-    counts = launch_counts()
-    acq_ms, _ = cuda_ms(lambda: uk.simulate_acquisition(cone, seed=7, rays_per_pair=64,
-                                                        device=dev), reps=5)
-    step = float(usc.sound_speed) / float(usc.frequency) / 4.0
-    xg, zg = bf.grid_scan(*gu.X_BOUNDS, *gu.Z_BOUNDS, step, step)
-    pos, _ = element_geometry(usc.n_elements, usc.pitch, usc.radius, usc.opening_angle)
-    das_ms, bfimg = cuda_ms(lambda: bf.das_beamform_matmul(
-        ch, usc.angles, pos[:, 0], usc.sampling_rate, usc.sound_speed, xg, zg,
-        elem_z=pos[:, 2]), reps=3)
-    env_ms, _ = cuda_ms(lambda: bf.log_compress(bf.hilbert_envelope(bfimg, axis=1)), reps=5)
-    med = statistics.median(times)
-    print(f"launch counts over the cone_box main path: {counts}")
-    print(f"cone_box main path {usc.n_angles}x{usc.n_elements}x{usc.time_samples}, rpp 64, grid "
-          f"{tuple(img.shape)}: median {med:.3f} ms (min {min(times):.3f}, max "
-          f"{max(times):.3f}, n 5); split: acquisition (kernel + deposit) {acq_ms:.3f} ms, DAS "
-          f"matmul {das_ms:.3f} ms, envelope + log {env_ms:.3f} ms")
-    check_counts(counts, us_acq=5)
-    assert bool(torch.isfinite(img).all()) and 0.0 <= img.min().item() <= img.max().item() <= 1.0
-    out["k10_launches"] = counts["us_acq"]
-    out["k10"].update(frame_ms=med, acquisition_ms=acq_ms, das_ms=das_ms)
+    fr = us_frame("cone_box", tt, cone, dev, 64, gu.X_BOUNDS, gu.Z_BOUNDS)
+    out["das"] = das_check("cone_box", fr["ch"], cone.ultrasound, fr["xg"], fr["zg"], fr["pos"],
+                           fr["angles"])
+    out["k10_launches"], out["das_launches"] = fr["counts"]["us_acq"], fr["counts"]["us_das"]
+    out["k10"].update(frame_ms=fr["frame_ms"], acquisition_ms=fr["acquisition_ms"])
+    out["das"].update(frame_ms=fr["frame_ms"], das_ms_in_split=fr["das_ms"],
+                      envelope_ms=fr["envelope_ms"], peak_mb=fr["peak_mb"],
+                      idle_share=fr["idle_share"])
     print(f"phases 25-27 took {time.perf_counter() - t_start:.1f} s")
     return out
 

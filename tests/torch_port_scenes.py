@@ -95,6 +95,40 @@ def usmain_desc(st, radius=float("inf"), opening_angle=None):
     return desc
 
 
+def usmain_twin_desc(st, twin="after", impedance=1.5):
+    """USMain with a twin of its plate: a rectangle at the plate's place
+    with another impedance, put after the plate (``twin="after"``: the
+    plate is the lower prim), before it (``"before"``), or alone in the
+    plate's place (``"alone"``).  The sweeps meet the two at the same t."""
+    desc = usmain_desc(st)
+    plate = desc.pop("flat_plate")
+    wall = desc.pop("wall_back")
+    twin_shape = dict(plate, bsdf={"type": "ultrasound_bsdf", "impedance": impedance,
+                                   "roughness": 0.7})
+    shapes = {"after": [("flat_plate", plate), ("plate_twin", twin_shape)],
+              "before": [("plate_twin", twin_shape), ("flat_plate", plate)],
+              "alone": [("plate_twin", twin_shape)]}[twin]
+    desc.update(shapes)
+    desc["wall_back"] = wall
+    return desc
+
+
+def usmain_scatterers_desc(st, n=62, seed=5):
+    """USMain with n small spheres (radius 0.3-1 mm, impedance 1.8) strewn
+    over x in [-2, 2] cm and z in [1, 4.5] cm, before its plate, from a
+    numpy seed: with the plate and the back wall n + 2 prims, 64 at n 62,
+    the most the acquisition kernel takes."""
+    desc = usmain_desc(st)
+    rng = np.random.default_rng(seed)
+    for k in range(n):
+        desc[f"scatterer_{k:02d}"] = {
+            "type": "sphere",
+            "center": [float(rng.uniform(-0.02, 0.02)), 0.0, float(rng.uniform(0.01, 0.045))],
+            "radius": float(rng.uniform(3e-4, 1e-3)),
+            "bsdf": {"type": "ultrasound_bsdf", "impedance": 1.8, "roughness": 0.5}}
+    return desc
+
+
 def shapes_desc(st):
     """The analytic shapes and BSDFs that only the wavefront tracer takes:
     a disk floor, a cylinder given by its end points, a cone, a rough

@@ -49,10 +49,7 @@ import ctypes
 import importlib.util
 import json
 import os
-import re
-import shutil
 import statistics
-import subprocess
 import sys
 from contextlib import contextmanager
 
@@ -61,9 +58,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
+import ab_common  # noqa: E402
 import tpu_rt_torch as tt  # noqa: E402
-from tpu_rt_torch.ops import _build  # noqa: E402
+from ab_common import event_ms  # noqa: E402
 from tpu_rt_torch.ops import path_kernel as pk  # noqa: E402
 from torch_port_scenes import envmap_rough_cone_desc, render_stokes_per_sample  # noqa: E402
 
@@ -77,46 +76,14 @@ POLARIZERS = os.path.join(ASSETS, "polarizers", "polarizers.xml")
 SEED = 100003  # the first chunk seed of render(seed=1)
 
 
-def variant_dir(name, spec):
-    """DIR of ``DIR[:CONST=VALUE...]``; with constants, a copy of DIR's
-    sources in build/ab/NAME with each constant set."""
-    d, *consts = spec.split(":")
-    if not consts:
-        return d
-    out = os.path.join(ROOT, "build", "ab", name)
-    os.makedirs(out, exist_ok=True)
-    shutil.copy(os.path.join(d, "common.cuh"), out)
-    with open(os.path.join(d, "path_film.cu")) as f:
-        src = f.read()
-    for item in consts:
-        const, value = item.split("=", 1)
-        src, n = re.subn(rf"constexpr int {const} = [^;]+;", f"constexpr int {const} = {value};",
-                         src)
-        if n != 1:
-            raise ValueError(f"variant {name}: constexpr int {const} found {n} times")
-    with open(os.path.join(out, "path_film.cu"), "w") as f:
-        f.write(src)
-    return out
-
-
 def build(variants):
     """nvcc every variant's path_film.cu at once; returns {name: ctypes lib}
     and prints ptxas's registers and spills."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, d in variants.items():
-        procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", os.path.join(d, "ab_film.so"),
-             os.path.join(d, "path_film.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = ab_common.nvcc_all({name: (os.path.join(d, "ab_film.so"),
+                                      ["-shared", os.path.join(d, "path_film.cu")])
+                               for name, d in variants.items()})
     libs, ptxas = {}, {}
-    for name, p in procs.items():
-        log = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+    for name, log in logs.items():
         lib = ctypes.CDLL(os.path.join(variants[name], "ab_film.so"))
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.path_film_launch.argtypes = [vp, i, vp, i, vp, i, vp, vp, i, i, i, i, i, i, i, vp]
@@ -127,9 +94,7 @@ def build(variants):
             lib.film_splat_launch.argtypes = [vp, vp, i, vp, i, i, i, i, i, i, vp]
             lib.film_splat_launch.restype = i
         libs[name] = lib
-        ptxas[name] = {k: list(v) for k, v in smoke.ptxas_summary(log).items()}
-        for k, (regs, st, ld) in ptxas[name].items():
-            print(f"ptxas {name} {k}: {regs} registers, spill stores {st} B, loads {ld} B")
+        ptxas[name] = ab_common.ptxas(name, log)
     return libs, ptxas
 
 
@@ -159,23 +124,14 @@ def old_film(lib):
 @contextmanager
 def use(lib):
     """The package's wrappers launching ``lib``'s kernels."""
-    saved = (_build.load_library, pk.film_trace, pk.stokes_film_trace)
-    _build.load_library = lambda: lib
+    saved = (pk.film_trace, pk.stokes_film_trace)
     if not is_split(lib):
         pk.film_trace = pk.stokes_film_trace = old_film(lib)
     try:
-        yield
+        with ab_common.use(lib):
+            yield
     finally:
-        _build.load_library, pk.film_trace, pk.stokes_film_trace = saved
-
-
-def event_ms(fn):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end), out
+        pk.film_trace, pk.stokes_film_trace = saved
 
 
 def tables_of(path, res=None, filter_type=None, stokes=False):
@@ -373,11 +329,12 @@ def main():
     if not torch.cuda.is_available():
         print("ab_film: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = ab_common.card()
     print(f"card: {smi}", flush=True)
     specs = dict(v.split("=", 1) for v in args.variant)
-    variants = {name: variant_dir(name, spec) for name, spec in specs.items()}
+    variants = {name: ab_common.variant_dir(name, spec, ("path_film.cu",),
+                                            os.path.join(ROOT, "build", "ab"))
+                for name, spec in specs.items()}
     libs, ptxas = build(variants)
     unchunked = set(args.unchunked)
     out = {"card": smi, "variants": specs, "ptxas": ptxas,

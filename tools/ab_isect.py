@@ -33,22 +33,22 @@ as JSON.
 
 import argparse
 import ctypes
-import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
-from contextlib import contextmanager
 
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
+import ab_common  # noqa: E402
 import tpu_rt_torch as tt  # noqa: E402
+from ab_common import event_ms  # noqa: E402
 from tpu_rt_torch.geometry import trace  # noqa: E402
-from tpu_rt_torch.ops import _build  # noqa: E402
 from tpu_rt_torch.ops import mesh_kernel as mk  # noqa: E402
 from tpu_rt_torch.ops import path_kernel as pk  # noqa: E402
 from tpu_rt_torch.sensor import camera as cam  # noqa: E402
@@ -61,13 +61,6 @@ MESH_GI = os.path.join(MESH, "mesh_gi.xml")
 SOURCES = ("mesh_isect.cu", "mesh_direct.cu", "path_film.cu")
 LAUNCHES = 10  # launches a timing
 DEVICE = "cuda"
-
-
-def load_chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
 
 
 class Variant:
@@ -101,33 +94,26 @@ class AsPackageLibrary:
         return getattr(self._v.lib, name)
 
 
-def build(variants, smoke):
+def build(variants):
     """nvcc every variant's sources at once (each once a directory);
     returns {name: Variant} and prints ptxas's registers and spills."""
-    nvcc = _build._nvcc()
-    procs, objs = {}, {}
+    from tpu_rt_torch.ops import _build
+
+    jobs, objs = {}, {}
     for name, d in variants.items():
         out = os.path.join(ROOT, "build", "ab_isect", name)
         os.makedirs(out, exist_ok=True)
         for src in SOURCES:
-            key = (d, src)
-            if key not in procs:
-                obj = os.path.join(out, src + ".o")
-                procs[key] = (subprocess.Popen(
-                    [nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj, os.path.join(d, src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), obj)
-            objs[name, src] = procs[key][1]
-    logs = {}
-    for key, (p, _) in procs.items():
-        logs[key] = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {key}:\n{logs[key]}")
+            if (d, src) not in jobs:
+                jobs[d, src] = (os.path.join(out, src + ".o"), ["-c", os.path.join(d, src)])
+            objs[name, src] = jobs[d, src][0]
+    logs = ab_common.nvcc_all(jobs)
     out_vars, ptxas = {}, {}
     vp, i = ctypes.c_void_p, ctypes.c_int
     for name, d in variants.items():
         out = os.path.join(ROOT, "build", "ab_isect", name)
         so = os.path.join(out, "ab_isect.so")
-        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", so,
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:2], "-shared", "-o", so,
                         *[objs[name, src] for src in SOURCES]], check=True, capture_output=True)
         lib = ctypes.CDLL(so)
         with open(os.path.join(d, "mesh_isect.cu")) as f:
@@ -150,32 +136,13 @@ def build(variants, smoke):
             getattr(lib, fn).argtypes = [i]
             getattr(lib, fn).restype = ctypes.c_char_p
         out_vars[name] = Variant(name, lib, takes_tree)
-        ptxas[name] = {k: list(v) for k, v in smoke.ptxas_summary(
-            "".join(logs[d, src] for src in SOURCES)).items()}
-        for k, (regs, st, ld) in ptxas[name].items():
-            print(f"ptxas {name} {k}: {regs} registers, spill stores {st} B, loads {ld} B")
+        ptxas[name] = ab_common.ptxas(name, "".join(logs[d, src] for src in SOURCES))
     return out_vars, ptxas
 
 
-@contextmanager
 def use(v):
     """The package's wrappers launching variant ``v``'s kernels."""
-    saved = _build.load_library
-    _build.load_library = lambda: AsPackageLibrary(v)
-    try:
-        yield
-    finally:
-        _build.load_library = saved
-
-
-def event_ms(fn, n=1):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n, out
+    return ab_common.use(AsPackageLibrary(v))
 
 
 def record_waves(scene, n, v):
@@ -255,24 +222,9 @@ def direct_case(dev):
 
 
 def timed(res, name, fns, reps):
-    """Two warm-ups each, every output equal to the first variant's, then
-    ``reps`` rounds in turns; the median per variant."""
-    first = None
-    for v, fn in fns.items():
-        fn()
-        got = fn()
-        torch.cuda.synchronize()
-        if first is None:
-            first = got
-        elif not torch.equal(got, first):
-            raise AssertionError(f"{name}: variant {v} differs from {next(iter(fns))}")
-    times = {v: [] for v in fns}
-    for _ in range(reps):
-        for v, fn in fns.items():
-            times[v].append(event_ms(fn, LAUNCHES)[0])
-    res[name] = {v: {"ms": statistics.median(t), "all_ms": t} for v, t in times.items()}
-    print(f"{name}: " + ", ".join(f"{v} {r['ms']:.4f} ms" for v, r in res[name].items()),
-          flush=True)
+    """``ab_common.timed`` over LAUNCHES launches a timing, every output
+    equal to the first variant's."""
+    ab_common.timed(res, name, fns, reps, LAUNCHES)
 
 
 def ab_launches(variants, reps, smoke):
@@ -328,12 +280,11 @@ def main():
     if not torch.cuda.is_available():
         print("ab_isect: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = ab_common.card()
     print(f"card: {smi}", flush=True)
     dirs = dict(v.split("=", 1) for v in args.variant)
-    smoke = load_chip_smoke()
-    variants, ptxas = build(dirs, smoke)
+    smoke = ab_common.chip_smoke()
+    variants, ptxas = build(dirs)
     out = {"card": smi, "variants": dirs, "ptxas": ptxas,
            "launches": ab_launches(variants, args.reps, smoke)}
     if not args.no_renders:

@@ -1,0 +1,267 @@
+"""Interleaved same-process A/B of builds of the ultrasound acquisition
+kernel K10 (``tpu_rt_torch/ops/csrc/us_acq.cu``) and the DAS kernel
+(``us_das.cu``) on one GPU, with a torch.profiler split of the acquisition
+in each variant's form.
+
+    python tools/ab_us.py --variant NAME=DIR[:CONST=VALUE ...] [...]
+                          [--out build/ab_us.json] [--reps 7]
+
+Each DIR holds a ``us_acq.cu`` and the ``common.cuh`` it includes, and
+may hold a ``us_das.cu``: the package's own (``tpu_rt_torch/ops/csrc``)
+or an earlier commit's (``git show COMMIT:tpu_rt_torch/ops/csrc/us_acq.cu``
+and ``common.cuh`` into an ignored directory such as ``build/ab/parent``).
+``:CONST=VALUE`` builds a copy with the ``constexpr int CONST = ...;`` of
+``us_acq.cu`` or ``us_das.cu`` set to VALUE (``kGroup=4``: four threads a
+lane; ``kUnroll=1``: the DAS's element loop not unrolled), as
+``tools/ab_common.py`` sets out.  Every variant is compiled by its own
+nvcc, all started together, with the package's flags, into
+``build/ab_us/NAME/``; ptxas's registers and spills are printed.  A build
+whose launch takes no ``rays_per_pair`` (one thread a lane, records only:
+the kernel before its deposit mode) is driven with the lanes' rays, in
+records mode, and its acquisition is the records and ``deposit_rf``
+(``parent_acquisition``, that form's ``simulate_acquisition``).
+
+Timed, each variant in turn within a round, two warm-ups each, the median
+of ``--reps`` rounds, CUDA events around 20 calls and the kernel's own
+device time a launch (torch.profiler over 20 calls): the records mode on
+the USMain, cone-box and scatterers acquisitions (rpp 64, 20 480 lanes,
+seed 0; the scatterers scene is USMain with 62 small spheres in front of
+its plate, 64 prims, the most K10 takes; every variant's records equal to
+the first variant's, or the tool fails); the
+deposit mode on the same (its RF within 1e-6 of the largest |RF| of
+``deposit_rf`` of the first variant's records); and the whole acquisition
+(``simulate_acquisition`` with the variant's kernel, or
+``parent_acquisition``), CUDA events around 5 calls; for the variants
+with a DAS kernel, ``das_beamform`` on the USMain frame (the first
+deposit variant's RF, the 1040 x 638 grid), CUDA events around 5 calls
+and its device time, every image equal to the first.  Then three
+acquisitions of each form under torch.profiler: the device-busy time (the
+device operations' own time), the idle share of the window, the top
+operations by device time and the host's operator counts.  The card's name
+and power limit are printed, and everything goes to ``--out`` as JSON.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+import ab_common  # noqa: E402
+import tpu_rt_torch as tt  # noqa: E402
+from ab_common import equal, timed, use  # noqa: E402
+from tpu_rt_torch.ops import us_kernel as uk  # noqa: E402
+from tpu_rt_torch.sensor.transducer import element_geometry, plane_wave_rays  # noqa: E402
+from tpu_rt_torch.us import beamform as bf  # noqa: E402
+from torch_port_scenes import cone_box_desc, usmain_desc, usmain_scatterers_desc  # noqa: E402
+
+LAUNCHES = 20  # launches a kernel timing
+CALLS = 5  # acquisitions a timing
+RPP = 64
+SOURCES = ("us_acq.cu", "us_das.cu")
+
+
+class Variant:
+    """One build; ``pairs`` says whether its launch takes the pair rays,
+    rays_per_pair and a mode (else it is the records-only launch)."""
+
+    def __init__(self, name, lib, pairs):
+        self.name, self.lib, self.pairs = name, lib, pairs
+
+    def us_acq_launch(self, hdr, n_hdr, tab, n_tab, rays, n_pairs, rpp, out, seed, mode, n_t,
+                      stream):
+        if self.pairs:
+            return self.lib.us_acq_launch(hdr, n_hdr, tab, n_tab, rays, n_pairs, rpp, out, seed,
+                                          mode, n_t, stream)
+        if rpp != 1 or mode != uk.MODE_RECORDS:
+            raise ValueError(f"variant {self.name} has the records mode only")
+        return self.lib.us_acq_launch(hdr, n_hdr, tab, n_tab, rays, out, n_pairs, seed, stream)
+
+    def us_acq_error_string(self, err):
+        return self.lib.us_acq_error_string(err)
+
+    def us_das_launch(self, *args):
+        return self.lib.us_das_launch(*args)
+
+    def us_das_error_string(self, err):
+        return self.lib.us_das_error_string(err)
+
+
+def build(specs):
+    dirs = {name: ab_common.variant_dir(name, spec, SOURCES,
+                                        os.path.join(ROOT, "build", "ab_us", "src"))
+            for name, spec in specs.items()}
+    jobs = {}
+    for name, d in dirs.items():
+        out = os.path.join(ROOT, "build", "ab_us", name)
+        os.makedirs(out, exist_ok=True)
+        jobs[name] = (os.path.join(out, "us_acq.so"),
+                      ["-shared", *[os.path.join(d, f) for f in SOURCES
+                                    if os.path.exists(os.path.join(d, f))]])
+    logs = ab_common.nvcc_all(jobs)
+    variants, ptxas = {}, {}
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for name, log in logs.items():
+        lib = ctypes.CDLL(jobs[name][0])
+        with open(os.path.join(dirs[name], "us_acq.cu")) as f:
+            pairs = "int rays_per_pair" in f.read()
+        lib.us_acq_launch.argtypes = ([vp, i, vp, i, vp, i, i, vp, i, i, i, vp] if pairs
+                                      else [vp, i, vp, i, vp, vp, i, i, vp])
+        lib.us_acq_launch.restype = i
+        lib.us_acq_error_string.argtypes = [i]
+        lib.us_acq_error_string.restype = ctypes.c_char_p
+        v = variants[name] = Variant(name, lib, pairs)
+        v.das = os.path.exists(os.path.join(dirs[name], "us_das.cu"))
+        if v.das:
+            f = ctypes.c_float
+            lib.us_das_launch.argtypes = [vp, i, i, i, vp, i, vp, i, vp, vp, vp, vp, f, f, f, vp,
+                                          vp]
+            lib.us_das_launch.restype = i
+            lib.us_das_error_string.argtypes = [i]
+            lib.us_das_error_string.restype = ctypes.c_char_p
+        ptxas[name] = ab_common.ptxas(name, log)
+    return variants, ptxas
+
+
+def parent_acquisition(scene, seed=0, rays_per_pair=1, device="cuda", tile_rows=8):
+    """``simulate_acquisition`` as it ran before the deposit mode: the
+    lanes' rays repeated on the device, the records mode, ``deposit_rf``
+    (20 index_add_ at depth 10) and the division."""
+    bs = uk.bake_us_scene(scene)
+    us = scene.ultrasound
+    A, E, T = us.n_angles, us.n_elements, us.time_samples
+    base = plane_wave_rays(us)
+    rays = torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]])
+    rays = torch.repeat_interleave(rays.to(device), rays_per_pair, dim=1)
+    angle_idx = torch.repeat_interleave(base["angle_idx"].to(device), rays_per_pair)
+    records = uk.us_trace(uk.pack_us_tables(bs, tile_rows, device), rays, seed)
+    channel = uk.deposit_rf(records, angle_idx, A, E, T) / float(rays_per_pair)
+    return channel, base["tx_delay"].reshape(A, E).to(device)
+
+
+def rf_close(name, v, first, got):
+    err = (got - first).abs().max().item()
+    if err > 1e-6 * first.abs().max().item():
+        raise AssertionError(f"{name}: variant {v}'s RF is {err:.3e} off")
+
+
+def profile(fn, n=3):
+    """torch.profiler over n calls after a warm-up: device-busy ms, the
+    idle share of the window, the top device operations and the host's
+    operator counts."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = ab_common.chip_smoke().dev_us
+    rows = [(e.key, dev_us(e) / 1e3 / n, e.count / n) for e in prof.key_averages()]
+    top_dev = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:8]
+    top_host = sorted((r for r in rows if r[0].startswith("aten::")), key=lambda r: -r[2])[:8]
+    busy_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall / n, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / (wall / n),
+            "top_device_ms": [[k, ms] for k, ms, _ in top_dev],
+            "top_host_calls": [[k, c] for k, _, c in top_host]}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append", required=True, help="NAME=DIR[:CONST=VALUE]")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab_us.json"))
+    ap.add_argument("--reps", type=int, default=7)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_us: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    smi = ab_common.card()
+    print(f"card: {smi}", flush=True)
+    specs = dict(v.split("=", 1) for v in args.variant)
+    variants, ptxas = build(specs)
+    dev = torch.device("cuda")
+    res, prof = {}, {}
+    st = tt.ScalarTransform4f
+    for label, desc in (("USMain", usmain_desc), ("cone box", cone_box_desc),
+                        ("scatterers", usmain_scatterers_desc)):
+        scene = tt.load_dict(desc(st))
+        us = scene.ultrasound
+        tables = uk.pack_us_tables(uk.bake_us_scene(scene), 8, dev)
+        b = plane_wave_rays(us)
+        rays = torch.cat([b["o"].T, b["d"].T, b["tx_delay"][None]]).to(dev)
+        lanes = torch.repeat_interleave(rays, RPP, dim=1)
+        angle_idx = torch.repeat_interleave(b["angle_idx"], RPP).to(dev)
+
+        def records(v):
+            with use(v):
+                return uk.us_trace(tables, lanes, 0)
+
+        rec = timed(res, f"K10 records, {label} {lanes.shape[1]} lanes",
+                    {n: (lambda v=v: records(v)) for n, v in variants.items()}, args.reps,
+                    LAUNCHES, equal, kernel="us_acq_kernel")
+        want = uk.deposit_rf(rec, angle_idx, us.n_angles, us.n_elements, us.time_samples)
+        deposit = {n: v for n, v in variants.items() if v.pairs}
+
+        def rf(v):
+            with use(v):
+                return uk.us_trace_rf(tables, rays, 0, us.n_angles, us.time_samples, RPP)
+
+        if deposit:
+            rf_close(f"{label} deposit", "first", want, rf(next(iter(deposit.values()))))
+            timed(res, f"K10 deposit mode, {label}",
+                  {n: (lambda v=v: rf(v)) for n, v in deposit.items()}, args.reps, LAUNCHES,
+                  rf_close, kernel="us_acq_kernel")
+
+        def acquisition(v):
+            fn = uk.simulate_acquisition if v.pairs else parent_acquisition
+            with use(v):
+                return fn(scene, seed=0, rays_per_pair=RPP, device=dev)[0]
+
+        timed(res, f"acquisition, {label}",
+              {n: (lambda v=v: acquisition(v)) for n, v in variants.items()}, args.reps, CALLS,
+              rf_close)
+        for n, v in variants.items():
+            prof[f"{label} {n}"] = p = profile(lambda v=v: acquisition(v))
+            print(f"profile of the acquisition, {label}, {n}: wall {p['wall_ms']:.3f} ms a call, "
+                  f"device busy {p['busy_ms']:.4f} ms, idle share {p['idle_share']:.4f}; top "
+                  f"device ops {[(k, round(ms, 4)) for k, ms in p['top_device_ms']]}; host ops "
+                  f"{[(k, c) for k, c in p['top_host_calls']]}", flush=True)
+        if label == "USMain" and any(v.das for v in variants.values()):
+            first = next(v for v in variants.values() if v.pairs)
+            with use(first):
+                rf_main = uk.us_trace_rf(tables, rays, 0, us.n_angles, us.time_samples, RPP) / RPP
+            step = float(us.sound_speed) / float(us.frequency) / 4.0
+            xg, zg = bf.grid_scan(-0.04, 0.04, 0.001, 0.05, step, step)
+            pos, _ = element_geometry(us.n_elements, us.pitch, us.radius, us.opening_angle)
+            das_args = (rf_main, us.angles.to(dev), pos[:, 0].to(dev), us.sampling_rate,
+                        us.sound_speed, xg.to(dev), zg.to(dev))
+
+            def das(v, ez=pos[:, 2].to(dev)):
+                with use(v):
+                    return bf.das_beamform(*das_args, elem_z=ez)
+
+            timed(res, "DAS kernel, USMain 1040 x 638",
+                  {n: (lambda v=v: das(v)) for n, v in variants.items() if v.das}, args.reps,
+                  CALLS, equal, kernel="us_das_kernel")
+    out = {"card": smi, "variants": specs, "ptxas": ptxas, "launches": res, "profiles": prof}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

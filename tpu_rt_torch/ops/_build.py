@@ -28,7 +28,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _NATIVE = Path(__file__).resolve().parent / "native"
-_SOURCES = ("path_film.cu", "us_acq.cu", "mesh_direct.cu", "mesh_isect.cu")
+_SOURCES = ("path_film.cu", "us_acq.cu", "us_das.cu", "mesh_direct.cu", "mesh_isect.cu")
 _HEADERS = ("common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_rt_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -123,8 +123,15 @@ def load_library():
     # tile_lanes, stream
     lib.film_splat_launch.argtypes = [p, p, i, p, i, i, i, i, i, i, p]
     lib.film_splat_launch.restype = i
-    lib.us_acq_launch.argtypes = [p, i, p, i, p, p, i, i, p]
+    # hdr, n_hdr, tab, n_tab, rays, n_pairs, rays_per_pair, out, seed, mode
+    # (records / deposit), time_samples, stream
+    lib.us_acq_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, p]
     lib.us_acq_launch.restype = i
+    # rf, A, E, T, x grid, Nx, z grid, Nz, elem x, elem z, sin, cos, 1 / c,
+    # t_offset, fs, out, stream
+    f = ctypes.c_float
+    lib.us_das_launch.argtypes = [p, i, i, i, p, i, p, i, p, p, p, p, f, f, f, p, p]
+    lib.us_das_launch.restype = i
     # rays, n, bounds, tris, shade, tree, tree rows, clusters, lights, n
     # lights, out, stream
     lib.mesh_direct_launch.argtypes = [p, i, p, p, p, p, i, i, p, i, p, p]
@@ -133,7 +140,7 @@ def load_library():
     lib.mesh_isect_launch.argtypes = [p, p, p, i, i, p, p, p, ctypes.c_float, i, p, p, p, p,
                                       p]
     lib.mesh_isect_launch.restype = i
-    for name in ("path_film_error_string", "us_acq_error_string",
+    for name in ("path_film_error_string", "us_acq_error_string", "us_das_error_string",
                  "mesh_direct_error_string", "mesh_isect_error_string"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = ctypes.c_char_p

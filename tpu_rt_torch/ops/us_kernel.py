@@ -15,16 +15,25 @@ Counterpart of ``tpu_rt/ops/pallas_us.py`` (``bake_us_scene``,
   (``attenuation * f_mhz``, ``1 / c``, ``2 pi f``, ``cos(cutoff)``, the
   ramp slope, the element-layout constants) are folded here in float64 and
   rounded once, so both packages use the same float32 values.
-* ``us_trace`` is the wrapper: on a CPU tensor it runs ``us_trace_plain``,
-  on a CUDA tensor it launches the hand-written kernel ``csrc/us_acq.cu``
-  or raises.  Both return per-bounce (pressure, time-sample index, receive
-  element) records, [3 * max_depth, N].
+* ``us_trace`` is the records wrapper: on a CPU tensor it runs
+  ``us_trace_plain``, on a CUDA tensor it launches the hand-written kernel
+  ``csrc/us_acq.cu`` in its records mode or raises.  Both return
+  per-bounce (pressure, time-sample index, receive element) records,
+  [3 * max_depth, N]; the card gates hold the kernel to them.
 * ``deposit_rf`` bins the records into the RF channel buffer with a
-  two-tap linear-interpolation ``index_add_``, outside the kernel, as the
-  JAX package leaves that scatter to XLA.
+  two-tap linear-interpolation ``index_add_``, as the JAX package leaves
+  that scatter to XLA.
+* ``us_trace_rf`` is the acquisition's wrapper: on a CPU tensor it runs
+  ``us_trace_rf_plain`` (``deposit_rf`` of ``us_trace_plain``), on a CUDA
+  tensor it launches the kernel in its deposit mode, which adds each
+  bounce's two taps into the RF buffer itself (atomics, so in a
+  run-dependent order), or raises.  It takes one ray per (angle, element)
+  pair; the kernel makes the pair's ``rays_per_pair`` lanes.
 * ``simulate_acquisition`` runs the whole acquisition: plane-wave rays,
   ``rays_per_pair`` consecutive lanes per (angle, element) pair, the
-  kernel, the deposit.
+  kernel with its deposit.  The packed tables and the pair rays depend on
+  the scene alone, so they are built and copied to the device once a
+  scene (``per_scene``), not once a frame.
 
 The plain version reuses the film kernel's helpers (``_sweep``, the
 SplitMix32 ``_rng_init`` / ``_rng_next``, ``_frame``, the VNDF half vector
@@ -36,6 +45,7 @@ lane % tile_lanes) with tile_lanes = tile_rows * 128.
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -275,12 +285,16 @@ def _elem_world(C: _USConsts, r):
     return tuple(m[3 * i] * x + m[3 * i + 1] * z + m[3 * i + 2] for i in range(3))
 
 
-def us_trace_plain(tables: USTables, rays, seed: int):
+def us_trace_plain(tables: USTables, rays, seed: int, sweeps=None):
     """The plain PyTorch version of the kernel.  ``rays`` is [7, N]
     float32: origin xyz, direction xyz, transmit delay.  Returns the
     [3 * max_depth, N] records: per bounce the pressure (0 where the echo
     is occluded or the lane dead), the time-sample index and the receive
-    element."""
+    element.  A dict ``sweeps`` gets the prim sweeps the kernel makes on
+    these lanes added to its "closest" (one a bounce a live lane starts)
+    and "any" (one a bounce that hits) counts, and each bounce's [N] mask
+    of the echoes that reach their element appended to its "visible"
+    list (the bounces whose taps the deposit mode adds)."""
     C = _USConsts(tables)
     g = C.g
     n_lanes = rays.shape[1]
@@ -296,6 +310,9 @@ def us_trace_plain(tables: USTables, rays, seed: int):
     for _depth in range(C.max_depth):
         t, prim_f, n = _sweep(C, o, d, 1e-4, _BIG)
         hit = (prim_f >= 0.0) & active
+        if sweeps is not None:
+            sweeps["closest"] = sweeps.get("closest", 0) + int(active.sum())
+            sweeps["any"] = sweeps.get("any", 0) + int(hit.sum())
         dist = torch.where(hit, t, 0.0)
         p_hit = _add(o, _scale(d, dist))
         wi = _scale(d, -1.0)
@@ -315,6 +332,8 @@ def us_trace_plain(tables: USTables, rays, seed: int):
         occ = _sweep(C, _add(p_hit, _scale(n, 1e-4 * off_sign)), sec_dir,
                      1e-4, dist_recv * _SHADOW_SHRINK, any_hit=True)
         visible = hit & ~occ
+        if sweeps is not None:
+            sweeps.setdefault("visible", []).append(visible)
 
         atten = atten * torch.where(hit, torch.exp(_div(g[UG_ATT] * dist, g[UG_DB])), 1.0)
         tof = tof + dist * g[UG_INV_C]
@@ -392,37 +411,49 @@ def us_trace_plain(tables: USTables, rays, seed: int):
 # Wrapper: the plain version on the CPU, the hand-written kernel on CUDA
 # ---------------------------------------------------------------------------
 
+MODE_RECORDS, MODE_DEPOSIT = 0, 1  # csrc/us_acq.cu's launch modes
+
+
+def _launch(tables: USTables, rays, rays_per_pair, out, seed, mode, time_samples):
+    from tpu_rt_torch.ops import _build
+
+    lib = _build.load_library()
+    dev = tables.tab.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.us_acq_launch(
+            tables.hdr.data_ptr(), tables.hdr.numel(), tables.tab.data_ptr(), tables.tab.numel(),
+            rays.data_ptr(), rays.shape[1], rays_per_pair, out.data_ptr(), _wrap_i32(seed),
+            mode, time_samples, stream)
+    if err != 0:
+        raise RuntimeError("us_acq kernel launch failed: "
+                           + lib.us_acq_error_string(err).decode())
+
+
+def _check_rays(tables: USTables, rays, name):
+    dev = tables.tab.device
+    if rays.device != dev or rays.dtype != torch.float32 or rays.dim() != 2 \
+            or rays.shape[0] != 7:
+        raise ValueError(f"{name} needs float32 rays [7, N] on the tables' device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
+    return dev
+
+
 def us_trace(tables: USTables, rays, seed: int):
     """Trace every lane's acquisition bounces: returns the
     [3 * max_depth, N] float32 records on the tables' device (see
     ``us_trace_plain``).  ``seed`` is an int32 (it wraps).
 
     On a CPU tensor this runs the plain version.  On a CUDA tensor it
-    launches ``csrc/us_acq.cu`` (built at first use) or raises.
-    ``us_trace.launches`` counts kernel launches."""
-    dev = tables.tab.device
-    if rays.device != dev or rays.dtype != torch.float32 or rays.dim() != 2 \
-            or rays.shape[0] != 7:
-        raise ValueError("us_trace needs float32 rays [7, N] on the tables' device")
+    launches ``csrc/us_acq.cu`` in its records mode (built at first use) or
+    raises.  ``us_trace.launches`` counts kernel launches."""
+    dev = _check_rays(tables, rays, "us_trace")
     if dev.type == "cpu":
         return us_trace_plain(tables, rays, seed)
-    if dev.type != "cuda":
-        raise ValueError(f"us_trace runs on cpu or cuda, not {dev.type}")
-    from tpu_rt_torch.ops import _build
-
-    lib = _build.load_library()
     rays = rays.contiguous()
-    n_lanes = rays.shape[1]
-    out = torch.zeros((3 * tables.max_depth, n_lanes), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.us_acq_launch(
-            tables.hdr.data_ptr(), tables.hdr.numel(),
-            tables.tab.data_ptr(), tables.tab.numel(),
-            rays.data_ptr(), out.data_ptr(), n_lanes, _wrap_i32(seed), stream)
-    if err != 0:
-        raise RuntimeError("us_acq kernel launch failed: "
-                           + lib.us_acq_error_string(err).decode())
+    out = torch.zeros((3 * tables.max_depth, rays.shape[1]), dtype=torch.float32, device=dev)
+    _launch(tables, rays, 1, out, seed, MODE_RECORDS, 0)
     us_trace.launches += 1
     return out
 
@@ -453,6 +484,64 @@ def deposit_rf(records, angle_idx, n_angles, n_elements, time_samples):
     return channel.view(A, E, T)
 
 
+def us_trace_rf_plain(tables: USTables, rays, seed: int, n_angles, time_samples,
+                      rays_per_pair=1):
+    """The deposit mode's plain version: ``deposit_rf`` of the records of
+    the pairs' lanes (``rays`` [7, A * E], one ray a pair, angle-major;
+    lanes pair-major)."""
+    E = tables.hdr_list[UH_N_ELEM]
+    lanes = torch.repeat_interleave(rays, rays_per_pair, dim=1)
+    angle_idx = torch.arange(lanes.shape[1], device=rays.device) // (rays_per_pair * E)
+    return deposit_rf(us_trace_plain(tables, lanes, seed), angle_idx, n_angles, E,
+                      time_samples)
+
+
+def us_trace_rf(tables: USTables, rays, seed: int, n_angles, time_samples, rays_per_pair=1):
+    """Trace the acquisition and deposit it: returns the RF [A, E, T]
+    float32 on the tables' device, the taps summed over every lane (not
+    yet divided by ``rays_per_pair``).  ``rays`` is [7, A * E], one ray a
+    (angle, element) pair, angle-major; each pair gets ``rays_per_pair``
+    consecutive lanes.
+
+    On a CPU tensor this runs ``us_trace_rf_plain``.  On a CUDA tensor it
+    launches ``csrc/us_acq.cu`` in its deposit mode or raises; its atomics
+    add in a run-dependent order, as ``index_add_`` does on the card.
+    ``us_trace_rf.launches`` counts kernel launches."""
+    dev = _check_rays(tables, rays, "us_trace_rf")
+    E = tables.hdr_list[UH_N_ELEM]
+    if rays.shape[1] != n_angles * E or rays_per_pair < 1 or time_samples < 1:
+        raise ValueError(f"us_trace_rf needs one ray per (angle, element) pair, "
+                         f"{n_angles} x {E}, and rays_per_pair, time_samples >= 1")
+    if dev.type == "cpu":
+        return us_trace_rf_plain(tables, rays, seed, n_angles, time_samples, rays_per_pair)
+    rays = rays.contiguous()
+    out = torch.zeros((n_angles, E, time_samples), dtype=torch.float32, device=dev)
+    _launch(tables, rays, rays_per_pair, out, seed, MODE_DEPOSIT, time_samples)
+    us_trace_rf.launches += 1
+    return out
+
+
+us_trace_rf.launches = 0
+
+
+_PER_SCENE = {}
+
+
+def per_scene(scene, key, make):
+    """``make()``, kept for this scene object and ``key`` while the scene
+    lives: what a frame needs that depends on the scene alone (the packed
+    tables, the rays, the image grid on the device) is built and copied
+    to the device once, not every frame.  Scenes are immutable
+    (``replace`` makes a new one), so what is kept stays right."""
+    k = (id(scene), key)
+    hit = _PER_SCENE.get(k)
+    if hit is not None and hit[0]() is scene:
+        return hit[1]
+    value = make()
+    _PER_SCENE[k] = (weakref.ref(scene, lambda _, k=k: _PER_SCENE.pop(k, None)), value)
+    return value
+
+
 def simulate_acquisition(scene: Scene, seed=0, rays_per_pair=1, device="cuda",
                          tile_rows=8):
     """The acquisition through the kernel.  Returns (channel_buf [A, E, T],
@@ -461,15 +550,16 @@ def simulate_acquisition(scene: Scene, seed=0, rays_per_pair=1, device="cuda",
     ``seed`` keys the kernel's RNG as tpu_rt's ``simulate_acquisition_pallas``
     does; ``tile_rows=8`` is what its ``us_render`` uses.  Raises
     ValueError when the scene is outside the kernel's scope."""
-    bs = bake_us_scene(scene)
-    if bs is None:
-        raise ValueError("scene not supported by the ultrasound kernel")
+    def inputs():
+        bs = bake_us_scene(scene)
+        if bs is None:
+            raise ValueError("scene not supported by the ultrasound kernel")
+        base = plane_wave_rays(scene.ultrasound)
+        rays = torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]]).to(device)
+        return pack_us_tables(bs, tile_rows, device), rays
+
+    tables, rays = per_scene(scene, ("acquisition", tile_rows, str(device)), inputs)
     us = scene.ultrasound
     A, E, T = us.n_angles, us.n_elements, us.time_samples
-    base = plane_wave_rays(us)
-    rays = torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]])
-    rays = torch.repeat_interleave(rays.to(device), rays_per_pair, dim=1)
-    angle_idx = torch.repeat_interleave(base["angle_idx"].to(device), rays_per_pair)
-    records = us_trace(pack_us_tables(bs, tile_rows, device), rays, seed)
-    channel = deposit_rf(records, angle_idx, A, E, T) / float(rays_per_pair)
-    return channel, base["tx_delay"].reshape(A, E).to(device)
+    channel = us_trace_rf(tables, rays, seed, A, T, rays_per_pair)
+    return channel.div_(float(rays_per_pair)), rays[6].reshape(A, E).clone()

@@ -2,7 +2,12 @@
 
 Counterpart of ``tpu_rt/us/beamform.py``: the same functions, names and
 maths, in PyTorch on the device of the RF data.  None of these is a
-kernel of the JAX package (no Pallas), so they stay plain PyTorch.
+kernel of the JAX package (no Pallas).  ``das_beamform`` (the gather form)
+is a wrapper: on a CPU tensor it runs ``das_beamform_plain``, on a CUDA
+tensor it launches the hand-written kernel ``ops/csrc/us_das.cu`` (one
+thread a pixel, the same taps, the sums in another order) or raises;
+``das_beamform.launches`` counts its launches.  ``das_beamform_matmul``
+stays the port of tpu_rt's MXU form, in PyTorch.
 
 Geometry/time conventions match the acquisition: with per-element transmit
 delays t = x sin(a) / c, the plane wave reaches pixel (x, z) at
@@ -19,6 +24,7 @@ round the RF trace itself to 10 mantissa bits).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import numpy as np
@@ -60,7 +66,7 @@ def _setup(channel_data, angles_deg, elem_x, elem_z, fs, c):
     return elem_x, elem_z, angles, _f32(fs), _f32(c)
 
 
-def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
+def das_beamform_plain(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
                  t_offset=0.0, elem_z=None):
     """Delay-and-sum beamforming of plane-wave RF data (the gather form).
 
@@ -74,7 +80,8 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
       elem_z: [E] element axial positions (m), nonzero for convex arrays;
         None means a linear row at z = 0.
     Returns the beamformed image [Nx, Nz] (lateral x axial).  Elements are
-    summed in chunks of 16, as the JAX package does."""
+    summed in chunks of 16, as the JAX package does.  The plain version of
+    ``csrc/us_das.cu``, which ``das_beamform`` runs on a CPU tensor."""
     channel_data = _f32(channel_data)
     dev = channel_data.device
     elem_x, elem_z, angles, fs, c = _setup(channel_data, angles_deg, elem_x, elem_z, fs, c)
@@ -103,6 +110,56 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
             acc_a = acc_a + (v0 * (1.0 - w) + v1 * w).sum(dim=1)
         out = out + acc_a
     return out.reshape(X.shape)
+
+
+def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
+                 t_offset=0.0, elem_z=None):
+    """Delay-and-sum beamforming of plane-wave RF data: the function of
+    ``das_beamform_plain`` (its arguments and result [Nx, Nz]).
+
+    On a CPU tensor this runs ``das_beamform_plain``.  On a CUDA tensor it
+    launches ``csrc/us_das.cu`` (built at first use) or raises: each tap
+    is the plain version's arithmetic, the sums over angles and elements
+    are taken in another order.  ``das_beamform.launches`` counts kernel
+    launches."""
+    channel_data = _f32(channel_data)
+    dev = channel_data.device
+    if dev.type == "cpu":
+        return das_beamform_plain(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
+                                  t_offset=t_offset, elem_z=elem_z)
+    if dev.type != "cuda":
+        raise ValueError(f"das_beamform runs on cpu or cuda, not {dev.type}")
+    if channel_data.dim() != 3:
+        raise ValueError("das_beamform needs RF data [A, E, T]")
+    from tpu_rt_torch.ops import _build
+
+    elem_x, elem_z, angles, fs, c = _setup(channel_data, angles_deg, elem_x, elem_z, fs, c)
+    A, E, T = channel_data.shape
+    if angles.shape != (A,) or elem_x.shape != (E,) or elem_z.shape != (E,):
+        raise ValueError(f"das_beamform needs {A} angles and {E} element positions")
+    # every buffer the kernel reads is held by a name until it has been
+    # queued: a temporary's memory could be reused before the launch
+    rf = channel_data.contiguous()
+    xg, zg = _f32(x_grid, dev).reshape(-1).contiguous(), _f32(z_grid, dev).reshape(-1).contiguous()
+    ex, ez = elem_x.contiguous(), elem_z.contiguous()
+    sin_a, cos_a = torch.sin(angles), torch.cos(angles)
+    inv_c = 1.0 / c  # as das_beamform_plain computes it
+    out = torch.empty((xg.shape[0], zg.shape[0]), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.us_das_launch(
+            rf.data_ptr(), A, E, T, xg.data_ptr(), xg.shape[0], zg.data_ptr(), zg.shape[0],
+            ex.data_ptr(), ez.data_ptr(), sin_a.data_ptr(),
+            cos_a.data_ptr(), float(inv_c), float(t_offset), float(fs), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("us_das kernel launch failed: "
+                           + lib.us_das_error_string(err).decode())
+    das_beamform.launches += 1
+    return out
+
+
+das_beamform.launches = 0
 
 
 def pulse_kernel(fs, f0, wave_cycles=5):
@@ -204,10 +261,10 @@ def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
     return out[:Nx, :Nz]
 
 
-def hilbert_envelope(img, axis=-1):
-    """Envelope via the analytic signal (Hilbert transform along ``axis``),
-    ultraspy's compute_envelope."""
-    n = img.shape[axis]
+@functools.lru_cache(maxsize=16)
+def _analytic_filter(n, device):
+    """The analytic signal's frequency weights for length n, on ``device``
+    (made and copied once a length and device)."""
     h = np.zeros(n, np.float32)
     h[0] = 1.0
     if n % 2 == 0:
@@ -215,10 +272,17 @@ def hilbert_envelope(img, axis=-1):
         h[1:n // 2] = 2.0
     else:
         h[1:(n + 1) // 2] = 2.0
+    return torch.from_numpy(h).to(device)
+
+
+def hilbert_envelope(img, axis=-1):
+    """Envelope via the analytic signal (Hilbert transform along ``axis``),
+    ultraspy's compute_envelope."""
+    n = img.shape[axis]
     shape = [1] * img.dim()
     shape[axis] = n
     Xf = torch.fft.fft(img, dim=axis)
-    analytic = torch.fft.ifft(Xf * torch.from_numpy(h).to(img.device).reshape(shape), dim=axis)
+    analytic = torch.fft.ifft(Xf * _analytic_filter(n, img.device).reshape(shape), dim=axis)
     return torch.abs(analytic)
 
 
@@ -234,7 +298,8 @@ def bmode_pipeline(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
                    dynamic_range=60.0, method="matmul", elem_z=None):
     """RF data -> beamform -> axial envelope -> log compression.  Returns
     the display image [Nz, Nx] (depth down).  ``method``: 'matmul' (the
-    windowed-contraction DAS, default) or 'gather' (the reference form)."""
+    windowed-contraction DAS, default, as in tpu_rt) or 'gather' (the
+    reference form, ``das_beamform``: the kernel on the card)."""
     das = das_beamform_matmul if method == "matmul" else das_beamform
     bf = das(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid, elem_z=elem_z)
     env = hilbert_envelope(bf, axis=1)  # axial (z) axis
