@@ -172,12 +172,36 @@ Phases (any failure raises and the script exits non-zero):
      spp (K1 only: no wavefront render), render(cbox_pol_rough.xml) at
      256x256, 512 spp (K3 in K2's loop), and us_render of cone_box_desc at
      64 rays per pair as in phase 9, with the DAS kernel's phase on its
-     frame — each one warm-up, five timed runs, launch counts.
-Each main path (phases 5, 9, 13, 16, 19, 20, 24 and 27) runs with every launch
-count set to 0 just before it and read just after; a film launch counts one
-trace-kernel launch (path_film or stokes_film) and one film_splat, a
-per-sample kernel's chunk one launch, and an ultrasound frame one us_acq
-(K10's deposit mode) and one us_das.  Then comes a JSON record of the
+     frame — each one warm-up, five timed runs, launch counts;
+ 28. USMain through the acoustic wavefront (us_render(use_kernel=False),
+     integrator/ultrasound.py) at 64 rays per pair, 20 480 lanes, depth 10,
+     the 1040 x 638 grid, as in phase 9 (one us_das launch a frame, no
+     us_acq), render() of it a finite B-mode in [0, 1], and the wavefront
+     held to K10 at the same rays per pair over seeds 0-2 by tpu_rt's
+     inter-route measures (total |RF| within 0.03, first echo within 8
+     samples, axial |RF| correlation > 0.9; tpu_rt's bars are 0.10, 16 and
+     0.6), with the rays a frame;
+ 29. the mesh phantom (tests/torch_port_scenes.py::usmain_mesh_desc, the
+     69 632-triangle knot under an ultrasound_bsdf, outside K10's scope):
+     render() a finite B-mode (its trace queries recorded: every one
+     through K7), three us_render frames at 64 rays per pair with two
+     mesh_isect launches a bounce and one us_das a frame, K7 bit-equal to
+     its plain version on a recorded closest-hit and shadow wave, one frame
+     under torch.profiler (K7's share, idle share);
+ 30. the scatterer phantoms of 152, 1 002 and 10 002 prims
+     (usmain_scatterers_desc, spheres of 0.1-0.3 mm): the same, each
+     asserted to take the brute-force, chunked or BVH trace route, the
+     routes held against each other on two recorded 20 480-ray waves of
+     each (prims equal but for counted exact ties, t within 1e-6 relative;
+     brute force left out at 10 002 prims), the BVH walk's CUDA graph
+     against its steps one at a time (bit-equal, both timed); a frame
+     over 20 s would be timed again at 8 rays per pair.
+Each main path (phases 5, 9, 13, 16, 19, 20, 24, 27, 28, 29 and 30) runs with
+every launch count set to 0 just before it and read just after; a film
+launch counts one trace-kernel launch (path_film or stokes_film) and one
+film_splat, a per-sample kernel's chunk one launch, and an ultrasound frame
+one us_acq (K10's deposit mode) and one us_das, or through the wavefront one
+us_das and, on a mesh, two mesh_isect a bounce.  Then comes a JSON record of the
 kernels, each with its bound: the larger of its operations over 67
 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100 SXM's data-sheet
 peaks), counted from this run's inputs; K6, K5 and K4 also with their
@@ -519,6 +543,10 @@ def main():
     pol = stokes_phases(tt, dev)
     env = envmap_phases(tt, dev, k1_ms=kernel_ms, k3_ms=pol["k3_ms"])
     rc = rough_cone_phases(tt, dev)
+    uw = us_wavefront_phases(tt, dev)
+    new_das = {"usmain_wavefront": uw["usmain"]["das_launches"],
+               "us_mesh_phantom": uw["mesh"]["counts"]["us_das"],
+               **{f"phantom_{p}": v["counts"]["us_das"] for p, v in uw["phantoms"].items()}}
 
     # film_splat's figures are those of cbox_pol's main-path launch (K3 in
     # K2's loop), the path that launches it most; each film launch's beside
@@ -567,8 +595,9 @@ def main():
         "source": "tpu_rt_torch/ops/csrc/us_das.cu",
         "replaces": "tpu_rt/us/beamform.py:34",
         "replaces_note": "das_beamform: XLA in tpu_rt, not a Pallas kernel",
-        "launches": us["das_launches"] + rc["das_launches"],
-        "launches_by_path": {"usmain": us["das_launches"], "cone_box": rc["das_launches"]},
+        "launches": us["das_launches"] + rc["das_launches"] + sum(new_das.values()),
+        "launches_by_path": {"usmain": us["das_launches"], "cone_box": rc["das_launches"],
+                             **new_das},
         "max_abs_err": max(us["das"]["max_abs_err"], rc["das"]["max_abs_err"]),
         "ms": us["das"]["ms"], "plain_ms": us["das"]["plain_ms"],
         "bound_ms": us["das"]["bound_ms"], "bound_by": us["das"]["bound_by"], "library_ms": None,
@@ -587,12 +616,14 @@ def main():
         "source": "tpu_rt_torch/ops/csrc/mesh_isect.cu",
         "replaces": "tpu_rt/ops/pallas_mesh.py:862",
         "also_replaces": "tpu_rt/ops/pallas_mesh.py:911",
-        "launches": wave["launches"], "launches_by_path": wave["launches_by_path"],
+        "launches": wave["launches"] + uw["mesh"]["counts"]["mesh_isect"],
+        "launches_by_path": dict(wave["launches_by_path"],
+                                 us_mesh_phantom=uw["mesh"]["counts"]["mesh_isect"]),
         "max_abs_err": wave["max_abs_err"],
         "ms": wave["ms"], "plain_ms": wave["plain_ms"],
         "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"],
         "plain_walk_bound_ms": wave["plain_walk_bound_ms"], "library_ms": None,
-        "waves": wave["waves"],
+        "waves": wave["waves"], "us_mesh_phantom_waves": uw["mesh"]["k7_waves"],
     }, {
         "name": "stokes_film", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
@@ -645,6 +676,14 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def check_bmode(img, shape=None):
+    """A finite B-mode in [0, 1], to the rounding of log_compress's
+    (dB - min) / range (1 + 1.2e-7 at the brightest pixel)."""
+    assert bool(torch.isfinite(img).all()), "the B-mode is not finite"
+    assert 0.0 <= img.min().item() and img.max().item() <= 1.0 + 1e-6, "the B-mode leaves [0, 1]"
+    assert shape is None or tuple(img.shape) == shape, f"B-mode shape {tuple(img.shape)}"
 
 
 def us_acq_check(label, scene, dev, rpp=64, seed=0):
@@ -770,19 +809,23 @@ def das_check(label, ch, usc, xg, zg, pos, angles):
                 bound_ms=das_bound[0], bound_by=das_bound[1], matmul_ms=matmul_ms)
 
 
-def us_frame(label, tt, scene, dev, rpp, x_bounds, z_bounds):
-    """A US main path (phases 9 and 27): one warm-up, five frames timed by
-    CUDA events with every count 0 before them (us_acq and us_das once a
-    frame), the split (acquisition, DAS, envelope + log) timed alone with
-    the main path's arguments, the frame's peak device memory, and three
-    frames under torch.profiler (device busy, idle share, top
-    operations)."""
+def us_frame(label, tt, scene, dev, rpp, x_bounds, z_bounds, use_kernel=True):
+    """A US main path (phases 9, 27 and 28): one warm-up, five frames
+    timed by CUDA events with every count 0 before them (us_acq and us_das
+    once a frame; with ``use_kernel=False`` the acoustic wavefront and
+    us_das once a frame), the split (acquisition, DAS, envelope + log)
+    timed alone with the main path's arguments, the frame's peak device
+    memory, and three frames under torch.profiler (device busy, idle
+    share, top operations)."""
+    from tpu_rt_torch.integrator import ultrasound as uw
     from tpu_rt_torch.ops import us_kernel as uk
     from tpu_rt_torch.sensor.transducer import element_geometry
     from tpu_rt_torch.us import beamform as bf
 
     usc = scene.ultrasound
     kw = dict(rays_per_pair=rpp, x_bounds=x_bounds, z_bounds=z_bounds, device=dev)
+    if not use_kernel:
+        kw["use_kernel"] = False
     tt.us_render(scene, seed=99, **kw)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -792,9 +835,15 @@ def us_frame(label, tt, scene, dev, rpp, x_bounds, z_bounds):
         times.append(ms)
     counts = launch_counts()
     print(f"launch counts over the {label} main path: {counts}")
-    check_counts(counts, us_acq=5, us_das=5)
-    assert bool(torch.isfinite(img).all()) and 0.0 <= img.min().item() <= img.max().item() <= 1.0
+    if use_kernel:
+        check_counts(counts, us_acq=5, us_das=5)
+        assert bool(torch.isfinite(img).all()) and 0.0 <= img.min().item() <= img.max().item() <= 1.0
+    else:
+        check_counts(counts, us_das=5)
+        check_bmode(img)
     med = statistics.median(times)
+    acquire = uk.simulate_acquisition if use_kernel else uw.simulate_acquisition
+    acq_what = "K10 with its deposit, set-up" if use_kernel else "the acoustic wavefront"
 
     # the DAS's inputs on the card, as us_render keeps them for its frames
     step = float(usc.sound_speed) / float(usc.frequency) / 4.0
@@ -803,8 +852,7 @@ def us_frame(label, tt, scene, dev, rpp, x_bounds, z_bounds):
     pos = element_geometry(usc.n_elements, usc.pitch, usc.radius, usc.opening_angle)[0].to(dev)
     angles = usc.angles.to(dev)
     das_args = (ch, angles, pos[:, 0], usc.sampling_rate, usc.sound_speed, xg, zg)
-    acq_ms, _ = cuda_ms(lambda: uk.simulate_acquisition(scene, seed=7, rays_per_pair=rpp,
-                                                        device=dev), reps=5)
+    acq_ms, _ = cuda_ms(lambda: acquire(scene, seed=7, rays_per_pair=rpp, device=dev), reps=5)
     das_ms, bfimg = cuda_ms(lambda: bf.das_beamform(*das_args, elem_z=pos[:, 2]), reps=5)
     env_ms, _ = cuda_ms(lambda: bf.log_compress(bf.hilbert_envelope(bfimg, axis=1)), reps=5)
     torch.cuda.synchronize()
@@ -835,7 +883,7 @@ def us_frame(label, tt, scene, dev, rpp, x_bounds, z_bounds):
     top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:6]
     print(f"{label} main path {usc.n_angles}x{usc.n_elements}x{usc.time_samples}, rpp {rpp}, "
           f"grid {tuple(img.shape)}: median {med:.3f} ms (min {min(times):.3f}, max "
-          f"{max(times):.3f}, n 5); split: acquisition (K10 with its deposit, set-up) "
+          f"{max(times):.3f}, n 5); split: acquisition ({acq_what}) "
           f"{acq_ms:.3f} ms, DAS kernel {das_ms:.3f} ms, envelope + log {env_ms:.3f} ms; "
           f"peak device memory of a frame {peak_mb:.1f} MB above the {base_mb:.1f} MB held; "
           f"profile of 3 frames: wall {wall_ms:.3f} ms, device busy "
@@ -2233,6 +2281,253 @@ def rough_cone_phases(tt, dev):
                       envelope_ms=fr["envelope_ms"], peak_mb=fr["peak_mb"],
                       idle_share=fr["idle_share"])
     print(f"phases 25-27 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def route_measures(ch_new, ch_ref):
+    """tpu_rt's measures between its two acquisition routes
+    (tests/test_pallas_us.py:35-49): total |RF| relative difference, the
+    first echo's sample offset, the axial |RF| profiles' correlation."""
+    a, b = ch_new.abs().double().cpu(), ch_ref.abs().double().cpu()
+    ax_a, ax_b = a.sum((0, 1)), b.sum((0, 1))
+    first = abs(int(torch.nonzero(ax_a)[0]) - int(torch.nonzero(ax_b)[0]))
+    corr = float(np.corrcoef(ax_a.numpy(), ax_b.numpy())[0, 1])
+    return dict(total_rel=abs(a.sum().item() - b.sum().item()) / b.sum().item(), first_echo=first,
+                corr=corr)
+
+
+def record_queries(fn):
+    """Run fn() with the four trace routes of geometry/trace.py wrapped:
+    returns (fn's result, the routes called in order, and each query's
+    (o, d, tmin, tmax))."""
+    from tpu_rt_torch.geometry import trace
+
+    names = ("_trace_bruteforce", "_trace_mesh", "_trace_chunked", "_trace_bvh")
+    real = {n: getattr(trace, n) for n in names}
+    calls = []
+
+    def wrap(name):
+        def f(geom, o, d, tmin, tmax):
+            calls.append((name, (o, d, tmin, tmax)))
+            return real[name](geom, o, d, tmin, tmax)
+        return f
+
+    for n in names:
+        setattr(trace, n, wrap(n))
+    try:
+        out = fn()
+    finally:
+        for n in names:
+            setattr(trace, n, real[n])
+    return out, [c[0] for c in calls], [c[1] for c in calls]
+
+
+def routes_on_wave(label, geom, wave, names):
+    """The trace routes ``names`` on one recorded wave (o, d, tmin, tmax),
+    each against the first: prims equal but for exact ties (counted: the
+    two prims meet the ray at t within 1e-6 relative), t within 1e-6
+    relative on the hits; each route timed by CUDA events."""
+    from tpu_rt_torch.geometry import trace
+
+    o, d, tmin, tmax = wave
+    n = o.shape[0]
+    hits, ms = {}, {}
+    for name in names:
+        fn = getattr(trace, name)
+        fn(geom, o, d, tmin, tmax)  # warm-up
+        ms[name], hits[name] = cuda_ms(lambda: fn(geom, o, d, tmin, tmax))
+    ref = hits[names[0]]
+    live = (trace._per_ray(tmax, n, o.device)[:, 0] > 0)
+    out = dict(rays=n, live=int(live.sum()), hit_share=(ref.prim >= 0).float().mean().item(), ms=ms)
+    for name in names[1:]:
+        h = hits[name]
+        differ = h.prim != ref.prim
+        ties = 0
+        if bool(differ.any()):
+            idx = torch.nonzero(differ)[:, 0]
+            pair = [trace._intersect_prim(geom, x.prim[idx].long().clamp(min=0), o[idx], d[idx],
+                                          tmin, trace.INF)[0] for x in (h, ref)]
+            both = (h.prim[idx] >= 0) & (ref.prim[idx] >= 0)
+            tie = both & ((pair[0] - pair[1]).abs() <= 1e-6 * pair[1].abs())
+            ties = int(tie.sum())
+            assert bool(tie.all()), f"{label}: {name} and {names[0]} differ off a tie"
+        hit = ref.prim >= 0
+        rel = ((h.t - ref.t).abs() / ref.t.abs().clamp(min=1e-30))[hit]
+        max_rel = rel.max().item() if bool(hit.any()) else 0.0
+        out[name] = dict(differ=int(differ.sum()), ties=ties, max_rel_t=max_rel)
+        assert max_rel <= 1e-6, f"{label}: {name}'s t differs from {names[0]}'s"
+    print(f"  {label} ({n} rays, {out['live']} live, hit share {out['hit_share']:.4f}): "
+          + "; ".join(f"{k} {ms[k]:.3f} ms" for k in names) + "; "
+          + "; ".join(f"{k} vs {names[0]}: prims differ {out[k]['differ']} (exact ties "
+                      f"{out[k]['ties']}), max rel |dt| {out[k]['max_rel_t']:.3e}"
+                      for k in names[1:]))
+    return out
+
+
+def us_frames(label, tt, scene, dev, rpp, x_bounds, z_bounds, n, want):
+    """C5 on the card, then a scene's frames: render() (the warm-up, timed
+    on the host clock, its trace queries recorded) returns a finite B-mode
+    in [0, 1]; then n us_render frames timed by CUDA events with every
+    count 0 before them, checked against ``want`` (counts a frame).
+    Returns the figures and the render's queries (``record_queries``)."""
+    from tpu_rt_torch.integrator import ultrasound as uw
+
+    kw = dict(rays_per_pair=rpp, x_bounds=x_bounds, z_bounds=z_bounds)
+    t0 = time.perf_counter()
+    img, routes, waves = record_queries(lambda: tt.render(scene, seed=99, device=dev, **kw))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check_bmode(img)
+    reset_launch_counts()
+    times, rays = [], []
+    for rep in range(n):
+        ms, (img, ch, tx) = cuda_ms(lambda: tt.us_render(scene, seed=rep + 1, device=dev, **kw))
+        times.append(ms)
+        rays.append(int(uw.simulate_acquisition.last_ray_count))
+    counts = launch_counts()
+    print(f"launch counts over the {label} main path: {counts}")
+    check_counts(counts, **{k: v * n for k, v in want.items()})
+    check_bmode(img)
+    assert ch.abs().sum().item() > 0, f"{label}: no echo"
+    med = statistics.median(times)
+    nr = rays[times.index(med)]
+    usc = scene.ultrasound
+    print(f"{label} main path {usc.n_angles}x{usc.n_elements}x{usc.time_samples}, rpp {rpp}, "
+          f"grid {tuple(img.shape)}: median {med:.3f} ms (min {min(times):.3f}, max "
+          f"{max(times):.3f}, n {n}); render() {first_s:.3f} s on the host clock; rays a frame "
+          f"{nr} (closest hits + shadow rays), rays/s {nr / (med / 1e3):.4e}")
+    return dict(frame_ms=med, min_ms=min(times), max_ms=max(times), n=n, rpp=rpp, rays=nr,
+                rays_per_s=nr / (med / 1e3), render_s=first_s, counts=counts,
+                routes=sorted(set(routes)), queries=len(routes)), waves
+
+
+def us_wavefront_phases(tt, dev):
+    """Phases 28-30; returns the new routes' numbers."""
+    from tpu_rt_torch.geometry import trace
+    from tpu_rt_torch.integrator import ultrasound as uw
+    from tpu_rt_torch.ops import mesh_kernel as mk
+    from tpu_rt_torch.ops import us_kernel as uk
+    from tpu_rt_torch.us import pipeline
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import usmain_desc, usmain_mesh_desc, usmain_scatterers_desc
+
+    t_start = time.perf_counter()
+    st = tt.ScalarTransform4f
+    rpp = 64
+    full = ((-0.04, 0.04), (0.001, 0.05))
+    out = {}
+
+    # ---- 28. USMain through the acoustic wavefront at full width ----------------
+    usmain = tt.load_dict(usmain_desc(st))
+    fr = us_frame("USMain wavefront", tt, usmain, dev, rpp, *full, use_kernel=False)
+    assert fr["img"].shape == (638, 1040)
+    check_bmode(tt.render(usmain, seed=3, device=dev, rays_per_pair=rpp, use_kernel=False),
+                (638, 1040))
+    rays = int(uw.simulate_acquisition.last_ray_count)
+    meas = []
+    for seed in (0, 1, 2):
+        ch_w, _ = uw.simulate_acquisition(usmain, seed=seed, rays_per_pair=rpp, device=dev)
+        ch_k, _ = uk.simulate_acquisition(usmain, seed=seed, rays_per_pair=rpp, device=dev)
+        meas.append(route_measures(ch_w, ch_k))
+    # tpu_rt's bars between its two routes are 0.10, 16 samples and 0.6
+    # (tests/test_pallas_us.py:35-49); the first card run of this phase
+    # read at most 0.0095, 3 samples and at least 0.9537 over these seeds,
+    # so the bars here are 0.03, 8 samples and 0.9
+    print(f"USMain wavefront vs K10 at rpp {rpp}, seeds 0-2 (limits: total |RF| within 0.03, "
+          f"first echo within 8 samples, axial |RF| correlation > 0.9): "
+          + "; ".join(f"{m['total_rel']:.4f}, {m['first_echo']}, {m['corr']:.6f}" for m in meas)
+          + f"; rays a frame {rays} ({rays / (fr['acquisition_ms'] / 1e3):.4e} rays/s over the "
+            f"acquisition)")
+    assert all(m["total_rel"] < 0.03 and m["first_echo"] <= 8 and m["corr"] > 0.9
+               for m in meas), "the wavefront disagrees with K10 on USMain"
+    out["usmain"] = dict(frame_ms=fr["frame_ms"], acquisition_ms=fr["acquisition_ms"],
+                         das_ms=fr["das_ms"], envelope_ms=fr["envelope_ms"], peak_mb=fr["peak_mb"],
+                         idle_share=fr["idle_share"], rays=rays, vs_k10=meas,
+                         das_launches=fr["counts"]["us_das"])
+    print(f"phase 28 took {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 29. the mesh phantom: the 69 632-triangle knot through K7 ---------------
+    t0 = time.perf_counter()
+    mesh = tt.load_dict(usmain_mesh_desc(st))
+    assert not pipeline.in_kernel_scope(mesh) and mesh.geometry.cl_trisw is not None
+    depth = mesh.ultrasound.max_depth
+    fm, waves = us_frames("US mesh phantom", tt, mesh, dev, rpp, *full, n=3,
+                          want=dict(us_das=1, mesh_isect=2 * depth))
+    assert fm["routes"] == ["_trace_mesh"] and fm["queries"] == 2 * depth
+    gm = mesh.to(dev).geometry
+    cl = trace.mesh_clusters(gm)
+    k7 = {}
+    for name, (o, d, tmin, tmax) in (("bounce 1 closest-hit", waves[2]),
+                                     ("bounce 0 shadow", waves[1])):
+        tmax_b = torch.clamp(trace._per_ray(tmax, o.shape[0], dev)[:, 0], max=0.99 * trace.INF)
+        got = mk.mesh_intersect(cl, o, d, tmin=float(tmin), tmax=tmax_b)
+        t, lid, u, v = mk.mesh_intersect_plain(cl["bounds"], cl["trisw"], o, d, tmax_b,
+                                               float(tmin))
+        prim = torch.where(lid >= 0, cl["prim"][lid.clamp(min=0).long()], -1).to(torch.int32)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, (t, prim, u, v)))
+        k_ms, _ = cuda_ms(lambda: mk.mesh_intersect(cl, o, d, tmin=float(tmin), tmax=tmax_b),
+                          reps=10)
+        k7[name] = dict(rays=o.shape[0], live=int((tmax_b > 0).sum()),
+                        hit_share=(got[1] >= 0).float().mean().item(), bit_equal=same, ms=k_ms)
+        print(f"mesh_isect vs plain on the mesh phantom's {name} wave ({o.shape[0]} rays, "
+              f"{k7[name]['live']} live, {cl['bounds'].shape[0]} clusters): bit-equal {same}, hit "
+              f"share {k7[name]['hit_share']:.4f}; kernel {k_ms:.4f} ms")
+        assert same, f"mesh_isect differs from its plain version on the mesh phantom ({name})"
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        tt.us_render(mesh, seed=40, rays_per_pair=rpp, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    k7_ms = sum(dev_us(e) for e in prof.key_averages() if "mesh_isect" in e.key) / 1e3
+    print(f"profile of one mesh-phantom frame: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+          f"mesh_isect_kernel {k7_ms:.3f} ms ({k7_ms / max(busy, 1e-9):.4f} of busy, "
+          f"{k7_ms / wall_ms:.4f} of the wall), idle share {1.0 - busy / wall_ms:.4f}")
+    out["mesh"] = dict(fm, k7_waves=k7, profile=dict(wall_ms=wall_ms, busy_ms=busy,
+                                                     mesh_isect_ms=k7_ms))
+    print(f"phase 29 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 30. the scatterer phantoms: brute force, chunks, BVH ---------------------
+    t0 = time.perf_counter()
+    out["phantoms"] = {}
+    for n_sph, route in ((150, "_trace_bruteforce"), (1000, "_trace_chunked"),
+                         (10000, "_trace_bvh")):
+        sc = tt.load_dict(usmain_scatterers_desc(st, n=n_sph, r_min=1e-4, r_max=3e-4))
+        label = f"phantom {n_sph + 2} prims"
+        assert not pipeline.in_kernel_scope(sc)
+        fp, waves = us_frames(f"US {label}", tt, sc, dev, rpp, *full, n=3, want=dict(us_das=1))
+        print(f"{label}: route {fp['routes']}, {fp['queries']} queries a frame")
+        assert fp["routes"] == [route], f"{label} took {fp['routes']}, not {route}"
+        g = sc.to(dev).geometry
+        names = ["_trace_bruteforce", "_trace_chunked", "_trace_bvh"]
+        if route == "_trace_bvh":  # the (N, P) sweep of 20 480 x 10 002 is some 10 GB
+            names = names[1:]
+        fp["waves"] = {w: routes_on_wave(f"{label}, {w} wave", g, waves[i], names)
+                       for w, i in (("bounce 1 closest-hit", 2), ("bounce 0 shadow", 1))}
+        if route == "_trace_bvh":  # the walk's steps as a CUDA graph against one at a time
+            o, d, tmin, tmax = waves[2]
+            eager_ms, eager = cuda_ms(lambda: trace._trace_bvh(g, o, d, tmin, tmax, graph=False))
+            graph_ms, graphed = cuda_ms(lambda: trace._trace_bvh(g, o, d, tmin, tmax))
+            same = all(torch.equal(getattr(eager, f), getattr(graphed, f))
+                       for f in ("t", "prim", "u", "v"))
+            print(f"  {label}, bounce 1 closest-hit wave: the BVH walk one step at a time "
+                  f"{eager_ms:.3f} ms, as CUDA graphs of {trace.STEPS_PER_CHECK} steps "
+                  f"{graph_ms:.3f} ms; bit-equal {same}")
+            assert same, "the graphed BVH walk differs from its steps one at a time"
+            fp["bvh_graph"] = dict(eager_ms=eager_ms, graph_ms=graph_ms)
+        if fp["render_s"] > 20.0:
+            print(f"  {label}: a frame takes {fp['render_s']:.1f} s at rpp {rpp}; timed again at "
+                  f"rpp 8 (the BVH walk's steps, not its lanes, set the time)")
+            fp["rpp8"] = us_frames(f"US {label} rpp 8", tt, sc, dev, 8, *full, n=1,
+                                   want=dict(us_das=1))[0]
+        out["phantoms"][n_sph + 2] = dict(fp, route=route)
+    print(f"phase 30 took {time.perf_counter() - t0:.1f} s")
+    print(f"phases 28-30 took {time.perf_counter() - t_start:.1f} s")
     return out
 
 

@@ -38,7 +38,12 @@ film kernels' two launches, the trace kernel's sample records and
 film_splat on given records, bit-equal to their plain versions, also
 across a chunk boundary; K6, K5 and K4 on a chunk of samples a launch,
 bit-equal to their plain chunks and to one-sample launches, and the
-textured-environment route launching K5 once a chunk.
+textured-environment route launching K5 once a chunk.  The acoustic
+wavefront (the ultrasound route of scenes outside the acquisition
+kernel's scope) on the card against its CPU run fed the same uniforms,
+its mesh queries through the mesh-intersect kernel (bit-equal on a
+bounce wave), and its trace routes (brute force, chunks, BVH) agreeing
+on one wave.
 """
 
 import functools
@@ -51,13 +56,14 @@ import torch
 import tpu_rt_torch
 from tpu_rt_torch.geometry import trace
 from tpu_rt_torch.integrator import path as wavefront
+from tpu_rt_torch.integrator import ultrasound as us_wavefront
 from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
 from tpu_rt_torch.sensor import camera
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
 from tpu_rt_torch.us import beamform
 from tpu_rt_torch.us.pipeline import us_render
 from torch_port_scenes import (cone_box_desc, envmap_desc, envmap_rough_cone_desc, mixed_desc,
-                               polarizer_desc, tie_fixture, usmain_desc,
+                               polarizer_desc, tie_fixture, usmain_desc, usmain_mesh_desc,
                                usmain_scatterers_desc, usmain_twin_desc)
 
 torch.set_num_threads(1)
@@ -1001,3 +1007,111 @@ def test_das_kernel_matches_plain_version_at_usmain():
     assert got.shape == (1040, 638)
     scale = want.abs().max().item()
     assert scale > 0 and (got - want).abs().max().item() <= 2e-5 * scale
+
+
+def _us_uniforms(us, rays_per_pair, seed):
+    n = us.n_angles * us.n_elements * rays_per_pair
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return {"recv": torch.randint(0, us.n_elements, (us.max_depth, n), generator=gen),
+            "u": torch.rand((us.max_depth, n, 4), generator=gen)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["usmain", "phantom_1000"])
+def test_us_wavefront_on_cuda_matches_the_cpu(which):
+    """The acoustic wavefront on the card and on the CPU, fed the same
+    uniforms (2 rays a pair, 10 bounces): sin, exp, acos and the
+    intersectors round otherwise on the card, so total |RF| within 1e-3,
+    at least 99% of the non-zero samples within 1e-3 of the largest |RF|
+    (an ulp of a time index below 16 384 samples moves 2^-10 of an echo
+    between its taps; a lane that takes the other branch on an ulp, a
+    shadow ray grazing a sphere, moves its echoes), the rays cast within
+    1%."""
+    _need_cuda()
+    st_ = tpu_rt_torch.ScalarTransform4f
+    st = tpu_rt_torch.load_dict(usmain_desc(st_) if which == "usmain" else
+                                usmain_scatterers_desc(st_, n=1000, r_min=1e-4, r_max=3e-4))
+    u = _us_uniforms(st.ultrasound, 2, 5)
+    ch_c, tx_c = us_wavefront.simulate_acquisition(st, rays_per_pair=2, device="cpu", uniforms=u)
+    n_c = int(us_wavefront.simulate_acquisition.last_ray_count)
+    ch_g, tx_g = us_wavefront.simulate_acquisition(st, rays_per_pair=2, device="cuda",
+                                                   uniforms=u)
+    n_g = us_wavefront.simulate_acquisition.last_ray_count
+    assert ch_g.device.type == n_g.device.type == "cuda"
+    ch_g = ch_g.cpu().double()
+    ch_c = ch_c.double()
+    torch.testing.assert_close(tx_g.cpu(), tx_c, rtol=0, atol=1e-12)
+    total = ch_c.abs().sum().item()
+    assert total > 0 and abs(ch_g.abs().sum().item() - total) <= 1e-3 * total
+    nz = (ch_c != 0) | (ch_g != 0)
+    big = ch_c.abs().max().item()
+    assert ((ch_g - ch_c)[nz].abs() <= 1e-3 * big).double().mean().item() >= 0.99
+    assert abs(int(n_g) - n_c) <= 0.01 * n_c
+
+
+@pytest.mark.cuda
+def test_us_mesh_phantom_on_cuda_goes_through_the_mesh_kernel():
+    """The 2 240-triangle knot under an ultrasound_bsdf is outside the
+    acquisition kernel's scope: us_render takes the wavefront, whose two
+    queries a bounce (closest hit, shadow) launch the mesh-intersect
+    kernel, and the DAS kernel beamforms; the first bounce wave's hits
+    are bit-equal to the kernel's plain version."""
+    _need_cuda()
+    st = tpu_rt_torch.load_dict(usmain_mesh_desc(tpu_rt_torch.ScalarTransform4f, ply="knot.ply"))
+    assert us_kernel.bake_us_scene(st) is None and st.geometry.cl_trisw is not None
+    before = (_launches(), mesh_kernel.mesh_intersect.launches)
+    img, ch, tx = us_render(st, seed=1, rays_per_pair=2, x_bounds=(-0.01, 0.01),
+                            z_bounds=(0.018, 0.03), device="cuda")
+    torch.cuda.synchronize()
+    assert _launches() == (before[0][0], before[0][1], before[0][2] + 1)
+    assert mesh_kernel.mesh_intersect.launches == before[1] + 2 * st.ultrasound.max_depth
+    assert bool(torch.isfinite(img).all()) and ch.abs().sum().item() > 0
+    assert 0.0 <= img.min().item() and img.max().item() <= 1.0 + 1e-6
+
+    base = plane_wave_rays(st.ultrasound)
+    o = base["o"].repeat_interleave(2, 0).cuda().contiguous()
+    d = base["d"].repeat_interleave(2, 0).cuda().contiguous()
+    cl = trace.mesh_clusters(st.geometry.to("cuda"))
+    tm = torch.full((o.shape[0],), 0.99 * 1e8, device="cuda")
+    got = mesh_kernel.mesh_intersect(cl, o, d, tmax=tm)
+    t, lid, u, v = mesh_kernel.mesh_intersect_plain(cl["bounds"], cl["trisw"], o, d, tm)
+    prim = torch.where(lid >= 0, cl["prim"][lid.clamp(min=0).long()], -1).to(torch.int32)
+    for a, b, name in zip(got, (t, prim, u, v), ("t", "prim", "u", "v")):
+        assert torch.equal(a, b), name
+    assert (got[1] >= 0).float().mean().item() > 0.05
+
+
+@pytest.mark.cuda
+def test_trace_routes_agree_on_cuda():
+    """One wave of the 1 000-sphere phantom (1 002 prims) on the card:
+    brute force, chunks and the BVH compute a sphere's t with the same
+    operations, so the prims and t are equal (an exact tie could part
+    them; none on this wave); the BVH's CUDA graph equals its steps one at
+    a time."""
+    _need_cuda()
+    st = tpu_rt_torch.load_dict(usmain_scatterers_desc(tpu_rt_torch.ScalarTransform4f, n=1000,
+                                                       r_min=1e-4, r_max=3e-4))
+    g = st.geometry.to("cuda")
+    base = plane_wave_rays(st.ultrasound)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    o = base["o"].repeat_interleave(8, 0).cuda()
+    d = base["d"].repeat_interleave(8, 0).cuda()
+    d = torch.nn.functional.normalize(d + 0.05 * torch.randn(d.shape, generator=gen,
+                                                             device="cuda"), dim=-1)
+    tmax = torch.where(torch.rand(o.shape[0], generator=gen, device="cuda") < 0.3, 0.02, 1e8)
+    hits = [r(g, o, d, trace.RAY_EPS, tmax) for r in
+            (trace._trace_bruteforce, trace._trace_chunked, trace._trace_bvh)]
+    hb = hits[0]
+    assert 0.2 < (hb.prim >= 0).float().mean().item() < 1.0
+    for h in hits[1:]:
+        assert torch.equal(h.prim, hb.prim)
+        assert torch.equal(h.t, hb.t)
+    # the BVH walk replays its steps as a CUDA graph: the same bits as the
+    # steps one at a time, also on a second wave through the kept graph
+    for dd in (d, -d):
+        graphed = trace._trace_bvh(g, o, dd, trace.RAY_EPS, tmax)
+        eager = trace._trace_bvh(g, o, dd, trace.RAY_EPS, tmax, graph=False)
+        for f in ("t", "prim", "u", "v"):
+            assert torch.equal(getattr(graphed, f), getattr(eager, f)), f

@@ -189,13 +189,30 @@ def test_triangle_scene_interaction_uses_vertex_normals_and_uvs():
                                    rtol=2e-5, atol=1e-5, err_msg=f)
 
 
-def test_many_prims_without_cluster_tables_raise_naming_roadmap():
-    """Over 192 prims and no cluster tables (tpu_rt's chunked / BVH routes)."""
-    desc = {"type": "scene", "integrator": {"type": "path"}}
-    for i in range(193):
-        desc[f"s{i}"] = {"type": "sphere", "center": [i * 3.0, 0, 0], "radius": 1.0}
-    st = tpu_rt_torch.load_dict(desc)
+def test_many_prims_without_cluster_tables_take_the_chunked_route():
+    """Over 192 prims and no cluster tables: the chunked route, as in
+    tpu_rt; the scene of 193 unit spheres in a row hits as tpu_rt's does
+    (prim equal, t within 1e-5 relative: rays start within 6 of the sphere
+    they aim at, where the quadratic keeps its digits)."""
+    def desc(st):
+        d = {"type": "scene", "integrator": {"type": "path"}}
+        for i in range(193):
+            d[f"s{i}"] = {"type": "sphere", "center": [i * 3.0, 0, 0], "radius": 1.0}
+        return d
+
+    sj, st = tpu_rt.load_dict(desc(tpu_rt.ScalarTransform4f)), tpu_rt_torch.load_dict(
+        desc(tpu_rt_torch.ScalarTransform4f))
     assert st.geometry.cl_trisw is None
-    o, d = torch.zeros((4, 3)), torch.tensor([[1.0, 0, 0]]).expand(4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        trace_t.ray_intersect_hit(st.geometry, o, d)
+    rng = np.random.default_rng(19)
+    k = rng.integers(0, 193, 252)
+    target = np.stack([k * 3.0, np.zeros(252), np.zeros(252)], 1) + rng.uniform(-1.5, 1.5,
+                                                                                (252, 3))
+    o = np.concatenate([np.tile([[0.1, 0.2, 0.0]], (4, 1)), target + rng.uniform(-6, 6, (252, 3))]).astype(np.float32)
+    d = np.concatenate([np.tile([[1.0, 0, 0]], (4, 1)), target - o[4:]])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    hj = trace_j.ray_intersect_hit(sj.geometry, jnp.asarray(o), jnp.asarray(d))
+    ht = trace_t.ray_intersect_hit(st.geometry, torch.from_numpy(o), torch.from_numpy(d))
+    np.testing.assert_array_equal(ht.prim.numpy(), np.asarray(hj.prim))
+    hit = ht.prim.numpy() >= 0
+    assert 0.3 < hit.mean() < 1.0 and (ht.prim.numpy()[:4] == 0).all()
+    np.testing.assert_allclose(ht.t.numpy()[hit], np.asarray(hj.t)[hit], rtol=1e-5)

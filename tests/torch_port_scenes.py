@@ -113,19 +113,43 @@ def usmain_twin_desc(st, twin="after", impedance=1.5):
     return desc
 
 
-def usmain_scatterers_desc(st, n=62, seed=5):
-    """USMain with n small spheres (radius 0.3-1 mm, impedance 1.8) strewn
-    over x in [-2, 2] cm and z in [1, 4.5] cm, before its plate, from a
-    numpy seed: with the plate and the back wall n + 2 prims, 64 at n 62,
-    the most the acquisition kernel takes."""
+def usmain_scatterers_desc(st, n=62, seed=5, r_min=3e-4, r_max=1e-3):
+    """USMain with n small spheres (radius r_min to r_max, 0.3-1 mm by
+    default, impedance 1.8) strewn over x in [-2, 2] cm and z in
+    [1, 4.5] cm, before its plate, from a numpy seed: with the plate and
+    the back wall n + 2 prims, 64 at n 62, the most the acquisition kernel
+    takes.  Past that the scene is a speckle phantom for the acoustic
+    wavefront: 150 spheres (152 prims) take the brute-force sweep, 1 000
+    the chunked one, 10 000 the BVH."""
     desc = usmain_desc(st)
     rng = np.random.default_rng(seed)
     for k in range(n):
         desc[f"scatterer_{k:02d}"] = {
             "type": "sphere",
             "center": [float(rng.uniform(-0.02, 0.02)), 0.0, float(rng.uniform(0.01, 0.045))],
-            "radius": float(rng.uniform(3e-4, 1e-3)),
+            "radius": float(rng.uniform(r_min, r_max)),
             "bsdf": {"type": "ultrasound_bsdf", "impedance": 1.8, "roughness": 0.5}}
+    return desc
+
+
+def usmain_mesh_desc(st, ply="knot_69k.ply"):
+    """USMain's transducer and back wall with a segmented-organ stand-in:
+    the torus knot of ``tests/assets/mesh/<ply>`` (69 632 triangles for
+    ``knot_69k.ply``, 2 240 for ``knot.ply``) under an ``ultrasound_bsdf``
+    (impedance 1.8, roughness 0.5), scaled by 8.3 mm a unit and moved to
+    z = 3.25 cm: about 2.4 cm across in x, over z 2-4.5 cm, its tube cut
+    by the imaging plane y = 0.  More than 192 triangles give it mesh
+    cluster tables, so both queries of every bounce go through K7."""
+    import os
+
+    desc = usmain_desc(st)
+    del desc["flat_plate"]
+    desc["organ"] = {
+        "type": "ply",
+        "filename": os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "mesh",
+                                 ply),
+        "to_world": st().translate([0.0, 0.0, 0.0325]) @ st().scale(0.0083),
+        "bsdf": {"type": "ultrasound_bsdf", "impedance": 1.8, "roughness": 0.5}}
     return desc
 
 

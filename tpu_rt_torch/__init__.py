@@ -8,11 +8,13 @@ beamforming and B-mode display.  On an NVIDIA GPU the path-tracing bounce
 loop with its film accumulation (scalar or polarized, per-sample or in a
 regeneration loop), the ultrasound acquisition bounce loop and direct
 lighting on a mesh each run in hand-written CUDA kernels
-(``ops/csrc/path_film.cu``, ``us_acq.cu``, ``mesh_direct.cu``); scenes
-outside their scope render through the wavefront path tracers
-(``integrator/path.py``, and ``integrator/stokes.py`` for polarized
-transport through polarizers), whose mesh queries run in a fourth
-(``mesh_isect.cu``).  On the CPU the kernels' plain PyTorch versions run.
+(``ops/csrc/path_film.cu``, ``us_acq.cu``, ``mesh_direct.cu``), and the
+delay-and-sum beamformer in a fourth (``us_das.cu``); scenes outside their
+scope render through the wavefronts (``integrator/path.py``,
+``integrator/stokes.py`` for polarized transport through polarizers,
+``integrator/ultrasound.py`` for the acoustic acquisition), whose mesh
+queries run in a fifth (``mesh_isect.cu``).  On the CPU the kernels' plain
+PyTorch versions run.
 
 This package imports torch, numpy and the standard library, never jax.
 """

@@ -18,8 +18,10 @@ curves, a mesh the clustered mode cannot take), and every other
 tracer of ``integrator/path.py`` (whose mesh queries run through the
 clustered mesh-intersect kernel).  An ultrasound scene returns the B-mode
 image of ``us.pipeline.us_render``, whose acquisition runs through the
-ultrasound kernel (tpu_rt's ``render`` sends it through its XLA tracer
-instead: both estimate the same integrals with different random streams).
+ultrasound kernel when the scene is in its scope and ``use_kernel`` is
+left True, else through the acoustic wavefront (tpu_rt's ``render``
+takes its XLA wavefront for every scene: the two routes estimate the
+same integrals with different random streams).
 A ``stokes`` scene returns the (H, W, 4, 3) Stokes image of
 ``integrator/stokes.py::render_stokes``: through the Stokes film kernel
 K3 when the scene is in its scope, else through the Stokes wavefront
@@ -75,7 +77,7 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
 
     An ultrasound scene gives the B-mode display image [Nz, Nx] of
     ``us_render(scene, seed, device=device, **us_kwargs)`` (e.g.
-    ``rays_per_pair``, ``x_bounds``, ``z_bounds``)."""
+    ``rays_per_pair``, ``x_bounds``, ``z_bounds``, ``use_kernel``)."""
     from tpu_rt_torch.ops import path_kernel
 
     device = _check_device(device)

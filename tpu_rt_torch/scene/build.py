@@ -375,6 +375,7 @@ class _Builder:
             an_shape=np.asarray(self.an["shape"], np.int32),
             # the loaded shapes have no per-prim parameters (curves, A8)
             an_param=np.zeros((n_an, 2), np.float32),
+            bvh_min=bvh["node_min"], bvh_max=bvh["node_max"],
             bvh_a=bvh["a"], bvh_b=bvh["b"], bvh_count=bvh["count"],
             prim_order=bvh["prim_order"],
             **clusters,

@@ -6,8 +6,8 @@ thing.  The JAX package keeps static fields out of the pytree; here a
 dataclass simply holds tensors beside plain Python ints and flags.
 
 Carried: world-space triangles with their vertex normals and uvs,
-analytic shape transforms and parameters, the BVH's prim order and node
-links, the mesh cluster tables, per-shape BSDF/emitter ids, the BSDF
+analytic shape transforms and parameters, the BVH's prim order, node
+boxes and links, the mesh cluster tables, per-shape BSDF/emitter ids, the BSDF
 table and the set of BSDF types present, the emitter tables (with the
 environment's frame and sampling CDFs), the camera and the ultrasound
 configuration, and each shape's to_world (the polarizer's axis frame).
@@ -91,8 +91,11 @@ class Geometry(_Replace):
     an_to_object: torch.Tensor  # [A, 4, 4]
     an_shape: torch.Tensor  # [A]
     an_param: torch.Tensor  # [A, 2] per-prim parameters (curve radii), else 0
-    # BVH over all prim ids (geometry/bvh.py): internal nodes link children
-    # (a, b) with count 0; leaves hold (first, _, count) over prim_order
+    # BVH over all prim ids (geometry/bvh.py): node boxes; internal nodes
+    # link children (a, b) with count 0; leaves hold (first, _, count) over
+    # prim_order
+    bvh_min: torch.Tensor  # [M, 3]
+    bvh_max: torch.Tensor  # [M, 3]
     bvh_a: torch.Tensor  # [M]
     bvh_b: torch.Tensor  # [M]
     bvh_count: torch.Tensor  # [M]
