@@ -195,13 +195,40 @@ Phases (any failure raises and the script exits non-zero):
      each (prims equal but for counted exact ties, t within 1e-6 relative;
      brute force left out at 10 002 prims), the BVH walk's CUDA graph
      against its steps one at a time (bit-equal, both timed); a frame
-     over 20 s would be timed again at 8 rays per pair.
-Each main path (phases 5, 9, 13, 16, 19, 20, 24, 27, 28, 29 and 30) runs with
+     over 20 s would be timed again at 8 rays per pair;
+ 31. the DAS's adjoint kernel (us_das.cu, us_das_adjoint_kernel) at
+     USMain's shape on a K10 frame's RF with a B-mode MSE's cotangent, in
+     both instantiations, d RF alone (what the main paths launch) and with
+     the geometric cotangents: each d RF within 1e-5 of its largest, the
+     geometric cotangents within 1e-3 of theirs, against autograd of the
+     gather form's plain arithmetic on the card; the adjoint identity;
+     each timed beside its plain version and its bound;
+ 32. the acoustic wavefront's gradient on the card against the CPU's, fed
+     the same draws (the plate within 1e-3, USMain at 3 angles within
+     2e-2); then two roughness loops through opt/inverse.optimize, 25 Adam
+     steps from 0.1 toward 0.7 at 64 rays per pair, each step's forward
+     (K10, the DAS kernel) and backward (the DAS adjoint, the acoustic
+     wavefront's replay) one us_acq, us_das and us_das_adjoint launch:
+     the plate of tpu_rt's roughness recovery test on the envelope of its
+     DAS image, held to that test's bars (the loss down to 0.7 of its
+     first value, the roughness within 0.25 of 0.7); USMain's loop
+     (USMain.py:262-298: flat_plate.bsdf.roughness, its B-mode MSE on
+     the 1040 x 638 grid), each step's forward and backward timed, a
+     step's peak memory, two steps profiled, every gradient finite and
+     non-zero, its end printed (from 0.1 that objective falls toward the
+     clip: PERF.md §6);
+ 33. one backward through the mesh phantom (the wavefront with K7 twice a
+     bounce, the DAS adjoint): a finite, non-zero gradient on the knot;
+ 34. path_trace's gradient on mesh_gi.xml at 128 x 128 through K7, three
+     seeds: finite and non-zero, five K7 launches a trace.
+Each main path (phases 5, 9, 13, 16, 19, 20, 24, 27, 28, 29, 30, 32 (each
+loop), 33 and 34) runs with
 every launch count set to 0 just before it and read just after; a film
 launch counts one trace-kernel launch (path_film or stokes_film) and one
 film_splat, a per-sample kernel's chunk one launch, and an ultrasound frame
 one us_acq (K10's deposit mode) and one us_das, or through the wavefront one
-us_das and, on a mesh, two mesh_isect a bounce.  Then comes a JSON record of the
+us_das and, on a mesh, two mesh_isect a bounce; a backward through an
+ultrasound frame one us_das_adjoint.  Then comes a JSON record of the
 kernels, each with its bound: the larger of its operations over 67
 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100 SXM's data-sheet
 peaks), counted from this run's inputs; K6, K5 and K4 also with their
@@ -307,6 +334,7 @@ def _counters():
             "us_acq": us_kernel.us_trace_rf,
             "us_acq_records": us_kernel.us_trace,
             "us_das": beamform.das_beamform,
+            "us_das_adjoint": beamform.das_adjoint,
             "mesh_direct": mesh_kernel.direct_trace,
             "mesh_isect": mesh_kernel.mesh_intersect}
 
@@ -390,6 +418,17 @@ OPS_MT = 54
 # (1), the delay's 1 / c, sum, offset and fs (4), the floor and weight (2),
 # 1 - w, the two products and their sum (4), the accumulation (1).
 OPS_DAS = 17
+# A DAS adjoint tap, us_das.cu::us_das_adjoint_kernel: the delay, floor and
+# weight recomputed (13: dx, dz, their squares and sum, the square root,
+# 1 / c, the sum and offset, fs, floor, w), the taps' weights g (1 - w), g w
+# (3), and the geometric terms: v1 - v0 and g times it (2), d fs (2), G and
+# its sum over the elements (2), d (1 / c) (2), q = G (1 / c) / r with its
+# guard (3), the two element terms (4) and their sums (2); the warp's
+# shuffle tree adds more than a sum needs and is not counted.
+OPS_DAS_ADJ = 33
+# The same with d RF alone (us_das_adjoint_kernel<false>): the delay, floor
+# and weight (13) and the taps' weights (3).
+OPS_DAS_ADJ_RF = 16
 # A 1-D filter weight, path_film.cu::film_w1d: x = (d + 0.5) - j, the tent's
 # |x|, sub and max, or the gaussian's two multiplies, exp, sub, |x|, compare
 # and select (the exp counted as one).
@@ -544,9 +583,16 @@ def main():
     env = envmap_phases(tt, dev, k1_ms=kernel_ms, k3_ms=pol["k3_ms"])
     rc = rough_cone_phases(tt, dev)
     uw = us_wavefront_phases(tt, dev)
-    new_das = {"usmain_wavefront": uw["usmain"]["das_launches"],
+    gr = grad_phases(tt, dev)
+    new_das = {"usmain_roughness_loop": gr["loop"]["counts"]["us_das"],
+               "plate_roughness_loop": gr["plate_loop"]["counts"]["us_das"],
+               "us_mesh_phantom_grad": gr["mesh"]["counts"]["us_das"],
+               "usmain_wavefront": uw["usmain"]["das_launches"],
                "us_mesh_phantom": uw["mesh"]["counts"]["us_das"],
                **{f"phantom_{p}": v["counts"]["us_das"] for p, v in uw["phantoms"].items()}}
+    adj_launches = {"usmain_roughness_loop": gr["loop"]["counts"]["us_das_adjoint"],
+                    "plate_roughness_loop": gr["plate_loop"]["counts"]["us_das_adjoint"],
+                    "us_mesh_phantom_grad": gr["mesh"]["counts"]["us_das_adjoint"]}
 
     # film_splat's figures are those of cbox_pol's main-path launch (K3 in
     # K2's loop), the path that launches it most; each film launch's beside
@@ -584,8 +630,11 @@ def main():
         "name": "us_acq", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/us_acq.cu",
         "replaces": "tpu_rt/ops/pallas_us.py:388",
-        "launches": us["launches"] + rc["k10_launches"],
-        "launches_by_path": {"usmain": us["launches"], "cone_box": rc["k10_launches"]},
+        "launches": us["launches"] + rc["k10_launches"] + gr["loop"]["counts"]["us_acq"]
+        + gr["plate_loop"]["counts"]["us_acq"],
+        "launches_by_path": {"usmain": us["launches"], "cone_box": rc["k10_launches"],
+                             "usmain_roughness_loop": gr["loop"]["counts"]["us_acq"],
+                             "plate_roughness_loop": gr["plate_loop"]["counts"]["us_acq"]},
         "max_abs_err": max(us["acq"]["max_abs_err"], rc["k10"]["max_abs_err"]),
         "ms": us["acq"]["ms"], "plain_ms": us["acq"]["plain_ms"],
         "bound_ms": us["acq"]["bound_ms"], "bound_by": us["acq"]["bound_by"], "library_ms": None,
@@ -603,6 +652,23 @@ def main():
         "bound_ms": us["das"]["bound_ms"], "bound_by": us["das"]["bound_by"], "library_ms": None,
         "usmain": us["das"], "cone_box": rc["das"],
     }, {
+        "name": "us_das_adjoint", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/us_das.cu",
+        "replaces": "tpu_rt/us/beamform.py:34",
+        "replaces_note": "jax.grad of das_beamform: XLA in tpu_rt, not a Pallas kernel; the "
+                         "numbers are those of d RF alone (us_das_adjoint_kernel<false>), "
+                         "what the main paths launch; 'geometry' holds the other variant",
+        "launches": sum(adj_launches.values()), "launches_by_path": adj_launches,
+        "max_abs_err": max(gr["adjoint"][v]["max_abs_err"] for v in ("rf_only", "geometry")),
+        "ms": gr["adjoint"]["rf_only"]["ms"], "plain_ms": gr["adjoint"]["rf_only"]["plain_ms"],
+        "bound_ms": gr["adjoint"]["rf_only"]["bound_ms"],
+        "bound_by": gr["adjoint"]["rf_only"]["bound_by"], "library_ms": None,
+        "rf_only": gr["adjoint"]["rf_only"], "geometry": gr["adjoint"]["geometry"],
+        "loop": {k: v for k, v in gr["loop"].items()
+                 if k not in ("steps", "losses", "grads", "top")},
+        "plate_loop": {k: v for k, v in gr["plate_loop"].items()
+                       if k not in ("steps", "losses", "grads")},
+    }, {
         "name": "mesh_direct", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/mesh_direct.cu",
         "replaces": "tpu_rt/ops/pallas_mesh.py:1416",
@@ -616,9 +682,12 @@ def main():
         "source": "tpu_rt_torch/ops/csrc/mesh_isect.cu",
         "replaces": "tpu_rt/ops/pallas_mesh.py:862",
         "also_replaces": "tpu_rt/ops/pallas_mesh.py:911",
-        "launches": wave["launches"] + uw["mesh"]["counts"]["mesh_isect"],
+        "launches": (wave["launches"] + uw["mesh"]["counts"]["mesh_isect"]
+                     + gr["mesh"]["counts"]["mesh_isect"] + sum(gr["optical"]["mesh_isect"])),
         "launches_by_path": dict(wave["launches_by_path"],
-                                 us_mesh_phantom=uw["mesh"]["counts"]["mesh_isect"]),
+                                 us_mesh_phantom=uw["mesh"]["counts"]["mesh_isect"],
+                                 us_mesh_phantom_grad=gr["mesh"]["counts"]["mesh_isect"],
+                                 mesh_gi_path_trace_grad=sum(gr["optical"]["mesh_isect"])),
         "max_abs_err": wave["max_abs_err"],
         "ms": wave["ms"], "plain_ms": wave["plain_ms"],
         "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"],
@@ -2529,6 +2598,471 @@ def us_wavefront_phases(tt, dev):
     print(f"phase 30 took {time.perf_counter() - t0:.1f} s")
     print(f"phases 28-30 took {time.perf_counter() - t_start:.1f} s")
     return out
+
+
+US_FULL = ((-0.04, 0.04), (0.001, 0.05))  # us_render's grid: x, z bounds (m)
+ROUGH_KEY = "flat_plate.bsdf.roughness"
+# USMain's loop (USMain.py:262-298): the plate's roughness from 0.1 toward
+# 0.7, Adam at lr 2e-2 clipped to [1e-4, 1], 25 steps; tpu_rt's bars for a
+# recovery (tests/test_parallel_and_grad.py::
+# test_inverse_rendering_recovers_roughness): the loss down to 0.7 of its
+# first value, the roughness within 0.25 of the target.
+ROUGH_START, ROUGH_TARGET, ROUGH_LR, ROUGH_CLIP = 0.1, 0.7, 2e-2, (1e-4, 1.0)
+LOSS_BAR, ROUGH_BAR = 0.7, 0.25
+# The loop phase 32 gates at tpu_rt's bars (PERF.md §6): the plate
+# of tpu_rt's roughness recovery test (tests/test_parallel_and_grad.py
+# :191-245) on the envelope of its DAS image over x within 4 mm, z 6-10 mm.
+GATED_OBJECTIVE = "envelope"
+PLATE_KEY = "plate.bsdf.roughness"
+PLATE_WINDOW = ((-0.004, 0.004), (0.006, 0.010))
+
+
+def recovery_plate(tt, roughness=0.1):
+    """The plate of tpu_rt's roughness recovery test: 16 elements, angles
+    -5 and 5 degrees, 600 samples, depth 2, the plate at 8 mm."""
+    from torch_port_scenes import plate_desc
+
+    return tt.load_dict(plate_desc(tt.ScalarTransform4f, roughness=roughness,
+                                   angles=(-5.0, 5.0), z=0.008, time_samples=600, max_depth=2))
+
+
+def das_adjoint_check(tt, scene, dev, rpp=64, bounds=US_FULL):
+    """Phase 31: the DAS's adjoint kernel at USMain's shape (5 x 64 x 10 000
+    on the 1040 x 638 grid) on the RF of a K10 frame, with the cotangent
+    of a B-mode MSE (target: the plate at roughness 0.7) taken back
+    through the envelope and log, in both of its instantiations: d RF
+    alone (``geometry=False``, us_das_adjoint_kernel<false>, what a
+    backward launches when only the RF needs a gradient: the roughness
+    loop and the mesh phantom) and with the geometric cotangents
+    (``geometry=True``).  Each d RF against torch autograd of the gather
+    form's plain arithmetic on the card, same variant, within 1e-5 of the
+    largest |d RF| (each entry a float32 sum of some hundred terms, added
+    by atomics in a run-dependent order on both sides); the geometric
+    cotangents against the same autograd, each within 1e-3 of its largest
+    (sums of 212 M terms that cancel, taken in another order), with the
+    float32 plain version's own distance from float64 autograd printed
+    beside them (the float32 taps themselves: a delay rounded across a
+    sample moves a tap); the adjoint identity <DAS(x), y> = <x, DAS^T(y)>
+    within 1e-5 of sum |DAS(x) y| for each.  Each variant timed beside its
+    plain version (autograd) and bounded: OPS_DAS_ADJ_RF operations a tap
+    and 4 a (pixel, angle), the RF's taps not read, for d RF alone;
+    OPS_DAS_ADJ and 5, the RF read, with the geometry; g and the tables
+    in, d RF (and the geometric cotangents) out."""
+    from tpu_rt_torch.ops import us_kernel as uk
+    from tpu_rt_torch.opt import inverse
+    from tpu_rt_torch.sensor.transducer import element_geometry
+    from tpu_rt_torch.us import beamform as bf
+
+    usc = scene.ultrasound
+    ch, _ = uk.simulate_acquisition(scene, seed=0, rays_per_pair=rpp, device=dev)
+    target_scene = inverse.set_param(scene, ROUGH_KEY, 0.7)
+    step = float(usc.sound_speed) / float(usc.frequency) / 4.0
+    xg, zg = (g.to(dev) for g in bf.grid_scan(*bounds[0], *bounds[1], step, step))
+    pos = element_geometry(usc.n_elements, usc.pitch, usc.radius, usc.opening_angle)[0].to(dev)
+    ex, ez = pos[:, 0].contiguous(), pos[:, 2].contiguous()
+    rad = usc.angles.to(dev) * np.float32(np.pi / 180)
+    sin_a, cos_a = torch.sin(rad), torch.cos(rad)
+    inv_c, fs = 1.0 / usc.sound_speed, usc.sampling_rate
+    target = tt.us_render(target_scene, seed=1, rays_per_pair=rpp, device=dev,
+                          x_bounds=bounds[0], z_bounds=bounds[1])[0]
+    out = bf.das_beamform(ch, usc.angles.to(dev), ex, fs, usc.sound_speed, xg, zg, elem_z=ez)
+    leaf = out.detach().requires_grad_()
+    img = bf.log_compress(bf.hilbert_envelope(leaf, axis=1)).T
+    g, = torch.autograd.grad(((img - target) ** 2).mean(), leaf)
+    args = (ch, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, g)
+    A, E, T = ch.shape
+    n_pix = xg.numel() * zg.numel()
+    tables = xg.numel() + zg.numel() + 2 * E + 2 * A + 2
+    lhs = out.double() * g.double()
+    res = {}
+    for variant, geometry in (("rf_only", False), ("geometry", True)):
+        got = bf.das_adjoint(*args, geometry=geometry)
+        want = bf.das_adjoint_plain(*args, geometry=geometry)
+        torch.cuda.synchronize()
+        drf_scale = want[0].abs().max().item()
+        drf_err = (got[0] - want[0]).abs().max().item()
+        ident = abs(lhs.sum().item() - (ch.double() * got[0].double()).sum().item())
+        r = dict(max_abs_err=drf_err, drf_scale=drf_scale,
+                 identity_rel=ident / lhs.abs().sum().item())
+        if geometry:
+            ref = bf.das_adjoint_plain(*(x.double() for x in args[:7]), xg.double(),
+                                       zg.double(), g.double())
+            r["geometry"] = {}
+            for name, k, p32, p64 in zip(("elem_x", "elem_z", "sin_a", "cos_a", "inv_c", "fs"),
+                                         got[1:], want[1:], ref[1:]):
+                scale = p32.abs().max().item()
+                r["geometry"][name] = dict(
+                    kernel_rel=(k - p32).abs().max().item() / scale,
+                    plain_vs_float64_rel=(p32.double().cpu() - p64.cpu()).abs().max().item()
+                    / p64.abs().max().item())
+        else:
+            assert all(x is None for x in got[1:]), "d RF alone returned geometric cotangents"
+        call = lambda: bf.das_adjoint(*args, geometry=geometry)  # noqa: E731
+        r["ms"] = statistics.median(cuda_ms(call, reps=5)[0] for _ in range(3))
+        r["device_ms"], r["seen"] = kernel_device_ms(call, "us_das_adjoint_kernel", n=5)
+        r["plain_ms"], _ = cuda_ms(lambda: bf.das_adjoint_plain(*args, geometry=geometry),
+                                   reps=2)
+        if geometry:  # the RF's taps read, the geometric cotangents written
+            ops, nbytes = n_pix * A * (E * OPS_DAS_ADJ + 5), 4 * (2 * ch.numel() + n_pix
+                                                                  + tables + 2 * E + 2 * A + 2)
+        else:
+            ops, nbytes = n_pix * A * (E * OPS_DAS_ADJ_RF + 4), 4 * (ch.numel() + n_pix
+                                                                     + tables)
+        r["bound_ms"], r["bound_by"] = bound(ops, nbytes)
+        res[variant] = r
+        print(f"us_das_adjoint, {variant} (us_das_adjoint_kernel<{str(geometry).lower()}>), "
+              f"vs autograd of the plain form, USMain {A}x{E}x{T} on the "
+              f"{xg.numel()}x{zg.numel()} grid, a B-mode MSE's cotangent: d RF max |d| "
+              f"{drf_err:.3e} (limit 1e-5 x max|d RF| = {1e-5 * drf_scale:.3e}); adjoint "
+              f"identity |<DAS x, y> - <x, DAS^T y>| over sum |DAS x y| "
+              f"{r['identity_rel']:.3e} (limit 1e-5); kernel {r['ms']:.4f} ms a call "
+              f"({r['device_ms']:.4f} ms on the card, {r['seen']} launches seen), plain "
+              f"(autograd) {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+        if geometry:
+            print("  geometric cotangents, max |d| over their largest (limit 1e-3; the float32 "
+                  "plain version against float64 autograd): " + "; ".join(
+                      f"{k} {v['kernel_rel']:.3e} ({v['plain_vs_float64_rel']:.3e})"
+                      for k, v in r["geometry"].items()))
+        assert drf_scale > 0 and drf_err <= 1e-5 * drf_scale, \
+            f"the DAS adjoint's d RF disagrees ({variant})"
+        assert r["identity_rel"] <= 1e-5, f"the DAS adjoint fails the adjoint identity ({variant})"
+        for k, v in r.get("geometry", {}).items():
+            assert v["kernel_rel"] <= 1e-3, f"the DAS adjoint's d {k} disagrees"
+    return res
+
+
+def loop_frame(tt, sc, seed, objective, use_kernel, rpp, dev, bounds=US_FULL):
+    """A frame of ``sc`` for the roughness loop's ``objective``: "bmode",
+    USMain's (us_render's log-compressed image), or "rf", "das" or
+    "envelope" made by the pieces us_render is made of: the acquisition
+    (K10 with fastgrad's backward, or the wavefront), das_beamform,
+    hilbert_envelope."""
+    if objective == "bmode":
+        return tt.us_render(sc, seed=seed, rays_per_pair=rpp, device=dev, use_kernel=use_kernel,
+                            x_bounds=bounds[0], z_bounds=bounds[1])[0]
+    from tpu_rt_torch.integrator import ultrasound as wavefront
+    from tpu_rt_torch.ops import us_kernel as uk
+    from tpu_rt_torch.sensor.transducer import element_geometry
+    from tpu_rt_torch.us import beamform as bf
+
+    acquire = uk.simulate_acquisition_fastgrad if use_kernel else wavefront.simulate_acquisition
+    ch, _ = acquire(sc, seed=seed, rays_per_pair=rpp, device=dev)
+    if objective == "rf":
+        return ch
+    us = sc.ultrasound
+    step = float(us.sound_speed.detach()) / float(us.frequency.detach()) / 4.0
+    xg, zg = (g.to(dev) for g in bf.grid_scan(*bounds[0], *bounds[1], step, step))
+    pos = element_geometry(us.n_elements, us.pitch, us.radius, us.opening_angle)[0].to(dev)
+    img = bf.das_beamform(ch, us.angles.to(dev), pos[:, 0].contiguous(), us.sampling_rate,
+                          us.sound_speed, xg, zg, elem_z=pos[:, 2].contiguous())
+    return bf.hilbert_envelope(img, axis=1) if objective == "envelope" else img
+
+
+def loop_loss(frame, target, objective):
+    """The B-mode's MSE (USMain's); the others' over the target's mean
+    square, so Adam's epsilon stays below the gradient."""
+    err = ((frame - target) ** 2).mean()
+    return err if objective == "bmode" else err / (target ** 2).mean()
+
+
+def roughness_loop(tt, scene, dev, objective="bmode", use_kernel=True, seed=0, rpp=64,
+                   n_iters=25, bounds=US_FULL, profile=False, key=ROUGH_KEY):
+    """USMain's roughness loop (USMain.py:262-298) through
+    opt/inverse.optimize on ``objective``'s frame: ``key`` (USMain's
+    plate's roughness) from 0.1 toward 0.7, lr 2e-2, clip [1e-4, 1]; the
+    target and every step at ``seed``, as tpu_rt's recovery tests hold
+    theirs (the loss is 0 at 0.7).  ``use_kernel``: K10's primal with
+    fastgrad's backward (the wavefront replayed on its own stream), else
+    the wavefront forward and backward on one stream (the frame's exact
+    gradient).  On CUDA a step's
+    forward is the acquisition and the DAS kernel (then the envelope and
+    log), its backward the DAS adjoint kernel and the wavefront's replay.
+
+    Returns each step's roughness, loss, d loss / d roughness and forward
+    and backward ms (CUDA events: the loss function's start and end; the
+    backward from the loss's gradient hook to the BSDF table's), the
+    launch counts over the loop (set to 0 after the target's frame), the
+    final roughness and the steps whose gradient points toward 0.7.
+    ``profile``: then one more step alone for its peak device memory and
+    two under torch.profiler (device busy, idle share, the kernels'
+    device ms)."""
+    from tpu_rt_torch.opt import inverse
+
+    row = scene.ids["shape_bsdf"][scene.ids["shapes"][key.split(".")[0]]]
+    start = inverse.set_param(scene, key, ROUGH_START)
+    with torch.no_grad():
+        target = loop_frame(tt, inverse.set_param(scene, key, ROUGH_TARGET),
+                            seed, objective, use_kernel, rpp, dev, bounds)
+    steps = []
+
+    def loss_fn(sc):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        rec = dict(roughness=float(inverse.get_param(sc, key).detach()), events=ev)
+        ev[0].record()
+        frame = loop_frame(tt, sc, seed, objective, use_kernel, rpp, dev, bounds)
+        loss = loop_loss(frame, target, objective)
+        ev[1].record()
+
+        def at_loss(grad):
+            ev[2].record()
+
+        def at_table(grad):
+            ev[3].record()
+            rec["grad"] = grad[row, 1].item()
+
+        loss.register_hook(at_loss)
+        sc.bsdf_params.register_hook(at_table)
+        steps.append(rec)
+        return loss
+
+    def run(sc, n):
+        return inverse.optimize(sc, [key], loss_fn, n_iters=n, lr=ROUGH_LR,
+                                bounds=ROUGH_CLIP)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, losses = run(start, n_iters)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = launch_counts()
+    for rec, loss in zip(steps, losses):
+        ev = rec.pop("events")
+        rec.update(loss=loss, fwd_ms=ev[0].elapsed_time(ev[1]), bwd_ms=ev[2].elapsed_time(ev[3]))
+    final = float(inverse.get_param(out, key))
+    grads = [r["grad"] for r in steps]
+    res = dict(objective=objective, use_kernel=use_kernel, seed=seed, n_iters=n_iters,
+               loop_s=loop_s, final=final, losses=losses, grads=grads,
+               toward=sum(g < 0.0 for g in grads),  # a negative gradient moves the roughness up
+               fwd_ms=statistics.median(r["fwd_ms"] for r in steps),
+               bwd_ms=statistics.median(r["bwd_ms"] for r in steps), counts=counts,
+               steps=steps)
+    if profile:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        run(out, 1)
+        torch.cuda.synchronize()
+        res["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+        res["held_mb"] = base_mb
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            run(out, 2)
+            torch.cuda.synchronize()
+            res["wall_ms"] = (time.perf_counter() - t1) * 1e3
+        ka = prof.key_averages()
+        res["busy_ms"] = sum(dev_us(e) for e in ka) / 1e3
+        res["idle_share"] = 1.0 - res["busy_ms"] / res["wall_ms"]
+        res["kernel_ms"] = {name: sum(dev_us(e) for e in ka if name in e.key) / 1e3
+                            for name in ("us_acq_kernel", "us_das_kernel",
+                                         "us_das_adjoint_kernel")}
+        res["top"] = [(dev_us(e) / 1e3, e.count, e.key[:90])
+                      for e in sorted(ka, key=dev_us, reverse=True)[:6]]
+        del steps[n_iters:]
+    return res
+
+
+def print_loop(label, r, per_step=True):
+    """A roughness loop's steps and summary."""
+    if per_step:
+        for i, rec in enumerate(r["steps"]):
+            print(f"  step {i:2d}: roughness {rec['roughness']:.6f}, loss {rec['loss']:.6e}, "
+                  f"d loss / d roughness {rec['grad']:+.6e}; forward {rec['fwd_ms']:.3f} ms, "
+                  f"backward {rec['bwd_ms']:.3f} ms")
+    n = r["n_iters"]
+    print(f"{label}: {n} steps in {r['loop_s']:.3f} s on the host clock; roughness "
+          f"{ROUGH_START} -> {r['final']:.6f} (target {ROUGH_TARGET}), the gradient toward the "
+          f"target in {r['toward']} of {n} steps; loss {r['losses'][0]:.6e} -> "
+          f"{r['losses'][-1]:.6e} (x{r['losses'][-1] / r['losses'][0]:.4f}); a step's forward "
+          f"median {r['fwd_ms']:.3f} ms, backward median {r['bwd_ms']:.3f} ms")
+    if "peak_mb" in r:
+        print(f"  peak device memory of a step {r['peak_mb']:.1f} MB above the {r['held_mb']:.1f}"
+              f" MB held; two steps profiled: wall {r['wall_ms']:.3f} ms, device busy "
+              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.4f}; "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in r["kernel_ms"].items()))
+        for ms, count, key in r["top"]:
+            print(f"  {ms:10.3f} ms  {count:6d} calls  {key}")
+
+
+def loop_gradients_usable(r):
+    """Every step's gradient finite, and non-zero while the roughness is
+    above the acoustic BSDF's clamp of alpha (1e-3, under which the
+    gradient is 0); Adam moved the roughness."""
+    assert all(np.isfinite(r["grads"])), "a non-finite gradient"
+    assert all(s["grad"] != 0.0 for s in r["steps"] if s["roughness"] > 1e-3), "a zero gradient"
+    assert len({s["roughness"] for s in r["steps"]}) > 1, "the loop did not move the roughness"
+
+
+def wave_grad_check(tt, dev):
+    """The acoustic wavefront's gradient on the card against the CPU's, fed
+    the same draws (numpy, seeded): d sum(ch^2) with respect to the BSDF
+    table (impedance, roughness, exterior impedance) and the ultrasound
+    keys, each component within tests/test_torch_us_grad.py's tolerance:
+    1e-3 relative on the plate, 2e-2 on USMain at 3 angles (an ulp of a
+    time index moves an echo's share between its taps, and the sampling
+    rate's and sound speed's gradients reach each echo through two taps of
+    opposite sign).  Returns the largest relative differences."""
+    from tpu_rt_torch.integrator import ultrasound as wavefront
+    from torch_port_scenes import plate_desc, usmain_desc
+
+    keys = ("pitch", "sound_speed", "attenuation", "frequency", "sampling_rate")
+    narrow = usmain_desc(tt.ScalarTransform4f)
+    narrow["integrator"].update(angles=np.linspace(-15, 15, 3))
+    out = {}
+    for name, desc, seed, rpp, rtol in (("plate", plate_desc(tt.ScalarTransform4f), 0, 2, 1e-3),
+                                        ("usmain_narrow", narrow, 4, 1, 2e-2)):
+        scene = tt.load_dict(desc)
+        us = scene.ultrasound
+        n = us.n_angles * us.n_elements * rpp
+        rng = np.random.default_rng(seed)
+        u = {"recv": torch.from_numpy(rng.integers(0, us.n_elements, (us.max_depth, n))),
+             "u": torch.from_numpy(rng.random((us.max_depth, n, 4), np.float32)),
+             "jitter": torch.from_numpy(rng.random((n, 2), np.float32))}
+        grads = {}
+        for device in ("cpu", dev):
+            leaves = {k: getattr(us, k).clone().requires_grad_() for k in keys}
+            leaves["bsdf"] = scene.bsdf_params.clone().requires_grad_()
+            sc = scene.replace(bsdf_params=leaves["bsdf"], ultrasound=us.replace(
+                **{k: leaves[k] for k in keys}))
+            ch, _ = wavefront.simulate_acquisition(sc, seed=seed, rays_per_pair=rpp,
+                                                   device=device, uniforms=u)
+            (ch * ch).sum().backward()
+            grads[str(device)] = {k: v.grad.detach().cpu().double() for k, v in leaves.items()}
+        want, got = grads["cpu"], grads[str(dev)]
+        rel = {k: ((got[k] - want[k]).abs() / want[k].abs()).max().item()
+               for k in keys}
+        w, g = want["bsdf"][:, :3], got["bsdf"][:, :3]
+        rel["bsdf"] = ((g - w).abs()[w != 0] / w.abs()[w != 0]).max().item()
+        print(f"  wavefront gradient on the card vs the CPU, {name} (rpp {rpp}, the same draws): "
+              f"max relative |d| " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + f" (limit {rtol})")
+        assert want["bsdf"][0, :2].abs().min() > 0, "impedance and roughness get no gradient"
+        assert bool((g[w == 0] == 0).all()), f"a gradient the CPU has not ({name})"
+        for k, v in rel.items():
+            assert v <= rtol, f"the wavefront's d {k} on the card disagrees with the CPU ({name})"
+        out[name] = rel
+    return out
+
+
+def grad_phases(tt, dev):
+    """Phases 31-34: the gradients on the card.  Returns their numbers."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import usmain_desc, usmain_mesh_desc
+
+    t_start = time.perf_counter()
+    st = tt.ScalarTransform4f
+    usmain = tt.load_dict(usmain_desc(st))
+    out = {}
+
+    # ---- 31. the DAS's adjoint kernel at USMain's shape ---------------------------
+    out["adjoint"] = das_adjoint_check(tt, usmain, dev)
+    print(f"phase 31 took {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 32. the wavefront's gradient; the roughness loops -------------------------
+    t0 = time.perf_counter()
+    out["wave_grad"] = wave_grad_check(tt, dev)
+    loops = {}
+    for name, scene, kw in (
+            ("plate", recovery_plate(tt), dict(objective=GATED_OBJECTIVE, key=PLATE_KEY,
+                                               bounds=PLATE_WINDOW)),
+            ("usmain", usmain, dict(objective="bmode", profile=True))):
+        r = loops[name] = roughness_loop(tt, scene, dev, **kw)
+        print(f"launch counts over the {name} roughness loop ({r['n_iters']} steps): "
+              f"{r['counts']}")
+        check_counts(r["counts"], us_acq=r["n_iters"], us_das=r["n_iters"],
+                     us_das_adjoint=r["n_iters"])
+        loop_gradients_usable(r)
+    plate = loops["plate"]
+    print_loop(f"the plate of tpu_rt's roughness recovery test, the {GATED_OBJECTIVE} of its "
+               f"DAS image, rpp 64", plate, per_step=False)
+    assert plate["losses"][-1] < LOSS_BAR * plate["losses"][0], "the plate's loss did not fall"
+    assert abs(plate["final"] - ROUGH_TARGET) < ROUGH_BAR, "the plate's roughness missed 0.7"
+    print_loop("USMain's roughness loop, its B-mode, rpp 64 (its end is printed, not held to "
+               "tpu_rt's bars: from 0.1 this objective falls toward the clip, PERF.md §6)",
+               loops["usmain"])
+    out["plate_loop"], out["loop"] = plate, loops["usmain"]
+    print(f"phase 32 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 33. the mesh phantom's gradient: the wavefront with K7 ------------------
+    t0 = time.perf_counter()
+    out["mesh"] = mesh_phantom_grad(tt, tt.load_dict(usmain_mesh_desc(st)), dev)
+    print(f"phase 33 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 34. the optical wavefront's gradient on mesh_gi.xml through K7 ----------
+    t0 = time.perf_counter()
+    out["optical"] = optical_grad(tt, dev)
+    print(f"phase 34 took {time.perf_counter() - t0:.1f} s")
+    print(f"phases 31-34 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def mesh_phantom_grad(tt, mesh, dev, rpp=64, bounds=US_FULL):
+    """Phase 33: one frame of the mesh phantom (the 69 632-triangle knot,
+    outside K10's scope) and its backward: the acoustic wavefront with K7
+    twice a bounce, the DAS kernel and its adjoint; the gradient of the
+    B-mode's mean square with respect to the BSDF table finite and
+    non-zero on the knot."""
+    p = mesh.bsdf_params.clone().requires_grad_()
+    depth = mesh.ultrasound.max_depth
+    reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    img = tt.us_render(mesh.replace(bsdf_params=p), seed=3, rays_per_pair=rpp, device=dev,
+                       x_bounds=bounds[0], z_bounds=bounds[1])[0]
+    loss = (img * img).mean()
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"launch counts over the mesh phantom's gradient: {counts}")
+    check_counts(counts, mesh_isect=2 * depth, us_das=1, us_das_adjoint=1)
+    g = p.grad[mesh.ids["shape_bsdf"][mesh.ids["shapes"]["organ"]]]
+    print(f"mesh phantom (knot, {mesh.geometry.n_tris} triangles) gradient, rpp {rpp}: forward "
+          f"{ev[0].elapsed_time(ev[1]):.3f} ms, backward {ev[1].elapsed_time(ev[2]):.3f} ms; "
+          f"d loss / d (impedance, roughness) of the knot {g[0].item():+.6e}, "
+          f"{g[1].item():+.6e}; finite {bool(torch.isfinite(p.grad).all())}")
+    assert bool(torch.isfinite(p.grad).all()) and g[:2].abs().sum().item() > 0, \
+        "the mesh phantom's gradient is zero or not finite"
+    return dict(fwd_ms=ev[0].elapsed_time(ev[1]), bwd_ms=ev[1].elapsed_time(ev[2]),
+                counts=counts)
+
+
+def optical_grad(tt, dev, res=128):
+    """Phase 34: path_trace on mesh_gi.xml (the 2 240-triangle knot over a
+    floor, a rectangle light; depth 3) from the camera's pixel centres,
+    three seeds: the gradient of the mean radiance with respect to the
+    BSDF table finite and non-zero, its closest hits and shadow rays
+    through K7 (t detached, tpu_rt's convention), five launches a trace."""
+    from tpu_rt_torch.integrator import path as path_t
+    from tpu_rt_torch.sensor import camera as cam
+
+    gi = tt.load_file(os.path.join(MESH_DIR, "mesh_gi.xml"), res=res, spp=1).to(dev)
+    ys, xs = torch.meshgrid(torch.arange(res, device=dev), torch.arange(res, device=dev),
+                            indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32) + 0.5
+    o, d = cam.sample_ray(gi.camera, xy)
+    gen = torch.Generator(device=dev)
+    launches = []
+    for seed in range(3):
+        gen.manual_seed(seed)
+        p = gi.bsdf_params.clone().requires_grad_()
+        reset_launch_counts()
+        L, _ = path_t.path_trace(gi.replace(bsdf_params=p), o, d, gen=gen)
+        L.mean().backward()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches.append(counts["mesh_isect"])
+        check_counts(counts, mesh_isect=2 * path_t.n_bounces(gi) - 1)
+        finite = bool(torch.isfinite(p.grad).all())
+        print(f"  mesh_gi {res}x{res} path_trace gradient, seed {seed}: finite {finite}, "
+              f"d mean L / d reflectance (knot, floor) {p.grad[0, 0].item():+.6e}, "
+              f"{p.grad[1, 0].item():+.6e}; K7 launches {counts['mesh_isect']}")
+        assert finite and p.grad[:, :3].abs().sum().item() > 0, "the optical gradient"
+    return dict(mesh_isect=launches)
 
 
 if __name__ == "__main__":

@@ -63,8 +63,8 @@ from tpu_rt_torch.sensor.transducer import plane_wave_rays
 from tpu_rt_torch.us import beamform
 from tpu_rt_torch.us.pipeline import us_render
 from torch_port_scenes import (cone_box_desc, envmap_desc, envmap_rough_cone_desc, mixed_desc,
-                               polarizer_desc, tie_fixture, usmain_desc, usmain_mesh_desc,
-                               usmain_scatterers_desc, usmain_twin_desc)
+                               plate_desc, polarizer_desc, tie_fixture, usmain_desc,
+                               usmain_mesh_desc, usmain_scatterers_desc, usmain_twin_desc)
 
 torch.set_num_threads(1)
 
@@ -1007,6 +1007,140 @@ def test_das_kernel_matches_plain_version_at_usmain():
     assert got.shape == (1040, 638)
     scale = want.abs().max().item()
     assert scale > 0 and (got - want).abs().max().item() <= 2e-5 * scale
+
+
+def _adjoint_args(A, E, T, nx, nz, seed):
+    rf, angles, ex, xg, zg = _das_case(A, E, T, nx, nz, seed)
+    rad = torch.tensor(angles, dtype=torch.float32).cuda() * np.float32(np.pi / 180)
+    ex = torch.tensor(ex, dtype=torch.float32).cuda()
+    ez = 1e-4 * torch.sin(torch.arange(E, dtype=torch.float32, device="cuda"))
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((nx, nz))
+                         .astype(np.float32)).cuda()
+    return (rf, ex, ez, torch.sin(rad), torch.cos(rad), 1.0 / torch.tensor(1540.0),
+            torch.tensor(50e6), xg, zg, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,E,T,nx,nz", [(1, 1, 10000, 301, 257), (3, 12, 4000, 121, 97)])
+def test_das_adjoint_kernel_matches_plain_version(A, E, T, nx, nz):
+    """The adjoint kernel against autograd of the gather form on the card:
+    d RF within 1e-5 of its largest (sums of the taps' weights in another
+    order, by atomics), the geometric cotangents within 1e-3 of their
+    largest against float64 autograd, and <DAS x, y> = <x, DAS^T y>
+    within 1e-5 of sum |DAS x y|."""
+    _need_cuda()
+    args = _adjoint_args(A, E, T, nx, nz, 5)
+    before = beamform.das_adjoint.launches
+    got = beamform.das_adjoint(*args, t_offset=2e-6)
+    torch.cuda.synchronize()
+    assert beamform.das_adjoint.launches == before + 1
+    want = beamform.das_adjoint_plain(*args, t_offset=2e-6)
+    ref = beamform.das_adjoint_plain(*(x.double() for x in args), t_offset=2e-6)
+    scale = want[0].abs().max().item()
+    assert scale > 0 and (got[0] - want[0]).abs().max().item() <= 1e-5 * scale
+    for k, r in zip(got[1:], ref[1:]):
+        assert (k.double().cpu() - r.cpu()).abs().max().item() <= 1e-3 * r.abs().max().item()
+    rf, g = args[0], args[-1]
+    out = beamform._das_launch(*args[:9], 2e-6)
+    lhs = out.double() * g.double()
+    diff = lhs.sum().item() - (rf.double() * got[0].double()).sum().item()
+    assert abs(diff) <= 1e-5 * lhs.abs().sum().item()
+    rf_only = beamform.das_adjoint(*args, t_offset=2e-6, geometry=False)
+    assert rf_only[1] is None and (rf_only[0] - got[0]).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_das_backward_on_cuda_launches_the_adjoint_kernel(monkeypatch):
+    """das_beamform's backward on CUDA tensors is the adjoint kernel, never
+    the plain version; its gradients in the angles and c are the kernel's
+    cotangents chained through sin, cos and 1 / c."""
+    _need_cuda()
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    rf, angles, ex, xg, zg = _das_case(3, 8, 3000, 64, 80, 9)
+    monkeypatch.setattr(beamform, "das_adjoint_plain", refuse)
+    monkeypatch.setattr(beamform, "das_beamform_plain", refuse)
+    leaves = [x.requires_grad_() for x in (rf.clone(), torch.tensor(angles, dtype=torch.float32)
+                                           .cuda(), torch.tensor(ex, dtype=torch.float32).cuda(),
+                                           torch.tensor(1540.0))]
+    before = beamform.das_adjoint.launches
+    out = beamform.das_beamform(leaves[0], leaves[1], leaves[2], 50e6, leaves[3], xg, zg)
+    (out * out).sum().backward()
+    torch.cuda.synchronize()
+    assert beamform.das_adjoint.launches == before + 1
+    for x in leaves:
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+        assert x.grad.abs().sum().item() > 0
+
+
+@pytest.mark.cuda
+def test_us_render_backpropagates_on_cuda():
+    """The kernel route under autograd on the card: K10's primal, the DAS
+    kernel and its adjoint, the wavefront's replay; the plate's impedance
+    and roughness get a finite, non-zero gradient."""
+    _need_cuda()
+    st = tpu_rt_torch.load_dict(plate_desc(tpu_rt_torch.ScalarTransform4f))
+    p = st.bsdf_params.clone().requires_grad_()
+    n = {k: f.launches for k, f in (("acq", us_kernel.us_trace_rf),
+                                    ("das", beamform.das_beamform),
+                                    ("adj", beamform.das_adjoint))}
+    img, ch, _ = us_render(st.replace(bsdf_params=p), rays_per_pair=4, device="cuda",
+                           x_bounds=(-0.004, 0.004), z_bounds=(0.008, 0.012))
+    (img * img).mean().backward()
+    torch.cuda.synchronize()
+    assert us_kernel.us_trace_rf.launches == n["acq"] + 1
+    assert beamform.das_beamform.launches == n["das"] + 1
+    assert beamform.das_adjoint.launches == n["adj"] + 1
+    assert bool(torch.isfinite(p.grad).all()) and p.grad[0, :2].abs().min().item() > 0
+
+
+# (scene, seed, rays per pair, rtol): tests/test_torch_us_grad.py's cases
+# and tolerances
+WAVE_GRAD = {"plate": (lambda st: plate_desc(st), 0, 2, 1e-3),
+             "usmain_narrow": (lambda st: dict(usmain_desc(st), integrator=dict(
+                 usmain_desc(st)["integrator"], angles=np.linspace(-15, 15, 3))), 4, 1, 2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WAVE_GRAD))
+def test_us_wavefront_gradient_on_cuda_matches_the_cpu(case):
+    """d sum(ch^2) of the acoustic wavefront with respect to the BSDF table
+    (impedance, roughness, exterior impedance) and the ultrasound keys, on
+    the card against the CPU, fed the same uniforms: each component within
+    tests/test_torch_us_grad.py's tolerance against jax.grad, 1e-3
+    relative on the plate and 2e-2 on USMain at 3 angles (an ulp of a
+    time index moves an echo's share between its taps; the sampling
+    rate's and sound speed's gradients reach each echo through two taps
+    of opposite sign)."""
+    _need_cuda()
+    desc, seed, rpp, rtol = WAVE_GRAD[case]
+    st = tpu_rt_torch.load_dict(desc(tpu_rt_torch.ScalarTransform4f))
+    us = st.ultrasound
+    keys = ("pitch", "sound_speed", "attenuation", "frequency", "sampling_rate")
+    u = _us_uniforms(us, rpp, seed)
+    n = us.n_angles * us.n_elements * rpp
+    gen = torch.Generator()
+    gen.manual_seed(seed + 1)
+    u["jitter"] = torch.rand((n, 2), generator=gen)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        leaves = {k: getattr(us, k).clone().requires_grad_() for k in keys}
+        leaves["bsdf"] = st.bsdf_params.clone().requires_grad_()
+        sc = st.replace(bsdf_params=leaves["bsdf"],
+                        ultrasound=us.replace(**{k: leaves[k] for k in keys}))
+        ch, _ = us_wavefront.simulate_acquisition(sc, seed=seed, rays_per_pair=rpp,
+                                                  device=device, uniforms=u)
+        assert ch.device.type == device
+        (ch * ch).sum().backward()
+        grads[device] = {k: v.grad.detach().cpu() for k, v in leaves.items()}
+    want, got = grads["cpu"]["bsdf"][:, :3], grads["cuda"]["bsdf"][:, :3]
+    assert want[0, :2].abs().min() > 0, "impedance and roughness get no gradient"
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+    for k in keys:
+        w, g = float(grads["cpu"][k]), float(grads["cuda"][k])
+        assert w != 0.0 and abs(g - w) <= rtol * abs(w), (k, g, w)
 
 
 def _us_uniforms(us, rays_per_pair, seed):

@@ -70,6 +70,8 @@ def test_port_never_imports_jax():
         f"sc = tt.load_file({CBOX!r}, res=8, spp=1)\n"
         "img = tt.render(sc, device='cpu')\n"
         "assert img.shape == (8, 8, 3) and bool(img.isfinite().all())\n"
+        "from tpu_rt_torch.opt import checkpoint, inverse\n"
+        "from tpu_rt_torch import compat\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpu_rt')]\n"
         "assert not bad, bad\n"
     )

@@ -257,6 +257,8 @@ def test_us_path_never_imports_jax():
         "sc = tt.load_dict(usmain_desc(tt.ScalarTransform4f))\n"
         "img = tt.render(sc, device='cpu', x_bounds=(-0.002, 0.002), z_bounds=(0.048, 0.052))\n"
         "assert img.dim() == 2 and bool(img.isfinite().all())\n"
+        "from tpu_rt_torch.opt import checkpoint, inverse\n"
+        "from tpu_rt_torch import compat\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpu_rt')]\n"
         "assert not bad, bad\n"
     )

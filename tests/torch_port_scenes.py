@@ -95,6 +95,26 @@ def usmain_desc(st, radius=float("inf"), opening_angle=None):
     return desc
 
 
+def plate_desc(st, impedance=7.8, roughness=0.5, angles=(-5.0, 0.0, 5.0), z=0.01,
+               time_samples=800, max_depth=3):
+    """tests/test_parallel_and_grad.py:93-130: 3 angles, 16 elements, 800
+    samples, depth 3, a plate at 1 cm; its recovery tests (:137-245) take
+    the plate at 8 mm, 600 samples, depth 2 and other angles."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "ultrasound_integrator", "max_depth": max_depth, "n_elements": 16,
+                       "time_samples": time_samples, "pitch": 0.0005,
+                       "angles": np.asarray(angles, np.float32)},
+        "sensor": {"type": "ultrasound_sensor", "num_elements_lateral": 16, "pitch": 0.0005,
+                   "radius": float("inf"), "to_world": st()},
+        "plate": {"type": "rectangle",
+                  "to_world": st().translate([0, 0, z]) @ st().rotate([0, 1, 0], 180)
+                  @ st().scale([0.02, 0.02, 1]),
+                  "bsdf": {"type": "ultrasound_bsdf", "impedance": impedance,
+                           "roughness": roughness}},
+    }
+
+
 def usmain_twin_desc(st, twin="after", impedance=1.5):
     """USMain with a twin of its plate: a rectangle at the plate's place
     with another impedance, put after the plate (``twin="after"``: the

@@ -16,6 +16,14 @@ scope render through the wavefronts (``integrator/path.py``,
 queries run in a fifth (``mesh_isect.cu``).  On the CPU the kernels' plain
 PyTorch versions run.
 
+Inverse rendering (``opt/inverse.py``, ``opt/checkpoint.py``, the
+reference's shims in ``compat.py``) runs on torch's autograd: the
+ultrasound frame backpropagates on both acquisition routes (the kernel's
+primal with the acoustic wavefront's gradient, ``us_kernel.
+simulate_acquisition_fastgrad``) and through the DAS's hand-written
+adjoint kernel (``us_das.cu``); an optical scene that requires grad
+renders through the wavefront, as the film kernels are forward only.
+
 This package imports torch, numpy and the standard library, never jax.
 """
 
@@ -23,4 +31,4 @@ __version__ = "0.1.0"
 
 from tpu_rt_torch.integrator import render  # noqa: F401
 from tpu_rt_torch.scene import ScalarTransform4f, load_dict, load_file  # noqa: F401
-from tpu_rt_torch.us.pipeline import us_render  # noqa: F401
+from tpu_rt_torch.us.pipeline import us_render, us_render_jit  # noqa: F401

@@ -21,7 +21,11 @@ from the scene as ``tpu_rt/geometry/trace.py:501-514`` chooses them:
   running best, a leaf's 4 prims, else push both children.
 
 Every route takes, of equal distances, the prim its sweep meets first
-(strict ``<`` against the running best).  tpu_rt's coherence sort
+(strict ``<`` against the running best).  Under autograd the brute-force
+and chunked sweeps keep t differentiable, as tpu_rt's XLA sweeps do; K7
+and the BVH walk return it detached (tpu_rt's mesh kernel's VJP returns
+no cotangent), so there a gradient reaches the hit point through
+p = o + t d alone.  tpu_rt's coherence sort
 (``gi_sort_order``) was a measured dead end on the TPU and is not ported.
 
 Misses report t = INF (1e8, finite: see ``geometry/intersect.py``); the
@@ -193,7 +197,8 @@ def _trace_mesh(geom, o, d, tmin, tmax) -> Hit:
 
     n = o.shape[0]
     tmax_b = torch.clamp(_per_ray(tmax, n, o.device)[:, 0], max=0.99 * INF)
-    best = mesh_kernel.mesh_intersect(mesh_clusters(geom), o, d, tmin=float(tmin), tmax=tmax_b)
+    best = mesh_kernel.mesh_intersect(mesh_clusters(geom), o.contiguous(), d.contiguous(),
+                                      tmin=float(tmin), tmax=tmax_b)
     if geom.n_analytic > 0:
         best = _merge(best, *_analytic_all(geom, o, d, _per_ray(tmin, n, o.device),
                                            best[0][:, None]), geom.n_tris)
@@ -383,7 +388,20 @@ def _trace_bvh(geom, o, d, tmin, tmax, graph=True) -> Hit:
     or beyond a smaller tmax.  A push past the stack's 48 entries is
     dropped and a pop of it reads the last entry, as JAX's scatter and
     gather treat an index out of range.  A miss reports t = INF, where
-    tpu_rt's reports its tmax."""
+    tpu_rt's reports its tmax.
+
+    The walk runs on the rays detached, under ``torch.no_grad()`` (its
+    state is updated in place, and a CUDA graph replays no autograd), so
+    its t, u and v are detached, as K7's are: a gradient reaches the hit
+    point through p = o + t d (``compute_interaction``).  jax.grad through
+    tpu_rt's walk (a ``lax.while_loop``) raises where its rays depend on a
+    parameter (ROADMAP.md, divergences)."""
+    with torch.no_grad():
+        return _trace_bvh_walk(geom, o.detach(), d.detach(), tmin,
+                               tmax.detach() if torch.is_tensor(tmax) else tmax, graph)
+
+
+def _trace_bvh_walk(geom, o, d, tmin, tmax, graph):
     n = o.shape[0]
     dev = o.device
     tmin_b = _per_ray(tmin, n, dev)[:, 0]

@@ -26,6 +26,13 @@ A ``stokes`` scene returns the (H, W, 4, 3) Stokes image of
 ``integrator/stokes.py::render_stokes``: through the Stokes film kernel
 K3 when the scene is in its scope, else through the Stokes wavefront
 (polarizers among them), as ``tpu_rt/integrator/stokes.py:163-172`` does.
+
+The film kernels (K1-K6) and the direct mesh kernel are forward only, as
+tpu_rt's ``render_pallas`` is: a scene with a tensor that requires grad
+(autograd on) renders through the wavefronts, which autograd
+differentiates (tpu_rt's route off the TPU), so no gradient is dropped.
+An ultrasound scene is differentiable on both of its routes
+(``us/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from tpu_rt_torch.scene.types import (
     INTEGRATOR_STOKES,
     INTEGRATOR_ULTRASOUND,
     Scene,
+    grad_tensors,
 )
 
 def _check_device(device):
@@ -87,6 +95,12 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
         return us_render(scene, seed=seed, device=device, **us_kwargs)[0]
     if us_kwargs:
         raise TypeError(f"render got unexpected arguments {sorted(us_kwargs)}")
+    if grad_tensors(scene) and scene.integrator != INTEGRATOR_STOKES:
+        # the film and direct kernels are forward only: a scene whose
+        # tensors require grad renders through the differentiable wavefront
+        max_depth = 2 if scene.integrator in (INTEGRATOR_DIRECT,
+                                              INTEGRATOR_DIRECT_PROJECTIVE) else None
+        return _render_wavefront(scene, spp, seed, device, max_depth=max_depth)
     if scene.integrator == INTEGRATOR_STOKES:
         from tpu_rt_torch.integrator.stokes import render_stokes
 

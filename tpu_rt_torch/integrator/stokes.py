@@ -57,6 +57,7 @@ from tpu_rt_torch.scene.types import (
     BSDF_DIELECTRIC,
     BSDF_POLARIZER,
     BSDF_ROUGH_CONDUCTOR,
+    grad_tensors,
 )
 from tpu_rt_torch.sensor import camera as cam
 from tpu_rt_torch.sensor import film as film_mod
@@ -287,8 +288,9 @@ def render_stokes(scene, spp=None, seed=0, max_depth=None, device="cuda", spp_pe
     """Full polarized render on ``device``: the (H, W, 4, 3) Stokes image
     (I, Q, U, V by rgb); sets ``render_stokes.last_ray_count`` (0-d int64).
 
-    With ``max_depth`` None a scene in the Stokes kernel's scope renders
-    through ``path_kernel.render_stokes_film`` (``spp_per_pass``,
+    With ``max_depth`` None a scene in the Stokes kernel's scope, with no
+    tensor that requires grad, renders through the forward-only
+    ``path_kernel.render_stokes_film`` (``spp_per_pass``,
     ``tile_rows`` and ``regen`` go there).  Every other scene, notably a
     polarizer, renders through the wavefront: ``spp`` waves of one sample
     a pixel, each splatted at its pixels (a sample with a non-finite value
@@ -296,7 +298,7 @@ def render_stokes(scene, spp=None, seed=0, max_depth=None, device="cuda", spp_pe
     from tpu_rt_torch.ops import path_kernel
 
     device = torch.device(device)
-    if max_depth is None:
+    if max_depth is None and not grad_tensors(scene):
         baked = path_kernel.bake_scene(scene)
         if path_kernel.stokes_in_scope(baked):
             S, n_rays = path_kernel.render_stokes_film(

@@ -1,11 +1,16 @@
 """The ultrasound acquisition as a wavefront: every (angle x element x ray)
 lane at once, one PyTorch pass a bounce.
 
-Counterpart of ``tpu_rt/integrator/ultrasound.py::simulate_acquisition``,
-forward only: tpu_rt's default ultrasound route, and the port's for every
-scene outside the acquisition kernel's scope (``ops/us_kernel.py``: more
-than 64 prims, disks, cylinders, spheres of a non-uniform scale).  Each
-bounce, for all lanes:
+Counterpart of ``tpu_rt/integrator/ultrasound.py::simulate_acquisition``:
+tpu_rt's default ultrasound route, the port's for every scene outside the
+acquisition kernel's scope (``ops/us_kernel.py``: more than 64 prims,
+disks, cylinders, spheres of a non-uniform scale), and the backward of
+the kernel route (``us_kernel.simulate_acquisition_fastgrad`` replays it
+under autograd).  It is differentiable where tpu_rt's is, in the BSDF
+table, the ultrasound configuration's tensors and the geometry, under
+tpu_rt's conventions: a hit's distance through K7 (a mesh) or the BVH
+walk is detached, the brute-force and chunked sweeps keep it (see
+``geometry/trace.py``).  Each bounce, for all lanes:
 
 * the closest hit (``geometry/trace.py``: brute force, K7 on a mesh with
   cluster tables, chunks, or the BVH);
@@ -52,14 +57,27 @@ from tpu_rt_torch.core.math import (
 )
 from tpu_rt_torch.geometry import trace
 from tpu_rt_torch.ops.us_kernel import per_scene
+from tpu_rt_torch.scene.types import grad_tensors, with_tensors
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
+
+
+def _rays(us, device):
+    return {k: v.to(device) for k, v in plane_wave_rays(us).items()}
 
 
 def _inputs(scene, device):
     """What the acquisition needs that depends on the scene alone, on
-    ``device`` and kept per scene: the scene and the pair rays."""
-    base = plane_wave_rays(scene.ultrasound)
-    return scene.to(device), {k: v.to(device) for k, v in base.items()}
+    ``device``: the scene and the pair rays, kept per scene detached (so
+    no later frame is handed an earlier frame's graph).  The tensors that
+    require grad are taken anew each call, and the rays made from them."""
+    sc, base = per_scene(scene, ("wavefront", str(device)),
+                         lambda: (scene.detach().to(device), _rays(scene.ultrasound.detach(),
+                                                                   device)))
+    live = grad_tensors(scene)
+    if live:
+        sc = with_tensors(sc, [(path, t.to(device)) for path, t in live])
+        base = _rays(scene.ultrasound, device)
+    return sc, base
 
 
 def simulate_acquisition(scene, seed=0, rays_per_pair=1, jitter_elements=False,
@@ -81,7 +99,7 @@ def simulate_acquisition(scene, seed=0, rays_per_pair=1, jitter_elements=False,
         raise ValueError("scene has no ultrasound configuration")
     device = torch.device(device)
     A, E, T = us.n_angles, us.n_elements, us.time_samples
-    sc, base = per_scene(scene, ("wavefront", str(device)), lambda: _inputs(scene, device))
+    sc, base = _inputs(scene, device)
     tx = base["tx_delay"].reshape(A, E)
     n_rays = torch.zeros((), dtype=torch.int64, device=device)
     simulate_acquisition.last_ray_count = n_rays

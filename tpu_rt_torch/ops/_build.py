@@ -132,6 +132,11 @@ def load_library():
     f = ctypes.c_float
     lib.us_das_launch.argtypes = [p, i, i, i, p, i, p, i, p, p, p, p, f, f, f, p, p]
     lib.us_das_launch.restype = i
+    # the same, then the cotangent g, d rf, the geometric cotangents (or
+    # NULL), stream
+    lib.us_das_adjoint_launch.argtypes = [p, i, i, i, p, i, p, i, p, p, p, p, f, f, f, p, p, p,
+                                          p]
+    lib.us_das_adjoint_launch.restype = i
     # rays, n, bounds, tris, shade, tree, tree rows, clusters, lights, n
     # lights, out, stream
     lib.mesh_direct_launch.argtypes = [p, i, p, p, p, p, i, i, p, i, p, p]

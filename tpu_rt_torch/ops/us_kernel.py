@@ -33,7 +33,11 @@ Counterpart of ``tpu_rt/ops/pallas_us.py`` (``bake_us_scene``,
   ``rays_per_pair`` consecutive lanes per (angle, element) pair, the
   kernel with its deposit.  The packed tables and the pair rays depend on
   the scene alone, so they are built and copied to the device once a
-  scene (``per_scene``), not once a frame.
+  scene (``per_scene``), not once a frame, from its values detached.
+* ``simulate_acquisition_fastgrad`` is the differentiable acquisition:
+  the kernel's primal, and as its backward the acoustic wavefront
+  (``integrator/ultrasound.py``) replayed under autograd, as tpu_rt's
+  custom VJP pairs them.  K10 itself is forward only.
 
 The plain version reuses the film kernel's helpers (``_sweep``, the
 SplitMix32 ``_rng_init`` / ``_rng_next``, ``_frame``, the VNDF half vector
@@ -73,7 +77,7 @@ from tpu_rt_torch.ops.path_kernel import (
     bake_prims,
     pack_prims,
 )
-from tpu_rt_torch.scene.types import BSDF_ULTRASOUND, Scene
+from tpu_rt_torch.scene.types import BSDF_ULTRASOUND, Scene, grad_tensors, with_tensors
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
 
 _MAX_PRIMS = 64
@@ -105,10 +109,13 @@ class BakedUSScene:
 
 
 def bake_us_scene(scene: Scene) -> Optional[BakedUSScene]:
-    """The kernel's constants, or None when the scene is out of scope."""
-    us = scene.ultrasound
-    if us is None:
+    """The kernel's constants, or None when the scene is out of scope.
+    It reads the scene's values detached: scope is a property of the
+    scene's structure, not of its gradients."""
+    if scene.ultrasound is None:
         return None
+    scene = scene.detach()
+    us = scene.ultrasound
     g = scene.geometry
     if g.n_tris + g.n_analytic == 0 or g.n_tris + g.n_analytic > _MAX_PRIMS:
         return None
@@ -554,7 +561,7 @@ def simulate_acquisition(scene: Scene, seed=0, rays_per_pair=1, device="cuda",
         bs = bake_us_scene(scene)
         if bs is None:
             raise ValueError("scene not supported by the ultrasound kernel")
-        base = plane_wave_rays(scene.ultrasound)
+        base = plane_wave_rays(scene.ultrasound.detach())
         rays = torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]]).to(device)
         return pack_us_tables(bs, tile_rows, device), rays
 
@@ -563,3 +570,67 @@ def simulate_acquisition(scene: Scene, seed=0, rays_per_pair=1, device="cuda",
     A, E, T = us.n_angles, us.n_elements, us.time_samples
     channel = us_trace_rf(tables, rays, seed, A, T, rays_per_pair)
     return channel.div_(float(rays_per_pair)), rays[6].reshape(A, E).clone()
+
+
+class _FastGrad(torch.autograd.Function):
+    """K10's acquisition as the primal, the acoustic wavefront's gradient."""
+
+    @staticmethod
+    def forward(ctx, scene, paths, seed, rays_per_pair, device, tile_rows, *inputs):
+        ctx.scene, ctx.paths, ctx.seed = scene, paths, seed
+        ctx.rays_per_pair, ctx.device = rays_per_pair, device
+        ctx.save_for_backward(*inputs)
+        return simulate_acquisition(scene, seed=seed, rays_per_pair=rays_per_pair,
+                                    device=device, tile_rows=tile_rows)
+
+    @staticmethod
+    def backward(ctx, g_ch, g_tx):
+        from tpu_rt_torch.integrator import ultrasound as wavefront
+
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        replay = with_tensors(ctx.scene, list(zip(ctx.paths, leaves)))
+        with torch.enable_grad():
+            ch, tx = wavefront.simulate_acquisition(replay, seed=ctx.seed,
+                                                    rays_per_pair=ctx.rays_per_pair,
+                                                    device=ctx.device)
+            outs, cots = [], []
+            for out, cot in ((ch, g_ch), (tx, g_tx)):
+                if cot is not None and out.requires_grad:
+                    outs.append(out)
+                    cots.append(cot)
+            grads = (torch.autograd.grad(outs, leaves, cots, allow_unused=True) if outs
+                     else [None] * len(leaves))
+        return (None,) * 6 + tuple(grads)
+
+
+def simulate_acquisition_fastgrad(scene: Scene, seed=0, rays_per_pair=1, device="cuda",
+                                  tile_rows=8):
+    """The acquisition with the kernel's primal and the acoustic
+    wavefront's gradient (tpu_rt's ``simulate_acquisition_fastgrad``,
+    ``tpu_rt/ops/pallas_us.py:495-545``).  Returns (channel_buf [A, E, T],
+    tx_delays [A, E]) on ``device``.
+
+    Forward: ``simulate_acquisition`` (K10 with its RF deposit on CUDA,
+    the plain version on the CPU), on the scene's values detached.
+    Backward: the scene rebuilt with its tensors that require grad as new
+    leaves, ``integrator/ultrasound.py::simulate_acquisition`` replayed at
+    the same ``seed`` and ``rays_per_pair`` under autograd, and the
+    cotangents taken back through it.  The inputs are every floating
+    tensor of the scene that requires grad (the BSDF table, the
+    ultrasound configuration's tensors, the geometry's if the caller made
+    them require grad), so no gradient is dropped.
+
+    The kernel and the wavefront draw different random streams, so the
+    gradient is an independent unbiased Monte Carlo estimate of the true
+    gradient rather than the derivative of the primal sample (both
+    estimate the same integrals; ``tests/test_torch_us_grad.py`` holds
+    them together).  For stochastic optimization this is the standard
+    decorrelated-gradient setting, as the reference's finite-difference
+    loop (USMain.py:262-289) takes two independent realizations.  K10 has
+    no backward kernel; neither has tpu_rt's, whose VJP is its XLA
+    wavefront.
+
+    Raises ValueError when the scene is outside the kernel's scope."""
+    live = grad_tensors(scene)
+    return _FastGrad.apply(scene, tuple(p for p, _ in live), seed, rays_per_pair,
+                           torch.device(device), tile_rows, *(t for _, t in live))

@@ -84,6 +84,8 @@ class _Builder:
     def __init__(self):
         self.bsdf_rows = []  # (type, params[16])
         self.bsdf_index = {}  # id(dict) -> index
+        self.bsdf_names = {}  # scene key or id -> BSDF row
+        self.shape_names = {}  # scene key -> shape id
         self.shape_bsdf = []
         self.shape_emitter = []
         self.shape_to_world = []
@@ -107,7 +109,7 @@ class _Builder:
 
     # -- BSDFs ---------------------------------------------------------------
 
-    def add_bsdf(self, bd):
+    def add_bsdf(self, bd, name=None):
         if bd is None:
             bd = {"type": "diffuse", "reflectance": np.full(3, 0.5, np.float32)}
         key = id(bd)
@@ -115,7 +117,7 @@ class _Builder:
             return self.bsdf_index[key]
         btype = bd.get("type")
         if btype == "twosided":
-            idx = self.add_bsdf(_plugin_child(bd, _BSDF_TYPES))
+            idx = self.add_bsdf(_plugin_child(bd, _BSDF_TYPES), name)
             self.bsdf_index[key] = idx
             return idx
         p = np.zeros(16, np.float32)
@@ -156,6 +158,10 @@ class _Builder:
         else:
             _not_yet("bsdf", btype)
         idx = len(self.bsdf_rows)
+        if name:
+            self.bsdf_names[name] = idx
+        if bd.get("id"):
+            self.bsdf_names[bd["id"]] = idx
         self.bsdf_rows.append((code, p))
         self.bsdf_index[key] = idx
         return idx
@@ -193,11 +199,13 @@ class _Builder:
         self.tri["shape"].append(np.full(faces.shape[0], shape_id, np.int32))
         return start, start + faces.shape[0]
 
-    def add_shape(self, sd):
+    def add_shape(self, sd, name=None):
         stype = sd.get("type")
         if stype not in ("obj", "ply") and stype not in _ANALYTIC_ENUM:
             _not_yet("shape", stype)
         shape_id = len(self.shape_bsdf)
+        if name is not None:
+            self.shape_names[name] = shape_id
         bsdf = _plugin_child(sd, _BSDF_TYPES)
         emitter = _plugin_child(sd, _EMITTERS_IN_SHAPES)
         bsdf_idx = self.add_bsdf(bsdf)
@@ -394,6 +402,8 @@ class _Builder:
             has_env=self.env is not None, has_textures=False,
             integrator=self.integrator, max_depth=self.max_depth,
             rr_depth=self.rr_depth, hide_emitters=self.hide_emitters,
+            ids={"shapes": dict(self.shape_names), "bsdfs": dict(self.bsdf_names),
+                 "shape_bsdf": list(self.shape_bsdf)},
         )
         if self.camera is not None:
             cam = dict(self.camera)
@@ -537,12 +547,12 @@ def build_scene(desc: dict):
             b.add_sensor(val)
         elif vtype in ("obj", "ply", "sphere", "rectangle", "disk", "cylinder",
                        "cone", "bsplinecurve"):
-            b.add_shape(val)
+            b.add_shape(val, name=key)
         elif vtype in ("point", "constant", "envmap", "ultraray",
                        "ultrasound_emitter"):
             b.add_emitter(val)
         elif vtype in _BSDF_TYPES:
-            b.add_bsdf(val)
+            b.add_bsdf(val, name=key)
         elif vtype == "ref":
             raise KeyError(f"unresolved ref at scene key {key!r}")
         else:

@@ -15,7 +15,8 @@ optional mesh cluster tables may be absent or None; their cull hierarchy
 the ultrasound configuration's.  ``meta`` holds the ints and flags:
 ``n_tris``, ``n_analytic``, ``n_area``, ``n_point``, ``has_env``,
 ``has_textures``, ``integrator``, ``max_depth``, ``rr_depth``,
-``hide_emitters``, ``camera`` (a dict of the camera's static fields, or
+``hide_emitters``, ``ids`` (optional: the description's shape and BSDF
+names, as ``Scene.ids``), ``camera`` (a dict of the camera's static fields, or
 absent) and ``ultrasound`` (a dict of the ultrasound configuration's
 static fields, or absent).  The
 sets of analytic shape types and of BSDF types present are computed here
@@ -98,4 +99,5 @@ def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
         max_depth=int(meta["max_depth"]),
         rr_depth=int(meta["rr_depth"]),
         hide_emitters=bool(meta["hide_emitters"]),
+        ids=meta.get("ids"),
     )

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -61,14 +61,53 @@ class _Replace:
         """Copy with some fields changed (flax.struct's ``replace``)."""
         return dataclasses.replace(self, **changes)
 
-    def to(self, device):
-        """Copy with every tensor, nested ones included, on ``device``."""
+    def _map(self, fn):
         changes = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, (torch.Tensor, _Replace)):
-                changes[f.name] = v.to(device)
+                changes[f.name] = fn(v)
         return dataclasses.replace(self, **changes)
+
+    def to(self, device):
+        """Copy with every tensor, nested ones included, on ``device``."""
+        return self._map(lambda v: v.to(device))
+
+    def detach(self):
+        """Copy with every tensor, nested ones included, detached from
+        autograd (the values a kernel's tables are baked from)."""
+        return self._map(lambda v: v.detach())
+
+
+def grad_tensors(obj, prefix=()):
+    """Every tensor of a scene (or of a part of one), nested ones included,
+    that requires grad, as (path, tensor): a path is the tuple of field
+    names that leads to it, such as ("ultrasound", "pitch").  An empty list
+    when autograd is off (``torch.no_grad``)."""
+    if not torch.is_grad_enabled():
+        return []
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, _Replace):
+            out += grad_tensors(v, prefix + (f.name,))
+        elif isinstance(v, torch.Tensor) and v.requires_grad:
+            out.append((prefix + (f.name,), v))
+    return out
+
+
+def with_tensors(obj, items):
+    """Copy of ``obj`` with the tensor at each path of ``items`` (pairs of
+    path and tensor) replaced."""
+    top, nested = {}, {}
+    for path, t in items:
+        if len(path) == 1:
+            top[path[0]] = t
+        else:
+            nested.setdefault(path[0], []).append((path[1:], t))
+    for name, sub in nested.items():
+        top[name] = with_tensors(getattr(obj, name), sub)
+    return dataclasses.replace(obj, **top)
 
 
 @dataclass(frozen=True)
@@ -217,3 +256,7 @@ class Scene(_Replace):
     max_depth: int = -1
     rr_depth: int = 5
     hide_emitters: bool = False
+    # the scene description's names, as tpu_rt keeps them: "shapes" (name
+    # -> shape id), "bsdfs" (name -> BSDF row) and "shape_bsdf" (a list);
+    # opt/inverse.py addresses parameters through them
+    ids: Any = None

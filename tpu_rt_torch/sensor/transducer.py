@@ -55,7 +55,7 @@ def element_geometry(n_elements, pitch, radius, opening_angle_deg=0.0):
     radius = _f32(radius, pitch.device)
     i = torch.arange(n_elements, dtype=torch.float32, device=pitch.device)
     zeros = torch.zeros_like(i)
-    if bool(torch.isinf(radius)) or float(radius) == 0.0:
+    if bool(torch.isinf(radius)) or float(radius.detach()) == 0.0:
         x_lin = pitch * (i - (n_elements - 1) * 0.5)
         pos = torch.stack([x_lin, zeros, zeros], -1)
         nrm = torch.stack([zeros, zeros, zeros + 1.0], -1)

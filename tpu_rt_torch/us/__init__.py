@@ -6,6 +6,7 @@ from tpu_rt_torch.us.api import DelayAndSum, GridScan, Probe, build_probe  # noq
 from tpu_rt_torch.us.beamform import (  # noqa: F401
     apply_pulse,
     bmode_pipeline,
+    das_adjoint,
     das_beamform,
     das_beamform_matmul,
     grid_scan,
@@ -13,4 +14,4 @@ from tpu_rt_torch.us.beamform import (  # noqa: F401
     log_compress,
     pulse_kernel,
 )
-from tpu_rt_torch.us.pipeline import us_render, us_render_fast  # noqa: F401
+from tpu_rt_torch.us.pipeline import us_render, us_render_fast, us_render_jit  # noqa: F401

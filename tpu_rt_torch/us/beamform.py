@@ -6,7 +6,11 @@ kernel of the JAX package (no Pallas).  ``das_beamform`` (the gather form)
 is a wrapper: on a CPU tensor it runs ``das_beamform_plain``, on a CUDA
 tensor it launches the hand-written kernel ``ops/csrc/us_das.cu`` (one
 thread a pixel, the same taps, the sums in another order) or raises;
-``das_beamform.launches`` counts its launches.  ``das_beamform_matmul``
+``das_beamform.launches`` counts its launches.  It is differentiable as
+tpu_rt's (jax.grad) is, in the RF and in the geometry: on the CPU torch's
+autograd differentiates the plain version; on CUDA its backward is the
+adjoint kernel of the same file (``das_adjoint``, ``das_adjoint_plain``
+its plain version), never the plain version.  ``das_beamform_matmul``
 stays the port of tpu_rt's MXU form, in PyTorch.
 
 Geometry/time conventions match the acquisition: with per-element transmit
@@ -66,6 +70,37 @@ def _setup(channel_data, angles_deg, elem_x, elem_z, fs, c):
     return elem_x, elem_z, angles, _f32(fs), _f32(c)
 
 
+def _das_sum(rf, ex, ez, sin_a, cos_a, inv_c, fs, x_grid, z_grid, t_offset):
+    """The gather form's arithmetic on float tensors: rf [A, E, T], element
+    positions [E], the angles' sines and cosines [A], 1 / c and fs; returns
+    [Nx, Nz].  Differentiable in every tensor but the grids (the floor and
+    the masks are constants, as for jax.grad)."""
+    A, E, T = rf.shape
+    X, Z = torch.meshgrid(x_grid, z_grid, indexing="ij")
+    px, pz = X.reshape(-1), Z.reshape(-1)
+    chunk = min(16, E)
+    out = torch.zeros_like(px)
+    for a in range(A):
+        t_tx = (px * sin_a[a] + pz * cos_a[a]) * inv_c
+        acc_a = torch.zeros_like(px)
+        for e0 in range(0, E, chunk):
+            exc, ezc = ex[e0:e0 + chunk], ez[e0:e0 + chunk]
+            t_rx = torch.sqrt((px[:, None] - exc[None, :]) ** 2
+                              + (pz[:, None] - ezc[None, :]) ** 2) * inv_c
+            t_f = (t_tx[:, None] + t_rx - t_offset) * fs  # [P, C]
+            i0f = torch.floor(t_f)
+            w = t_f - i0f
+            i0 = i0f.to(torch.int64)
+            rows = rf[a, e0:e0 + chunk]  # [C, T]
+            v0 = torch.gather(rows, 1, torch.clamp(i0, 0, T - 1).T).T
+            v1 = torch.gather(rows, 1, torch.clamp(i0 + 1, 0, T - 1).T).T
+            v0 = torch.where((i0 >= 0) & (i0 < T), v0, 0.0)
+            v1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < T), v1, 0.0)
+            acc_a = acc_a + (v0 * (1.0 - w) + v1 * w).sum(dim=1)
+        out = out + acc_a
+    return out.reshape(X.shape)
+
+
 def das_beamform_plain(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
                  t_offset=0.0, elem_z=None):
     """Delay-and-sum beamforming of plane-wave RF data (the gather form).
@@ -81,35 +116,53 @@ def das_beamform_plain(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
         None means a linear row at z = 0.
     Returns the beamformed image [Nx, Nz] (lateral x axial).  Elements are
     summed in chunks of 16, as the JAX package does.  The plain version of
-    ``csrc/us_das.cu``, which ``das_beamform`` runs on a CPU tensor."""
+    ``csrc/us_das.cu``, which ``das_beamform`` runs on a CPU tensor; torch's
+    autograd differentiates it in the RF and the geometry (the element
+    positions, the angles, c and fs)."""
     channel_data = _f32(channel_data)
     dev = channel_data.device
     elem_x, elem_z, angles, fs, c = _setup(channel_data, angles_deg, elem_x, elem_z, fs, c)
-    A, E, T = channel_data.shape
-    X, Z = torch.meshgrid(_f32(x_grid, dev), _f32(z_grid, dev), indexing="ij")
-    px, pz = X.reshape(-1), Z.reshape(-1)
-    inv_c = 1.0 / c
-    chunk = min(16, E)
-    out = torch.zeros_like(px)
-    for a in range(A):
-        t_tx = (px * torch.sin(angles[a]) + pz * torch.cos(angles[a])) * inv_c
-        acc_a = torch.zeros_like(px)
-        for e0 in range(0, E, chunk):
-            ex, ez = elem_x[e0:e0 + chunk], elem_z[e0:e0 + chunk]
-            t_rx = torch.sqrt((px[:, None] - ex[None, :]) ** 2
-                              + (pz[:, None] - ez[None, :]) ** 2) * inv_c
-            t_f = (t_tx[:, None] + t_rx - t_offset) * fs  # [P, C]
-            i0f = torch.floor(t_f)
-            w = t_f - i0f
-            i0 = i0f.to(torch.int64)
-            rf = channel_data[a, e0:e0 + chunk]  # [C, T]
-            v0 = torch.gather(rf, 1, torch.clamp(i0, 0, T - 1).T).T
-            v1 = torch.gather(rf, 1, torch.clamp(i0 + 1, 0, T - 1).T).T
-            v0 = torch.where((i0 >= 0) & (i0 < T), v0, 0.0)
-            v1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < T), v1, 0.0)
-            acc_a = acc_a + (v0 * (1.0 - w) + v1 * w).sum(dim=1)
-        out = out + acc_a
-    return out.reshape(X.shape)
+    return _das_sum(channel_data, elem_x, elem_z, torch.sin(angles), torch.cos(angles),
+                    1.0 / c, fs, _f32(x_grid, dev), _f32(z_grid, dev), t_offset)
+
+
+def _das_launch(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset):
+    """``csrc/us_das.cu`` on CUDA tensors (``inv_c``, ``fs`` 0-d on any
+    device): the image [Nx, Nz]."""
+    from tpu_rt_torch.ops import _build
+
+    dev = rf.device
+    A, E, T = rf.shape
+    out = torch.empty((xg.shape[0], zg.shape[0]), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.us_das_launch(
+            rf.data_ptr(), A, E, T, xg.data_ptr(), xg.shape[0], zg.data_ptr(), zg.shape[0],
+            ex.data_ptr(), ez.data_ptr(), sin_a.data_ptr(), cos_a.data_ptr(), float(inv_c),
+            float(t_offset), float(fs), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("us_das kernel launch failed: "
+                           + lib.us_das_error_string(err).decode())
+    das_beamform.launches += 1
+    return out
+
+
+class _DAS(torch.autograd.Function):
+    """The DAS kernel with the adjoint kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset):
+        ctx.save_for_backward(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg)
+        ctx.t_offset = t_offset
+        return _das_launch(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        grads = das_adjoint(*ctx.saved_tensors, g, t_offset=ctx.t_offset,
+                            geometry=any(need[1:7]))
+        return tuple(x if n else None for x, n in zip(grads, need[:7])) + (None, None, None)
 
 
 def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
@@ -117,11 +170,14 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
     """Delay-and-sum beamforming of plane-wave RF data: the function of
     ``das_beamform_plain`` (its arguments and result [Nx, Nz]).
 
-    On a CPU tensor this runs ``das_beamform_plain``.  On a CUDA tensor it
-    launches ``csrc/us_das.cu`` (built at first use) or raises: each tap
-    is the plain version's arithmetic, the sums over angles and elements
-    are taken in another order.  ``das_beamform.launches`` counts kernel
-    launches."""
+    On a CPU tensor this runs ``das_beamform_plain``, which autograd
+    differentiates.  On a CUDA tensor it launches ``csrc/us_das.cu`` (built
+    at first use) or raises: each tap is the plain version's arithmetic,
+    the sums over angles and elements are taken in another order.  Its
+    backward is the adjoint kernel of the same file (``das_adjoint``), in
+    the RF and in the geometry (``elem_x``, ``elem_z``, the angles through
+    their sines and cosines, ``c`` through 1 / c, and ``fs``), never the
+    plain version.  ``das_beamform.launches`` counts forward launches."""
     channel_data = _f32(channel_data)
     dev = channel_data.device
     if dev.type == "cpu":
@@ -131,35 +187,96 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
         raise ValueError(f"das_beamform runs on cpu or cuda, not {dev.type}")
     if channel_data.dim() != 3:
         raise ValueError("das_beamform needs RF data [A, E, T]")
-    from tpu_rt_torch.ops import _build
-
     elem_x, elem_z, angles, fs, c = _setup(channel_data, angles_deg, elem_x, elem_z, fs, c)
     A, E, T = channel_data.shape
     if angles.shape != (A,) or elem_x.shape != (E,) or elem_z.shape != (E,):
         raise ValueError(f"das_beamform needs {A} angles and {E} element positions")
-    # every buffer the kernel reads is held by a name until it has been
-    # queued: a temporary's memory could be reused before the launch
+    # every buffer the kernels read is held by a name (here, then in the
+    # autograd context) until it has been queued: a temporary's memory
+    # could be reused before the launch
     rf = channel_data.contiguous()
     xg, zg = _f32(x_grid, dev).reshape(-1).contiguous(), _f32(z_grid, dev).reshape(-1).contiguous()
     ex, ez = elem_x.contiguous(), elem_z.contiguous()
     sin_a, cos_a = torch.sin(angles), torch.cos(angles)
     inv_c = 1.0 / c  # as das_beamform_plain computes it
-    out = torch.empty((xg.shape[0], zg.shape[0]), dtype=torch.float32, device=dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.us_das_launch(
-            rf.data_ptr(), A, E, T, xg.data_ptr(), xg.shape[0], zg.data_ptr(), zg.shape[0],
-            ex.data_ptr(), ez.data_ptr(), sin_a.data_ptr(),
-            cos_a.data_ptr(), float(inv_c), float(t_offset), float(fs), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("us_das kernel launch failed: "
-                           + lib.us_das_error_string(err).decode())
-    das_beamform.launches += 1
-    return out
+    return _DAS.apply(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, float(t_offset))
 
 
 das_beamform.launches = 0
+
+
+def das_adjoint_plain(rf, ex, ez, sin_a, cos_a, inv_c, fs, x_grid, z_grid, g, t_offset=0.0,
+                      geometry=True):
+    """The adjoint's plain version: torch autograd of the gather form's
+    arithmetic (``_das_sum``) at these inputs, applied to the cotangent
+    ``g`` [Nx, Nz].  Returns (d rf [A, E, T], d elem_x [E], d elem_z [E],
+    d sin [A], d cos [A], d (1 / c), d fs), each on its input's device
+    (the geometric ones None unless ``geometry``)."""
+    ins = [x.detach() for x in (rf, ex, ez, sin_a, cos_a, inv_c, fs)]
+    with torch.enable_grad():
+        for x in ins[:7 if geometry else 1]:
+            x.requires_grad_()
+        out = _das_sum(*ins, x_grid, z_grid, t_offset)
+        wrt = ins[:7 if geometry else 1]
+        grads = torch.autograd.grad(out, wrt, g, allow_unused=True)
+    grads = [torch.zeros_like(x) if d is None else d for x, d in zip(wrt, grads)]
+    return tuple(grads) + (None,) * (7 - len(grads))
+
+
+def das_adjoint(rf, ex, ez, sin_a, cos_a, inv_c, fs, x_grid, z_grid, g, t_offset=0.0,
+                geometry=True):
+    """The DAS's adjoint: the cotangent ``g`` [Nx, Nz] of the image taken
+    back to the RF [A, E, T] and, with ``geometry``, to the element
+    positions, the angles' sines and cosines, 1 / c and fs (the tuple of
+    ``das_adjoint_plain``).
+
+    On a CPU tensor this runs ``das_adjoint_plain``.  On a CUDA tensor it
+    launches the adjoint kernel of ``csrc/us_das.cu`` or raises: the taps'
+    weights added into d rf with atomics, the geometric terms summed over
+    warps and blocks, so in a run-dependent order.
+    ``das_adjoint.launches`` counts kernel launches."""
+    dev = rf.device
+    if dev.type == "cpu":
+        return das_adjoint_plain(rf, ex, ez, sin_a, cos_a, inv_c, fs, x_grid, z_grid, g,
+                                 t_offset=t_offset, geometry=geometry)
+    if dev.type != "cuda":
+        raise ValueError(f"das_adjoint runs on cpu or cuda, not {dev.type}")
+    from tpu_rt_torch.ops import _build
+
+    A, E, T = rf.shape
+    nx, nz = x_grid.shape[0], z_grid.shape[0]
+    for name, x, shape in (("rf", rf, (A, E, T)), ("elem_x", ex, (E,)), ("elem_z", ez, (E,)),
+                           ("sin_a", sin_a, (A,)), ("cos_a", cos_a, (A,)),
+                           ("x_grid", x_grid, (nx,)), ("z_grid", z_grid, (nz,)),
+                           ("g", g, (nx, nz))):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"das_adjoint needs {name} as float32 of shape {shape} on {dev}")
+    # held by name until queued, as in das_beamform
+    rf, ex, ez = rf.contiguous(), ex.contiguous(), ez.contiguous()
+    sin_a, cos_a, g = sin_a.contiguous(), cos_a.contiguous(), g.contiguous()
+    x_grid, z_grid = x_grid.contiguous(), z_grid.contiguous()
+    drf = torch.zeros_like(rf)
+    dgeo = torch.zeros((2 * E + 2 * A + 2,), dtype=torch.float32, device=dev) if geometry else None
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.us_das_adjoint_launch(
+            rf.data_ptr(), A, E, T, x_grid.data_ptr(), nx, z_grid.data_ptr(), nz, ex.data_ptr(),
+            ez.data_ptr(), sin_a.data_ptr(), cos_a.data_ptr(), float(inv_c), float(t_offset),
+            float(fs), g.data_ptr(), drf.data_ptr(), None if dgeo is None else dgeo.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError("us_das adjoint kernel launch failed: "
+                           + lib.us_das_error_string(err).decode())
+    das_adjoint.launches += 1
+    if dgeo is None:
+        return (drf,) + (None,) * 6
+    d_ex, d_ez, d_sin, d_cos = dgeo[:2 * E + 2 * A].split((E, E, A, A))
+    return (drf, d_ex, d_ez, d_sin, d_cos, dgeo[-2].to(torch.as_tensor(inv_c).device),
+            dgeo[-1].to(torch.as_tensor(fs).device))
+
+
+das_adjoint.launches = 0
 
 
 def pulse_kernel(fs, f0, wave_cycles=5):
@@ -213,7 +330,8 @@ def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
     # window from the grid pitch, in float32 as the JAX package computes it
     dx = float(xs[1] - xs[0]) if Nx > 1 else 0.0
     dz = float(zs[1] - zs[0]) if Nz > 1 else 0.0
-    spread = np.float32(2.0 * TZ * abs(dz) + 2.0 * TX * abs(dx)) / c.numpy() * fs.numpy()
+    spread = (np.float32(2.0 * TZ * abs(dz) + 2.0 * TX * abs(dx)) / c.detach().cpu().numpy()
+              * fs.detach().cpu().numpy())
     needed = int(np.ceil(spread)) + 8
     window = max(128, ((needed + 127) // 128) * 128)
     # Q must divide the window; one extra chunk covers the quantized start
