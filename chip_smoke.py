@@ -220,9 +220,41 @@ Phases (any failure raises and the script exits non-zero):
  33. one backward through the mesh phantom (the wavefront with K7 twice a
      bounce, the DAS adjoint): a finite, non-zero gradient on the knot;
  34. path_trace's gradient on mesh_gi.xml at 128 x 128 through K7, three
-     seeds: finite and non-zero, five K7 launches a trace.
+     seeds: finite and non-zero, five K7 launches a trace;
+ 35. the textured-mesh class: tests/assets/textured/textured_gi.xml (the
+     69 632-triangle knot under a 1024 x 512 PNG, the floor under a
+     baseline JPEG, an area light; outside the film kernel's scope) —
+     K7 bit-equal to its plain version on three recorded 256x256 waves;
+     path_trace on textured_small.xml (the same scene on the 2 240-triangle
+     knot) at 32x32, depth 3, on the card against the CPU on the same
+     draws (99% of the lanes within rtol 1e-4, the image mean within
+     1e-4); tpu_rt's exact-ratio check (textured / white render = the
+     texture at the analytic hit uv, within 1e-3); the main path at
+     256x256, 16 spp, depth 3 — one warm-up, five timed renders, five K7
+     launches a sample; a render under torch.profiler (K7's share, the
+     idle share), the texture overlay's device ms a bounce, a render's
+     peak device memory;
+ 36. the shadow_art class: tests/assets/shadow_art/shadow_art.xml
+     (direct_projective, a 51-point bsplinecurve, two small area lights
+     of radiance 40 000, two walls) at 256x128, 64 spp, its 192 exact
+     curve spans through the chunked sweep and, with curve_mode="mesh",
+     its 6 144-triangle tube through K7 (the routes recorded; K7
+     bit-equal on a primary and a shadow wave) — each one warm-up and
+     five timed renders; the two modes' images within tpu_rt's bar
+     (relative RMS of 8x8 block means < 0.05);
+ 37. render_soft's soft-shadow gradient (integrator/projective.py) on
+     shadow_art at 256x128, 8 spp, width 0.01: forward and backward ms,
+     the soft visibility's device ms, peak memory; its gradient on the
+     card against the CPU on the same draws at 64x32 (the loss within
+     1e-5, the translation derivative and the node sums of the spans'
+     gradients within 1e-3); tpu_rt's finite-difference check on its rod
+     scene (tests/test_projective.py:99-135: the soft gradient at 512 spp,
+     width 0.015, against the central difference of the hard render,
+     delta 0.02, 1024 spp, within 5% and non-zero), each side traced 64
+     samples a pixel a call, their means over 16 seeds held to the bar
+     (one seed's difference has a 3.5% standard deviation).
 Each main path (phases 5, 9, 13, 16, 19, 20, 24, 27, 28, 29, 30, 32 (each
-loop), 33 and 34) runs with
+loop), 33, 34, 35 and 36) runs with
 every launch count set to 0 just before it and read just after; a film
 launch counts one trace-kernel launch (path_film or stokes_film) and one
 film_splat, a per-sample kernel's chunk one launch, and an ultrasound frame
@@ -584,6 +616,9 @@ def main():
     rc = rough_cone_phases(tt, dev)
     uw = us_wavefront_phases(tt, dev)
     gr = grad_phases(tt, dev)
+    tex = textured_phases(tt, dev)
+    art = shadow_art_phases(tt, dev)
+    projective_phases(tt, dev)
     new_das = {"usmain_roughness_loop": gr["loop"]["counts"]["us_das"],
                "plate_roughness_loop": gr["plate_loop"]["counts"]["us_das"],
                "us_mesh_phantom_grad": gr["mesh"]["counts"]["us_das"],
@@ -683,16 +718,20 @@ def main():
         "replaces": "tpu_rt/ops/pallas_mesh.py:862",
         "also_replaces": "tpu_rt/ops/pallas_mesh.py:911",
         "launches": (wave["launches"] + uw["mesh"]["counts"]["mesh_isect"]
-                     + gr["mesh"]["counts"]["mesh_isect"] + sum(gr["optical"]["mesh_isect"])),
+                     + gr["mesh"]["counts"]["mesh_isect"] + sum(gr["optical"]["mesh_isect"])
+                     + tex["launches"] + art["mesh"]["launches"]),
         "launches_by_path": dict(wave["launches_by_path"],
                                  us_mesh_phantom=uw["mesh"]["counts"]["mesh_isect"],
                                  us_mesh_phantom_grad=gr["mesh"]["counts"]["mesh_isect"],
-                                 mesh_gi_path_trace_grad=sum(gr["optical"]["mesh_isect"])),
+                                 mesh_gi_path_trace_grad=sum(gr["optical"]["mesh_isect"]),
+                                 textured_gi=tex["launches"],
+                                 shadow_art_mesh=art["mesh"]["launches"]),
         "max_abs_err": wave["max_abs_err"],
         "ms": wave["ms"], "plain_ms": wave["plain_ms"],
         "bound_ms": wave["bound_ms"], "bound_by": wave["bound_by"],
         "plain_walk_bound_ms": wave["plain_walk_bound_ms"], "library_ms": None,
         "waves": wave["waves"], "us_mesh_phantom_waves": uw["mesh"]["k7_waves"],
+        "textured_gi_waves": tex["waves"], "shadow_art_mesh_waves": art["waves"],
     }, {
         "name": "stokes_film", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
@@ -1466,25 +1505,14 @@ def wavefront_phases(tt, dev):
     check_counts(counts, mesh_isect=5 * 64 * 2)
     assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for rep in range(3):
-            tt.render(big, spp=16, seed=50 + rep, device="cuda")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
-    k7 = sum(dev_us(e) for e in prof.key_averages() if "mesh_isect" in e.key) / 1e3
-    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]
+    prof = render_profile(tt, big, 16)
+    wall_ms, busy, k7 = prof["wall_ms"], prof["busy_ms"], prof["mesh_isect_ms"]
     print(f"profile of 3 wavefront renders (mesh_big_gi 256x256 16 spp): wall {wall_ms:.3f} ms, "
           f"device busy {busy:.3f} ms, mesh_isect_kernel {k7:.3f} ms "
           f"({k7 / max(busy, 1e-9):.4f} of busy), the rest {busy - k7:.3f} ms, idle share "
-          f"{1.0 - busy / wall_ms:.4f}")
-    for e in top:
-        print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+          f"{prof['idle_share']:.4f}")
+    for ms, count, key in prof["top"]:
+        print(f"  {ms:10.3f} ms  {count:6d} calls  {key[:90]}")
 
     tot = {k: sum(w[k] for w in waves.values())
            for k in ("ms", "plain_ms", "bound_ms", "plain_walk_bound_ms")}
@@ -3063,6 +3091,333 @@ def optical_grad(tt, dev, res=128):
               f"{p.grad[1, 0].item():+.6e}; K7 launches {counts['mesh_isect']}")
         assert finite and p.grad[:, :3].abs().sum().item() > 0, "the optical gradient"
     return dict(mesh_isect=launches)
+
+
+TEXTURED_DIR = os.path.join(ROOT, "tests", "assets", "textured")
+TEXTURED_GI = os.path.join(TEXTURED_DIR, "textured_gi.xml")
+SHADOW_ART = os.path.join(ROOT, "tests", "assets", "shadow_art", "shadow_art.xml")
+# tests/test_projective.py:99-135's settings: the soft gradient's samples a
+# pixel and sigmoid width, the hard render's samples a pixel and step
+FD_SPP_AD, FD_WIDTH, FD_SPP_FD, FD_DELTA = 512, 0.015, 1024, 0.02
+FD_SEEDS = 16
+
+
+def device_ms_per_call(fn, n=20):
+    """The device time of all kernels fn() launches, per call, over n
+    calls (torch.profiler): for a function of many small launches, where
+    CUDA events around it read the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in prof.key_averages()) / 1e3 / n
+
+
+def k7_waves(label, cl, waves):
+    """K7 against its plain version on recorded waves (name -> (o, d,
+    tmax)), bit for bit (t, prim, u, v); each timed (kernel: CUDA events
+    over 10 launches; plain: one call)."""
+    from tpu_rt_torch.ops import mesh_kernel as mk
+
+    out = {}
+    for name, (o, d, tmax) in waves.items():
+        got = mk.mesh_intersect(cl, o, d, tmax=tmax)
+        t, lid, u, v = mk.mesh_intersect_plain(cl["bounds"], cl["trisw"], o, d, tmax)
+        prim = torch.where(lid >= 0, cl["prim"][lid.clamp(min=0).long()], -1).to(torch.int32)
+        same = ((got[0] == t) & (got[1] == prim) & (got[2] == u) & (got[3] == v)).float()
+        k_ms, _ = cuda_ms(lambda: mk.mesh_intersect(cl, o, d, tmax=tmax), reps=10)
+        p_ms, _ = cuda_ms(lambda: mk.mesh_intersect_plain(cl["bounds"], cl["trisw"], o, d, tmax))
+        out[name] = dict(rays=o.shape[0], hit_share=(got[1] >= 0).float().mean().item(),
+                         bit_equal_share=same.mean().item(), ms=k_ms, plain_ms=p_ms)
+        print(f"mesh_isect vs plain, {label} {name} wave ({o.shape[0]} rays, "
+              f"{cl['bounds'].shape[0]} clusters): bit-equal share {same.mean().item():.6f}, "
+              f"hit share {out[name]['hit_share']:.4f}; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.1f} ms")
+        assert same.mean().item() == 1.0, f"mesh_isect differs from its plain version ({label})"
+    return out
+
+
+def nee_waves(scene, dev, seed):
+    """Two waves of trace queries at the scene's film size: the primaries
+    through the pixels, and the shadow rays of a light sample
+    (``emitter.sample_direct``) from their hits, tmax just short of the
+    light."""
+    from tpu_rt_torch.emitter import sample as emitter
+    from tpu_rt_torch.geometry import trace
+    from tpu_rt_torch.sensor import camera as cam
+
+    c = scene.camera
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ys, xs = torch.meshgrid(torch.arange(c.height, device=dev),
+                            torch.arange(c.width, device=dev), indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    n = xy.shape[0]
+    o, d = cam.sample_ray(c, xy + torch.rand((n, 2), generator=gen, device=dev))
+    o, d = o.contiguous(), d.contiguous()
+    si = trace.ray_intersect(scene, o, d)
+    u = torch.rand((n, 4), generator=gen, device=dev)
+    ds = emitter.sample_direct(scene, si.p, u[:, 0], u[:, 1:4], si.valid)
+    big = torch.full((n,), 0.99 * 1e8, device=dev)
+    return {"primary": (o, d, big),
+            "shadow": (si.spawn_origin(ds.d).contiguous(), ds.d.contiguous(),
+                       torch.where(si.valid, ds.dist * (1.0 - 1e-3), 0.0).contiguous())}
+
+
+def render_profile(tt, scene, spp, n=3):
+    """n renders under torch.profiler: wall ms, device busy ms, K7's device
+    ms, the idle share, and the 8 largest device times (ms, calls, name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rep in range(n):
+            tt.render(scene, spp=spp, seed=50 + rep, device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    k7 = sum(dev_us(e) for e in prof.key_averages() if "mesh_isect" in e.key) / 1e3
+    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]
+    return dict(wall_ms=wall, busy_ms=busy, mesh_isect_ms=k7, idle_share=1.0 - busy / wall,
+                top=[(dev_us(e) / 1e3, e.count, e.key) for e in top])
+
+
+def textured_phases(tt, dev):
+    """Phase 35: the textured-mesh class through the wavefront and K7."""
+    from tpu_rt_torch.bsdf import texture
+    from tpu_rt_torch.geometry import trace
+    from tpu_rt_torch.integrator import path as path_t
+    from tpu_rt_torch.ops import path_kernel as pk
+    from tpu_rt_torch.sensor import camera as cam
+
+    t_start = time.perf_counter()
+    gi = tt.load_file(TEXTURED_GI)  # 256x256, 16 spp, depth 3
+    assert gi.has_textures and pk.bake_scene(gi) is None, "the textured scene's route"
+    print(f"textured_gi.xml: {gi.geometry.n_tris} triangles, atlas "
+          f"{tuple(gi.tex_data.shape)}, textures a BSDF row {gi.bsdf_tex.tolist()}")
+    sc = gi.to(dev)
+    cl = trace.mesh_clusters(sc.geometry)
+    waves = k7_waves("textured_gi.xml 256x256", cl, mesh_isect_waves(sc, dev, 3))
+    print(f"  ({time.perf_counter() - t_start:.1f} s into phase 35)")
+
+    # the card against the CPU on the same rays and draws, 32x32 (the
+    # textured class on the 2 240-triangle knot: the CPU's plain K7 over
+    # the large knot's 800 clusters would take a minute)
+    small = tt.load_file(os.path.join(TEXTURED_DIR, "textured_small.xml"), res=32, spp=1)
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    ys, xs = torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32) + torch.rand(
+        (1024, 2), generator=gen)
+    o, d, t0, t1 = cam.sample_ray_extents(small.camera, xy)
+    u = torch.rand((path_t.n_bounces(small), 1024, 8), generator=gen)
+    Lc, nc = path_t.path_trace(small, o, d, uniforms=u, tmin0=t0, tmax0=t1)
+    Lg, ng = path_t.path_trace(small.to(dev), o.to(dev), d.to(dev), uniforms=u.to(dev),
+                               tmin0=t0.to(dev), tmax0=t1.to(dev))
+    Lg = Lg.cpu()
+    lanes = torch.isclose(Lg, Lc, rtol=1e-4, atol=1e-6).all(-1).float().mean().item()
+    mean_rel = abs(Lg.mean().item() - Lc.mean().item()) / Lc.mean().item()
+    print(f"textured path_trace, card vs CPU on the same draws (textured_small.xml 32x32, "
+          f"depth 3): lanes within rtol 1e-4 atol 1e-6 {lanes:.6f}, image mean rel diff "
+          f"{mean_rel:.3e} (limit 1e-4), rays {int(ng)} vs {int(nc)}")
+    assert lanes >= 0.99 and mean_rel <= 1e-4, "the textured path_trace on the card"
+    print(f"  ({time.perf_counter() - t_start:.1f} s into phase 35)")
+
+    # tpu_rt's exact-ratio check: textured / white = the texture at the hit
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import texture_ratio_error
+
+    ratio_err, lit = texture_ratio_error(os.path.join(TEXTURED_DIR, "checker.png"), dev)
+    print(f"textured / white render on the card = the texture at the hit uv: max error "
+          f"{ratio_err:.3e} over {lit:.4f} of the pixels (limit 1e-3)")
+    assert lit > 0.2 and ratio_err < 1e-3, "the exact-ratio check"
+    print(f"  ({time.perf_counter() - t_start:.1f} s into phase 35)")
+
+    # the main path at full width
+    med, lo, hi, nr, counts, img = timed_main_path(tt, gi, 16)
+    print(f"launch counts over the textured GI main path: {counts}")
+    print(f"textured main path textured_gi.xml 256x256 16 spp depth 3 box: median {med:.3f} ms "
+          f"(min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s {nr / (med / 1e3):.4e}")
+    launches = counts["mesh_isect"]
+    check_counts(counts, mesh_isect=5 * 16 * (2 * path_t.n_bounces(gi) - 1))
+    assert img.shape == (256, 256, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
+    print(f"  ({time.perf_counter() - t_start:.1f} s into phase 35)")
+    prof = render_profile(tt, gi, 16, n=1)  # the profiler's CPU side takes ~30 s a render
+    si = trace.ray_intersect(sc, *mesh_isect_waves(sc, dev, 3)["primary"][:2])
+    b_c = sc.shape_bsdf[si.shape.clamp(min=0)].clamp(0, sc.bsdf_type.shape[0] - 1)
+    b_params = sc.bsdf_params[b_c]
+    overlay_ms = device_ms_per_call(
+        lambda: texture.apply_reflectance_textures(sc, b_c, b_params, si.uv))
+    torch.cuda.reset_peak_memory_stats()
+    tt.render(gi, spp=16, seed=9, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bounces = 16 * path_t.n_bounces(gi)
+    print(f"profile of a textured render: wall {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['busy_ms']:.3f} ms, mesh_isect_kernel {prof['mesh_isect_ms']:.3f} ms, idle "
+          f"share {prof['idle_share']:.4f}; the texture overlay {overlay_ms:.4f} device ms a "
+          f"bounce (65 536 lanes), {bounces} bounces a render = {overlay_ms * bounces:.3f} ms; "
+          f"peak device memory of a render {peak / 2**20:.1f} MiB")
+    print(f"phase 35 took {time.perf_counter() - t_start:.1f} s")
+    return dict(launches=launches, waves=waves, ms=med, rays=nr, lanes_vs_cpu=lanes,
+                mean_rel_vs_cpu=mean_rel, ratio_err=ratio_err, profile=prof,
+                overlay_ms=overlay_ms, peak_bytes=peak)
+
+
+def shadow_art_phases(tt, dev):
+    """Phase 36: the shadow_art class, exact curves and their tube mesh."""
+    from tpu_rt_torch.geometry import trace
+
+    t_start = time.perf_counter()
+    exact = tt.load_file(SHADOW_ART)  # 256x128, 64 spp
+    mesh = tt.load_file(SHADOW_ART, curve_mode="mesh")
+    ge, gm = exact.geometry, mesh.geometry
+    print(f"shadow_art.xml: exact {ge.n_tris} triangles + {ge.n_analytic} analytic prims "
+          f"({int((ge.an_param[:, 0] > 0).sum())} curve spans); mesh {gm.n_tris} triangles in "
+          f"{gm.cl_bounds.shape[0]} clusters + {gm.n_analytic} analytic")
+    _, routes_e, _ = record_queries(lambda: tt.render(exact, spp=1, device="cuda"))
+    _, routes_m, _ = record_queries(lambda: tt.render(mesh, spp=1, device="cuda"))
+    assert set(routes_e) == {"_trace_chunked"} and set(routes_m) == {"_trace_mesh"}, \
+        "shadow_art's trace routes"
+    sm = mesh.to(dev)
+    waves = k7_waves("shadow_art.xml (mesh) 256x128", trace.mesh_clusters(sm.geometry),
+                     nee_waves(sm, dev, 4))
+    out = {"waves": waves}
+    for label, sc, want in (("exact", exact, 0), ("mesh", mesh, 5 * 64 * 3)):
+        med, lo, hi, nr, counts, img = timed_main_path(tt, sc, 64)
+        print(f"launch counts over the shadow_art {label} main path: {counts}")
+        check_counts(counts, mesh_isect=want)
+        print(f"shadow_art main path ({label} curves) 256x128 64 spp direct_projective box: "
+              f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, "
+              f"rays/s {nr / (med / 1e3):.4e}")
+        assert img.shape == (128, 256, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0
+        out[label] = dict(ms=med, rays=nr, launches=counts["mesh_isect"],
+                          img=img.cpu().numpy())
+
+    def blocks(x):
+        return x.reshape(16, 8, 32, 8, 3).mean(axis=(1, 3))
+
+    be, bm = blocks(out["exact"].pop("img")), blocks(out["mesh"].pop("img"))
+    rel = float(np.sqrt(((be - bm) ** 2).mean()) / bm.mean())
+    print(f"shadow_art exact vs mesh curves (seed 4, 64 spp): relative RMS of 8x8 block means "
+          f"{rel:.5f} (tpu_rt's bar 0.05)")
+    assert rel < 0.05, "exact curves disagree with their tube mesh"
+    out["exact_vs_mesh"] = rel
+    print(f"phase 36 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def projective_phases(tt, dev):
+    """Phase 37: render_soft's soft-shadow gradient on shadow_art and the
+    finite-difference check on tpu_rt's rod scene."""
+    from tpu_rt_torch.integrator import path as path_t
+    from tpu_rt_torch.integrator import projective
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import (hard_band_loss, rod_desc, shadow_art_band, soft_band_grad,
+                                   soft_band_grads, write_rod)
+
+    t_start = time.perf_counter()
+    sc = tt.load_file(SHADOW_ART, spp=8).to(dev)
+    base = projective.curve_segments(sc.geometry)
+    sgeom = projective.geometry_without_curves(sc.geometry)
+
+    def step(seed):
+        theta = torch.zeros((), device=dev, requires_grad=True)
+        shift = torch.stack([theta, theta * 0.0, theta * 0.0])
+        curves = dict(base, a=base["a"] + shift, b=base["b"] + shift)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = shadow_art_band(projective.render_soft(sc, curves, spp=8, seed=seed, width=0.01,
+                                                      shadow_geom=sgeom, device=dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3, float(theta.grad)
+
+    reset_launch_counts()
+    step(0)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs = [step(1 + i) for i in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    check_counts(counts)  # exact curves: the chunked sweep, no kernel of the port
+    fwd = statistics.median(r[0] for r in runs)
+    bwd = statistics.median(r[1] for r in runs)
+    grads = [r[2] for r in runs]
+    assert all(np.isfinite(g) and g != 0.0 for g in grads), "render_soft's gradient"
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(1)
+    n = 256 * 128
+    o = torch.rand((n, 3), generator=rng, device=dev) * 0.4 - 0.2 + torch.tensor(
+        [0.0, 0.0, 0.8], device=dev)
+    dd = torch.nn.functional.normalize(-o + 0.3 * torch.randn(
+        (n, 3), generator=rng, device=dev), dim=-1)
+    dist = torch.full((n,), 1.5, device=dev)
+    vis_ms = device_ms_per_call(
+        lambda: projective.curve_soft_visibility(base, o, dd, dist, 0.01))
+    print(f"render_soft shadow_art.xml 256x128 8 spp width 0.01: forward median {fwd:.3f} ms, "
+          f"backward median {bwd:.3f} ms (n 3), d band / d x-translation {grads}, peak device "
+          f"memory {peak / 2**20:.1f} MiB; the soft visibility {vis_ms:.4f} device ms a bounce "
+          f"({n} shadow segments x {base['a'].shape[0]} spans, forward)")
+
+    # the card against the CPU on the same draws (64x32, 2 spp)
+    small = tt.load_file(SHADOW_ART, resx=64, resy=32)
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    hw = 64 * 32
+    draws = (torch.rand((2, hw, 2), generator=gen),
+             torch.rand((2, path_t.n_bounces(small, 2), hw, 8), generator=gen))
+    lc, tc, abc, rc = soft_band_grads(small, draws, 0.01, "cpu", band=shadow_art_band)
+    lg, tg, abg, rg = soft_band_grads(small, draws, 0.01, dev, band=shadow_art_band)
+    d_theta = abs(tg - tc) / abs(tc)
+    d_ab = (abg - abc).abs().max().item() / abc.abs().max().item()
+    d_r = (rg - rc).abs().max().item() / rc.abs().max().item()
+    print(f"render_soft gradient, card vs CPU on the same draws (64x32, 2 spp): loss "
+          f"{lg:.7f} vs {lc:.7f}; d / d translation {tg:+.6e} vs {tc:+.6e} (rel {d_theta:.3e}); "
+          f"node sums rel to their largest: ends {d_ab:.3e}, radii {d_r:.3e} (limit 1e-3)")
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and max(d_theta, d_ab, d_r) <= 1e-3, \
+        "render_soft's gradient on the card"
+
+    # tpu_rt's finite-difference check (tests/test_projective.py:99-135) at
+    # its settings, over 16 seeds: one seed's central difference has a
+    # standard deviation of 3.5% of the gradient (tools/fd_soft_gradient.py),
+    # so the means are held to the 5% bar
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+
+    def rod_scene(dx):
+        path = os.path.join(work, f"rod_{dx:+.4f}.txt")
+        write_rod(path, 0.25 + dx, 2.0, 0.08)
+        return tt.load_dict(rod_desc(tt.ScalarTransform4f, path))
+
+    rod, plus, minus = rod_scene(0.0), rod_scene(FD_DELTA), rod_scene(-FD_DELTA)
+    t0 = time.perf_counter()
+    ad, fd = [], []
+    for seed in range(FD_SEEDS):
+        ad.append(soft_band_grad(rod, FD_SPP_AD, 1000 + seed, FD_WIDTH, dev)[1])
+        # the hard render's band at +-delta on the same draws (common random numbers)
+        fd.append((hard_band_loss(plus, FD_SPP_FD, seed, dev)
+                   - hard_band_loss(minus, FD_SPP_FD, seed, dev)) / (2 * FD_DELTA))
+    g_ad, g_fd = statistics.mean(ad), statistics.mean(fd)
+    fd_rel = abs(g_ad - g_fd) / max(abs(g_fd), 1e-9)
+    per_seed = sum(abs(a - f) < 0.05 * abs(f) for a, f in zip(ad, fd))
+    print(f"finite-difference check (rod scene 64x64, {FD_SEEDS} seeds): soft gradient "
+          f"{g_ad:+.6e} (sd {statistics.stdev(ad):.3e}; {FD_SPP_AD} spp, width {FD_WIDTH}) vs "
+          f"central difference of the hard render {g_fd:+.6e} (sd {statistics.stdev(fd):.3e}; "
+          f"delta {FD_DELTA}, {FD_SPP_FD} spp): rel {fd_rel:.4f} (limit 0.05); one seed alone "
+          f"within 0.05 on {per_seed} of {FD_SEEDS}; {time.perf_counter() - t0:.1f} s")
+    assert abs(g_ad) > 1e-4 and fd_rel < 0.05, "the soft gradient misses the finite difference"
+    print(f"phase 37 took {time.perf_counter() - t_start:.1f} s")
+    return dict(forward_ms=fwd, backward_ms=bwd, grads=grads, peak_bytes=peak,
+                soft_visibility_ms=vis_ms, card_vs_cpu=dict(theta=d_theta, ends=d_ab, radii=d_r),
+                fd=dict(soft=g_ad, fd=g_fd, rel=fd_rel, per_seed=per_seed))
 
 
 if __name__ == "__main__":

@@ -43,7 +43,10 @@ wavefront (the ultrasound route of scenes outside the acquisition
 kernel's scope) on the card against its CPU run fed the same uniforms,
 its mesh queries through the mesh-intersect kernel (bit-equal on a
 bounce wave), and its trace routes (brute force, chunks, BVH) agreeing
-on one wave.
+on one wave.  The textured wavefront on the card against its CPU run fed
+the same uniforms, K7 bit-equal on the primaries and shadow rays of the
+textured knot and of shadow_art's tube mesh, and render_soft's gradient
+on the card against the CPU's on the same draws.
 """
 
 import functools
@@ -1249,3 +1252,99 @@ def test_trace_routes_agree_on_cuda():
         eager = trace._trace_bvh(g, o, dd, trace.RAY_EPS, tmax, graph=False)
         for f in ("t", "prim", "u", "v"):
             assert torch.equal(getattr(graphed, f), getattr(eager, f)), f
+
+
+TEXTURED = os.path.join(os.path.dirname(__file__), "assets", "textured")
+SHADOW_ART = os.path.join(os.path.dirname(__file__), "assets", "shadow_art", "shadow_art.xml")
+
+
+@pytest.mark.cuda
+def test_textured_path_trace_on_cuda_matches_the_cpu():
+    """textured_small.xml (the 2 240-triangle knot under the checker PNG,
+    the floor under the baseline JPEG) at 32x32, depth 3, the same rays and
+    uniforms on the card and on the CPU: at least 99% of the lanes within
+    rtol 1e-4 / atol 1e-6, the image mean within 1e-4 relative, the rays
+    cast within 1%; five K7 launches a trace (closest hits and shadow
+    rays)."""
+    _need_cuda()
+    st = tpu_rt_torch.load_file(os.path.join(TEXTURED, "textured_small.xml"), res=32, spp=1)
+    assert st.has_textures and path_kernel.bake_scene(st) is None
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    ys, xs = torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32) + torch.rand(
+        (1024, 2), generator=gen)
+    o, d, t0, t1 = camera.sample_ray_extents(st.camera, xy)
+    u = torch.rand((wavefront.n_bounces(st), 1024, 8), generator=gen)
+    Lc, nc = wavefront.path_trace(st, o, d, uniforms=u, tmin0=t0, tmax0=t1)
+    before = mesh_kernel.mesh_intersect.launches
+    Lg, ng = wavefront.path_trace(st.to("cuda"), o.cuda(), d.cuda(), uniforms=u.cuda(),
+                                  tmin0=t0.cuda(), tmax0=t1.cuda())
+    torch.cuda.synchronize()
+    assert mesh_kernel.mesh_intersect.launches == before + 2 * wavefront.n_bounces(st) - 1
+    Lg = Lg.cpu()
+    close = torch.isclose(Lg, Lc, rtol=1e-4, atol=1e-6).all(-1).float().mean().item()
+    assert close >= 0.99, close
+    assert abs(Lg.mean().item() - Lc.mean().item()) <= 1e-4 * Lc.mean().item()
+    assert abs(int(ng) - int(nc)) <= 0.01 * int(nc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["textured", "shadow_art_mesh"])
+def test_mesh_kernel_on_a_recorded_wave_is_bit_equal(which):
+    """K7 on the primaries and on the light samples' shadow rays of the
+    textured knot and of shadow_art's tube mesh (curve_mode="mesh"), each
+    bit-equal (t, prim, u, v) to its plain version on the card."""
+    _need_cuda()
+    from tpu_rt_torch.emitter import sample as emitter
+
+    if which == "textured":
+        st = tpu_rt_torch.load_file(os.path.join(TEXTURED, "textured_small.xml"), res=64)
+    else:
+        st = tpu_rt_torch.load_file(SHADOW_ART, curve_mode="mesh", resx=64, resy=32)
+    sc = st.to("cuda")
+    c = sc.camera
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    ys, xs = torch.meshgrid(torch.arange(c.height, device="cuda"),
+                            torch.arange(c.width, device="cuda"), indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    o, d = camera.sample_ray(c, xy + torch.rand(xy.shape, generator=gen, device="cuda"))
+    o, d = o.contiguous(), d.contiguous()
+    si = trace.ray_intersect(sc, o, d)
+    u = torch.rand((o.shape[0], 4), generator=gen, device="cuda")
+    ds = emitter.sample_direct(sc, si.p, u[:, 0], u[:, 1:4], si.valid)
+    so = si.spawn_origin(ds.d).contiguous()
+    cl = trace.mesh_clusters(sc.geometry)
+    for oo, dd, tm in ((o, d, torch.full((o.shape[0],), 0.99 * 1e8, device="cuda")),
+                       (so, ds.d.contiguous(), torch.where(si.valid, ds.dist * (1 - 1e-3), 0.0))):
+        got = mesh_kernel.mesh_intersect(cl, oo, dd, tmax=tm.contiguous())
+        t, lid, uu, vv = mesh_kernel.mesh_intersect_plain(cl["bounds"], cl["trisw"], oo, dd, tm)
+        prim = torch.where(lid >= 0, cl["prim"][lid.clamp(min=0).long()], -1).to(torch.int32)
+        for a, b, name in zip(got, (t, prim, uu, vv), ("t", "prim", "u", "v")):
+            assert torch.equal(a, b), name
+    assert (si.prim >= 0).float().mean().item() > 0.1
+
+
+@pytest.mark.cuda
+def test_render_soft_gradient_on_cuda_matches_the_cpu():
+    """render_soft on shadow_art.xml at 64x32, 2 spp, width 0.01, the same
+    draws on the card and on the CPU: the shadow-band loss within 1e-5,
+    its derivative for a translation of the wire within 1e-3, and the
+    node sums of the gradients with respect to the spans' ends and radii
+    within 1e-3 of their largest."""
+    _need_cuda()
+    from torch_port_scenes import shadow_art_band, soft_band_grads
+
+    st = tpu_rt_torch.load_file(SHADOW_ART, resx=64, resy=32)
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    hw = 64 * 32
+    draws = (torch.rand((2, hw, 2), generator=gen),
+             torch.rand((2, wavefront.n_bounces(st, 2), hw, 8), generator=gen))
+    lc, tc, abc, rc = soft_band_grads(st, draws, 0.01, "cpu", band=shadow_art_band)
+    lg, tg, abg, rg = soft_band_grads(st, draws, 0.01, "cuda", band=shadow_art_band)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert tc != 0.0 and abs(tg - tc) <= 1e-3 * abs(tc)
+    for g, c in ((abg, abc), (rg, rc)):
+        assert (g - c).abs().max().item() <= 1e-3 * c.abs().max().item()

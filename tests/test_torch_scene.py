@@ -41,6 +41,8 @@ def tpu_rt_arrays(scene):
                    for k in _tensor_fields(TT.Emitters)})
     for k in ("shape_bsdf", "shape_emitter", "bsdf_type", "bsdf_params", "shape_to_world"):
         arrays[k] = np.asarray(getattr(scene, k))
+    if scene.has_textures:  # the atlas, the true sizes, each BSDF row's texture
+        arrays.update({k: np.asarray(getattr(scene, k)) for k in ("tex_data", "tex_hw", "bsdf_tex")})
     meta = dict(
         n_tris=scene.geometry.n_tris, n_analytic=scene.geometry.n_analytic,
         n_area=scene.emitters.n_area, n_point=scene.emitters.n_point,
@@ -207,16 +209,21 @@ def test_out_of_scope_scene(shape, in_scope):
 def test_loader_names_roadmap_for_unported_plugins():
     desc = furnace_desc(tpu_rt_torch.ScalarTransform4f)
     # the polarizer and the stokes integrator load since polarized
-    # transport was ported; a bitmap texture still waits for A8
+    # transport was ported, a bitmap texture and a bsplinecurve since
+    # textures and curves were (ROADMAP A8)
     desc["sph"] = {"type": "sphere", "bsdf": {"type": "polarizer"}}
     assert tpu_rt_torch.load_dict(desc).bsdf_type.tolist() == [TT.BSDF_POLARIZER]
-    desc["sph"] = {"type": "sphere", "bsdf": {
-        "type": "diffuse", "reflectance": {"type": "bitmap", "filename": "t.png"}}}
-    with pytest.raises(ValueError, match="ROADMAP.md A8"):
-        tpu_rt_torch.load_dict(desc)
-    desc["sph"] = {"type": "bsplinecurve", "filename": "curve.txt"}
-    with pytest.raises(ValueError, match="ROADMAP.md A8"):
-        tpu_rt_torch.load_dict(desc)
+    assets = os.path.join(os.path.dirname(__file__), "assets")
+    desc["sph"] = {"type": "sphere", "bsdf": {"type": "diffuse", "reflectance": {
+        "type": "bitmap", "filename": os.path.join(assets, "textured", "gray16.png")}}}
+    tex = tpu_rt_torch.load_dict(desc)
+    assert tex.has_textures and tex.tex_data.shape == (1, 40, 48, 3)
+    assert tex.bsdf_tex.tolist() == [0]
+    desc["sph"] = {"type": "bsplinecurve",
+                   "filename": os.path.join(assets, "shadow_art", "wire.txt")}
+    curve = tpu_rt_torch.load_dict(desc).geometry
+    assert curve.n_analytic == 192 and set(curve.an_type.tolist()) == {TT.CURVE}
+    assert bool((curve.an_param > 0).all())
     # the envmap loads since the textured environment was ported
     desc["sph"] = {"type": "sphere", "bsdf": {"type": "diffuse"}}
     desc["env"] = {"type": "envmap", "scale": 2.0, "filename": os.path.join(

@@ -410,3 +410,218 @@ def tie_fixture():
     d = cen - o
     d = d / np.linalg.norm(d, axis=1, keepdims=True)
     return cl, o.astype(np.float32), d.astype(np.float32)
+
+
+def write_rod(path, x, z, r, y0=-0.8, y1=0.8, n=7):
+    """A straight vertical rod at (x, z) as a cubic B-spline control file
+    (rows of ``x y z r``; collinear control points make the straight
+    span), as tests/test_projective.py writes it."""
+    ys = np.linspace(y0, y1, n)
+    with open(path, "w") as f:
+        f.write("\n".join(f"{x:.8f} {y:.8f} {z:.8f} {r:.8f}" for y in ys) + "\n")
+
+
+def rod_desc(st, curve_file, res=64, spp=16):
+    """tests/test_projective.py's rod scene: a receiver wall at z = 0 seen
+    from an off-axis camera at (2.5, 0, 4), a small bright area light at
+    (0, 0, 3) and a vertical rod occluder near (0.25, *, 2.0) (write it
+    with ``write_rod``).  The shadow falls on image columns ~15-26 of 64,
+    the rod itself on ~49-55."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "direct_projective"},
+        "sensor": {
+            "type": "perspective", "fov": 50,
+            "to_world": st().look_at(origin=[2.5, 0, 4], target=[0, 0, 0], up=[0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": res, "height": res, "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "wall": {"type": "rectangle", "to_world": st().scale([2.5, 2.5, 1]),
+                 "bsdf": {"type": "diffuse", "reflectance": 0.8 * np.ones(3)}},
+        "light": {"type": "rectangle",
+                  "to_world": st().translate([0, 0, 3]) @ st().rotate([0, 1, 0], 180)
+                  @ st().scale([0.02, 0.02, 1]),
+                  "emitter": {"type": "area", "radiance": 4.0e4 * np.ones(3)}},
+        "rod": {"type": "bsplinecurve", "filename": curve_file},
+    }
+
+
+def shadow_band(img):
+    """The loss band of the rod scene: the image columns W/8 .. W/2, where
+    the shadow falls (the rod's own silhouette lies outside it)."""
+    W = img.shape[1]
+    return img[:, W // 8: W // 2, :].mean()
+
+
+def shadow_art_band(img):
+    """shadow_art.xml's loss band: the columns W/8 .. 2W/5, where the front
+    view of the wire falls on the wall at z = -1.2 (the wire's own
+    silhouette lies right of it)."""
+    W = img.shape[1]
+    return img[:, W // 8: 2 * W // 5, :].mean()
+
+
+def soft_band_grads(scene, draws, width, device, band=shadow_band):
+    """``projective.render_soft`` of ``scene`` on ``device`` with ``draws``
+    (jitter [spp, H*W, 2], uniforms [spp, n_bounces, H*W, 8]), its loss
+    ``band(img)`` and the gradients by autograd: returns (loss, d loss / d
+    theta for a translation of the curve along x, the node sums of d loss
+    / d (a, b) [C + 1, 3] and of d loss / d (r0, r1) [C + 1]), on the CPU,
+    float64.  A node is an end two spans share (b of span i = a of span i
+    + 1); where a shadow segment is closest to a node the two spans' equal
+    clearances tie, so only the node's sum is well defined."""
+    import torch
+
+    from tpu_rt_torch.integrator import projective
+
+    curves = {k: v.to(device).requires_grad_(True)
+              for k, v in projective.curve_segments(scene.geometry).items()}
+    theta = torch.zeros((), device=device, requires_grad=True)
+    shift = torch.stack([theta, theta * 0.0, theta * 0.0])
+    moved = dict(curves, a=curves["a"] + shift, b=curves["b"] + shift)
+    spp = draws[0].shape[0]
+    loss = band(projective.render_soft(scene, moved, spp=spp, width=width, device=device,
+                                       draws=draws))
+    loss.backward()
+
+    def nodes(g0, g1):
+        g0, g1 = g0.detach().double().cpu(), g1.detach().double().cpu()
+        n = torch.zeros((g0.shape[0] + 1,) + tuple(g0.shape[1:]), dtype=torch.float64)
+        n[:-1] += g0
+        n[1:] += g1
+        return n
+
+    return (float(loss.detach()), float(theta.grad),
+            nodes(curves["a"].grad, curves["b"].grad), nodes(curves["r0"].grad, curves["r1"].grad))
+
+
+def textured_rect_desc(st, reflectance, res=32, spp=1):
+    """tests/test_textures.py's scene: a camera facing a unit rectangle
+    (its reflectance a colour or a bitmap dict) lit by a point light."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "direct"},
+        "sensor": {
+            "type": "perspective", "fov": 35,
+            "to_world": st().look_at(origin=[0, 0, 3.2], target=[0, 0, 0], up=[0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": res, "height": res, "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "rect": {"type": "rectangle", "bsdf": {"type": "diffuse", "reflectance": reflectance}},
+        "light": {"type": "point", "position": [0.5, 0.8, 3.0], "intensity": 20.0 * np.ones(3)},
+    }
+
+
+def hard_band_loss(scene, spp, seed, device, band=shadow_band, batch=64):
+    """``band`` of the hard render of ``scene`` (box filter, max_depth 2:
+    a pixel the mean of its finite samples) at ``spp`` samples a pixel,
+    traced ``batch`` samples a pixel at a time through
+    ``integrator/path.py::path_trace``.  The draws come from a
+    ``torch.Generator`` seeded by ``seed`` in ``render``'s order (a
+    batch's jitter, then its bounces), so ``batch=1`` gives
+    ``band(path.render(scene, spp, seed, max_depth=2))`` exactly; a larger
+    batch, the same estimator in spp / batch calls."""
+    import torch
+
+    from tpu_rt_torch.integrator import path
+    from tpu_rt_torch.sensor import camera
+
+    scene = scene.to(device)
+    c = scene.camera
+    H, W = c.height, c.width
+    ys, xs = torch.meshgrid(torch.arange(H, device=device), torch.arange(W, device=device),
+                            indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    total = torch.zeros((H * W, 3), dtype=torch.float32, device=device)
+    count = torch.zeros((H * W, 1), dtype=torch.float32, device=device)
+    for b0 in range(0, spp, batch):
+        nb = min(batch, spp - b0)
+        pix = xy.repeat(nb, 1)
+        o, d, t0, t1 = camera.sample_ray_extents(
+            c, pix + torch.rand(pix.shape, generator=gen, device=device))
+        L, _ = path.path_trace(scene, o, d, gen=gen, max_depth=2, tmin0=t0, tmax0=t1)
+        ok = torch.isfinite(L).all(-1, keepdim=True)
+        for i in range(nb):  # in sample order, as the film adds them
+            s = slice(i * H * W, (i + 1) * H * W)
+            total = total + torch.where(ok[s], L[s], 0.0)
+            count = count + ok[s].float()
+    return float(band((total / count.clamp(min=1.0)).reshape(H, W, 3)))
+
+
+def texture_ratio_error(png, device, res=32, seed=5):
+    """tests/test_textures.py:189-237's exact-ratio check on ``device``:
+    ``textured_rect_desc`` rendered with the bitmap ``png`` and with a
+    white reflectance at the same seed (the same rays and draws), their
+    ratio against ``eval_bitmap`` at the uv where the render's first-wave
+    camera rays meet z = 0.  Returns (the largest error over the lit
+    pixels, the lit share)."""
+    import torch
+
+    import tpu_rt_torch as tt
+    from tpu_rt_torch.bsdf import texture
+    from tpu_rt_torch.sensor import camera
+
+    st = tt.ScalarTransform4f
+    sc_tex = tt.load_dict(textured_rect_desc(st, {"type": "bitmap", "filename": png}, res=res))
+    sc_one = tt.load_dict(textured_rect_desc(st, np.ones(3, np.float32), res=res))
+    img_t = tt.render(sc_tex, seed=seed, device=device).cpu().numpy()
+    img_w = tt.render(sc_one, seed=seed, device=device).cpu().numpy()
+    lit = img_w[..., 0] > 1e-6
+    ratio = np.where(lit[..., None], img_t / np.maximum(img_w, 1e-12), 0.0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    jitter = torch.rand((res * res, 2), generator=gen, device=device)  # the render's first draw
+    ys, xs = torch.meshgrid(torch.arange(res, device=device), torch.arange(res, device=device),
+                            indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    o, d, _, _ = camera.sample_ray_extents(sc_tex.camera.to(device), xy + jitter)
+    o, d = o.double().cpu().numpy(), d.double().cpu().numpy()
+    t = -o[:, 2] / d[:, 2]
+    uv = np.stack([0.5 * (o[:, 0] + t * d[:, 0] + 1), 0.5 * (o[:, 1] + t * d[:, 1] + 1)], -1)
+    expect = texture.eval_bitmap(sc_tex.tex_data, sc_tex.tex_hw,
+                                 torch.zeros(res * res, dtype=torch.int32),
+                                 torch.from_numpy(uv.astype(np.float32))).numpy()
+    return float(np.abs(ratio - expect.reshape(res, res, 3))[lit].max()), float(lit.mean())
+
+
+def soft_band_grad(scene, spp, seed, width, device, band=shadow_band, batch=64):
+    """(``band`` of ``projective.render_soft(scene, curves, spp, seed,
+    width)``, its derivative with respect to a translation of the curve
+    along x), traced ``batch`` samples a pixel at a time through
+    ``integrator/path.py::path_trace`` with render_soft's shadow geometry
+    and soft curves; each batch's part of the (linear) band is
+    backpropagated at once.  The draws follow render_soft's order (a
+    batch's jitter, then its bounces), so ``batch=1`` is render_soft's
+    estimate on its own draws, summed in another order."""
+    import torch
+
+    from tpu_rt_torch.integrator import path, projective
+    from tpu_rt_torch.sensor import camera
+
+    scene = scene.to(device)
+    base = projective.curve_segments(scene.geometry)
+    sgeom = projective.geometry_without_curves(scene.geometry)
+    c = scene.camera
+    H, W = c.height, c.width
+    ys, xs = torch.meshgrid(torch.arange(H, device=device), torch.arange(W, device=device),
+                            indexing="ij")
+    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    theta = torch.zeros((), device=device, requires_grad=True)
+    loss = 0.0
+    for b0 in range(0, spp, batch):
+        nb = min(batch, spp - b0)
+        shift = torch.stack([theta, theta * 0.0, theta * 0.0])
+        soft = dict(base, a=base["a"] + shift, b=base["b"] + shift, width=width)
+        pix = xy.repeat(nb, 1)
+        o, d, t0, t1 = camera.sample_ray_extents(
+            c, pix + torch.rand(pix.shape, generator=gen, device=device))
+        L, _ = path.path_trace(scene, o, d, gen=gen, max_depth=2, tmin0=t0, tmax0=t1,
+                               shadow_geom=sgeom, soft_curves=soft)
+        part = band(L.reshape(nb, H, W, 3).sum(0) / spp)
+        part.backward()
+        loss += float(part.detach())
+    return loss, float(theta.grad)

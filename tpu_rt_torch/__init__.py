@@ -22,7 +22,11 @@ ultrasound frame backpropagates on both acquisition routes (the kernel's
 primal with the acoustic wavefront's gradient, ``us_kernel.
 simulate_acquisition_fastgrad``) and through the DAS's hand-written
 adjoint kernel (``us_das.cu``); an optical scene that requires grad
-renders through the wavefront, as the film kernels are forward only.
+renders through the wavefront, as the film kernels are forward only, and
+``integrator/projective.py`` softens curve shadows so that autograd
+reaches a curve's position and radii (``direct_projective``'s gradient).
+Bitmap textures (``bsdf/texture.py``) and B-spline curves load as in
+``tpu_rt`` and render through the wavefront.
 
 This package imports torch, numpy and the standard library, never jax.
 """

@@ -16,7 +16,10 @@ lit by point lights renders through the direct mesh kernel of
 curves, a mesh the clustered mode cannot take), and every other
 ``direct`` scene at max_depth 2, renders through the wavefront path
 tracer of ``integrator/path.py`` (whose mesh queries run through the
-clustered mesh-intersect kernel).  An ultrasound scene returns the B-mode
+clustered mesh-intersect kernel): a scene with a bitmap texture among
+them, as the kernels have no texture lookup, and a ``direct_projective``
+scene of curves (``integrator/projective.py`` holds its soft-shadow
+gradient, ``render_soft``).  An ultrasound scene returns the B-mode
 image of ``us.pipeline.us_render``, whose acquisition runs through the
 ultrasound kernel when the scene is in its scope and ``use_kernel`` is
 left True, else through the acoustic wavefront (tpu_rt's ``render``
@@ -122,9 +125,7 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
         render.last_ray_count = mesh_kernel.mesh_direct_render.last_ray_count
         return _develop_format(scene, img)
     if scene.integrator != INTEGRATOR_PATH:
-        raise NotImplementedError(
-            f"integrator {scene.integrator} is not ported to tpu_rt_torch yet "
-            f"(ROADMAP.md A4)")
+        raise ValueError(f"unknown integrator {scene.integrator}")
     baked = path_kernel.bake_scene(scene)
     if baked is None:
         return _render_wavefront(scene, spp, seed, device)
@@ -141,13 +142,9 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
 
 
 def _render_wavefront(scene: Scene, spp, seed, device, max_depth=None):
-    """A scene outside the kernels' scope, through the wavefront tracer
-    (which has no texture lookup yet)."""
+    """A scene outside the kernels' scope, through the wavefront tracer."""
     from tpu_rt_torch.integrator import path as wavefront
 
-    if scene.has_textures:
-        raise NotImplementedError(
-            "bitmap textures are not ported yet (ROADMAP.md A8: textures)")
     img = wavefront.render(scene, spp=spp, seed=seed, max_depth=max_depth, device=device)
     render.last_ray_count = wavefront.render.last_ray_count
     return _develop_format(scene, img)

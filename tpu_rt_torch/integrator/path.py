@@ -5,9 +5,15 @@ Counterpart of ``tpu_rt/integrator/path.py``, the route of every ``path``
 scene outside the film kernel's bake scope and of every ``direct`` scene
 outside the direct mesh kernel's (at max_depth 2).  Each bounce: the
 closest hit (``geometry/trace.py``; on a mesh scene through the clustered
-mesh-intersect kernel K7), emitters seen by the ray with MIS against the
-previous BSDF sample, one light sample with its shadow ray (also through
-K7), BSDF sampling, Russian roulette.
+mesh-intersect kernel K7), on a textured scene the bitmap reflectance at
+the hit's uv in place of the BSDF row's constant (``bsdf/texture.py``,
+for the light sample's evaluation and BSDF sampling alike), emitters
+seen by the ray with MIS against the previous BSDF sample, one light
+sample with its shadow ray (also through K7), BSDF sampling, Russian
+roulette.  ``shadow_geom`` / ``soft_curves`` switch on the soft curve
+shadows of ``integrator/projective.py``: the shadow rays test a geometry
+without the curves, and the light sample's contribution is scaled by its
+smooth visibility past them.
 
 Randomness is explicit: ``render`` seeds one ``torch.Generator`` on the
 device, which draws each wave's pixel jitter [H*W, 2] and each bounce's
@@ -18,8 +24,8 @@ draws and both tracers follow the same paths.
 
 Not carried over: tpu_rt's tile permutation of the pixels (``_tile_perm``,
 for the TPU kernel's per-block culls; K7 culls per ray), its coherence
-sort (a measured dead end, off by default there), and the soft-curve
-shadow estimator of ``projective.py`` (ROADMAP A9).
+sort (a measured dead end, off by default there), and its per-bounce
+occupancy output.
 """
 
 from __future__ import annotations
@@ -27,9 +33,11 @@ from __future__ import annotations
 import torch
 
 from tpu_rt_torch.bsdf import eval as bsdf
+from tpu_rt_torch.bsdf import texture
 from tpu_rt_torch.core.math import coordinate_system, dot, mis_power_heuristic, to_local, to_world
 from tpu_rt_torch.emitter import sample as emitter
 from tpu_rt_torch.geometry import trace
+from tpu_rt_torch.integrator import projective
 from tpu_rt_torch.sensor import camera as cam
 from tpu_rt_torch.sensor import film as film_mod
 
@@ -54,7 +62,7 @@ def n_bounces(scene, max_depth=None):
 
 
 def path_trace(scene, o, d, gen=None, uniforms=None, max_depth=None, rr_depth=None,
-               tmin0=None, tmax0=None):
+               tmin0=None, tmax0=None, shadow_geom=None, soft_curves=None):
     """Trace paths for rays o, d [N, 3] on the scene's device; returns
     (L [N, 3], the rays cast as a 0-d int64 tensor: segments plus shadow
     rays).
@@ -64,7 +72,12 @@ def path_trace(scene, o, d, gen=None, uniforms=None, max_depth=None, rr_depth=No
     are the camera's near and far planes: the near plane moves the origin
     to o + tmin0 d, and the far plane turns primary hits beyond it into
     misses; later segments keep [eps, inf).  Each bounce's [N, 8] uniforms
-    come from ``uniforms[i]`` when given, else from ``gen``."""
+    come from ``uniforms[i]`` when given, else from ``gen``.
+
+    ``shadow_geom`` (a ``Geometry``) takes the shadow rays' queries in
+    place of the scene's; ``soft_curves`` (``projective.curve_segments``'
+    dict with a ``width``) scales each light sample's contribution by
+    ``projective.curve_soft_visibility``."""
     if tmin0 is not None:
         o = o + torch.as_tensor(tmin0, device=o.device).reshape(-1, 1) * d
         if tmax0 is not None:
@@ -77,6 +90,7 @@ def path_trace(scene, o, d, gen=None, uniforms=None, max_depth=None, rr_depth=No
     present = scene.bsdf_types_present or None
     n_bsdf = scene.bsdf_type.shape[0]
     em = scene.emitters
+    sgeom = scene.geometry if shadow_geom is None else shadow_geom
 
     L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
@@ -117,6 +131,8 @@ def path_trace(scene, o, d, gen=None, uniforms=None, max_depth=None, rr_depth=No
         b_c = torch.clamp(scene.shape_bsdf[torch.clamp(si.shape, min=0)], 0, n_bsdf - 1)
         b_type = scene.bsdf_type[b_c]
         b_params = scene.bsdf_params[b_c]
+        if scene.has_textures:
+            b_params = texture.apply_reflectance_textures(scene, b_c, b_params, si.uv)
         if uniforms is not None:
             s_all = uniforms[depth]
         else:
@@ -132,11 +148,16 @@ def path_trace(scene, o, d, gen=None, uniforms=None, max_depth=None, rr_depth=No
             f_nee, pdf_bsdf_nee = bsdf.eval_pdf(b_type, b_params, wi_local, wo_nee, nee,
                                                 present=present)
             shadow_o = si.spawn_origin(ds.d)
-            occluded = trace.ray_test(scene.geometry, shadow_o, ds.d, tmin=trace.RAY_EPS,
+            occluded = trace.ray_test(sgeom, shadow_o, ds.d, tmin=trace.RAY_EPS,
                                       tmax=torch.where(nee, ds.dist * (1.0 - 1e-3), 0.0))
             w_nee = torch.where(ds.delta, 1.0, mis_power_heuristic(ds.pdf, pdf_bsdf_nee))
             contrib = thr * f_nee * ds.radiance * (w_nee / torch.clamp(ds.pdf, min=1e-20))[:, None]
-            L = L + torch.where((nee & ~occluded)[:, None], contrib, 0.0)
+            contrib = torch.where((nee & ~occluded)[:, None], contrib, 0.0)
+            if soft_curves is not None:
+                v_soft = projective.curve_soft_visibility(
+                    soft_curves, shadow_o, ds.d, ds.dist * (1.0 - 1e-3), soft_curves["width"])
+                contrib = contrib * v_soft[:, None]
+            L = L + contrib
 
         # BSDF sampling and the next segment
         bs = bsdf.sample(b_type, b_params, wi_local, s_all[:, 4], s_all[:, 5:7], hit,

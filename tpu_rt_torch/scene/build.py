@@ -7,13 +7,15 @@ sampler, the ``path``, ``direct``, ``direct_projective`` and
 ``ultrasound_integrator`` integrators and ``stokes`` wrapping one of
 them, the ``ultrasound_sensor``, ``obj`` /
 ``ply`` / ``sphere`` / ``rectangle`` / ``disk`` / ``cylinder`` / ``cone``
-shapes, ``diffuse`` / ``dielectric`` / ``conductor`` / ``roughconductor`` /
-``polarizer`` / ``null`` / ``ultrasound_bsdf`` / ``twosided`` BSDFs,
-``area`` / ``point`` / ``constant`` / ``envmap`` emitters (the envmap's EXR
-read by ``scene/exr.py``, times its ``scale``, in the frame of its
-``to_world``) and the ``ultraray`` / ``ultrasound_emitter`` transducer
-props.  Every other plugin raises ``ValueError`` naming the ROADMAP.md item
-that will port it.
+shapes and ``bsplinecurve`` (exact swept-sphere spans, or a tube mesh
+with ``curve_mode="mesh"``), ``diffuse`` (its reflectance a constant or
+a ``bitmap`` texture: PNG, JPEG or EXR) / ``dielectric`` / ``conductor`` /
+``roughconductor`` / ``polarizer`` / ``null`` / ``ultrasound_bsdf`` /
+``twosided`` BSDFs, ``area`` / ``point`` / ``constant`` / ``envmap``
+emitters (the envmap's EXR read by ``scene/exr.py``, times its ``scale``,
+in the frame of its ``to_world``) and the ``ultraray`` /
+``ultrasound_emitter`` transducer props.  Every other plugin raises
+``ValueError``.
 
 Meshes are transformed to world space (vertex normals by the inverse
 transpose), the BVH is built by the same native builder, the mesh cluster
@@ -25,6 +27,7 @@ kernel constants.
 from __future__ import annotations
 
 import math as pymath
+import os
 
 import numpy as np
 
@@ -33,6 +36,7 @@ from tpu_rt_torch.ops import mesh_kernel
 from tpu_rt_torch.scene import transforms as tf
 from tpu_rt_torch.scene import types as T
 from tpu_rt_torch.scene.convert import scene_from_arrays
+from tpu_rt_torch.scene.curves import flatten_bspline, tessellate_bspline_tube
 from tpu_rt_torch.scene.obj import load_obj
 from tpu_rt_torch.scene.ply import load_ply
 
@@ -48,21 +52,11 @@ _INTEGRATORS = {"path": T.INTEGRATOR_PATH, "direct": T.INTEGRATOR_DIRECT,
                 "direct_projective": T.INTEGRATOR_DIRECT_PROJECTIVE,
                 "ultrasound_integrator": T.INTEGRATOR_ULTRASOUND}
 
-# Plugins of tpu_rt that this package does not load yet -> ROADMAP.md item.
-_LATER = {
-    "bsplinecurve": "A8 (asset readers, curves)",
-    "bitmap": "A8 (asset readers and textures)",
-}
-
 # Default IORs of Mitsuba's dielectric plugin.
 _IOR = {"bk7": 1.5046, "air": 1.000277, "water": 1.3330, "diamond": 2.419}
 
 
-def _not_yet(kind, name):
-    if name in _LATER:
-        raise ValueError(
-            f"{kind} {name!r} is not ported to tpu_rt_torch yet "
-            f"(ROADMAP.md {_LATER[name]})")
+def _unsupported(kind, name):
     raise ValueError(f"unsupported {kind} {name!r}")
 
 
@@ -81,9 +75,15 @@ def _plugin_child(d, types):
 
 
 class _Builder:
-    def __init__(self):
+    def __init__(self, curve_mode="exact"):
+        if curve_mode not in ("exact", "mesh"):
+            raise ValueError(f"curve_mode is 'exact' or 'mesh', not {curve_mode!r}")
+        self.curve_mode = curve_mode
         self.bsdf_rows = []  # (type, params[16])
         self.bsdf_index = {}  # id(dict) -> index
+        self.bsdf_tex = []  # per BSDF row its texture, -1: constant
+        self.textures = []  # decoded float32 (H, W, 3) images
+        self.texture_index = {}  # (absolute filename, raw) -> texture
         self.bsdf_names = {}  # scene key or id -> BSDF row
         self.shape_names = {}  # scene key -> shape id
         self.shape_bsdf = []
@@ -92,7 +92,9 @@ class _Builder:
         self.shape_tri_ranges = []  # per shape: (tri_start, tri_end)
         self.tri = {k: [] for k in ("p0", "e1", "e2", "n0", "n1", "n2",
                                     "uv0", "uv1", "uv2", "shape")}
-        self.an = {"type": [], "to_world": [], "shape": []}
+        # "param": a CURVE prim's (r0, r1) over its length, else zeros;
+        # "bb": its exact world box, else None (the image of [-1, 1]^3)
+        self.an = {"type": [], "to_world": [], "shape": [], "param": [], "bb": []}
         self.area_radiance = []
         self.area_shape = []  # shape id of each area emitter
         self.point_pos = []
@@ -121,12 +123,19 @@ class _Builder:
             self.bsdf_index[key] = idx
             return idx
         p = np.zeros(16, np.float32)
+        tex = -1
         if btype == "diffuse":
             code = T.BSDF_DIFFUSE
             refl = bd.get("reflectance")
             if isinstance(refl, dict):
-                _not_yet("texture", refl.get("type"))
-            p[0:3] = _rgb(refl, 0.5)
+                if refl.get("type") != "bitmap":
+                    _unsupported("texture", refl.get("type"))
+                tex = self._add_texture(refl)
+                # the constant row holds the texture's mean: the Stokes
+                # routes read it, the scalar wavefront reads the texture
+                p[0:3] = self.textures[tex].reshape(-1, 3).mean(0)
+            else:
+                p[0:3] = _rgb(refl, 0.5)
         elif btype == "dielectric":
             code = T.BSDF_DIELECTRIC
             int_ior = bd.get("int_ior", "bk7")
@@ -156,14 +165,52 @@ class _Builder:
         elif btype == "null":
             code = T.BSDF_NULL
         else:
-            _not_yet("bsdf", btype)
+            _unsupported("bsdf", btype)
         idx = len(self.bsdf_rows)
         if name:
             self.bsdf_names[name] = idx
         if bd.get("id"):
             self.bsdf_names[bd["id"]] = idx
         self.bsdf_rows.append((code, p))
+        self.bsdf_tex.append(tex)
         self.bsdf_index[key] = idx
+        return idx
+
+    def _add_texture(self, td):
+        """Decode a ``bitmap`` texture into RGB (once per file and ``raw``)
+        and return its index.  ``raw`` false decodes sRGB to linear; a
+        gray image expands to RGB, and an alpha channel is dropped."""
+        fn = td.get("filename")
+        if not fn:
+            raise ValueError("bitmap texture requires a filename")
+        raw = bool(td.get("raw", False))
+        key = (os.path.abspath(fn), raw)
+        if key in self.texture_index:
+            return self.texture_index[key]
+        ext = os.path.splitext(fn)[1].lower()
+        if ext == ".png":
+            from tpu_rt_torch.scene.png import read_png
+
+            img = read_png(fn, srgb=not raw)
+        elif ext in (".jpg", ".jpeg"):
+            from tpu_rt_torch.scene.jpeg import read_jpeg
+
+            img = read_jpeg(fn, srgb=not raw)
+        elif ext == ".exr":
+            from tpu_rt_torch.scene.exr import load_exr_or_fallback
+
+            img = load_exr_or_fallback(fn)  # already linear
+        else:
+            raise ValueError(f"unsupported texture format {ext!r} ({fn})")
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[-1] in (1, 2):  # gray, gray + alpha
+            img = np.repeat(img[..., :1], 3, axis=-1)
+        elif img.shape[-1] >= 4:
+            img = img[..., :3]
+        idx = len(self.textures)
+        self.textures.append(np.ascontiguousarray(img, np.float32))
+        self.texture_index[key] = idx
         return idx
 
     # -- Shapes --------------------------------------------------------------
@@ -201,8 +248,8 @@ class _Builder:
 
     def add_shape(self, sd, name=None):
         stype = sd.get("type")
-        if stype not in ("obj", "ply") and stype not in _ANALYTIC_ENUM:
-            _not_yet("shape", stype)
+        if stype not in ("obj", "ply", "bsplinecurve") and stype not in _ANALYTIC_ENUM:
+            _unsupported("shape", stype)
         shape_id = len(self.shape_bsdf)
         if name is not None:
             self.shape_names[name] = shape_id
@@ -234,6 +281,11 @@ class _Builder:
             normals = None if sd.get("face_normals", False) else mesh["normals"]
             tri_range = self._add_mesh(mesh["vertices"], mesh["faces"], normals,
                                        mesh["uvs"], to_world, shape_id)
+        elif stype == "bsplinecurve" and self.curve_mode == "mesh":
+            verts, faces, normals = tessellate_bspline_tube(sd["filename"])
+            tri_range = self._add_mesh(verts, faces, normals, None, to_world, shape_id)
+        elif stype == "bsplinecurve":
+            self._add_curve(sd["filename"], to_world, shape_id)
         else:
             if stype == "sphere" and ("center" in sd or "radius" in sd):
                 c = np.asarray(sd.get("center", (0.0, 0.0, 0.0)), np.float32)
@@ -261,11 +313,50 @@ class _Builder:
                 self.an["type"].append(_ANALYTIC_ENUM[stype])
                 self.an["to_world"].append(to_world)
                 self.an["shape"].append(shape_id)
+                self.an["param"].append((0.0, 0.0))
+                self.an["bb"].append(None)
 
         self.shape_bsdf.append(bsdf_idx)
         self.shape_emitter.append(emitter_idx)
         self.shape_to_world.append(np.asarray(to_world, np.float32))
         self.shape_tri_ranges.append(tri_range)
+
+    def _add_curve(self, filename, to_world, shape_id):
+        """A B-spline as exact swept-sphere prims, one CURVE prim per
+        flattened span (tpu_rt/scene/build.py:328-361): the frame of its
+        axis times its length h from its start, radii (r0, r1) / h, and the
+        exact world box of its two end spheres."""
+        pts = flatten_bspline(filename)
+        M = np.asarray(to_world, np.float64)
+        axn = [float(np.linalg.norm(M[:3, i])) for i in range(3)]
+        s_uni = sum(axn) / 3.0
+        if max(axn) - min(axn) > 1e-4 * max(s_uni, 1e-12):
+            raise NotImplementedError("bsplinecurve with non-uniform to_world scale")
+        ctrs = pts[:, :3] @ M[:3, :3].T + M[:3, 3]
+        radii = pts[:, 3] * s_uni
+        for i in range(len(ctrs) - 1):
+            pa, pb = ctrs[i], ctrs[i + 1]
+            r0, r1 = float(radii[i]), float(radii[i + 1])
+            axis = pb - pa
+            h = float(np.linalg.norm(axis))
+            if h < 1e-9:
+                continue
+            if abs(r1 - r0) >= 0.99 * h:
+                # one end sphere (nearly) holds the other: the envelope
+                # degenerates (1 - dr^2 <= 0)
+                raise NotImplementedError(
+                    "bsplinecurve radius varies faster than arc length; refine "
+                    "samples_per_span")
+            mseg = np.eye(4, dtype=np.float64)
+            mseg[:3, :3] = _frame_from_z(axis / h).astype(np.float64) * h
+            mseg[:3, 3] = pa
+            self.an["type"].append(T.CURVE)
+            self.an["to_world"].append(mseg.astype(np.float32))
+            self.an["shape"].append(shape_id)
+            self.an["param"].append((r0 / h, r1 / h))
+            lo = np.minimum(pa - r0, pb - r1).astype(np.float32) - 1e-6
+            hi = np.maximum(pa + r0, pb + r1).astype(np.float32) + 1e-6
+            self.an["bb"].append((lo, hi))
 
     # -- Emitters, sensor, integrator -----------------------------------------
 
@@ -287,14 +378,14 @@ class _Builder:
         elif etype in _TRANSDUCER_EMITTERS:
             self.us_emitter = {k: v for k, v in ed.items() if k != "type"}
         else:
-            _not_yet("emitter", etype)
+            _unsupported("emitter", etype)
 
     def add_sensor(self, sd):
         if sd.get("type") == "ultrasound_sensor":
             self.us_sensor = {k: v for k, v in sd.items() if k != "type"}
             return
         if sd.get("type") != "perspective":
-            _not_yet("sensor", sd.get("type"))
+            _unsupported("sensor", sd.get("type"))
         film = sd.get("film", {})
         width = int(film.get("width", 768))
         height = int(film.get("height", 576))
@@ -337,7 +428,7 @@ class _Builder:
                 self.hide_emitters = bool(inner.get("hide_emitters", False))
             return
         if itype not in _INTEGRATORS:
-            _not_yet("integrator", itype)
+            _unsupported("integrator", itype)
         self.integrator = _INTEGRATORS[itype]
         if itype == "ultrasound_integrator":
             self.us_int = {k: v for k, v in idict.items() if k != "type"}
@@ -365,7 +456,8 @@ class _Builder:
                        else np.zeros((0, 4, 4), np.float32))
         an_to_object = (np.stack([tf.inverse(x) for x in self.an["to_world"]])
                         if n_an else np.zeros((0, 4, 4), np.float32))
-        bvh = build_bvh(*self._prim_bounds(tri_p0, tri_e1, tri_e2, an_to_world))
+        bvh = build_bvh(*self._prim_bounds(tri_p0, tri_e1, tri_e2, an_to_world,
+                                           self.an["bb"]))
         clusters = {}
         if n_tris > mesh_kernel.TREELET_SPLIT:
             cl = mesh_kernel.build_clusters(
@@ -381,8 +473,7 @@ class _Builder:
             an_to_world=an_to_world.astype(np.float32),
             an_to_object=an_to_object,
             an_shape=np.asarray(self.an["shape"], np.int32),
-            # the loaded shapes have no per-prim parameters (curves, A8)
-            an_param=np.zeros((n_an, 2), np.float32),
+            an_param=np.asarray(self.an["param"], np.float32).reshape(n_an, 2),
             bvh_min=bvh["node_min"], bvh_max=bvh["node_max"],
             bvh_a=bvh["a"], bvh_b=bvh["b"], bvh_count=bvh["count"],
             prim_order=bvh["prim_order"],
@@ -395,11 +486,12 @@ class _Builder:
             shape_to_world=(np.stack(self.shape_to_world) if self.shape_to_world
                             else np.zeros((0, 4, 4), np.float32)),
             **self._emitter_arrays(tri_e1, tri_e2),
+            **self._texture_arrays(),
         )
         meta = dict(
             n_tris=n_tris, n_analytic=n_an,
             n_area=len(self.area_radiance), n_point=len(self.point_pos),
-            has_env=self.env is not None, has_textures=False,
+            has_env=self.env is not None, has_textures=bool(self.textures),
             integrator=self.integrator, max_depth=self.max_depth,
             rr_depth=self.rr_depth, hide_emitters=self.hide_emitters,
             ids={"shapes": dict(self.shape_names), "bsdfs": dict(self.bsdf_names),
@@ -415,11 +507,28 @@ class _Builder:
             arrays.update({"us_" + k: v for k, v in us_arrays.items()})
         return scene_from_arrays(arrays, meta)
 
+    def _texture_arrays(self):
+        """The padded atlas (zeros beyond each texture's true size), the
+        true sizes and each BSDF row's texture, as tpu_rt lays them out;
+        none without a texture."""
+        if not self.textures:
+            return {}
+        hm = max(t.shape[0] for t in self.textures)
+        wm = max(t.shape[1] for t in self.textures)
+        atlas = np.zeros((len(self.textures), hm, wm, 3), np.float32)
+        hw = np.zeros((len(self.textures), 2), np.float32)
+        for i, t in enumerate(self.textures):
+            atlas[i, :t.shape[0], :t.shape[1]] = t
+            hw[i] = t.shape[:2]
+        return dict(tex_data=atlas, tex_hw=hw,
+                    bsdf_tex=np.asarray(self.bsdf_tex, np.int32))
+
     @staticmethod
-    def _prim_bounds(tri_p0, tri_e1, tri_e2, an_to_world):
+    def _prim_bounds(tri_p0, tri_e1, tri_e2, an_to_world, an_bb):
         """Per-prim AABBs for the BVH, as tpu_rt computes them: triangle
-        corners, and the image of the [-1, 1]^3 box for analytic shapes,
-        each widened by 1e-6."""
+        corners, and for analytic shapes the image of the [-1, 1]^3 box or
+        the exact box ``an_bb`` carries (a CURVE prim's end spheres, which
+        that cube does not hold), each widened by 1e-6."""
         bbs = []
         if tri_p0.shape[0]:
             p1, p2 = tri_p0 + tri_e1, tri_p0 + tri_e2
@@ -430,7 +539,11 @@ class _Builder:
                                 for z in (-1, 1)], np.float32)
             pts = (np.einsum("aij,cj->aci", an_to_world[:, :3, :3], corners)
                    + an_to_world[:, None, :3, 3])
-            bbs.append((pts.min(axis=1) - 1e-6, pts.max(axis=1) + 1e-6))
+            an_lo, an_hi = pts.min(axis=1) - 1e-6, pts.max(axis=1) + 1e-6
+            for i, bb in enumerate(an_bb):
+                if bb is not None:
+                    an_lo[i], an_hi[i] = bb
+            bbs.append((an_lo, an_hi))
         if not bbs:
             return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32)
         return (np.concatenate([b[0] for b in bbs], axis=0),
@@ -533,10 +646,12 @@ def _frame_from_z(z):
     return np.stack([x, y, z], axis=1).astype(np.float32)
 
 
-def build_scene(desc: dict):
+def build_scene(desc: dict, curve_mode="exact"):
+    """The ``Scene`` of a description dict; ``curve_mode`` "exact" makes a
+    ``bsplinecurve`` swept-sphere prims, "mesh" an 8-sided tube mesh."""
     if desc.get("type") != "scene":
         raise ValueError("scene description must have type 'scene'")
-    b = _Builder()
+    b = _Builder(curve_mode)
     for key, val in desc.items():
         if key == "type" or not isinstance(val, dict):
             continue

@@ -10,7 +10,8 @@ Array names: the ``Geometry`` and ``Emitters`` tensor fields (the
 optional mesh cluster tables may be absent or None; their cull hierarchy
 ``cl_tree`` is built from ``cl_bounds`` where it is absent),
 ``shape_bsdf``, ``shape_emitter``, ``bsdf_type``, ``bsdf_params``,
-``shape_to_world`` (optional: the polarizer's axis frame), and
+``shape_to_world`` (optional: the polarizer's axis frame), ``tex_data``,
+``tex_hw`` and ``bsdf_tex`` (present where ``has_textures`` is set), and
 ``camera_<field>`` for the camera's tensor fields, ``us_<field>`` for
 the ultrasound configuration's.  ``meta`` holds the ints and flags:
 ``n_tris``, ``n_analytic``, ``n_area``, ``n_point``, ``has_env``,
@@ -92,6 +93,8 @@ def scene_from_arrays(arrays: dict, meta: dict) -> Scene:
         bsdf_types_present=tuple(sorted(set(bsdf_type.tolist()))),
         bsdf_params=t("bsdf_params"),
         shape_to_world=None if arrays.get("shape_to_world") is None else t("shape_to_world"),
+        **{k: t(k) if meta["has_textures"] else None
+           for k in ("tex_data", "tex_hw", "bsdf_tex")},
         camera=camera,
         ultrasound=ultrasound,
         has_textures=bool(meta["has_textures"]),

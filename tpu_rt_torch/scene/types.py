@@ -10,7 +10,8 @@ analytic shape transforms and parameters, the BVH's prim order, node
 boxes and links, the mesh cluster tables, per-shape BSDF/emitter ids, the BSDF
 table and the set of BSDF types present, the emitter tables (with the
 environment's frame and sampling CDFs), the camera and the ultrasound
-configuration, and each shape's to_world (the polarizer's axis frame).
+configuration, each shape's to_world (the polarizer's axis frame), and
+the bitmap textures bound to BSDF reflectances (one padded atlas).
 """
 
 from __future__ import annotations
@@ -248,9 +249,18 @@ class Scene(_Replace):
     # (sin theta, cos theta, 0) through this transform; None when the
     # caller carried no such array
     shape_to_world: Optional[torch.Tensor] = None
+    # bitmap textures bound to BSDF reflectances (bsdf/texture.py): one
+    # padded atlas, the true sizes, and per BSDF row its texture (-1: the
+    # constant in bsdf_params, which for a textured row is the texture's
+    # mean); None where the scene has no texture
+    tex_data: Optional[torch.Tensor] = None  # [K, Hm, Wm, 3] float32
+    tex_hw: Optional[torch.Tensor] = None  # [K, 2] float32 (h, w)
+    bsdf_tex: Optional[torch.Tensor] = None  # [B] int32
     # the BSDF type codes that occur in the scene: the wavefront's BSDF
     # dispatch evaluates only their lobes
     bsdf_types_present: tuple = ()
+    # any bitmap texture: gates the wavefront's texture lookup, and keeps
+    # the scene out of the film and direct kernels' scope
     has_textures: bool = False
     integrator: int = INTEGRATOR_PATH
     max_depth: int = -1
