@@ -253,8 +253,37 @@ Phases (any failure raises and the script exits non-zero):
      delta 0.02, 1024 spp, within 5% and non-zero), each side traced 64
      samples a pixel a call, their means over 16 seeds held to the bar
      (one seed's difference has a 3.5% standard deviation).
+ 38. the sharded routes in a world of 1 under NCCL, in this process:
+     render_pallas_sharded of the cbox at 512x512, 256 spp, tent, depth 6
+     bit-equal to render_film(spp_per_pass=256); USMain at 64 rays per
+     pair through simulate_acquisition_pallas_sharded within 1e-6 of the
+     largest |RF| of one process's, and das_beamform_sharded bit-equal to
+     das_beamform; each timed beside one process's (CUDA events, one
+     warm-up, five runs each, in turns), with its launch counts;
+ 39. the dry run's steps at full width (tpu_rt_torch/parallel/dryrun.py)
+     in a world of 2 under gloo, both ranks on cuda:0, spawned by
+     run_world: the gradient through psum / pbroadcast (784 on both
+     ranks); a train step through render_pass_sharded at 512x512, depth
+     3 (Adam, lr 1e-2: the ranks' parameters identical, the gradient
+     within 1e-5 of one process's over the same pixels and draws); the
+     acoustic wavefront on tpu_rt's dry-run plate; K10 at USMain, 64 rays
+     per pair; K1 on the cbox at 512x512, 256 spp; K9 on simple.xml at
+     256x256, 256 spp; cbox_pol at 256x256, 512 spp, depth 16 through K6
+     (gaussian) and through K3 in K2's loop (tent); each within 1e-6 of
+     the sum (the RF: the mean) of its ranks' single-process runs at
+     their seeds (rank 0 runs them), the same on both ranks, timed on
+     each rank beside one process's whole run, with its all-reduce's ms
+     and its launches on each rank; the DAS on the sharded RF bit-equal
+     to das_beamform, and its gradient in the RF within 1e-5; one card
+     running two ranks checks correctness and overhead, not scaling;
+ 40. measure_device_trace of one cbox main-path render (device busy, the
+     port's kernels' share, every launch the host issued seen on the
+     device) and `python -m tpu_rt_torch.warmup`, each in a subprocess
+     (late in this script the in-process profiler has missed most of a
+     render's kernels): exit 0, a line a step, the kernels' library
+     found.
 Each main path (phases 5, 9, 13, 16, 19, 20, 24, 27, 28, 29, 30, 32 (each
-loop), 33, 34, 35 and 36) runs with
+loop), 33, 34, 35, 36, 38 and 39) runs with
 every launch count set to 0 just before it and read just after; a film
 launch counts one trace-kernel launch (path_film or stokes_film) and one
 film_splat, a per-sample kernel's chunk one launch, and an ultrasound frame
@@ -349,44 +378,16 @@ def develop_planes(planes, tables):
     return develop(film[:3].permute(1, 2, 0), film[3])
 
 
-def _counters():
-    from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
-    from tpu_rt_torch.us import beamform
-
-    # K1, K3 (their trace kernels), film_splat, K6, K5, K4, K10 (its deposit
-    # mode, the acquisition's, and its records mode), the DAS kernel, K9,
-    # K7; K2's loop, around K1 or K3, is counted by the two film wrappers'
-    # regen_launches
-    return {"path_film": path_kernel.film_trace,
-            "stokes_film": path_kernel.stokes_film_trace,
-            "film_splat": path_kernel.film_splat,
-            "stokes_sample": path_kernel.stokes_sample_trace,
-            "raygen_sample": path_kernel.raygen_trace,
-            "rays_sample": path_kernel.path_trace,
-            "us_acq": us_kernel.us_trace_rf,
-            "us_acq_records": us_kernel.us_trace,
-            "us_das": beamform.das_beamform,
-            "us_das_adjoint": beamform.das_adjoint,
-            "mesh_direct": mesh_kernel.direct_trace,
-            "mesh_isect": mesh_kernel.mesh_intersect}
-
-
 def reset_launch_counts():
-    from tpu_rt_torch.ops import path_kernel
+    from tpu_rt_torch.utils import profiling
 
-    for fn in _counters().values():
-        fn.launches = 0
-    path_kernel.film_trace.regen_launches = 0
-    path_kernel.stokes_film_trace.regen_launches = 0
+    profiling.reset_launch_counts()
 
 
 def launch_counts():
-    from tpu_rt_torch.ops import path_kernel
+    from tpu_rt_torch.utils import profiling
 
-    counts = {k: fn.launches for k, fn in _counters().items()}
-    counts["regen"] = (path_kernel.film_trace.regen_launches
-                       + path_kernel.stokes_film_trace.regen_launches)
-    return counts
+    return profiling.launch_counts()
 
 
 def check_counts(counts, **want):
@@ -619,6 +620,7 @@ def main():
     tex = textured_phases(tt, dev)
     art = shadow_art_phases(tt, dev)
     projective_phases(tt, dev)
+    par = parallel_phases(tt, dev, main_ms=med)
     new_das = {"usmain_roughness_loop": gr["loop"]["counts"]["us_das"],
                "plate_roughness_loop": gr["plate_loop"]["counts"]["us_das"],
                "us_mesh_phantom_grad": gr["mesh"]["counts"]["us_das"],
@@ -644,19 +646,24 @@ def main():
         "name": "path_film", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:2091",
-        "launches": launches + mesh["gi_launches"] + rc["k1_launches"],
+        "launches": (launches + mesh["gi_launches"] + rc["k1_launches"]
+                     + sum(sharded_launches(par, "path_film").values())),
         "launches_by_path": {"cbox": launches, "mesh_gi": mesh["gi_launches"],
-                             "cbox_rough": rc["k1_launches"]},
+                             "cbox_rough": rc["k1_launches"],
+                             **sharded_launches(par, "path_film")},
         "max_abs_err": max(max_abs_err, mesh["gi"]["max_abs_err"], rc["k1"]["max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms,
         "ms_trace": cbox_parts["trace_ms"], "ms_splat": cbox_parts["splat_ms"],
         "bound_ms": film_bound[0], "bound_by": film_bound[1], "library_ms": None,
         "mesh_mode": mesh["gi"], "rough_cone": rc["k1"],
+        "sharded": {"world1": par["w1"]["k1"], "world2": par["w2"]["routes"]["k1"]},
     }, {
         "name": "film_splat", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:1815",
-        "launches": sum(splat_by_path.values()), "launches_by_path": splat_by_path,
+        "launches": (sum(splat_by_path.values())
+                     + sum(sharded_launches(par, "film_splat").values())),
+        "launches_by_path": dict(splat_by_path, **sharded_launches(par, "film_splat")),
         "max_abs_err": max(p["splat_err"] for p in splat_parts.values()),
         "ms": main_splat["splat_ms"], "plain_ms": main_splat["splat_plain_ms"],
         "bound_ms": main_splat["splat_bound_ms"], "bound_by": main_splat["splat_bound_by"],
@@ -666,10 +673,11 @@ def main():
         "source": "tpu_rt_torch/ops/csrc/us_acq.cu",
         "replaces": "tpu_rt/ops/pallas_us.py:388",
         "launches": us["launches"] + rc["k10_launches"] + gr["loop"]["counts"]["us_acq"]
-        + gr["plate_loop"]["counts"]["us_acq"],
+        + gr["plate_loop"]["counts"]["us_acq"] + sum(sharded_launches(par, "us_acq").values()),
         "launches_by_path": {"usmain": us["launches"], "cone_box": rc["k10_launches"],
                              "usmain_roughness_loop": gr["loop"]["counts"]["us_acq"],
-                             "plate_roughness_loop": gr["plate_loop"]["counts"]["us_acq"]},
+                             "plate_roughness_loop": gr["plate_loop"]["counts"]["us_acq"],
+                             **sharded_launches(par, "us_acq")},
         "max_abs_err": max(us["acq"]["max_abs_err"], rc["k10"]["max_abs_err"]),
         "ms": us["acq"]["ms"], "plain_ms": us["acq"]["plain_ms"],
         "bound_ms": us["acq"]["bound_ms"], "bound_by": us["acq"]["bound_by"], "library_ms": None,
@@ -679,9 +687,10 @@ def main():
         "source": "tpu_rt_torch/ops/csrc/us_das.cu",
         "replaces": "tpu_rt/us/beamform.py:34",
         "replaces_note": "das_beamform: XLA in tpu_rt, not a Pallas kernel",
-        "launches": us["das_launches"] + rc["das_launches"] + sum(new_das.values()),
+        "launches": (us["das_launches"] + rc["das_launches"] + sum(new_das.values())
+                     + sum(sharded_launches(par, "us_das").values())),
         "launches_by_path": {"usmain": us["das_launches"], "cone_box": rc["das_launches"],
-                             **new_das},
+                             **new_das, **sharded_launches(par, "us_das")},
         "max_abs_err": max(us["das"]["max_abs_err"], rc["das"]["max_abs_err"]),
         "ms": us["das"]["ms"], "plain_ms": us["das"]["plain_ms"],
         "bound_ms": us["das"]["bound_ms"], "bound_by": us["das"]["bound_by"], "library_ms": None,
@@ -707,7 +716,9 @@ def main():
         "name": "mesh_direct", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/mesh_direct.cu",
         "replaces": "tpu_rt/ops/pallas_mesh.py:1416",
-        "launches": mesh["direct_launches"],
+        "launches": mesh["direct_launches"] + sum(sharded_launches(par, "mesh_direct").values()),
+        "launches_by_path": {"simple": mesh["direct_launches"],
+                             **sharded_launches(par, "mesh_direct")},
         "max_abs_err": mesh["direct"]["max_abs_err"],
         "ms": mesh["direct"]["ms"], "plain_ms": mesh["direct"]["plain_ms"],
         "bound_ms": mesh["direct"]["bound_ms"], "bound_by": mesh["direct"]["bound_by"],
@@ -736,8 +747,10 @@ def main():
         "name": "stokes_film", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:2091",
-        "launches": pol["k3_launches"] + rc["k3_launches"],
-        "launches_by_path": {"cbox_pol": pol["k3_launches"], "cbox_pol_rough": rc["k3_launches"]},
+        "launches": (pol["k3_launches"] + rc["k3_launches"]
+                     + sum(sharded_launches(par, "stokes_film").values())),
+        "launches_by_path": {"cbox_pol": pol["k3_launches"], "cbox_pol_rough": rc["k3_launches"],
+                             **sharded_launches(par, "stokes_film")},
         "max_abs_err": max(pol["k3_err"], rc["k3"]["max_abs_err"]),
         "ms": pol["k3_ms"], "plain_ms": pol["plain_ms"],
         "ms_trace": pol["k3_parts"]["trace_ms"], "ms_splat": pol["k3_parts"]["splat_ms"],
@@ -747,8 +760,10 @@ def main():
         "name": "regen_loop", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:1890",
-        "launches": pol["k2_launches"] + rc["k2_launches"],
-        "launches_by_path": {"cbox_pol": pol["k2_launches"], "cbox_pol_rough": rc["k2_launches"]},
+        "launches": (pol["k2_launches"] + rc["k2_launches"]
+                     + sum(sharded_launches(par, "regen").values())),
+        "launches_by_path": {"cbox_pol": pol["k2_launches"], "cbox_pol_rough": rc["k2_launches"],
+                             **sharded_launches(par, "regen")},
         "max_abs_err": max(pol["k2_err"], rc["k2"]["max_abs_err"]),
         "ms": pol["k2_ms"], "plain_ms": pol["plain_ms"],
         "ms_trace": pol["k2_parts"]["trace_ms"], "ms_splat": pol["k2_parts"]["splat_ms"],
@@ -758,7 +773,10 @@ def main():
         "name": "stokes_sample", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:2161",
-        "launches": pol["k6_launches"], "max_abs_err": max(pol["k6_err"], rc["k6"]["max_abs_err"]),
+        "launches": pol["k6_launches"] + sum(sharded_launches(par, "stokes_sample").values()),
+        "launches_by_path": {"cbox_pol_per_sample_route": pol["k6_launches"],
+                             **sharded_launches(par, "stokes_sample")},
+        "max_abs_err": max(pol["k6_err"], rc["k6"]["max_abs_err"]),
         "ms": pol["k6_ms"], "plain_ms": pol["k6_plain_ms"],
         "bound_ms": pol["k6_bound_ms"], "bound_by": pol["k6_bound_by"], "library_ms": None,
         "chunk": pol["k6_chunk"], "rough": rc["k6"],
@@ -3418,6 +3436,279 @@ def projective_phases(tt, dev):
     return dict(forward_ms=fwd, backward_ms=bwd, grads=grads, peak_bytes=peak,
                 soft_visibility_ms=vis_ms, card_vs_cpu=dict(theta=d_theta, ends=d_ab, radii=d_r),
                 fd=dict(soft=g_ad, fd=g_fd, rel=fd_rel, per_seed=per_seed))
+
+
+SIMPLE = os.path.join(MESH_DIR, "simple.xml")
+CBOX_POL = os.path.join(POL_DIR, "cbox_pol.xml")
+FILTER_TENT = 1  # tpu_rt_torch.scene.types.FILTER_TENT
+RF_TOL = 1e-6  # K10's deposit: atomics and index_add_ add in a run-dependent order
+
+
+def usmain_das_inputs(tt, usc):
+    """us_render's DAS inputs for USMain on the host: the 1040 x 638
+    lambda/4 grid, the element positions and the angles."""
+    from tpu_rt_torch.sensor.transducer import element_geometry
+    from tpu_rt_torch.us import beamform as bf
+
+    step = float(usc.sound_speed) / float(usc.frequency) / 4.0
+    (x0, x1), (z0, z1) = US_FULL
+    xg, zg = bf.grid_scan(x0, x1, z0, z1, step, step)
+    pos = element_geometry(usc.n_elements, usc.pitch, usc.radius, usc.opening_angle)[0]
+    return dict(angles=usc.angles.numpy(), elem_x=pos[:, 0].numpy(), elem_z=pos[:, 2].numpy(),
+                x_grid=xg.numpy(), z_grid=zg.numpy(), fs=float(usc.sampling_rate),
+                c=float(usc.sound_speed))
+
+
+def nonzero_counts(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def timed_pair(sharded, single, n=5):
+    """(sharded ms, single-process ms): medians of n calls each by CUDA
+    events after one warm-up each, in turns."""
+    sharded()
+    single()
+    a, b = [], []
+    for _ in range(n):
+        a.append(cuda_ms(sharded)[0])
+        b.append(cuda_ms(single)[0])
+    return statistics.median(a), statistics.median(b)
+
+
+def world_of_one(tt, dev, sc512, usmain):
+    """Phase 38: a world of 1 under NCCL in this process."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tpu_rt_torch.ops import path_kernel as pk
+    from tpu_rt_torch.ops import us_kernel
+    from tpu_rt_torch.parallel import render as pr
+    from tpu_rt_torch.parallel import ultrasound as pu
+    from tpu_rt_torch.us import beamform as bf
+
+    t_start = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            seed = 3
+            reset_launch_counts()
+            img = pr.render_pallas_sharded(sc512, spp=256, seed=seed, device=dev)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check_counts(counts, path_film=4, film_splat=4)
+            ref, _ = pk.render_film(sc512, spp=256, seed=seed, device=dev, spp_per_pass=256)
+            k1_equal = bool(torch.equal(img, ref))
+            k1_ms, k1_single = timed_pair(
+                lambda: pr.render_pallas_sharded(sc512, spp=256, seed=seed, device=dev),
+                lambda: pk.render_film(sc512, spp=256, seed=seed, device=dev, spp_per_pass=256))
+            print(f"phase 38, world of 1 (NCCL): render_pallas_sharded cbox 512x512 256 spp "
+                  f"bit-equal to render_film(spp_per_pass=256) {k1_equal}; {k1_ms:.3f} ms "
+                  f"against {k1_single:.3f} ms in one process (median of 5 each); launches "
+                  f"{nonzero_counts(counts)}")
+            assert k1_equal, "the sharded K1 render of a world of 1 differs from one process's"
+            out["k1"] = dict(counts=counts, ms=k1_ms, single_ms=k1_single)
+
+            usc = usmain.ultrasound
+            reset_launch_counts()
+            ch, _ = pu.simulate_acquisition_pallas_sharded(usmain, seed=0, rays_per_pair=64,
+                                                           device=dev)
+            torch.cuda.synchronize()
+            acq_counts = launch_counts()
+            check_counts(acq_counts, us_acq=1)
+            ref, _ = us_kernel.simulate_acquisition(usmain, seed=0, rays_per_pair=64, device=dev)
+            rf_err = (ch - ref).abs().max().item() / ref.abs().max().item()
+            d = usmain_das_inputs(tt, usc)
+            g = {k: torch.as_tensor(v, device=dev) for k, v in d.items()
+                 if not isinstance(v, float)}
+            args = (ch, g["angles"], g["elem_x"], d["fs"], d["c"], g["x_grid"], g["z_grid"])
+            reset_launch_counts()
+            img = pu.das_beamform_sharded(*args, elem_z=g["elem_z"])
+            torch.cuda.synchronize()
+            das_counts = launch_counts()
+            check_counts(das_counts, us_das=1)
+            das_equal = bool(torch.equal(img, bf.das_beamform(*args, elem_z=g["elem_z"])))
+            acq_ms, acq_single = timed_pair(
+                lambda: pu.simulate_acquisition_pallas_sharded(usmain, seed=0, rays_per_pair=64,
+                                                               device=dev),
+                lambda: us_kernel.simulate_acquisition(usmain, seed=0, rays_per_pair=64,
+                                                       device=dev))
+            das_ms, das_single = timed_pair(
+                lambda: pu.das_beamform_sharded(*args, elem_z=g["elem_z"]),
+                lambda: bf.das_beamform(*args, elem_z=g["elem_z"]))
+            print(f"phase 38: USMain rpp 64 through simulate_acquisition_pallas_sharded, the RF "
+                  f"within {rf_err:.3e} of the largest |RF| of one process's (limit {RF_TOL}); "
+                  f"{acq_ms:.4f} ms against {acq_single:.4f} ms; das_beamform_sharded "
+                  f"{tuple(img.shape)} bit-equal to das_beamform {das_equal}, {das_ms:.4f} ms "
+                  f"against {das_single:.4f} ms; launches {acq_counts['us_acq']} us_acq, "
+                  f"{das_counts['us_das']} us_das")
+            assert rf_err <= RF_TOL, "the sharded RF of a world of 1 differs from one process's"
+            assert das_equal, "the sharded DAS of a world of 1 differs from one process's"
+            out["acq"] = dict(counts=acq_counts, ms=acq_ms, single_ms=acq_single, rf_err=rf_err)
+            out["das"] = dict(counts=das_counts, ms=das_ms, single_ms=das_single)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 38 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def sharded_world(tt, usmain, n=2, backend="gloo"):
+    """Phase 39: the dry run's steps at full width in a world of ``n``
+    ranks under ``backend`` (the phase: 2 under gloo, both ranks on
+    cuda:0; rank r on GPU r % count), rank 0 holding the single-process
+    runs."""
+    from tpu_rt_torch.parallel import dryrun
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import usmain_desc
+
+    t_start = time.perf_counter()
+    cfg = dict(seed=1, tile_rows=16, timing=5,
+               train=dict(path=FIXTURE, res=512, depth=3),
+               acq_wave=dict(desc=None, rpp=2),
+               acq_kernel=dict(desc=usmain_desc(tt.ScalarTransform4f), rpp=64),
+               k1=dict(path=FIXTURE, res=512, spp=256, depth=None),
+               k9=dict(path=SIMPLE, res=256, spp=256),
+               stokes=dict(path=CBOX_POL, res=256, spp=512, depth=16,
+                           filters=(None, FILTER_TENT)),
+               das=dict(inputs=usmain_das_inputs(tt, usmain.ultrasound), methods=("gather",),
+                        rf_from="acq_kernel"),
+               wave=None, acq_grad=None)
+    res = dryrun.run_world(dryrun.dryrun_steps, n, args=(cfg,), backend=backend, device="cuda",
+                           timeout=900)
+    r0 = res[0]
+    gpus = sorted({r % torch.cuda.device_count() for r in range(n)})
+    print(f"phase 39, world of {n} ({backend}, ranks on cuda:{gpus}): spawned and run in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    for r in res:
+        assert float(r["psum"]["grad"]) == 784.0, "the gradient through psum is not 784"
+        np.testing.assert_array_equal(r["train"]["params"], r0["train"]["params"])
+    tr = r0["train"]
+    g_err = float(np.abs(tr["grad"] - tr["grad_ref"]).max() / np.abs(tr["grad_ref"]).max())
+    print(f"  psum / pbroadcast: d/dw {float(r0['psum']['grad'])} on every rank (784); train "
+          f"step at 512x512, depth 3: loss {float(tr['loss']):.6g}, the ranks' parameters after "
+          f"Adam identical, the gradient within {g_err:.3e} of one process's over the same "
+          f"pixels and draws (limit 1e-5), {tr['ms']:.1f} ms")
+    assert np.isfinite(tr["loss"]) and g_err <= 1e-5, "the sharded gradient differs"
+    routes = {"acq_wave": ("acoustic wavefront, plate rpp 2", "ch"),
+              "acq_kernel": ("K10, USMain rpp 64", "ch"),
+              "k1": ("K1, cbox 512x512 256 spp", "img"),
+              "k9": ("K9, simple.xml 256x256 256 spp", "img"),
+              "stokes_None": ("K6, cbox_pol 256x256 512 spp gaussian depth 16", "img"),
+              f"stokes_{FILTER_TENT}": ("K3 in K2's loop, cbox_pol 256x256 512 spp tent depth 16",
+                                        "img")}
+    out = {"counts": [r["counts"] for r in res], "routes": {}}
+    for name, (label, key) in routes.items():
+        d = r0[name]
+        got, ref = d[key], d["ref"]
+        err = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+        equal = bool(np.array_equal(got, ref))
+        same = all(np.array_equal(r[name][key], got) for r in res)
+        tol = RF_TOL if name.startswith("acq") else 1e-6
+        line = (f"  {label}: within {err:.3e} of the largest value of the ranks' single-process "
+                f"runs combined (limit {tol}; bit-equal {equal}), the ranks alike {same}")
+        if "sharded_ms" in d:
+            ms = " / ".join(f"{r[name]['sharded_ms']:.3f}" for r in res)
+            line += (f"; {ms} ms on ranks {'/'.join(map(str, range(n)))} against "
+                     f"{d['single_ms']:.3f} ms for the whole in one process; the all-reduce of its "
+                     f"{d['allreduce_mib']:.2f} MiB {d['allreduce_ms']:.3f} ms")
+        print(line + f"; launches {[nonzero_counts(r['counts'][name]) for r in res]}")
+        assert same and err <= tol, f"the sharded {label} differs from its ranks' runs"
+        out["routes"][name] = dict(err=err, bit_equal=equal, **{
+            k: d[k] for k in ("sharded_ms", "single_ms", "allreduce_ms", "allreduce_mib")
+            if k in d})
+    das = r0["das"]["gather"]
+    das_equal = bool(np.array_equal(das["img"], das["ref"]))
+    das_ms = [r["das"]["gather"]["sharded_ms"] for r in res]
+    print(f"  the DAS kernel, USMain {das['img'].shape}: das_beamform_sharded bit-equal to "
+          f"das_beamform {das_equal}; {' / '.join(f'{t:.3f}' for t in das_ms)} ms against "
+          f"{das['single_ms']:.3f} ms; launches "
+          f"{[nonzero_counts(r['counts']['das']['gather']) for r in res]}")
+    assert das_equal, "the sharded DAS differs from das_beamform"
+    g_das = max(float(np.abs(r["das"]["gather"]["grad"] - das["grad_ref"]).max()) for r in res)
+    g_das /= float(np.abs(das["grad_ref"]).max())
+    print(f"  the DAS's gradient in the RF through the tiles (the adjoint kernel on each rank's "
+          f"tile, the RF's gradient all-reduced): within {g_das:.3e} of one process's on every "
+          f"rank (limit 1e-5: the adjoint's atomics)")
+    assert g_das <= 1e-5, "the sharded DAS's gradient differs from one process's"
+    chunks = -(-256 // n // 64)  # K1's 64-sample record chunks, K9's 64-sample passes
+    k3 = -(-512 // n // 64)
+    for name, count in (("k1", dict(path_film=chunks, film_splat=chunks)),
+                        ("k9", dict(mesh_direct=chunks)),
+                        (f"stokes_{FILTER_TENT}", dict(stokes_film=k3, regen=k3, film_splat=k3)),
+                        ("stokes_None", dict(stokes_sample=1)), ("acq_kernel", dict(us_acq=1))):
+        for r in res:
+            check_counts(r["counts"][name], **count)
+    for r in res:
+        check_counts(r["counts"]["das"]["gather"], us_das=1)
+    out["das"] = dict(sharded_ms=das_ms, single_ms=das["single_ms"])
+    print(f"phase 39 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def tooling_phase(main_ms):
+    """Phase 40: measure_device_trace of one K1 main-path render, then the
+    warm-up, each in a subprocess: late in this script the in-process
+    profiler has seen 0.011 ms of a 94 ms render (PERF.md §7), and a
+    fresh process is what a user of either starts from."""
+    t_start = time.perf_counter()
+    code = ("import json, tpu_rt_torch as tt\n"
+            "from tpu_rt_torch.utils.profiling import measure_device_trace\n"
+            f"sc = tt.load_file({FIXTURE!r}, res=512, spp=256)\n"
+            "tt.render(sc, spp=256, seed=5)\n"
+            "print(json.dumps(measure_device_trace(lambda: tt.render(sc, spp=256, seed=6))))\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, f"measure_device_trace failed:\n{run.stderr[-4000:]}"
+    m = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"phase 40: measure_device_trace of one cbox main-path render (a new process): wall "
+          f"{m['wall_s'] * 1e3:.3f} ms (phase 5's median {main_ms:.3f} ms), device busy "
+          f"{m['device_busy_s'] * 1e3:.3f} ms ({m['device_busy_frac']:.4f}), the port's kernels "
+          f"{m['kernel_s'] * 1e3:.3f} ms ({m['kernel_frac']:.4f}); {m['kernels_seen']} kernels "
+          f"on the device of {m['launches_issued']} launches issued")
+    assert 0 < m["kernel_s"] <= m["device_busy_s"] <= m["wall_s"] * 1.05
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "tpu_rt_torch.warmup"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    lines = run.stdout.strip().splitlines()
+    print(f"phase 40: python -m tpu_rt_torch.warmup exit {run.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s:")
+    for line in lines:
+        print(f"  | {line}")
+    assert run.returncode == 0, f"the warm-up failed:\n{run.stderr[-4000:]}"
+    steps = [ln for ln in lines if ln.startswith("  ") and ln.rstrip().endswith("s")]
+    assert len(steps) == 5 and "(found)" in steps[0], "the warm-up rebuilt or missed a step"
+    print(f"phase 40 took {time.perf_counter() - t_start:.1f} s")
+    return dict(trace=m, warmup_lines=lines)
+
+
+def sharded_launches(par, kernel):
+    """A kernel's launches on the sharded routes of phases 38 and 39, by
+    world and rank."""
+    w1 = sum(c[kernel] for c in (par["w1"]["k1"]["counts"], par["w1"]["acq"]["counts"],
+                                 par["w1"]["das"]["counts"]))
+    out = {"sharded_world1": w1}
+    for rank, counts in enumerate(par["w2"]["counts"]):
+        out[f"sharded_world2_rank{rank}"] = sum(
+            c[kernel] for c in list(counts.values()) + list(counts["das"].values())
+            if isinstance(c, dict) and kernel in c)
+    return out
+
+
+def parallel_phases(tt, dev, main_ms):
+    """Phases 38-40: the sharded routes in a world of 1 (NCCL) and of 2
+    (gloo, one card), then the profiling and warm-up tooling."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_scenes import usmain_desc
+
+    sc512 = tt.load_file(FIXTURE, res=512, spp=256)
+    usmain = tt.load_dict(usmain_desc(tt.ScalarTransform4f))
+    w1 = world_of_one(tt, dev, sc512, usmain)
+    w2 = sharded_world(tt, usmain)
+    tools = tooling_phase(main_ms)
+    return dict(w1=w1, w2=w2, tools=tools)
 
 
 if __name__ == "__main__":

@@ -1348,3 +1348,29 @@ def test_render_soft_gradient_on_cuda_matches_the_cpu():
     assert tc != 0.0 and abs(tg - tc) <= 1e-3 * abs(tc)
     for g, c in ((abg, abc), (rg, rc)):
         assert (g - c).abs().max().item() <= 1e-3 * c.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_sharded_film_kernel_in_a_world_of_one_under_nccl(tmp_path):
+    """render_pallas_sharded in a world of 1 under NCCL: its K1 planes (one
+    film_trace of all the samples at int32(seed) * 100003, deposited)
+    and its image equal one process's render_film(spp_per_pass=spp), bit
+    for bit."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from tpu_rt_torch.parallel import render as pr
+
+    st = tpu_rt_torch.load_file(CBOX, res=64, spp=8)
+    dist.init_process_group("nccl", init_method=(tmp_path / "rendezvous").as_uri(),
+                            world_size=1, rank=0)
+    try:
+        img = pr.render_pallas_sharded(st, spp=8, seed=4, device="cuda")
+        tables = path_kernel.pack_tables(path_kernel.bake_scene(st), st.camera, 16, "cuda")
+        film, rays = pr.film_partial(tables, path_kernel.film_trace, pr.film_seed(4, 0), 8)
+        assert torch.equal(pr.psum(film), film)
+        assert int(pr.render_pallas_sharded.last_ray_count) == int(rays)
+    finally:
+        dist.destroy_process_group()
+    want, n_rays = path_kernel.render_film(st, spp=8, seed=4, device="cuda", spp_per_pass=8)
+    assert torch.equal(img, want) and int(n_rays) == int(rays)

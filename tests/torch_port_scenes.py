@@ -625,3 +625,21 @@ def soft_band_grad(scene, spp, seed, width, device, band=shadow_band, batch=64):
         part.backward()
         loss += float(part.detach())
     return loss, float(theta.grad)
+
+
+def world_fails(rank, n, device):
+    """A rank function for ``parallel/dryrun.py::run_world`` whose rank 1
+    raises."""
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    return rank
+
+
+def world_hangs(rank, n, device):
+    """A rank function whose rank 1 never returns (rank 0 then waits in
+    the closing barrier)."""
+    import time
+
+    while rank == 1:
+        time.sleep(1)
+    return rank

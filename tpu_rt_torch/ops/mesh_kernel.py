@@ -609,29 +609,17 @@ def direct_trace(ds: DirectScene, rays):
 direct_trace.launches = 0
 
 
-def mesh_direct_render(scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
-                       baked=None):
-    """Direct-lighting render of a mesh scene lit by point lights through
-    K9.  Each pass of ``spp_per_pass`` samples draws its jitter from a
-    ``torch.Generator`` on ``device`` seeded by ``seed``, casts the primary
-    rays with ``sensor.camera.sample_ray`` and splats the kernel's radiance
-    at the samples' pixels.  Returns the (H, W, 3) image on ``device`` and
-    sets ``mesh_direct_render.last_ray_count`` (0-d int64: primaries plus
-    shadow rays cast).  Raises ValueError outside K9's scope."""
+def _direct_films(ds: DirectScene, c, spp, gen, device, spp_per_pass):
+    """``spp`` samples a pixel through K9 in passes of ``spp_per_pass``:
+    the jitter drawn from ``gen``, the primary rays of
+    ``sensor.camera.sample_ray``, the kernel's radiance splatted at the
+    samples' pixels.  Returns the unnormalised films (values [H, W, 3],
+    weights [H, W]) and the rays cast (0-d int64)."""
     from tpu_rt_torch.sensor import camera as _cam
     from tpu_rt_torch.sensor import film as _film
 
-    ds = baked if baked is not None else bake_direct_scene(scene)
-    if ds is None:
-        raise ValueError("scene is outside the direct mesh kernel's scope")
-    device = torch.device(device)
-    ds = ds.to(device)
-    c = scene.camera
     H, W = c.height, c.width
-    spp = c.spp if spp is None else spp
     k = max(1, min(spp_per_pass, spp))
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
     ys, xs = torch.meshgrid(torch.arange(H, device=device), torch.arange(W, device=device),
                             indexing="ij")
     xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
@@ -651,11 +639,70 @@ def mesh_direct_render(scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
                                      torch.where(ok[..., None], L, 0.0), ok, c.filter_type)
         n_rays += out[3].to(torch.int64).sum()
         done += n
+    return fv, fw, n_rays
+
+
+def _direct_inputs(scene, baked, device):
+    ds = baked if baked is not None else bake_direct_scene(scene)
+    if ds is None:
+        raise ValueError("scene is outside the direct mesh kernel's scope")
+    return ds.to(device)
+
+
+def mesh_direct_render(scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
+                       baked=None):
+    """Direct-lighting render of a mesh scene lit by point lights through
+    K9.  Each pass of ``spp_per_pass`` samples draws its jitter from a
+    ``torch.Generator`` on ``device`` seeded by ``seed``, casts the primary
+    rays with ``sensor.camera.sample_ray`` and splats the kernel's radiance
+    at the samples' pixels.  Returns the (H, W, 3) image on ``device`` and
+    sets ``mesh_direct_render.last_ray_count`` (0-d int64: primaries plus
+    shadow rays cast).  Raises ValueError outside K9's scope."""
+    from tpu_rt_torch.sensor import film as _film
+
+    device = torch.device(device)
+    ds = _direct_inputs(scene, baked, device)
+    c = scene.camera
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    fv, fw, n_rays = _direct_films(ds, c, c.spp if spp is None else spp, gen, device,
+                                   spp_per_pass)
     mesh_direct_render.last_ray_count = n_rays
     return _film.develop(fv, fw)
 
 
 mesh_direct_render.last_ray_count = None
+
+
+def mesh_direct_render_sharded(scene, spp=None, seed=0, group=None, device="cuda",
+                               spp_per_pass=64, baked=None):
+    """``mesh_direct_render`` sharded over samples across the ranks of a
+    ``torch.distributed`` group (tpu_rt's ``mesh_direct_render_sharded``):
+    rank r runs its spp / n samples with a generator seeded seed + r *
+    7919, and the films and ray counts are summed.  With one rank it is
+    ``mesh_direct_render``.  Raises ValueError outside K9's scope and when
+    spp is not a multiple of the ranks.  Returns the (H, W, 3) image on
+    ``device``, the same on every rank, and sets
+    ``mesh_direct_render_sharded.last_ray_count`` (0-d int64, all
+    ranks)."""
+    from tpu_rt_torch.parallel.render import RANK_SEED_STRIDE, group_shape, psum
+    from tpu_rt_torch.sensor import film as _film
+
+    device = torch.device(device)
+    group, n, rank = group_shape(group)
+    c = scene.camera
+    spp = c.spp if spp is None else spp
+    if spp % n:
+        raise ValueError(f"spp {spp} must divide over {n} ranks")
+    ds = _direct_inputs(scene, baked, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + rank * RANK_SEED_STRIDE)
+    fv, fw, n_rays = _direct_films(ds, c, spp // n, gen, device, spp_per_pass)
+    mesh_direct_render_sharded.last_ray_count = psum(n_rays, group)
+    return _film.develop(psum(fv, group), psum(fw, group))
+
+
+mesh_direct_render_sharded.last_ray_count = None
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""Film reconstruction filters, deposit and develop.
+"""Film reconstruction filters, splats, deposit and develop.
 
-Counterpart of ``tpu_rt/sensor/film.py`` for what the film kernel's
-render needs: the 1-D filter kernels (box / tent / Mitsuba's gaussian),
-the dense shifted add that deposits one filter offset's plane into the
-film, and the develop step that divides by the accumulated weight.
+Counterpart of ``tpu_rt/sensor/film.py``: the 1-D filter kernels (box /
+tent / Mitsuba's gaussian), the scatter splat of samples at arbitrary
+film positions (``splat``, the sharded wavefront's), the aligned splat of
+one sample a pixel, the dense shifted add that deposits one filter
+offset's plane into the film, and the develop step that divides by the
+accumulated weight.
 """
 
 from __future__ import annotations
@@ -25,6 +27,42 @@ def filter_weight(filter_type: int, x):
     tail = torch.exp(torch.full_like(x, -0.5 * (r / sigma) ** 2))
     g = torch.exp(-0.5 * (x / sigma) ** 2) - tail
     return torch.clamp(g, min=0.0) * (ax <= r)
+
+
+_FOOTPRINT = {FILTER_BOX: 1, FILTER_TENT: 2, FILTER_GAUSSIAN: 4}
+
+
+def splat(film_vals, film_wts, film_xy, values, active, filter_type: int):
+    """Add samples at continuous film positions to the film
+    (``tpu_rt.sensor.film.splat``): each cell of the filter's footprint is
+    an ``index_add`` of the weighted values, and a tap off the film, of an
+    inactive sample or of zero weight adds 0 (``mode="drop"``).
+
+    ``film_vals`` [H, W, C], ``film_wts`` [H, W], ``film_xy`` [N, 2] in
+    pixels, ``values`` [N, C], ``active`` [N] bool.  Returns the updated
+    (film_vals, film_wts), new tensors: differentiable in ``values`` (and
+    in the films passed in)."""
+    H, W = film_wts.shape
+    k = _FOOTPRINT[filter_type]
+    x, y = film_xy[..., 0], film_xy[..., 1]
+    # the top-left pixel of the footprint, in tpu_rt's float32 order
+    base_x = torch.floor(x - 0.5 * (k - 1) - 0.5 + 0.5).to(torch.int64)
+    base_y = torch.floor(y - 0.5 * (k - 1) - 0.5 + 0.5).to(torch.int64)
+    fv = film_vals.reshape(H * W, -1)
+    fw = film_wts.reshape(H * W)
+    for dy in range(k):
+        py = base_y + dy
+        wy = filter_weight(filter_type, (py.to(torch.float32) + 0.5) - y)
+        for dx in range(k):
+            px = base_x + dx
+            wx = filter_weight(filter_type, (px.to(torch.float32) + 0.5) - x)
+            w = wx * wy
+            ok = active & (px >= 0) & (px < W) & (py >= 0) & (py < H) & (w > 0)
+            w = torch.where(ok, w, 0.0)
+            idx = torch.clamp(py, 0, H - 1) * W + torch.clamp(px, 0, W - 1)
+            fv = fv.index_add(0, idx, w[..., None] * values)
+            fw = fw.index_add(0, idx, w)
+    return fv.reshape(H, W, -1), fw.reshape(H, W)
 
 
 def _shift_add(acc, img, dy, dx):

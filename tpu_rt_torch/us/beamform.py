@@ -305,7 +305,7 @@ def apply_pulse(channel_data, fs, f0, wave_cycles=5):
 
 
 def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
-                        z_grid, t_offset=0.0, elem_z=None):
+                        z_grid, t_offset=0.0, elem_z=None, window=None):
     """DAS with the time gathers turned into dense contractions over
     per-block RF windows, as ``tpu_rt``'s MXU form.
 
@@ -317,7 +317,9 @@ def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
     strided-overlap view of the RF trace; the 2-tap linear interpolation
     becomes a hat-weight matrix (block, window) contracted with the window.
     Both products run in full float32.  The window auto-sizes from the grid
-    pitch to cover the block's delay spread (at least 128 samples);
+    pitch to cover the block's delay spread (at least 128 samples), unless
+    ``window`` gives it (a caller that tiles a larger grid sizes it from
+    that grid, as ``parallel/ultrasound.py::das_beamform_sharded`` does);
     out-of-range pixels add 0."""
     channel_data = _f32(channel_data)
     dev = channel_data.device
@@ -327,13 +329,14 @@ def das_beamform_matmul(channel_data, angles_deg, elem_x, fs, c, x_grid,
     Nx, Nz = xs.shape[0], zs.shape[0]
     TX = TZ = 8
 
-    # window from the grid pitch, in float32 as the JAX package computes it
-    dx = float(xs[1] - xs[0]) if Nx > 1 else 0.0
-    dz = float(zs[1] - zs[0]) if Nz > 1 else 0.0
-    spread = (np.float32(2.0 * TZ * abs(dz) + 2.0 * TX * abs(dx)) / c.detach().cpu().numpy()
-              * fs.detach().cpu().numpy())
-    needed = int(np.ceil(spread)) + 8
-    window = max(128, ((needed + 127) // 128) * 128)
+    if window is None:
+        # window from the grid pitch, in float32 as the JAX package computes it
+        dx = float(xs[1] - xs[0]) if Nx > 1 else 0.0
+        dz = float(zs[1] - zs[0]) if Nz > 1 else 0.0
+        spread = (np.float32(2.0 * TZ * abs(dz) + 2.0 * TX * abs(dx))
+                  / c.detach().cpu().numpy() * fs.detach().cpu().numpy())
+        needed = int(np.ceil(spread)) + 8
+        window = max(128, ((needed + 127) // 128) * 128)
     # Q must divide the window; one extra chunk covers the quantized start
     Q = 64
     window = ((window + Q + Q - 1) // Q) * Q
