@@ -44,7 +44,9 @@ Phases (any failure raises and the script exits non-zero):
      where the profiler missed a DAS launch in two windows); then the DAS
      kernel on the frame's RF against its plain version: within 2e-5 of
      the largest |pixel|, bit-equal with one angle and one element, timed
-     beside the plain version, its bound and the matmul form;
+     beside the plain version, its bound and the matmul form; its packing
+     kernel (us_das_pack, one launch a DAS call, counted with it) equal to
+     its plain version, timed beside it with its bound;
  10. the direct mesh kernel (mesh_direct.cu) against its plain version on
      the card, bit for bit (all four planes): tests/assets/mesh/simple.xml
      (the knot under two point lights) at 256x256, one 64-spp pass of the
@@ -288,8 +290,9 @@ every launch count set to 0 just before it and read just after; a film
 launch counts one trace-kernel launch (path_film or stokes_film) and one
 film_splat, a per-sample kernel's chunk one launch, and an ultrasound frame
 one us_acq (K10's deposit mode) and one us_das, or through the wavefront one
-us_das and, on a mesh, two mesh_isect a bounce; a backward through an
-ultrasound frame one us_das_adjoint.  Then comes a JSON record of the
+us_das and, on a mesh, two mesh_isect a bounce (each us_das with one
+us_das_pack, its packing pass); a backward through an ultrasound frame
+one us_das_adjoint.  Then comes a JSON record of the
 kernels, each with its bound: the larger of its operations over 67
 TFLOP/s (FP32) and its bytes over 3.35 TB/s (the H100 SXM's data-sheet
 peaks), counted from this run's inputs; K6, K5 and K4 also with their
@@ -345,6 +348,32 @@ def dev_us(evt):
         evt, "self_cuda_time_total", 0.0)
 
 
+def busy_ms(prof):
+    """The device's busy time in a torch.profiler window, ms: the device
+    events' own time (kernels, copies, memsets).  A host operator's device
+    time is that of the kernels it launched, which the window also holds
+    as events of their own, so host rows are left out."""
+    from torch.autograd import DeviceType
+
+    return sum(dev_us(e) for e in prof.key_averages() if e.device_type != DeviceType.CPU) / 1e3
+
+
+def queued_ms(fn, n=20):
+    """Device time a call of fn, ms, by CUDA events around n calls queued
+    behind a sleeping kernel: the host has issued every launch before the
+    first starts, so the events read the device alone, not the host."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # about 25 ms at the H100's clock
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def kernel_device_ms(fn, kernel, n=20):
     """(device ms a launch, launches the profiler saw) of the kernels whose
     name holds ``kernel``, over n calls of fn, from torch.profiler: where a
@@ -391,7 +420,10 @@ def launch_counts():
 
 
 def check_counts(counts, **want):
-    """Every count as ``want`` names it, 0 where it does not."""
+    """Every count as ``want`` names it, 0 where it does not; the DAS's
+    packing pass (``us_das_pack``) as many times as the DAS kernel unless
+    ``want`` names it: one a forward DAS call."""
+    want.setdefault("us_das_pack", want.get("us_das", 0))
     expect = {k: want.get(k, 0) for k in counts}
     assert counts == expect, f"launch counts {counts}, expected {expect}"
 
@@ -447,21 +479,37 @@ OPS_SLAB, OPS_TRI, OPS_PRIM = 25, 39, 20
 # p = d x e2 and q = tv x e1 (9 each), det (5), the guarded reciprocal (4),
 # tv (3), u, v and t (6 each), the five compares and u + v (6).
 OPS_MT = 54
-# A DAS tap, us_das.cu: dx, dz, their squares and sum (5), the square root
-# (1), the delay's 1 / c, sum, offset and fs (4), the floor and weight (2),
-# 1 - w, the two products and their sum (4), the accumulation (1).
+# The DAS's least work (us_das.cu), the bound: t_rx once a (pixel,
+# element), dx, dz, their squares and sum, the square root and 1 / c (7);
+# a tap the delay's sum, offset and fs (3), the floor and weight (2),
+# 1 - w, the two products and their sum (4), the accumulation (1); a
+# (pixel, angle) t_tx (4) and the angle's sum added (1).
+OPS_DAS_RX, OPS_DAS_TAP, OPS_DAS_ANGLE = 7, 10, 5
+# The first DAS kernel's count, printed beside the bound so that its rows
+# compare across the kernel's forms: t_rx again at every tap (17 a tap:
+# the 10 above and the 7 of t_rx), 5 a (pixel, angle).
 OPS_DAS = 17
-# A DAS adjoint tap, us_das.cu::us_das_adjoint_kernel: the delay, floor and
-# weight recomputed (13: dx, dz, their squares and sum, the square root,
-# 1 / c, the sum and offset, fs, floor, w), the taps' weights g (1 - w), g w
-# (3), and the geometric terms: v1 - v0 and g times it (2), d fs (2), G and
-# its sum over the elements (2), d (1 / c) (2), q = G (1 / c) / r with its
-# guard (3), the two element terms (4) and their sums (2); the warp's
-# shuffle tree adds more than a sum needs and is not counted.
-OPS_DAS_ADJ = 33
-# The same with d RF alone (us_das_adjoint_kernel<false>): the delay, floor
-# and weight (13) and the taps' weights (3).
+# The adjoint's least work, the bound, with d RF alone
+# (us_das_adjoint_kernel<false>): t_rx once a (pixel, element) (7); t_tx
+# a (pixel, angle) (4); a tap the delay's sum, offset and fs (3), the floor
+# and weight (2), 1 - w and the taps' weights g (1 - w), g w (3), and
+# their two additions into d RF (2).
+OPS_DAS_ADJ_RF_RX, OPS_DAS_ADJ_RF_ANGLE, OPS_DAS_ADJ_RF_TAP = 7, 4, 10
+# The same with the geometric cotangents: a tap adds v1 - v0 and
+# g (v1 - v0) (2), d fs's product and sum (2), and that product into a
+# sum a (pixel, element) and a sum a (pixel, angle) (2); a (pixel,
+# element) then takes its sum to d x_e and d z_e (its quotient by r, two
+# products, two sums: 5) and to d (1 / c) through r (2); a (pixel, angle)
+# to d sin a and d cos a (4) and to d (1 / c) through x sin a + z cos a
+# (2); fs and 1 / c multiply each block's sums once.
+OPS_DAS_ADJ_RX, OPS_DAS_ADJ_ANGLE, OPS_DAS_ADJ_TAP = 14, 10, 16
+# The first adjoint kernel's counts, printed beside the bounds: a tap, the
+# delay, floor and weight recomputed (13) and the taps' weights (3) with
+# d RF alone, 4 more a (pixel, angle); with the geometry 17 more a tap
+# (v1 - v0 and g times it, d fs, G and its sum, d (1 / c), q = G (1 / c) / r
+# with its guard, the two element terms and their sums), 5 a (pixel, angle).
 OPS_DAS_ADJ_RF = 16
+OPS_DAS_ADJ = 33
 # A 1-D filter weight, path_film.cu::film_w1d: x = (d + 0.5) - j, the tent's
 # |x|, sub and max, or the gaussian's two multiplies, exp, sub, |x|, compare
 # and select (the exp counted as one).
@@ -627,6 +675,13 @@ def main():
                "usmain_wavefront": uw["usmain"]["das_launches"],
                "us_mesh_phantom": uw["mesh"]["counts"]["us_das"],
                **{f"phantom_{p}": v["counts"]["us_das"] for p, v in uw["phantoms"].items()}}
+    new_pack = {"usmain_roughness_loop": gr["loop"]["counts"]["us_das_pack"],
+                "plate_roughness_loop": gr["plate_loop"]["counts"]["us_das_pack"],
+                "us_mesh_phantom_grad": gr["mesh"]["counts"]["us_das_pack"],
+                "usmain_wavefront": uw["usmain"]["pack_launches"],
+                "us_mesh_phantom": uw["mesh"]["counts"]["us_das_pack"],
+                **{f"phantom_{p}": v["counts"]["us_das_pack"]
+                   for p, v in uw["phantoms"].items()}}
     adj_launches = {"usmain_roughness_loop": gr["loop"]["counts"]["us_das_adjoint"],
                     "plate_roughness_loop": gr["plate_loop"]["counts"]["us_das_adjoint"],
                     "us_mesh_phantom_grad": gr["mesh"]["counts"]["us_das_adjoint"]}
@@ -694,7 +749,22 @@ def main():
         "max_abs_err": max(us["das"]["max_abs_err"], rc["das"]["max_abs_err"]),
         "ms": us["das"]["ms"], "plain_ms": us["das"]["plain_ms"],
         "bound_ms": us["das"]["bound_ms"], "bound_by": us["das"]["bound_by"], "library_ms": None,
+        "first_form_bound_ms": us["das"]["first_form_bound_ms"],
         "usmain": us["das"], "cone_box": rc["das"],
+    }, {
+        "name": "us_das_pack", "route": "cuda",
+        "source": "tpu_rt_torch/ops/csrc/us_das.cu",
+        "replaces": "tpu_rt/us/beamform.py:34",
+        "replaces_note": "no TPU kernel: the DAS kernel's input, each trace as pairs of taps, "
+                         "made once a forward DAS call",
+        "launches": (us["pack_launches"] + rc["pack_launches"] + sum(new_pack.values())
+                     + sum(sharded_launches(par, "us_das_pack").values())),
+        "launches_by_path": {"usmain": us["pack_launches"], "cone_box": rc["pack_launches"],
+                             **new_pack, **sharded_launches(par, "us_das_pack")},
+        "max_abs_err": max(us["das"]["pack"]["max_abs_err"], rc["das"]["pack"]["max_abs_err"]),
+        "ms": us["das"]["pack"]["ms"], "plain_ms": us["das"]["pack"]["plain_ms"],
+        "bound_ms": us["das"]["pack"]["bound_ms"], "bound_by": us["das"]["pack"]["bound_by"],
+        "library_ms": None, "usmain": us["das"]["pack"], "cone_box": rc["das"]["pack"],
     }, {
         "name": "us_das_adjoint", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/us_das.cu",
@@ -707,6 +777,7 @@ def main():
         "ms": gr["adjoint"]["rf_only"]["ms"], "plain_ms": gr["adjoint"]["rf_only"]["plain_ms"],
         "bound_ms": gr["adjoint"]["rf_only"]["bound_ms"],
         "bound_by": gr["adjoint"]["rf_only"]["bound_by"], "library_ms": None,
+        "first_form_bound_ms": gr["adjoint"]["rf_only"]["first_form_bound_ms"],
         "rf_only": gr["adjoint"]["rf_only"], "geometry": gr["adjoint"]["geometry"],
         "loop": {k: v for k, v in gr["loop"].items()
                  if k not in ("steps", "losses", "grads", "top")},
@@ -897,10 +968,16 @@ def das_check(label, ch, usc, xg, zg, pos, angles):
     within 2e-5 of the largest |pixel| of the plain version (the same taps,
     the 320 terms summed in another order), and bit-equal to it with one
     angle and one element (a one-term sum); the kernel (CUDA events around
-    calls, and its device time by torch.profiler), the plain version and
-    the matmul form timed, and the bound: about OPS_DAS operations a
-    (pixel, pair) and 5 a (pixel, angle), the RF, grids and positions in,
-    the image out."""
+    calls, which include its packing pass, and its device time by
+    torch.profiler), the plain version and the matmul form timed, and the
+    bound: the least work, OPS_DAS_RX operations a (pixel, element),
+    OPS_DAS_TAP a tap and OPS_DAS_ANGLE a (pixel, angle), the RF, grids and
+    positions in, the image out (the first kernel's count, OPS_DAS a tap,
+    printed beside it).  Then the packing kernel on the frame's RF: equal
+    to its plain version (torch.cat and stack), timed beside it (its device
+    time by ``queued_ms``: late in a run the profiler misses most launches
+    of a kernel this short, once none of 15 packing launches in three
+    windows) and bound by its bytes (the RF in, twice its size out)."""
     from tpu_rt_torch.us import beamform as bf
 
     args = (ch, angles, pos[:, 0], usc.sampling_rate, usc.sound_speed, xg, zg)
@@ -922,17 +999,39 @@ def das_check(label, ch, usc, xg, zg, pos, angles):
     matmul_ms, _ = cuda_ms(lambda: bf.das_beamform_matmul(*args, **kw))
     A, E, T = ch.shape
     n_pix = xg.numel() * zg.numel()
-    das_bound = bound(n_pix * A * (E * OPS_DAS + 5),
-                      4 * (ch.numel() + xg.numel() + zg.numel() + 2 * E + 2 * A + n_pix))
+    das_bytes = 4 * (ch.numel() + xg.numel() + zg.numel() + 2 * E + 2 * A + n_pix)
+    das_bound = bound(n_pix * (E * OPS_DAS_RX + A * E * OPS_DAS_TAP + A * OPS_DAS_ANGLE),
+                      das_bytes)
+    first = bound(n_pix * A * (E * OPS_DAS + OPS_DAS_ANGLE), das_bytes)
     print(f"us_das (DAS kernel) vs plain, {label} {A}x{E}x{T} on the {xg.numel()}x{zg.numel()} "
           f"grid: max |d| {err:.3e} (limit 2e-5 x max|plain| = {2e-5 * scale:.3e}); one angle, "
           f"one element bit-equal {one_eq}; kernel {ms:.4f} ms a call ({device_ms:.4f} ms on "
           f"the card), plain {plain_ms:.3f} ms, matmul form {matmul_ms:.3f} ms; bound "
-          f"{das_bound[0]:.5f} ms ({das_bound[1]})")
+          f"{das_bound[0]:.5f} ms ({das_bound[1]}; the first kernel's count, t_rx at every "
+          f"tap: {first[0]:.5f} ms)")
     assert one_eq and one_plain.abs().max().item() > 0, f"us_das differs at one pair ({label})"
     assert scale > 0 and err <= 2e-5 * scale, f"us_das disagrees ({label})"
+
+    rf = ch.contiguous()
+    packed = bf.das_pack(rf)
+    pack_eq = bool(torch.equal(packed, bf.das_pack_plain(rf)))
+    pack_bound = bound(0, 4 * rf.numel() + 4 * packed.numel())
+    pack = dict(max_abs_err=0.0 if pack_eq else float("inf"), bound_ms=pack_bound[0],
+                bound_by=pack_bound[1])
+    pack["ms"] = queued_ms(lambda: bf.das_pack(rf))
+    pack["call_ms"] = statistics.median(cuda_ms(lambda: bf.das_pack(rf), reps=5)[0]
+                                        for _ in range(3))
+    pack["plain_ms"] = statistics.median(cuda_ms(lambda: bf.das_pack_plain(rf), reps=5)[0]
+                                         for _ in range(3))
+    print(f"us_das_pack (the DAS's packing kernel) vs plain, {label} {A}x{E}x{T}: equal "
+          f"{pack_eq}; kernel {pack['ms']:.5f} ms on the card (queued behind a sleep; a call "
+          f"{pack['call_ms']:.5f} ms), plain (torch.cat, stack) {pack['plain_ms']:.5f} ms; bound "
+          f"{pack_bound[0]:.5f} ms ({pack_bound[1]}); the DAS kernel and its packing "
+          f"{device_ms + pack['ms']:.4f} ms on the card")
+    assert pack_eq, f"us_das_pack differs from its plain version ({label})"
     return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, max_abs_err=err,
-                bound_ms=das_bound[0], bound_by=das_bound[1], matmul_ms=matmul_ms)
+                bound_ms=das_bound[0], bound_by=das_bound[1], first_form_bound_ms=first[0],
+                matmul_ms=matmul_ms, pack=pack)
 
 
 def us_frame(label, tt, scene, dev, rpp, x_bounds, z_bounds, use_kernel=True):
@@ -1004,7 +1103,7 @@ def us_frame(label, tt, scene, dev, rpp, x_bounds, z_bounds, use_kernel=True):
         das_seen = sum(e.count for e in prof.key_averages() if "us_das_kernel" in e.key)
         if das_seen == 3:
             break
-    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3 if das_seen == 3 else None
+    busy = busy_ms(prof) if das_seen == 3 else None
     idle = 1.0 - busy / wall_ms if busy is not None else None
     top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:6]
     print(f"{label} main path {usc.n_angles}x{usc.n_elements}x{usc.time_samples}, rpp {rpp}, "
@@ -1058,8 +1157,8 @@ def ultrasound_phases(tt, dev):
     acq.update(frame_ms=fr["frame_ms"], acquisition_ms=fr["acquisition_ms"])
     das.update(frame_ms=fr["frame_ms"], das_ms_in_split=fr["das_ms"],
                envelope_ms=fr["envelope_ms"], peak_mb=fr["peak_mb"], idle_share=fr["idle_share"])
-    return dict(launches=fr["counts"]["us_acq"], das_launches=fr["counts"]["us_das"], acq=acq,
-                das=das)
+    return dict(launches=fr["counts"]["us_acq"], das_launches=fr["counts"]["us_das"],
+                pack_launches=fr["counts"]["us_das_pack"], acq=acq, das=das)
 
 
 def timed_main_path(tt, scene, spp, n=5, **kw):
@@ -1867,7 +1966,7 @@ def stokes_phases(tt, dev):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    busy = busy_ms(prof)
     kern = sum(dev_us(e) for e in prof.key_averages() if "path_film_kernel" in e.key) / 1e3
     splat = sum(dev_us(e) for e in prof.key_averages() if "film_splat_kernel" in e.key) / 1e3
     rest = busy - kern - splat
@@ -2123,7 +2222,7 @@ def envmap_phases(tt, dev, k1_ms, k3_ms):
             tt.render(polar, seed=50 + rep, device="cuda")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    busy = busy_ms(prof)
     kern = sum(dev_us(e) for e in prof.key_averages() if "path_sample_kernel" in e.key) / 1e3
     print(f"profile of 3 polarizers renders: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
           f"path_sample_kernel (K5) {kern:.3f} ms ({kern / max(busy, 1e-9):.4f} of busy), the "
@@ -2391,6 +2490,7 @@ def rough_cone_phases(tt, dev):
     out["das"] = das_check("cone_box", fr["ch"], cone.ultrasound, fr["xg"], fr["zg"], fr["pos"],
                            fr["angles"])
     out["k10_launches"], out["das_launches"] = fr["counts"]["us_acq"], fr["counts"]["us_das"]
+    out["pack_launches"] = fr["counts"]["us_das_pack"]
     out["k10"].update(frame_ms=fr["frame_ms"], acquisition_ms=fr["acquisition_ms"])
     out["das"].update(frame_ms=fr["frame_ms"], das_ms_in_split=fr["das_ms"],
                       envelope_ms=fr["envelope_ms"], peak_mb=fr["peak_mb"],
@@ -2559,7 +2659,8 @@ def us_wavefront_phases(tt, dev):
     out["usmain"] = dict(frame_ms=fr["frame_ms"], acquisition_ms=fr["acquisition_ms"],
                          das_ms=fr["das_ms"], envelope_ms=fr["envelope_ms"], peak_mb=fr["peak_mb"],
                          idle_share=fr["idle_share"], rays=rays, vs_k10=meas,
-                         das_launches=fr["counts"]["us_das"])
+                         das_launches=fr["counts"]["us_das"],
+                         pack_launches=fr["counts"]["us_das_pack"])
     print(f"phase 28 took {time.perf_counter() - t_start:.1f} s")
 
     # ---- 29. the mesh phantom: the 69 632-triangle knot through K7 ---------------
@@ -2598,7 +2699,7 @@ def us_wavefront_phases(tt, dev):
         tt.us_render(mesh, seed=40, rays_per_pair=rpp, device=dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
-    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    busy = busy_ms(prof)
     k7_ms = sum(dev_us(e) for e in prof.key_averages() if "mesh_isect" in e.key) / 1e3
     print(f"profile of one mesh-phantom frame: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
           f"mesh_isect_kernel {k7_ms:.3f} ms ({k7_ms / max(busy, 1e-9):.4f} of busy, "
@@ -2690,10 +2791,12 @@ def das_adjoint_check(tt, scene, dev, rpp=64, bounds=US_FULL):
     beside them (the float32 taps themselves: a delay rounded across a
     sample moves a tap); the adjoint identity <DAS(x), y> = <x, DAS^T(y)>
     within 1e-5 of sum |DAS(x) y| for each.  Each variant timed beside its
-    plain version (autograd) and bounded: OPS_DAS_ADJ_RF operations a tap
-    and 4 a (pixel, angle), the RF's taps not read, for d RF alone;
-    OPS_DAS_ADJ and 5, the RF read, with the geometry; g and the tables
-    in, d RF (and the geometric cotangents) out."""
+    plain version (autograd) and bounded by the least work: OPS_DAS_ADJ_RF_*
+    operations a (pixel, element), a (pixel, angle) and a tap, the RF's
+    taps not read, for d RF alone; OPS_DAS_ADJ_*, the RF read, with the
+    geometry; g and the tables in, d RF (and the geometric cotangents) out
+    (the first kernel's counts, OPS_DAS_ADJ_RF and OPS_DAS_ADJ a tap,
+    printed beside it)."""
     from tpu_rt_torch.ops import us_kernel as uk
     from tpu_rt_torch.opt import inverse
     from tpu_rt_torch.sensor.transducer import element_geometry
@@ -2749,12 +2852,16 @@ def das_adjoint_check(tt, scene, dev, rpp=64, bounds=US_FULL):
         r["plain_ms"], _ = cuda_ms(lambda: bf.das_adjoint_plain(*args, geometry=geometry),
                                    reps=2)
         if geometry:  # the RF's taps read, the geometric cotangents written
+            least = n_pix * (E * OPS_DAS_ADJ_RX + A * OPS_DAS_ADJ_ANGLE + A * E * OPS_DAS_ADJ_TAP)
             ops, nbytes = n_pix * A * (E * OPS_DAS_ADJ + 5), 4 * (2 * ch.numel() + n_pix
                                                                   + tables + 2 * E + 2 * A + 2)
         else:
+            least = n_pix * (E * OPS_DAS_ADJ_RF_RX + A * OPS_DAS_ADJ_RF_ANGLE
+                             + A * E * OPS_DAS_ADJ_RF_TAP)
             ops, nbytes = n_pix * A * (E * OPS_DAS_ADJ_RF + 4), 4 * (ch.numel() + n_pix
                                                                      + tables)
-        r["bound_ms"], r["bound_by"] = bound(ops, nbytes)
+        r["bound_ms"], r["bound_by"] = bound(least, nbytes)
+        r["first_form_bound_ms"] = bound(ops, nbytes)[0]
         res[variant] = r
         print(f"us_das_adjoint, {variant} (us_das_adjoint_kernel<{str(geometry).lower()}>), "
               f"vs autograd of the plain form, USMain {A}x{E}x{T} on the "
@@ -2764,7 +2871,7 @@ def das_adjoint_check(tt, scene, dev, rpp=64, bounds=US_FULL):
               f"{r['identity_rel']:.3e} (limit 1e-5); kernel {r['ms']:.4f} ms a call "
               f"({r['device_ms']:.4f} ms on the card, {r['seen']} launches seen), plain "
               f"(autograd) {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']})")
+              f"({r['bound_by']}; the first kernel's count: {r['first_form_bound_ms']:.5f} ms)")
         if geometry:
             print("  geometric cotangents, max |d| over their largest (limit 1e-3; the float32 "
                   "plain version against float64 autograd): " + "; ".join(
@@ -2900,7 +3007,7 @@ def roughness_loop(tt, scene, dev, objective="bmode", use_kernel=True, seed=0, r
             torch.cuda.synchronize()
             res["wall_ms"] = (time.perf_counter() - t1) * 1e3
         ka = prof.key_averages()
-        res["busy_ms"] = sum(dev_us(e) for e in ka) / 1e3
+        res["busy_ms"] = busy_ms(prof)
         res["idle_share"] = 1.0 - res["busy_ms"] / res["wall_ms"]
         res["kernel_ms"] = {name: sum(dev_us(e) for e in ka if name in e.key) / 1e3
                             for name in ("us_acq_kernel", "us_das_kernel",
@@ -3198,7 +3305,7 @@ def render_profile(tt, scene, spp, n=3):
             tt.render(scene, spp=spp, seed=50 + rep, device="cuda")
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    busy = busy_ms(prof)
     k7 = sum(dev_us(e) for e in prof.key_averages() if "mesh_isect" in e.key) / 1e3
     top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]
     return dict(wall_ms=wall, busy_ms=busy, mesh_isect_ms=k7, idle_share=1.0 - busy / wall,

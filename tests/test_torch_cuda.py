@@ -22,7 +22,10 @@ largest |RF| (both add in a run-dependent order on the card: atomics and
 index_add_); the DAS kernel equal to its plain version with one angle and
 one element (each tap the same arithmetic, a one-term sum) and within
 2e-5 of the largest |pixel| at USMain's full shape (320 terms summed in
-another order);
+another order), bit-equal to the first DAS kernel's order of sums done one
+torch operation at a time, and its packing kernel bit-equal to its plain
+version; the DAS adjoint against autograd of the plain form, also in its
+split mode on a 70 000-sample trace;
 the direct mesh kernel bit-equal (radiance and rays cast); the
 mesh-intersect kernel bit-equal (t, prim, u, v), also with dead lanes
 (tmax 0), on cluster ranges that cut the cull hierarchy's nodes and on
@@ -1012,6 +1015,80 @@ def test_das_kernel_matches_plain_version_at_usmain():
     assert scale > 0 and (got - want).abs().max().item() <= 2e-5 * scale
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 64, 10000), (3, 7, 1001)])
+def test_das_pack_kernel_equals_plain_version(shape):
+    """The packing kernel, USMain's RF and an odd trace length: equal to
+    das_pack_plain (torch.cat and stack) bit for bit."""
+    _need_cuda()
+    rf = torch.from_numpy(np.random.default_rng(3).standard_normal(shape)
+                          .astype(np.float32)).cuda()
+    before = beamform.das_pack.launches
+    got = beamform.das_pack(rf)
+    torch.cuda.synchronize()
+    assert beamform.das_pack.launches == before + 1
+    assert got.shape == shape[:2] + (shape[2] + 3, 2)
+    assert torch.equal(got, beamform.das_pack_plain(rf))
+
+
+def _das_in_order(rf, angles, ex, ez, xg, zg, t_offset, c=1540.0, fs=50e6):
+    """The DAS in the first kernel's order of sums, one float32 torch
+    operation at a time on the card: the angles outer, each angle's taps
+    added element by element, the angles' sums added in order.  Each tap
+    is das_beamform_plain's arithmetic."""
+    rad = torch.tensor(angles, dtype=torch.float32).cuda() * np.float32(np.pi / 180)
+    inv_c, fs = 1.0 / torch.tensor(c, dtype=torch.float32), torch.tensor(fs, dtype=torch.float32)
+    X, Z = torch.meshgrid(xg, zg, indexing="ij")
+    T = rf.shape[2]
+    out = torch.zeros_like(X)
+    for a in range(rf.shape[0]):
+        t_tx = (X * torch.sin(rad[a]) + Z * torch.cos(rad[a])) * inv_c
+        acc = torch.zeros_like(X)
+        for e in range(rf.shape[1]):
+            t_rx = torch.sqrt((X - ex[e]) ** 2 + (Z - ez[e]) ** 2) * inv_c
+            t_f = (t_tx + t_rx - t_offset) * fs
+            i0f = torch.floor(t_f)
+            w = t_f - i0f
+            i0 = i0f.to(torch.int64)
+            v0 = torch.where((i0 >= 0) & (i0 < T), rf[a, e][torch.clamp(i0, 0, T - 1)], 0.0)
+            v1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < T),
+                             rf[a, e][torch.clamp(i0 + 1, 0, T - 1)], 0.0)
+            acc = acc + (v0 * (1.0 - w) + v1 * w)
+        out = out + acc
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,E,nx,nz", [(11, 13, 37, 301), (5, 64, 64, 130), (2, 3, 5, 3)])
+def test_das_kernel_keeps_the_first_kernels_order(A, E, nx, nz):
+    """The redesigned forward (elements outer, the angles' accumulators in
+    registers, kMaxAngles = 8 a pass): A above a pass (11: a pass of 8 and
+    a tail of 3), E not a multiple of any unroll, a convex row (elem_z not
+    0), grids that are no multiple of the warp's tile, and a t_offset that
+    puts the nearest pixels before the trace's start while the farthest
+    lie past its end.  Bit-equal to the first kernel's order of sums
+    (_das_in_order), and within 2e-5 of the plain version's largest
+    |pixel|."""
+    _need_cuda()
+    rf, angles, ex, xg, zg = _das_case(A, E, 3000, nx, nz, 13)
+    ez = 2e-4 * np.cos(np.arange(E))
+    t_offset = 3e-6
+    want = _das_in_order(rf, angles, torch.tensor(ex, dtype=torch.float32).tolist(),
+                         torch.tensor(ez, dtype=torch.float32).tolist(), xg, zg, t_offset)
+    args = (rf, angles, ex, 50e6, 1540.0, xg, zg)
+    before = (beamform.das_beamform.launches, beamform.das_pack.launches)
+    got = beamform.das_beamform(*args, t_offset=t_offset, elem_z=ez)
+    torch.cuda.synchronize()
+    assert (beamform.das_beamform.launches, beamform.das_pack.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    tf = ((zg.max() * 2 / 1540.0 - t_offset) * 50e6).item()
+    assert tf > 3000 and (0.001 * 2 / 1540.0 - t_offset) < 0
+    assert got.shape == (nx, nz) and want.abs().max().item() > 0
+    assert torch.equal(got, want)
+    plain = beamform.das_beamform_plain(*args, t_offset=t_offset, elem_z=ez)
+    assert (got - plain).abs().max().item() <= 2e-5 * plain.abs().max().item()
+
+
 def _adjoint_args(A, E, T, nx, nz, seed):
     rf, angles, ex, xg, zg = _das_case(A, E, T, nx, nz, seed)
     rad = torch.tensor(angles, dtype=torch.float32).cuda() * np.float32(np.pi / 180)
@@ -1023,14 +1100,58 @@ def _adjoint_args(A, E, T, nx, nz, seed):
             torch.tensor(50e6), xg, zg, g)
 
 
+def _geometry_float64_same_taps(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, g, t_offset):
+    """The geometric cotangents (d elem_x, d elem_z, d sin, d cos,
+    d (1 / c), d fs) in float64 at the taps that the float32 arithmetic
+    picks: each float32 delay (das_beamform_plain's operations) fixes the
+    floor and so v0 and v1; d out / d t_f = v1 - v0 and the delay's
+    derivatives are then taken in float64 from the same inputs.  What
+    float64 autograd of the plain form would give if no delay rounded
+    across a sample."""
+    A, E, T = rf.shape
+    X, Z = torch.meshgrid(xg, zg, indexing="ij")
+    X64, Z64, g64 = X.double(), Z.double(), g.double()
+    ic, f = float(inv_c), float(fs)
+    d_ex, d_ez = torch.zeros(E, dtype=torch.float64), torch.zeros(E, dtype=torch.float64)
+    d_sin, d_cos = torch.zeros(A, dtype=torch.float64), torch.zeros(A, dtype=torch.float64)
+    d_ic = d_fs = 0.0
+    for a in range(A):
+        t_tx = (X * sin_a[a] + Z * cos_a[a]) * inv_c.cuda()
+        txn = X64 * sin_a[a].double() + Z64 * cos_a[a].double()
+        for e in range(E):
+            t_rx = torch.sqrt((X - ex[e]) ** 2 + (Z - ez[e]) ** 2) * inv_c.cuda()
+            i0 = torch.floor((t_tx + t_rx - t_offset) * fs.cuda()).to(torch.int64)
+            row = rf[a, e].double()
+            v0 = torch.where((i0 >= 0) & (i0 < T), row[torch.clamp(i0, 0, T - 1)], 0.0)
+            v1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < T), row[torch.clamp(i0 + 1, 0, T - 1)],
+                             0.0)
+            dtf = g64 * (v1 - v0)
+            dx, dz = X64 - ex[e].double(), Z64 - ez[e].double()
+            r = torch.sqrt(dx * dx + dz * dz)
+            d_fs += (dtf * ((txn + r) * ic - t_offset)).sum().item()
+            G = dtf * f
+            d_ic += (G * (txn + r)).sum().item()
+            d_sin[a] += (G * X64 * ic).sum().item()
+            d_cos[a] += (G * Z64 * ic).sum().item()
+            q = torch.where(r > 0, G * ic / r, 0.0)
+            d_ex[e] -= (q * dx).sum().item()
+            d_ez[e] -= (q * dz).sum().item()
+    return d_ex, d_ez, d_sin, d_cos, torch.tensor(d_ic), torch.tensor(d_fs)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("A,E,T,nx,nz", [(1, 1, 10000, 301, 257), (3, 12, 4000, 121, 97)])
+@pytest.mark.parametrize("A,E,T,nx,nz", [(1, 1, 10000, 301, 257), (3, 12, 4000, 121, 97),
+                                         (11, 5, 3000, 90, 140)])
 def test_das_adjoint_kernel_matches_plain_version(A, E, T, nx, nz):
     """The adjoint kernel against autograd of the gather form on the card:
     d RF within 1e-5 of its largest (sums of the taps' weights in another
     order, by atomics), the geometric cotangents within 1e-3 of their
-    largest against float64 autograd, and <DAS x, y> = <x, DAS^T y>
-    within 1e-5 of sum |DAS x y|."""
+    largest against autograd of the same float32 arithmetic, and within
+    1e-3 of their largest against float64 at the same taps
+    (_geometry_float64_same_taps: float64 autograd of the whole form moves
+    taps whose delay rounds across a sample, which puts the float32 plain
+    version itself far from it on these cases), and <DAS x, y> =
+    <x, DAS^T y> within 1e-5 of sum |DAS x y|."""
     _need_cuda()
     args = _adjoint_args(A, E, T, nx, nz, 5)
     before = beamform.das_adjoint.launches
@@ -1038,11 +1159,12 @@ def test_das_adjoint_kernel_matches_plain_version(A, E, T, nx, nz):
     torch.cuda.synchronize()
     assert beamform.das_adjoint.launches == before + 1
     want = beamform.das_adjoint_plain(*args, t_offset=2e-6)
-    ref = beamform.das_adjoint_plain(*(x.double() for x in args), t_offset=2e-6)
     scale = want[0].abs().max().item()
     assert scale > 0 and (got[0] - want[0]).abs().max().item() <= 1e-5 * scale
-    for k, r in zip(got[1:], ref[1:]):
-        assert (k.double().cpu() - r.cpu()).abs().max().item() <= 1e-3 * r.abs().max().item()
+    ref = _geometry_float64_same_taps(*args, 2e-6)
+    for k, w, r in zip(got[1:], want[1:], ref):
+        assert (k.cpu() - w.cpu()).abs().max().item() <= 1e-3 * w.abs().max().item()
+        assert (k.double().cpu() - r).abs().max().item() <= 1e-3 * r.abs().max().item()
     rf, g = args[0], args[-1]
     out = beamform._das_launch(*args[:9], 2e-6)
     lhs = out.double() * g.double()
@@ -1050,6 +1172,49 @@ def test_das_adjoint_kernel_matches_plain_version(A, E, T, nx, nz):
     assert abs(diff) <= 1e-5 * lhs.abs().sum().item()
     rf_only = beamform.das_adjoint(*args, t_offset=2e-6, geometry=False)
     assert rf_only[1] is None and (rf_only[0] - got[0]).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [False, True], ids=["rf_only", "geometry"])
+def test_das_adjoint_split_mode_on_a_long_trace(geometry):
+    """T = 70 000 and a grid reaching 1.2 m: each pixel tile's windows of
+    samples (its taps, a trace an angle) span far more than one block's
+    shared window of 8 192 floats, so the adjoint kernel takes its split
+    mode (several passes over the tile); tiles clip at 0 (t_offset puts
+    the nearest pixels before the trace) and at T (the farthest lie past
+    it), and neither grid size is a multiple of the tile.  Held as above:
+    d RF within 1e-5 of its largest against autograd of the plain form,
+    the geometric cotangents within 1e-3 against the same autograd, the
+    adjoint identity within 1e-5; each output of its shape on its input's
+    device (d (1 / c) and d fs on the CPU, where 1 / c and fs are)."""
+    _need_cuda()
+    A, E, T, nx, nz = 3, 5, 70000, 150, 300
+    rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, _, g = _adjoint_args(A, E, T, nx, nz, 21)
+    zg = torch.linspace(0.001, 1.2, nz).cuda()
+    args = (rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, g)
+    t_f = (2 * zg / 1540.0 - 2e-6) * 50e6  # on axis, the delays' reach
+    tile_span = (t_f[127] - t_f[0]).item()  # one 128-pixel tile along z, an angle
+    assert t_f[0].item() < 0 and t_f[-1].item() > T and A * tile_span > 4 * 8192
+    before = beamform.das_adjoint.launches
+    got = beamform.das_adjoint(*args, t_offset=2e-6, geometry=geometry)
+    torch.cuda.synchronize()
+    assert beamform.das_adjoint.launches == before + 1
+    assert len(got) == 7 and got[0].shape == rf.shape and got[0].device == rf.device
+    want = beamform.das_adjoint_plain(*args, t_offset=2e-6, geometry=geometry)
+    scale = want[0].abs().max().item()
+    assert scale > 0 and (got[0] - want[0]).abs().max().item() <= 1e-5 * scale
+    # taps land near both ends of the traces: the clipped windows keep them
+    assert got[0][..., :500].abs().sum().item() > 0 and got[0][..., -500:].abs().sum().item() > 0
+    if geometry:
+        for k, w, x in zip(got[1:], want[1:], args[1:7]):
+            assert k.shape == x.shape and k.device == x.device
+            assert (k.cpu() - w.cpu()).abs().max().item() <= 1e-3 * w.abs().max().item()
+    else:
+        assert all(k is None for k in got[1:])
+    out = beamform._das_launch(*args[:9], 2e-6)
+    lhs = out.double() * g.double()
+    diff = lhs.sum().item() - (rf.double() * got[0].double()).sum().item()
+    assert abs(diff) <= 1e-5 * lhs.abs().sum().item()
 
 
 @pytest.mark.cuda

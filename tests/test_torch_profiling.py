@@ -51,8 +51,8 @@ def test_measure_device_trace_needs_device_events(tmp_path):
 def test_kernel_names_are_the_ports_kernels():
     assert prof_t.kernel_names() == {
         "path_film_kernel", "film_splat_kernel", "stokes_sample_kernel", "path_sample_kernel",
-        "us_acq_kernel", "us_das_kernel", "us_das_adjoint_kernel", "mesh_direct_kernel",
-        "mesh_isect_kernel"}
+        "us_acq_kernel", "us_das_pack_kernel", "us_das_kernel", "us_das_adjoint_kernel",
+        "mesh_direct_kernel", "mesh_isect_kernel"}
 
 
 def test_launch_counts_reset_and_read():

@@ -17,8 +17,11 @@ the two differ where one of the two taps is inside; the matmul case
 therefore zeroes each trace's first and last sample, where the two forms
 define the same image, while its delays still fall off both ends.  The
 deposit mode's plain version and the coincident-prim records are compared
-bit for bit.
+bit for bit, as are the DAS kernel's packed taps (``das_pack_plain``) to
+the plain version's masked taps, pair by pair.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -120,6 +123,54 @@ def test_plain_das_single_pair_is_the_two_taps():
 
     np.testing.assert_allclose(got, tap(i0) * (1 - w) + tap(i0 + 1) * w, rtol=0,
                                atol=1e-4 * np.abs(trace).max())
+
+
+def test_das_pack_plain_is_the_padded_pairs():
+    """The packing pass's plain version: [A, E, T + 3, 2], entry j the
+    samples j - 2 and j - 1 of the trace, zeros before it and past it;
+    ``das_pack`` on a CPU tensor runs it and launches nothing."""
+    rf = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 3, 51))
+                          .astype(np.float32))
+    before = tb.das_pack.launches
+    got = tb.das_pack(rf)
+    assert tb.das_pack.launches == before
+    assert torch.equal(got, tb.das_pack_plain(rf)) and got.shape == (2, 3, 54, 2)
+    ref = np.zeros((2, 3, 55), np.float32)
+    ref[..., 2:53] = rf.numpy()
+    np.testing.assert_array_equal(got[..., 0].numpy(), ref[..., :54])
+    np.testing.assert_array_equal(got[..., 1].numpy(), ref[..., 1:])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_packed_taps_are_the_plain_versions_masked_taps(case):
+    """Each (angle, element) pair of a case: the DAS kernel's tap, the one
+    packed entry i0 + 2 of the index clamped to [-2, T] (in float32, as the
+    kernel clamps it), weighted as the kernel weights it, is bit-equal to
+    ``das_beamform_plain`` of that pair alone, whose delays leave the trace
+    at both ends: the packing's zeros are the plain version's masks."""
+    A, E, T, convex, t_offset, seed = CASES[case]
+    rf, angles, ex, ez, xg, zg = _case(A, E, T, convex, seed)
+    ez = np.zeros_like(ex) if ez is None else ez
+    packed = tb.das_pack_plain(torch.from_numpy(rf))
+    rad = torch.from_numpy(angles) * math.radians(1.0)
+    inv_c, fs = 1.0 / torch.tensor(C, dtype=torch.float32), torch.tensor(FS, dtype=torch.float32)
+    X, Z = torch.meshgrid(torch.from_numpy(xg), torch.from_numpy(zg), indexing="ij")
+    for a in range(A):
+        t_tx = (X * torch.sin(rad[a]) + Z * torch.cos(rad[a])) * inv_c
+        for e in range(E):
+            t_rx = torch.sqrt((X - float(ex[e])) ** 2 + (Z - float(ez[e])) ** 2) * inv_c
+            t_f = (t_tx + t_rx - t_offset) * fs
+            i0f = torch.floor(t_f)
+            w = t_f - i0f
+            i0 = torch.clamp(i0f, -2.0, float(T)).to(torch.int64)
+            v = packed[a, e][i0 + 2]
+            got = v[..., 0] * (1.0 - w) + v[..., 1] * w
+            want = tb.das_beamform_plain(torch.from_numpy(rf[a:a + 1, e:e + 1]), angles[a:a + 1],
+                                         ex[e:e + 1], FS, C, torch.from_numpy(xg),
+                                         torch.from_numpy(zg), t_offset=t_offset,
+                                         elem_z=ez[e:e + 1])
+            assert ((i0 < 0) | (i0 >= T - 1)).any() and ((i0 >= 0) & (i0 < T - 1)).any()
+            assert torch.equal(got, want), (a, e)
 
 
 def _pairs(st, rpp):

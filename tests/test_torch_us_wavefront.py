@@ -243,6 +243,17 @@ def _plate_scene(z0, max_depth=1, attenuation=0.0, roughness=0.3, n_elements=32)
     })
 
 
+def test_simulate_acquisition_jit_is_simulate_acquisition():
+    """tpu_rt's jitted entry point, kept by name: the same RF, delays and
+    ray count as ``simulate_acquisition`` for the same seed."""
+    sc = _plate_scene(0.01, max_depth=2)
+    ch, tx = wave_t.simulate_acquisition(sc, seed=3, rays_per_pair=2, device="cpu")
+    rays = int(wave_t.simulate_acquisition.last_ray_count)
+    ch_j, tx_j = wave_t.simulate_acquisition_jit(sc, seed=3, rays_per_pair=2, device="cpu")
+    assert ch.abs().sum().item() > 0 and torch.equal(ch_j, ch) and torch.equal(tx_j, tx)
+    assert int(wave_t.simulate_acquisition.last_ray_count) == rays > 0
+
+
 def test_echo_arrival_time_flat_plate():
     """tests/test_ultrasound.py:65 on the port's route: the first echo at
     2 z0 / c, the last within the aperture's spread."""

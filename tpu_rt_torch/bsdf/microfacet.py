@@ -1,5 +1,5 @@
 """Isotropic GGX microfacet distribution: D, Smith G, VNDF sampling and
-its pdf.
+its pdf, and the classic inverse-CDF theta sampler with its pdf.
 
 Counterpart of ``tpu_rt/bsdf/microfacet.py``; the same cancellation-free
 forms and clamps.  Directions are in the local shading frame (+Z = n).
@@ -81,3 +81,24 @@ def ggx_vndf_pdf(wi, m, alpha):
            / torch.clamp(torch.abs(wi_f[..., 2]), min=1e-12))
     return torch.clamp(pdf, min=0.0)
 
+
+
+def ggx_sample_theta_invcdf(xi, alpha):
+    """Inverse-CDF sampling of the GGX D(m) cos half-angle theta:
+    cos(theta) = sqrt((1 - xi) / (1 + (alpha^2 - 1) xi)).  The classic
+    sampler, kept for the chi-square test of its distribution against
+    ``ggx_theta_pdf``."""
+    a2 = alpha * alpha
+    cos_theta = safe_sqrt((1.0 - xi) / (1.0 + (a2 - 1.0) * xi))
+    return torch.arccos(torch.clamp(cos_theta, -1.0, 1.0))
+
+
+def ggx_theta_pdf(theta, alpha):
+    """pdf in the theta measure of D(m) cos(theta) sampling:
+    D(theta) cos sin 2 pi."""
+    cos_t = torch.cos(theta)
+    sin_t = torch.sin(theta)
+    a2 = alpha * alpha
+    denom = cos_t * cos_t * (a2 - 1.0) + 1.0
+    d = a2 / torch.clamp(math.pi * denom * denom, min=1e-20)
+    return d * cos_t * sin_t * 2.0 * math.pi

@@ -220,3 +220,8 @@ def simulate_acquisition(scene, seed=0, rays_per_pair=1, jitter_elements=False,
 
 
 simulate_acquisition.last_ray_count = None
+
+# tpu_rt's jitted entry (``simulate_acquisition_jit``, jax.jit over a
+# traceable scene); PyTorch runs eagerly, so it is the same function, as
+# ``us/pipeline.py`` keeps ``us_render_fast``.
+simulate_acquisition_jit = simulate_acquisition

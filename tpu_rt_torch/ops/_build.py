@@ -127,13 +127,16 @@ def load_library():
     # (records / deposit), time_samples, stream
     lib.us_acq_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, p]
     lib.us_acq_launch.restype = i
-    # rf, A, E, T, x grid, Nx, z grid, Nz, elem x, elem z, sin, cos, 1 / c,
-    # t_offset, fs, out, stream
+    # rf, rows (A E), T, the packed rf2, stream
+    lib.us_das_pack_launch.argtypes = [p, i, i, p, p]
+    lib.us_das_pack_launch.restype = i
+    # rf2 (packed), A, E, T, x grid, Nx, z grid, Nz, elem x, elem z, sin,
+    # cos, 1 / c, t_offset, fs, out, stream
     f = ctypes.c_float
     lib.us_das_launch.argtypes = [p, i, i, i, p, i, p, i, p, p, p, p, f, f, f, p, p]
     lib.us_das_launch.restype = i
-    # the same, then the cotangent g, d rf, the geometric cotangents (or
-    # NULL), stream
+    # the same with rf not packed, then the cotangent g, d rf, the
+    # geometric cotangents (or NULL), stream
     lib.us_das_adjoint_launch.argtypes = [p, i, i, i, p, i, p, i, p, p, p, p, f, f, f, p, p, p,
                                           p]
     lib.us_das_adjoint_launch.restype = i

@@ -4,13 +4,15 @@ Counterpart of ``tpu_rt/us/beamform.py``: the same functions, names and
 maths, in PyTorch on the device of the RF data.  None of these is a
 kernel of the JAX package (no Pallas).  ``das_beamform`` (the gather form)
 is a wrapper: on a CPU tensor it runs ``das_beamform_plain``, on a CUDA
-tensor it launches the hand-written kernel ``ops/csrc/us_das.cu`` (one
-thread a pixel, the same taps, the sums in another order) or raises;
-``das_beamform.launches`` counts its launches.  It is differentiable as
-tpu_rt's (jax.grad) is, in the RF and in the geometry: on the CPU torch's
-autograd differentiates the plain version; on CUDA its backward is the
-adjoint kernel of the same file (``das_adjoint``, ``das_adjoint_plain``
-its plain version), never the plain version.  ``das_beamform_matmul``
+tensor it launches the hand-written kernels of ``ops/csrc/us_das.cu``
+(``das_pack``, which lays each trace out as pairs of taps, then one thread
+a pixel, the same taps, the sums in another order) or raises;
+``das_beamform.launches`` and ``das_pack.launches`` count their launches.
+It is differentiable as tpu_rt's (jax.grad) is, in the RF and in the
+geometry: on the CPU torch's autograd differentiates the plain version;
+on CUDA its backward is the adjoint kernel of the same file
+(``das_adjoint``, ``das_adjoint_plain`` its plain version), never the
+plain version.  ``das_beamform_matmul``
 stays the port of tpu_rt's MXU form, in PyTorch.
 
 Geometry/time conventions match the acquisition: with per-element transmit
@@ -126,19 +128,61 @@ def das_beamform_plain(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
                     1.0 / c, fs, _f32(x_grid, dev), _f32(z_grid, dev), t_offset)
 
 
+def das_pack_plain(rf):
+    """The packing pass's plain version: rf [A, E, T] -> [A, E, T + 3, 2],
+    entry j the pair (pad[j], pad[j + 1]) of the trace padded with two
+    zeros before it and two after.  Entry i0 + 2 holds the two taps of an
+    index i0 in [-2, T], zeros where ``das_beamform_plain`` masks them."""
+    z = rf.new_zeros(rf.shape[:-1] + (2,))
+    pad = torch.cat([z, rf, z], dim=-1)
+    return torch.stack([pad[..., :-1], pad[..., 1:]], dim=-1)
+
+
+def das_pack(rf):
+    """The DAS kernel's input: ``das_pack_plain``'s function.  On a CPU
+    tensor this runs ``das_pack_plain``; on a CUDA tensor (float32 [A, E,
+    T], contiguous) it launches ``csrc/us_das.cu``'s packing kernel into a
+    tensor from ``torch.empty``, or raises.  ``das_pack.launches`` counts
+    its launches: one a forward DAS call."""
+    dev = rf.device
+    if dev.type == "cpu":
+        return das_pack_plain(rf)
+    if dev.type != "cuda":
+        raise ValueError(f"das_pack runs on cpu or cuda, not {dev.type}")
+    if rf.dtype != torch.float32 or rf.dim() != 3 or not rf.is_contiguous():
+        raise ValueError("das_pack needs contiguous float32 RF data [A, E, T]")
+    from tpu_rt_torch.ops import _build
+
+    A, E, T = rf.shape
+    out = torch.empty((A, E, T + 3, 2), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.us_das_pack_launch(rf.data_ptr(), A * E, T, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("us_das packing kernel launch failed: "
+                           + lib.us_das_error_string(err).decode())
+    das_pack.launches += 1
+    return out
+
+
+das_pack.launches = 0
+
+
 def _das_launch(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset):
     """``csrc/us_das.cu`` on CUDA tensors (``inv_c``, ``fs`` 0-d on any
-    device): the image [Nx, Nz]."""
+    device): the packing kernel, then the DAS kernel; the image [Nx, Nz]."""
     from tpu_rt_torch.ops import _build
 
     dev = rf.device
     A, E, T = rf.shape
+    rf2 = das_pack(rf)  # held by name until the DAS kernel is queued
     out = torch.empty((xg.shape[0], zg.shape[0]), dtype=torch.float32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.us_das_launch(
-            rf.data_ptr(), A, E, T, xg.data_ptr(), xg.shape[0], zg.data_ptr(), zg.shape[0],
+            rf2.data_ptr(), A, E, T, xg.data_ptr(), xg.shape[0], zg.data_ptr(), zg.shape[0],
             ex.data_ptr(), ez.data_ptr(), sin_a.data_ptr(), cos_a.data_ptr(), float(inv_c),
             float(t_offset), float(fs), out.data_ptr(), stream)
     if err != 0:
@@ -172,8 +216,9 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
 
     On a CPU tensor this runs ``das_beamform_plain``, which autograd
     differentiates.  On a CUDA tensor it launches ``csrc/us_das.cu`` (built
-    at first use) or raises: each tap is the plain version's arithmetic,
-    the sums over angles and elements are taken in another order.  Its
+    at first use: ``das_pack``'s kernel, then the DAS kernel) or raises:
+    each tap is the plain version's arithmetic, the sums over angles and
+    elements are taken in another order.  Its
     backward is the adjoint kernel of the same file (``das_adjoint``), in
     the RF and in the geometry (``elem_x``, ``elem_z``, the angles through
     their sines and cosines, ``c`` through 1 / c, and ``fs``), never the
@@ -231,9 +276,12 @@ def das_adjoint(rf, ex, ez, sin_a, cos_a, inv_c, fs, x_grid, z_grid, g, t_offset
     ``das_adjoint_plain``).
 
     On a CPU tensor this runs ``das_adjoint_plain``.  On a CUDA tensor it
-    launches the adjoint kernel of ``csrc/us_das.cu`` or raises: the taps'
-    weights added into d rf with atomics, the geometric terms summed over
-    warps and blocks, so in a run-dependent order.
+    launches the adjoint kernel of ``csrc/us_das.cu`` or raises: a block a
+    (pixel tile, element) adds its taps' weights into the tile's windows of
+    samples in shared memory, then each window into d rf with one atomic a
+    sample; the geometric terms are summed over blocks, so in a
+    run-dependent order.  The grids must be finite (a tile's window is
+    bounded from its extent).
     ``das_adjoint.launches`` counts kernel launches."""
     dev = rf.device
     if dev.type == "cpu":

@@ -202,8 +202,9 @@ def launch_counters():
     """The port's kernel wrappers by name, each counting its launches in
     ``.launches``: K1 and K3 (their trace kernels), film_splat, K6, K5, K4,
     K10 (its deposit mode, the acquisition's, and its records mode), the
-    DAS kernel and its adjoint, K9, K7.  K2's loop, around K1 or K3, is
-    counted by the two film wrappers' ``regen_launches``."""
+    DAS kernel, its packing pass and its adjoint, K9, K7.  K2's loop,
+    around K1 or K3, is counted by the two film wrappers'
+    ``regen_launches``."""
     from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
     from tpu_rt_torch.us import beamform
 
@@ -216,6 +217,7 @@ def launch_counters():
             "us_acq": us_kernel.us_trace_rf,
             "us_acq_records": us_kernel.us_trace,
             "us_das": beamform.das_beamform,
+            "us_das_pack": beamform.das_pack,
             "us_das_adjoint": beamform.das_adjoint,
             "mesh_direct": mesh_kernel.direct_trace,
             "mesh_isect": mesh_kernel.mesh_intersect}
