@@ -52,6 +52,8 @@ from tpu_rt_torch.scene.types import (
     Scene,
     grad_tensors,
 )
+from tpu_rt_torch.utils.profiling import span
+
 
 def _check_device(device):
     device = torch.device(device)
@@ -89,56 +91,57 @@ def render(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     An ultrasound scene gives the B-mode display image [Nz, Nx] of
     ``us_render(scene, seed, device=device, **us_kwargs)`` (e.g.
     ``rays_per_pair``, ``x_bounds``, ``z_bounds``, ``use_kernel``)."""
-    from tpu_rt_torch.ops import path_kernel
+    with span("tpu_rt_torch.render"):
+        from tpu_rt_torch.ops import path_kernel
 
-    device = _check_device(device)
-    if scene.integrator == INTEGRATOR_ULTRASOUND:
-        from tpu_rt_torch.us.pipeline import us_render
+        device = _check_device(device)
+        if scene.integrator == INTEGRATOR_ULTRASOUND:
+            from tpu_rt_torch.us.pipeline import us_render
 
-        return us_render(scene, seed=seed, device=device, **us_kwargs)[0]
-    if us_kwargs:
-        raise TypeError(f"render got unexpected arguments {sorted(us_kwargs)}")
-    if grad_tensors(scene) and scene.integrator != INTEGRATOR_STOKES:
-        # the film and direct kernels are forward only: a scene whose
-        # tensors require grad renders through the differentiable wavefront
-        max_depth = 2 if scene.integrator in (INTEGRATOR_DIRECT,
-                                              INTEGRATOR_DIRECT_PROJECTIVE) else None
-        return _render_wavefront(scene, spp, seed, device, max_depth=max_depth)
-    if scene.integrator == INTEGRATOR_STOKES:
-        from tpu_rt_torch.integrator.stokes import render_stokes
+            return us_render(scene, seed=seed, device=device, **us_kwargs)[0]
+        if us_kwargs:
+            raise TypeError(f"render got unexpected arguments {sorted(us_kwargs)}")
+        if grad_tensors(scene) and scene.integrator != INTEGRATOR_STOKES:
+            # the film and direct kernels are forward only: a scene whose
+            # tensors require grad renders through the differentiable wavefront
+            max_depth = 2 if scene.integrator in (INTEGRATOR_DIRECT,
+                                                  INTEGRATOR_DIRECT_PROJECTIVE) else None
+            return _render_wavefront(scene, spp, seed, device, max_depth=max_depth)
+        if scene.integrator == INTEGRATOR_STOKES:
+            from tpu_rt_torch.integrator.stokes import render_stokes
 
-        img = render_stokes(scene, spp=spp, seed=seed, device=device,
-                            spp_per_pass=spp_per_pass, tile_rows=tile_rows)
-        render.last_ray_count = render_stokes.last_ray_count
-        return img
-    if scene.integrator == INTEGRATOR_DIRECT_PROJECTIVE:
-        # its primal image is the direct integrator's
-        scene = scene.replace(integrator=INTEGRATOR_DIRECT)
-    if scene.integrator == INTEGRATOR_DIRECT:
-        from tpu_rt_torch.ops import mesh_kernel
+            img = render_stokes(scene, spp=spp, seed=seed, device=device,
+                                spp_per_pass=spp_per_pass, tile_rows=tile_rows)
+            render.last_ray_count = render_stokes.last_ray_count
+            return img
+        if scene.integrator == INTEGRATOR_DIRECT_PROJECTIVE:
+            # its primal image is the direct integrator's
+            scene = scene.replace(integrator=INTEGRATOR_DIRECT)
+        if scene.integrator == INTEGRATOR_DIRECT:
+            from tpu_rt_torch.ops import mesh_kernel
 
-        baked = mesh_kernel.bake_direct_scene(scene)
+            baked = mesh_kernel.bake_direct_scene(scene)
+            if baked is None:
+                return _render_wavefront(scene, spp, seed, device, max_depth=2)
+            img = mesh_kernel.mesh_direct_render(scene, spp=spp, seed=seed, device=device,
+                                                 spp_per_pass=spp_per_pass, baked=baked)
+            render.last_ray_count = mesh_kernel.mesh_direct_render.last_ray_count
+            return _develop_format(scene, img)
+        if scene.integrator != INTEGRATOR_PATH:
+            raise ValueError(f"unknown integrator {scene.integrator}")
+        baked = path_kernel.bake_scene(scene)
         if baked is None:
-            return _render_wavefront(scene, spp, seed, device, max_depth=2)
-        img = mesh_kernel.mesh_direct_render(scene, spp=spp, seed=seed, device=device,
-                                             spp_per_pass=spp_per_pass, baked=baked)
-        render.last_ray_count = mesh_kernel.mesh_direct_render.last_ray_count
+            return _render_wavefront(scene, spp, seed, device)
+        if baked.env_textured:
+            img, n_rays = path_kernel.render_sample_film(
+                scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
+                tile_rows=tile_rows, baked=baked)
+        else:
+            img, n_rays = path_kernel.render_film(
+                scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
+                tile_rows=tile_rows, baked=baked)
+        render.last_ray_count = n_rays
         return _develop_format(scene, img)
-    if scene.integrator != INTEGRATOR_PATH:
-        raise ValueError(f"unknown integrator {scene.integrator}")
-    baked = path_kernel.bake_scene(scene)
-    if baked is None:
-        return _render_wavefront(scene, spp, seed, device)
-    if baked.env_textured:
-        img, n_rays = path_kernel.render_sample_film(
-            scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
-            tile_rows=tile_rows, baked=baked)
-    else:
-        img, n_rays = path_kernel.render_film(
-            scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
-            tile_rows=tile_rows, baked=baked)
-    render.last_ray_count = n_rays
-    return _develop_format(scene, img)
 
 
 def _render_wavefront(scene: Scene, spp, seed, device, max_depth=None):

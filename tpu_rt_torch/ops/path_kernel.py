@@ -91,6 +91,7 @@ from tpu_rt_torch.scene.types import (
     Scene,
 )
 from tpu_rt_torch.sensor import film as _film
+from tpu_rt_torch.utils.profiling import span
 
 _MAX_PRIMS = 64
 _MAX_LIGHT_TRIS = 8
@@ -242,68 +243,69 @@ def bake_prims(scene: Scene, with_emitters=True, skip=None) -> Optional[List[Bak
 
 def bake_scene(scene: Scene) -> Optional[BakedScene]:
     """The kernel's constants, or None when the scene is out of scope."""
-    g = scene.geometry
-    if g.n_tris + g.n_analytic == 0 or scene.has_textures:
-        return None
-    mesh = None
-    if g.n_tris + g.n_analytic > _MAX_PRIMS:
-        mesh = _bake_mesh(scene)
-        if mesh is None:
+    with span("tpu_rt_torch.bake_scene"):
+        g = scene.geometry
+        if g.n_tris + g.n_analytic == 0 or scene.has_textures:
             return None
-    env_rgb = None
-    em = scene.emitters
-    env_textured = False
-    if em.has_env:
-        env_map = em.env_map.numpy()
-        if env_map.shape[:2] == (1, 1):
-            env_rgb = tuple((env_map[0, 0] * float(em.env_scale)).tolist())
-        else:
-            env_textured = True
-    btypes = scene.bsdf_type.numpy()
-    if not set(btypes.tolist()) <= _SUPPORTED_BSDFS:
-        return None
-    skip = None if mesh is None else mesh["tri_mask"]
-    prims = bake_prims(scene, skip=skip)
-    if prims is None or len(prims) > _MAX_PRIMS:
-        return None
-    # emissive triangles keep their place among the unrolled prims
-    tri_remap = np.arange(g.n_tris)
-    if skip is not None:
-        tri_remap = np.cumsum(~skip) - 1
-
-    bsdf_params = scene.bsdf_params.numpy()
-    bsdfs = [(int(t), tuple(bsdf_params[i].tolist())) for i, t in enumerate(btypes)]
-
-    offsets = em.em_offsets.numpy()
-    em_tri_prim = em.em_tri_prim.numpy()
-    em_tri_cdf = em.em_tri_cdf.numpy()
-    em_tris = []
-    for e in range(em.n_area):
-        lo, hi = int(offsets[e]), int(offsets[e + 1])
-        if hi - lo > _MAX_LIGHT_TRIS:
+        mesh = None
+        if g.n_tris + g.n_analytic > _MAX_PRIMS:
+            mesh = _bake_mesh(scene)
+            if mesh is None:
+                return None
+        env_rgb = None
+        em = scene.emitters
+        env_textured = False
+        if em.has_env:
+            env_map = em.env_map.numpy()
+            if env_map.shape[:2] == (1, 1):
+                env_rgb = tuple((env_map[0, 0] * float(em.env_scale)).tolist())
+            else:
+                env_textured = True
+        btypes = scene.bsdf_type.numpy()
+        if not set(btypes.tolist()) <= _SUPPORTED_BSDFS:
             return None
-        em_tris.append([(int(tri_remap[int(em_tri_prim[k])]), float(em_tri_cdf[k]))
-                        for k in range(lo, hi)])
-    point_lights = [(tuple(p), tuple(i)) for p, i in zip(
-        em.point_pos.numpy().tolist(), em.point_intensity.numpy().tolist())]
-    max_depth = scene.max_depth if scene.max_depth and scene.max_depth > 0 else _MAX_DEPTH
-    return BakedScene(
-        prims=prims,
-        bsdfs=bsdfs,
-        em_radiance=[tuple(r) for r in em.area_radiance.numpy().tolist()],
-        em_area=em.area_total.numpy().tolist(),
-        em_tris=em_tris,
-        point_lights=point_lights,
-        env_rgb=env_rgb,
-        env_textured=env_textured,
-        # the environment stays out of the NEE light set: the kernels
-        # sample it by the BSDF only
-        n_lights=em.n_area + len(point_lights),
-        max_depth=min(max_depth, _MAX_DEPTH),
-        rr_depth=scene.rr_depth,
-        hide_emitters=scene.hide_emitters,
-        mesh=mesh,
-    )
+        skip = None if mesh is None else mesh["tri_mask"]
+        prims = bake_prims(scene, skip=skip)
+        if prims is None or len(prims) > _MAX_PRIMS:
+            return None
+        # emissive triangles keep their place among the unrolled prims
+        tri_remap = np.arange(g.n_tris)
+        if skip is not None:
+            tri_remap = np.cumsum(~skip) - 1
+
+        bsdf_params = scene.bsdf_params.numpy()
+        bsdfs = [(int(t), tuple(bsdf_params[i].tolist())) for i, t in enumerate(btypes)]
+
+        offsets = em.em_offsets.numpy()
+        em_tri_prim = em.em_tri_prim.numpy()
+        em_tri_cdf = em.em_tri_cdf.numpy()
+        em_tris = []
+        for e in range(em.n_area):
+            lo, hi = int(offsets[e]), int(offsets[e + 1])
+            if hi - lo > _MAX_LIGHT_TRIS:
+                return None
+            em_tris.append([(int(tri_remap[int(em_tri_prim[k])]), float(em_tri_cdf[k]))
+                            for k in range(lo, hi)])
+        point_lights = [(tuple(p), tuple(i)) for p, i in zip(
+            em.point_pos.numpy().tolist(), em.point_intensity.numpy().tolist())]
+        max_depth = scene.max_depth if scene.max_depth and scene.max_depth > 0 else _MAX_DEPTH
+        return BakedScene(
+            prims=prims,
+            bsdfs=bsdfs,
+            em_radiance=[tuple(r) for r in em.area_radiance.numpy().tolist()],
+            em_area=em.area_total.numpy().tolist(),
+            em_tris=em_tris,
+            point_lights=point_lights,
+            env_rgb=env_rgb,
+            env_textured=env_textured,
+            # the environment stays out of the NEE light set: the kernels
+            # sample it by the BSDF only
+            n_lights=em.n_area + len(point_lights),
+            max_depth=min(max_depth, _MAX_DEPTH),
+            rr_depth=scene.rr_depth,
+            hide_emitters=scene.hide_emitters,
+            mesh=mesh,
+        )
 
 
 def _make_raygen(camera: Camera, n_pix):
@@ -463,112 +465,113 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device,
     ``tile_rows`` keys the RNG: tile = pixel // (tile_rows * 128).
     ``stokes`` packs the tables of the Stokes kernel (K3, K6), with the
     camera's x axis.  The header's regen flag is ``use_regen``."""
-    H, W = camera.height, camera.width
-    n_pix = H * W
-    if n_pix > 1 << 24:
-        raise ValueError("in-kernel raygen needs H*W <= 2^24")
-    if tile_rows < 1:
-        raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
-    rg = _make_raygen(camera, n_pix)
-    n_lights = bs.n_lights
-    g = [0.0] * G_LEN
-    if bs.env_rgb is not None:
-        g[G_ENV:G_ENV + 3] = [_f32(x) for x in bs.env_rgb]
-    g[G_INV_NL] = _f32(1.0 / max(n_lights, 1))
-    g[G_NL] = _f32(n_lights)
-    g[G_NL_M1] = _f32(n_lights - 1)
-    g[G_R:G_R + 9] = [_f32(x) for row in rg["R"] for x in row]
-    g[G_ORG:G_ORG + 3] = [_f32(x) for x in rg["origin"]]
-    g[G_TFX], g[G_TFY] = _f32(rg["tfx"]), _f32(rg["tfy"])
-    g[G_INVW], g[G_INVH] = _f32(1.0 / W), _f32(1.0 / H)
-    g[G_NEAR], g[G_FAR_NEAR] = _f32(rg["near"]), _f32(rg["far"] - rg["near"])
-    g[G_GAUSS_TAIL] = _GAUSS_TAIL
-    if stokes:
-        g[G_CAM_X:G_CAM_X + 3] = [_f32(x) for x in camera.to_world.numpy()[:3, 0]]
-    mesh = None
-    if bs.mesh is not None:
-        g[G_MESH_BSDF] = float(bs.mesh["bsdf"])
-        mesh = torch.from_numpy(np.concatenate(
-            [bs.mesh[k].reshape(-1) for k in ("bounds", "trisw", "nrm")])).to(device)
+    with span("tpu_rt_torch.pack_tables"):
+        H, W = camera.height, camera.width
+        n_pix = H * W
+        if n_pix > 1 << 24:
+            raise ValueError("in-kernel raygen needs H*W <= 2^24")
+        if tile_rows < 1:
+            raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
+        rg = _make_raygen(camera, n_pix)
+        n_lights = bs.n_lights
+        g = [0.0] * G_LEN
+        if bs.env_rgb is not None:
+            g[G_ENV:G_ENV + 3] = [_f32(x) for x in bs.env_rgb]
+        g[G_INV_NL] = _f32(1.0 / max(n_lights, 1))
+        g[G_NL] = _f32(n_lights)
+        g[G_NL_M1] = _f32(n_lights - 1)
+        g[G_R:G_R + 9] = [_f32(x) for row in rg["R"] for x in row]
+        g[G_ORG:G_ORG + 3] = [_f32(x) for x in rg["origin"]]
+        g[G_TFX], g[G_TFY] = _f32(rg["tfx"]), _f32(rg["tfy"])
+        g[G_INVW], g[G_INVH] = _f32(1.0 / W), _f32(1.0 / H)
+        g[G_NEAR], g[G_FAR_NEAR] = _f32(rg["near"]), _f32(rg["far"] - rg["near"])
+        g[G_GAUSS_TAIL] = _GAUSS_TAIL
+        if stokes:
+            g[G_CAM_X:G_CAM_X + 3] = [_f32(x) for x in camera.to_world.numpy()[:3, 0]]
+        mesh = None
+        if bs.mesh is not None:
+            g[G_MESH_BSDF] = float(bs.mesh["bsdf"])
+            mesh = torch.from_numpy(np.concatenate(
+                [bs.mesh[k].reshape(-1) for k in ("bounds", "trisw", "nrm")])).to(device)
 
-    prim_tab = pack_prims(bs.prims)
-    bsdf_tab = []
-    for bt, prm in bs.bsdfs:
-        rec = [0.0] * BSDF_STRIDE
-        rec[0] = float(bt)
-        rec[4] = 1.0  # eta_rel
-        rec[8:11] = [1.0, 1.0, 1.0]  # conductor k
-        rec[12:15] = [1.0, 1.0, 1.0]  # conductor specular_reflectance
-        if bt == BSDF_DIFFUSE:
-            rec[1:4] = [_f32(x) for x in prm[0:3]]
-        elif bt == BSDF_DIELECTRIC:
-            rec[4] = _f32(prm[0] / max(prm[1], 1e-6))
-        elif bt == BSDF_NULL:
-            rec[1:4] = [1.0, 1.0, 1.0]  # pass-through tint
-        elif bt == BSDF_POLARIZER:
-            # the intensity fallback's tint: half the transmittance
-            rec[1:4] = [_f32(x * 0.5) for x in prm[3:6]]
-        else:  # conductor, smooth or rough
-            if prm[0] < 0.0:  # perfect mirror marker
-                rec[11] = 1.0
-            else:
-                rec[5:8] = [_f32(x) for x in prm[0:3]]
-                rec[8:11] = [_f32(x) for x in prm[3:6]]
-            rec[12:15] = [_f32(x) for x in prm[6:9]]
-            if bt == BSDF_ROUGH_CONDUCTOR:
-                rec[B_ALPHA] = _f32(max(prm[9], 1e-3))
-        bsdf_tab += rec
+        prim_tab = pack_prims(bs.prims)
+        bsdf_tab = []
+        for bt, prm in bs.bsdfs:
+            rec = [0.0] * BSDF_STRIDE
+            rec[0] = float(bt)
+            rec[4] = 1.0  # eta_rel
+            rec[8:11] = [1.0, 1.0, 1.0]  # conductor k
+            rec[12:15] = [1.0, 1.0, 1.0]  # conductor specular_reflectance
+            if bt == BSDF_DIFFUSE:
+                rec[1:4] = [_f32(x) for x in prm[0:3]]
+            elif bt == BSDF_DIELECTRIC:
+                rec[4] = _f32(prm[0] / max(prm[1], 1e-6))
+            elif bt == BSDF_NULL:
+                rec[1:4] = [1.0, 1.0, 1.0]  # pass-through tint
+            elif bt == BSDF_POLARIZER:
+                # the intensity fallback's tint: half the transmittance
+                rec[1:4] = [_f32(x * 0.5) for x in prm[3:6]]
+            else:  # conductor, smooth or rough
+                if prm[0] < 0.0:  # perfect mirror marker
+                    rec[11] = 1.0
+                else:
+                    rec[5:8] = [_f32(x) for x in prm[0:3]]
+                    rec[8:11] = [_f32(x) for x in prm[3:6]]
+                rec[12:15] = [_f32(x) for x in prm[6:9]]
+                if bt == BSDF_ROUGH_CONDUCTOR:
+                    rec[B_ALPHA] = _f32(max(prm[9], 1e-3))
+            bsdf_tab += rec
 
-    em_tab = []
-    for e, rad in enumerate(bs.em_radiance):
-        rec = [0.0] * EM_STRIDE
-        rec[0:3] = [_f32(x) for x in rad]
-        rec[3] = _f32(1.0 / bs.em_area[e])
-        rec[4] = float(len(bs.em_tris[e]))
-        prev_cdf = 0.0
-        for j, (tp, cdf_hi) in enumerate(bs.em_tris[e]):
-            rec[5 + 3 * j:8 + 3 * j] = [float(tp), _f32(prev_cdf), _f32(cdf_hi + 1e-9)]
-            prev_cdf = cdf_hi
-        em_tab += rec
+        em_tab = []
+        for e, rad in enumerate(bs.em_radiance):
+            rec = [0.0] * EM_STRIDE
+            rec[0:3] = [_f32(x) for x in rad]
+            rec[3] = _f32(1.0 / bs.em_area[e])
+            rec[4] = float(len(bs.em_tris[e]))
+            prev_cdf = 0.0
+            for j, (tp, cdf_hi) in enumerate(bs.em_tris[e]):
+                rec[5 + 3 * j:8 + 3 * j] = [float(tp), _f32(prev_cdf), _f32(cdf_hi + 1e-9)]
+                prev_cdf = cdf_hi
+            em_tab += rec
 
-    pt_tab = []
-    for pos, inten in bs.point_lights:
-        pt_tab += [_f32(x) for x in pos] + [_f32(x) for x in inten] + [0.0, 0.0]
+        pt_tab = []
+        for pos, inten in bs.point_lights:
+            pt_tab += [_f32(x) for x in pos] + [_f32(x) for x in inten] + [0.0, 0.0]
 
-    off_prim = G_LEN
-    off_bsdf = off_prim + len(prim_tab)
-    off_em = off_bsdf + len(bsdf_tab)
-    off_pt = off_em + len(em_tab)
-    tab = g + prim_tab + bsdf_tab + em_tab + pt_tab
-    if len(tab) > _MAX_TABLE_FLOATS:
-        raise ValueError(f"scene tables of {len(tab)} floats exceed the "
-                         f"kernel's shared-memory budget ({_MAX_TABLE_FLOATS})")
-    hdr = [0] * HDR_LEN
-    hdr[HDR_N_PRIMS] = len(bs.prims)
-    hdr[HDR_N_AREA] = len(bs.em_radiance)
-    hdr[HDR_N_LIGHTS] = n_lights
-    hdr[HDR_MAX_DEPTH] = bs.max_depth
-    hdr[HDR_RR_DEPTH] = bs.rr_depth
-    hdr[HDR_HIDE_EMITTERS] = int(bs.hide_emitters)
-    hdr[HDR_HAS_ENV] = int(bs.env_rgb is not None)
-    hdr[HDR_HAS_FAR] = int(rg["far"] < 1e8)
-    hdr[HDR_W], hdr[HDR_H] = W, H
-    hdr[HDR_TILE_LANES] = tile_rows * 128
-    hdr[HDR_OFF_PRIM], hdr[HDR_OFF_BSDF] = off_prim, off_bsdf
-    hdr[HDR_OFF_EM], hdr[HDR_OFF_PT] = off_em, off_pt
-    hdr[HDR_MESH_C] = 0 if bs.mesh is None else bs.mesh["bounds"].shape[0]
-    hdr[HDR_STOKES] = int(bool(stokes))
-    hdr[HDR_REGEN] = int(use_regen(bs))
-    hdr[HDR_ENV_TEXTURED] = int(bs.env_textured)
-    hdr[HDR_ROUGH_CONE] = int(any(bt == BSDF_ROUGH_CONDUCTOR for bt, _ in bs.bsdfs)
-                              or any(p.kind == "cone" for p in bs.prims))
-    return FilmTables(
-        hdr=torch.tensor(hdr, dtype=torch.int32, device=device),
-        tab=torch.tensor(tab, dtype=torch.float32, device=device),
-        hdr_list=hdr, tab_list=tab, H=H, W=W,
-        radius=_FILTER_FOOT[_filter_name(camera.filter_type)],
-        mesh=mesh,
-    )
+        off_prim = G_LEN
+        off_bsdf = off_prim + len(prim_tab)
+        off_em = off_bsdf + len(bsdf_tab)
+        off_pt = off_em + len(em_tab)
+        tab = g + prim_tab + bsdf_tab + em_tab + pt_tab
+        if len(tab) > _MAX_TABLE_FLOATS:
+            raise ValueError(f"scene tables of {len(tab)} floats exceed the "
+                             f"kernel's shared-memory budget ({_MAX_TABLE_FLOATS})")
+        hdr = [0] * HDR_LEN
+        hdr[HDR_N_PRIMS] = len(bs.prims)
+        hdr[HDR_N_AREA] = len(bs.em_radiance)
+        hdr[HDR_N_LIGHTS] = n_lights
+        hdr[HDR_MAX_DEPTH] = bs.max_depth
+        hdr[HDR_RR_DEPTH] = bs.rr_depth
+        hdr[HDR_HIDE_EMITTERS] = int(bs.hide_emitters)
+        hdr[HDR_HAS_ENV] = int(bs.env_rgb is not None)
+        hdr[HDR_HAS_FAR] = int(rg["far"] < 1e8)
+        hdr[HDR_W], hdr[HDR_H] = W, H
+        hdr[HDR_TILE_LANES] = tile_rows * 128
+        hdr[HDR_OFF_PRIM], hdr[HDR_OFF_BSDF] = off_prim, off_bsdf
+        hdr[HDR_OFF_EM], hdr[HDR_OFF_PT] = off_em, off_pt
+        hdr[HDR_MESH_C] = 0 if bs.mesh is None else bs.mesh["bounds"].shape[0]
+        hdr[HDR_STOKES] = int(bool(stokes))
+        hdr[HDR_REGEN] = int(use_regen(bs))
+        hdr[HDR_ENV_TEXTURED] = int(bs.env_textured)
+        hdr[HDR_ROUGH_CONE] = int(any(bt == BSDF_ROUGH_CONDUCTOR for bt, _ in bs.bsdfs)
+                                  or any(p.kind == "cone" for p in bs.prims))
+        return FilmTables(
+            hdr=torch.tensor(hdr, dtype=torch.int32, device=device),
+            tab=torch.tensor(tab, dtype=torch.float32, device=device),
+            hdr_list=hdr, tab_list=tab, H=H, W=W,
+            radius=_FILTER_FOOT[_filter_name(camera.filter_type)],
+            mesh=mesh,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -1794,11 +1797,12 @@ def film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
     most RECORD_CHUNK samples (``split_film``).  ``film_trace.launches``
     counts K1's trace-kernel launches, ``regen_launches`` those in K2's
     loop; ``film_splat.launches`` the splat's."""
-    _check_kind(tables, False, "film_trace")
-    if tables.tab.device.type == "cpu":
-        return film_trace_plain(tables, seed, n_samples)
-    return split_film(tables, seed, n_samples,
-                      lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
+    with span("tpu_rt_torch.film_trace"):
+        _check_kind(tables, False, "film_trace")
+        if tables.tab.device.type == "cpu":
+            return film_trace_plain(tables, seed, n_samples)
+        return split_film(tables, seed, n_samples,
+                          lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
 
 
 def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
@@ -1888,17 +1892,18 @@ stokes_sample_trace.launches = raygen_trace.launches = path_trace.launches = 0
 def deposit(film, planes, tables: FilmTables):
     """Add one chunk's planes into the (n_val, H, W) film, in place: each
     filter offset (dy, dx) lands on pixel p + (dy, dx)."""
-    r = tables.radius
-    acc = planes[:-1].view(-1, tables.n_val, tables.H, tables.W)
-    if r == 0:
-        film += acc[0]
+    with span("tpu_rt_torch.deposit"):
+        r = tables.radius
+        acc = planes[:-1].view(-1, tables.n_val, tables.H, tables.W)
+        if r == 0:
+            film += acc[0]
+            return film
+        i = 0
+        for dy in range(-r, r + 1):
+            for dx in range(-r, r + 1):
+                _film._shift_add(film, acc[i], dy, dx)
+                i += 1
         return film
-    i = 0
-    for dy in range(-r, r + 1):
-        for dx in range(-r, r + 1):
-            _film._shift_add(film, acc[i], dy, dx)
-            i += 1
-    return film
 
 
 def _render_chunks(tables: FilmTables, trace, spp, seed, spp_per_pass, regen):

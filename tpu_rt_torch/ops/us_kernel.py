@@ -79,6 +79,7 @@ from tpu_rt_torch.ops.path_kernel import (
 )
 from tpu_rt_torch.scene.types import BSDF_ULTRASOUND, Scene, grad_tensors, with_tensors
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
+from tpu_rt_torch.utils.profiling import span
 
 _MAX_PRIMS = 64
 _BIG = 1e8
@@ -557,19 +558,20 @@ def simulate_acquisition(scene: Scene, seed=0, rays_per_pair=1, device="cuda",
     ``seed`` keys the kernel's RNG as tpu_rt's ``simulate_acquisition_pallas``
     does; ``tile_rows=8`` is what its ``us_render`` uses.  Raises
     ValueError when the scene is outside the kernel's scope."""
-    def inputs():
-        bs = bake_us_scene(scene)
-        if bs is None:
-            raise ValueError("scene not supported by the ultrasound kernel")
-        base = plane_wave_rays(scene.ultrasound.detach())
-        rays = torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]]).to(device)
-        return pack_us_tables(bs, tile_rows, device), rays
+    with span("tpu_rt_torch.simulate_acquisition"):
+        def inputs():
+            bs = bake_us_scene(scene)
+            if bs is None:
+                raise ValueError("scene not supported by the ultrasound kernel")
+            base = plane_wave_rays(scene.ultrasound.detach())
+            rays = torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]]).to(device)
+            return pack_us_tables(bs, tile_rows, device), rays
 
-    tables, rays = per_scene(scene, ("acquisition", tile_rows, str(device)), inputs)
-    us = scene.ultrasound
-    A, E, T = us.n_angles, us.n_elements, us.time_samples
-    channel = us_trace_rf(tables, rays, seed, A, T, rays_per_pair)
-    return channel.div_(float(rays_per_pair)), rays[6].reshape(A, E).clone()
+        tables, rays = per_scene(scene, ("acquisition", tile_rows, str(device)), inputs)
+        us = scene.ultrasound
+        A, E, T = us.n_angles, us.n_elements, us.time_samples
+        channel = us_trace_rf(tables, rays, seed, A, T, rays_per_pair)
+        return channel.div_(float(rays_per_pair)), rays[6].reshape(A, E).clone()
 
 
 class _FastGrad(torch.autograd.Function):

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from tpu_rt_torch.scene.types import FILTER_BOX, FILTER_GAUSSIAN, FILTER_TENT
+from tpu_rt_torch.utils.profiling import span
 
 
 def filter_weight(filter_type: int, x):
@@ -141,4 +142,5 @@ def splat_in_order(film_vals, film_wts, jitter, values, active, filter_type: int
 def develop(film_vals, film_wts):
     """Normalize accumulated samples by filter weights:
     (H, W, C) / (H, W)."""
-    return film_vals / torch.clamp(film_wts[..., None], min=1e-12)
+    with span("tpu_rt_torch.develop"):
+        return film_vals / torch.clamp(film_wts[..., None], min=1e-12)

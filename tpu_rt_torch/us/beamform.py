@@ -36,6 +36,8 @@ import math
 import numpy as np
 import torch
 
+from tpu_rt_torch.utils.profiling import span
+
 
 def _f32(x, device=None):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -223,28 +225,30 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
     the RF and in the geometry (``elem_x``, ``elem_z``, the angles through
     their sines and cosines, ``c`` through 1 / c, and ``fs``), never the
     plain version.  ``das_beamform.launches`` counts forward launches."""
-    channel_data = _f32(channel_data)
-    dev = channel_data.device
-    if dev.type == "cpu":
-        return das_beamform_plain(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
-                                  t_offset=t_offset, elem_z=elem_z)
-    if dev.type != "cuda":
-        raise ValueError(f"das_beamform runs on cpu or cuda, not {dev.type}")
-    if channel_data.dim() != 3:
-        raise ValueError("das_beamform needs RF data [A, E, T]")
-    elem_x, elem_z, angles, fs, c = _setup(channel_data, angles_deg, elem_x, elem_z, fs, c)
-    A, E, T = channel_data.shape
-    if angles.shape != (A,) or elem_x.shape != (E,) or elem_z.shape != (E,):
-        raise ValueError(f"das_beamform needs {A} angles and {E} element positions")
-    # every buffer the kernels read is held by a name (here, then in the
-    # autograd context) until it has been queued: a temporary's memory
-    # could be reused before the launch
-    rf = channel_data.contiguous()
-    xg, zg = _f32(x_grid, dev).reshape(-1).contiguous(), _f32(z_grid, dev).reshape(-1).contiguous()
-    ex, ez = elem_x.contiguous(), elem_z.contiguous()
-    sin_a, cos_a = torch.sin(angles), torch.cos(angles)
-    inv_c = 1.0 / c  # as das_beamform_plain computes it
-    return _DAS.apply(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, float(t_offset))
+    with span("tpu_rt_torch.das_beamform"):
+        channel_data = _f32(channel_data)
+        dev = channel_data.device
+        if dev.type == "cpu":
+            return das_beamform_plain(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
+                                      t_offset=t_offset, elem_z=elem_z)
+        if dev.type != "cuda":
+            raise ValueError(f"das_beamform runs on cpu or cuda, not {dev.type}")
+        if channel_data.dim() != 3:
+            raise ValueError("das_beamform needs RF data [A, E, T]")
+        elem_x, elem_z, angles, fs, c = _setup(channel_data, angles_deg, elem_x, elem_z, fs, c)
+        A, E, T = channel_data.shape
+        if angles.shape != (A,) or elem_x.shape != (E,) or elem_z.shape != (E,):
+            raise ValueError(f"das_beamform needs {A} angles and {E} element positions")
+        # every buffer the kernels read is held by a name (here, then in the
+        # autograd context) until it has been queued: a temporary's memory
+        # could be reused before the launch
+        rf = channel_data.contiguous()
+        xg = _f32(x_grid, dev).reshape(-1).contiguous()
+        zg = _f32(z_grid, dev).reshape(-1).contiguous()
+        ex, ez = elem_x.contiguous(), elem_z.contiguous()
+        sin_a, cos_a = torch.sin(angles), torch.cos(angles)
+        inv_c = 1.0 / c  # as das_beamform_plain computes it
+        return _DAS.apply(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, float(t_offset))
 
 
 das_beamform.launches = 0
@@ -447,20 +451,22 @@ def _analytic_filter(n, device):
 def hilbert_envelope(img, axis=-1):
     """Envelope via the analytic signal (Hilbert transform along ``axis``),
     ultraspy's compute_envelope."""
-    n = img.shape[axis]
-    shape = [1] * img.dim()
-    shape[axis] = n
-    Xf = torch.fft.fft(img, dim=axis)
-    analytic = torch.fft.ifft(Xf * _analytic_filter(n, img.device).reshape(shape), dim=axis)
-    return torch.abs(analytic)
+    with span("tpu_rt_torch.hilbert_envelope"):
+        n = img.shape[axis]
+        shape = [1] * img.dim()
+        shape[axis] = n
+        Xf = torch.fft.fft(img, dim=axis)
+        analytic = torch.fft.ifft(Xf * _analytic_filter(n, img.device).reshape(shape), dim=axis)
+        return torch.abs(analytic)
 
 
 def log_compress(envelope, dynamic_range=60.0):
     """20 log10 compression to [0, 1] over ``dynamic_range`` dB."""
-    db = 20.0 * torch.log10(envelope + 1e-12)
-    max_db = db.max()
-    min_db = max_db - dynamic_range
-    return (torch.clamp(db, min_db, max_db) - min_db) / dynamic_range
+    with span("tpu_rt_torch.log_compress"):
+        db = 20.0 * torch.log10(envelope + 1e-12)
+        max_db = db.max()
+        min_db = max_db - dynamic_range
+        return (torch.clamp(db, min_db, max_db) - min_db) / dynamic_range
 
 
 def bmode_pipeline(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,

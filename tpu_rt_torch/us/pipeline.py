@@ -46,6 +46,7 @@ from tpu_rt_torch.ops.us_kernel import per_scene
 from tpu_rt_torch.scene.types import Scene, grad_tensors
 from tpu_rt_torch.sensor.transducer import element_geometry
 from tpu_rt_torch.us.beamform import bmode_pipeline, grid_scan
+from tpu_rt_torch.utils.profiling import span
 
 
 def in_kernel_scope(scene: Scene) -> bool:
@@ -84,30 +85,31 @@ def us_render(scene: Scene, seed=0, rays_per_pair=1, x_bounds=(-0.04, 0.04),
     backpropagates through its adjoint kernel on CUDA (through autograd of
     its plain version on the CPU).  Otherwise the kernel route runs
     ``simulate_acquisition`` (tpu_rt's ``_forward_only``)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("us_render(device='cuda') needs a CUDA device; "
-                           "pass device='cpu' to run the plain version")
-    us = scene.ultrasound
-    if use_kernel and in_kernel_scope(scene):
-        acquire = (us_kernel.simulate_acquisition_fastgrad if grad_tensors(scene)
-                   else us_kernel.simulate_acquisition)
-    else:
-        acquire = wavefront.simulate_acquisition
-    channel_buf, tx = acquire(scene, seed=seed, rays_per_pair=rays_per_pair, device=device)
+    with span("tpu_rt_torch.us_render"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("us_render(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' to run the plain version")
+        us = scene.ultrasound
+        if use_kernel and in_kernel_scope(scene):
+            acquire = (us_kernel.simulate_acquisition_fastgrad if grad_tensors(scene)
+                       else us_kernel.simulate_acquisition)
+        else:
+            acquire = wavefront.simulate_acquisition
+        channel_buf, tx = acquire(scene, seed=seed, rays_per_pair=rays_per_pair, device=device)
 
-    def grid():
-        step = float(us.sound_speed.detach()) / float(us.frequency.detach()) / 4.0
-        x_grid, z_grid = grid_scan(x_bounds[0], x_bounds[1], z_bounds[0], z_bounds[1], step,
-                                   step)
-        return x_grid.to(device), z_grid.to(device)
+        def grid():
+            step = float(us.sound_speed.detach()) / float(us.frequency.detach()) / 4.0
+            x_grid, z_grid = grid_scan(x_bounds[0], x_bounds[1], z_bounds[0], z_bounds[1], step,
+                                       step)
+            return x_grid.to(device), z_grid.to(device)
 
-    x_grid, z_grid = per_scene(scene, ("grid", tuple(x_bounds), tuple(z_bounds), str(device)),
-                               grid)
-    elem_x, elem_z, angles = _das_geometry(scene, device)
-    img = bmode_pipeline(channel_buf, angles, elem_x, us.sampling_rate, us.sound_speed,
-                         x_grid, z_grid, dynamic_range, method="gather", elem_z=elem_z)
-    return img, channel_buf, tx
+        x_grid, z_grid = per_scene(scene, ("grid", tuple(x_bounds), tuple(z_bounds), str(device)),
+                                   grid)
+        elem_x, elem_z, angles = _das_geometry(scene, device)
+        img = bmode_pipeline(channel_buf, angles, elem_x, us.sampling_rate, us.sound_speed,
+                             x_grid, z_grid, dynamic_range, method="gather", elem_z=elem_z)
+        return img, channel_buf, tx
 
 
 us_render_fast = us_render
