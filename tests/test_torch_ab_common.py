@@ -20,7 +20,7 @@ def test_a_plain_variant_is_its_directory(tmp_path):
 
 
 @pytest.mark.parametrize("const, value, source", [("kMaxTableFloats", "8192", "us_acq.cu"),
-                                                   ("kUnroll", "2", "us_das.cu")])
+                                                   ("kStages", "6", "us_das.cu")])
 def test_a_constant_is_set_in_a_copy(tmp_path, const, value, source):
     d = ab_common.variant_dir("v", f"{CSRC}:{const}={value}", ("us_acq.cu", "us_das.cu"),
                               str(tmp_path))

@@ -23,8 +23,9 @@ index_add_); the DAS kernel equal to its plain version with one angle and
 one element (each tap the same arithmetic, a one-term sum) and within
 2e-5 of the largest |pixel| at USMain's full shape (320 terms summed in
 another order), bit-equal to the first DAS kernel's order of sums done one
-torch operation at a time, and its packing kernel bit-equal to its plain
-version; the DAS adjoint against autograd of the plain form, also in its
+torch operation at a time (also with its windows split over ring slots),
+and its packing kernel bit-equal to its plain version; the DAS adjoint
+against autograd of the plain form, also in its
 split mode on a 70 000-sample trace;
 the direct mesh kernel bit-equal (radiance and rays cast); the
 mesh-intersect kernel bit-equal (t, prim, u, v), also with dead lanes
@@ -1087,6 +1088,54 @@ def test_das_kernel_keeps_the_first_kernels_order(A, E, nx, nz):
     assert torch.equal(got, want)
     plain = beamform.das_beamform_plain(*args, t_offset=t_offset, elem_z=ez)
     assert (got - plain).abs().max().item() <= 2e-5 * plain.abs().max().item()
+
+
+def _fine_grid(nx, nz, z0=0.001, z1=0.05):
+    """A lambda / 4 grid of USMain's 5 MHz (the step its frame takes), nx
+    columns about x = 0 and nz rows from z0 to z1 (as close as the step
+    falls)."""
+    step = 1540.0 / 5e6 / 4.0
+    xg = (torch.arange(nx, dtype=torch.float32) - (nx - 1) / 2) * step
+    zg = torch.linspace(z0, z1, nz)
+    return xg.cuda(), zg.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,E,T,nx,nz,split", [(5, 16, 3000, 40, 640, False),
+                                                (1, 7, 3000, 37, 301, False),
+                                                (75, 4, 3000, 24, 640, False),
+                                                (9, 5, 3000, 40, 33, True)],
+                         ids=["clipped", "one-angle-ragged", "75-angles", "coarse-split"])
+def test_das_kernel_stages_its_windows_in_the_first_kernels_order(A, E, T, nx, nz, split):
+    """The forward's taps from the windows staged in shared memory, on
+    every shape the planner meets: delays before the trace's start and
+    past its end (the windows clipped at 0 and at T), one angle, 75 angles
+    (9 passes of 8 and a tail of 3, a ring of fewer
+    slots), grids that are no
+    multiple of the tile (37, 301, 33), a convex row (elem_z not 0), and a
+    coarse grid whose windows exceed a slot (the split mode, which
+    das_beamform.split_launches counts).  Bit-equal to the first kernel's
+    order of sums (_das_in_order) on each."""
+    _need_cuda()
+    rf, angles, ex, xg, zg = _das_case(A, E, T, nx, nz, 17)
+    if not split:
+        xg, zg = _fine_grid(nx, nz)
+    ez = 2e-4 * np.cos(np.arange(E))
+    t_offset = 3e-6
+    t_f = (zg * 2 / 1540.0 - t_offset) * 50e6  # on axis, the delays' reach
+    assert t_f.min().item() < 0 and t_f.max().item() > T
+    plan = beamform.das_plan(A, T, xg, zg, 50e6, 1.0 / torch.tensor(1540.0))
+    assert plan.split == split
+    want = _das_in_order(rf, angles, torch.tensor(ex, dtype=torch.float32).tolist(),
+                         torch.tensor(ez, dtype=torch.float32).tolist(), xg, zg, t_offset)
+    before = (beamform.das_beamform.launches, beamform.das_beamform.split_launches)
+    got = beamform.das_beamform(rf, angles, ex, 50e6, 1540.0, xg, zg, t_offset=t_offset,
+                                elem_z=ez)
+    torch.cuda.synchronize()
+    assert (beamform.das_beamform.launches,
+            beamform.das_beamform.split_launches) == (before[0] + 1, before[1] + split)
+    assert got.shape == (nx, nz) and want.abs().max().item() > 0
+    assert torch.equal(got, want)
 
 
 def _adjoint_args(A, E, T, nx, nz, seed):

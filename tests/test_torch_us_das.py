@@ -173,6 +173,97 @@ def test_packed_taps_are_the_plain_versions_masked_taps(case):
             assert torch.equal(got, want), (a, e)
 
 
+def _stage_entries(plan, A, E, T, xg, zg, ex, ez, angles, fs, inv_c, t_offset):
+    """The entries of rf2 (``das_pack``) that the DAS kernel's stages read,
+    the largest over its tiles, passes of angles and elements: (by brute
+    force, every pixel's index with ``das_beamform_plain``'s arithmetic;
+    by the kernel's bound, ``delay_bounds`` over the tile's box).  A
+    window spans the clamped indices' entries i0 + 2, widened to even
+    entries of rf2 (16-byte bounds); a stage is a pass's windows of the
+    plan's ``stage_elems`` elements."""
+    k_a = min(A, tb.DAS_MAX_ANGLES)
+    rad = torch.from_numpy(angles) * math.radians(1.0)
+    sa, ca = torch.sin(rad), torch.cos(rad)
+    rows = (torch.arange(A) * E) * (T + 3)
+    worst = [0, 0]
+    n_pass = -(-A // k_a)
+    for x0 in range(0, xg.shape[0], plan.tile_x):
+        for z0 in range(0, zg.shape[0], plan.tile_z):
+            xs, zs = xg[x0:x0 + plan.tile_x], zg[z0:z0 + plan.tile_z]
+            X, Z = (g.reshape(-1) for g in torch.meshgrid(xs, zs, indexing="ij"))
+            bx0, bx1, bz0, bz1 = xs.min(), xs.max(), zs.min(), zs.max()
+            t_tx = (X[None] * sa[:, None] + Z[None] * ca[:, None]) * inv_c  # [A, P]
+            q = torch.stack([bx0 * sa + bz0 * ca, bx0 * sa + bz1 * ca, bx1 * sa + bz0 * ca,
+                             bx1 * sa + bz1 * ca])
+            stages = torch.zeros(2, n_pass, -(-E // plan.stage_elems), dtype=torch.int64)
+            for e in range(E):
+                t_rx = torch.sqrt((X - ex[e]) ** 2 + (Z - ez[e]) ** 2) * inv_c
+                i0 = torch.floor((t_tx + t_rx - t_offset) * fs)
+                dx, dz = torch.stack([bx0, bx1]) - ex[e], torch.stack([bz0, bz1]) - ez[e]
+                dx2_lo = 0.0 if bx0 <= ex[e] <= bx1 else (dx * dx).min()
+                dz2_lo = 0.0 if bz0 <= ez[e] <= bz1 else (dz * dz).min()
+                r = (torch.sqrt(dx2_lo + dz2_lo), torch.sqrt((dx * dx).max() + (dz * dz).max()))
+                f = torch.stack([(qq * inv_c + rr * inv_c - t_offset) * fs
+                                 for qq in (q.min(0).values, q.max(0).values) for rr in r])
+                true = (i0.min(1).values, i0.max(1).values)
+                bound = (torch.floor(f.min(0).values), torch.floor(f.max(0).values))
+                assert (bound[0] <= true[0]).all() and (bound[1] >= true[1]).all()
+                for k, (lo, hi) in enumerate((true, bound)):
+                    lo, hi = (torch.clamp(v, -2.0, float(T)).to(torch.int64) for v in (lo, hi))
+                    rows_e = rows + e * (T + 3)
+                    n = (rows_e + hi + 4) // 2 * 2 - (rows_e + lo + 2) // 2 * 2
+                    stages[k, :, e // plan.stage_elems] += torch.stack(
+                        [c.sum() for c in n.split(k_a)])
+            worst = [max(w, int(st.max())) for w, st in zip(worst, stages)]
+    return worst
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_das_plan_bounds_every_stage(seed):
+    """The DAS kernel's planner on random small geometries (angles,
+    elements, trace lengths, grids of random pitch, some of them uneven,
+    sampling rates, sound speeds, offsets): the kernel's bound of each
+    window contains the window found by brute force, and, where the plan
+    does not split, the stage capacity holds every stage of both; its ring
+    holds two slots.  A split plan's slot is a ``DAS_STAGES``-th of the
+    ring."""
+    rng = np.random.default_rng(seed)
+    A, E, T = int(rng.integers(1, 13)), int(rng.integers(1, 5)), int(rng.integers(100, 3000))
+    fs, c = float(rng.uniform(5e6, 6e7)), float(rng.uniform(1400.0, 1600.0))
+    step = c / fs * rng.uniform(0.5, 3.0)
+    nx, nz = (int(v) for v in rng.integers(5, 80, 2))
+    xg = np.cumsum(step * rng.uniform(0.5 if seed % 2 else 1.0, 1.0, nx)) - step * nx / 2
+    zg = 1e-3 + np.cumsum(step * rng.uniform(0.5 if seed % 2 else 1.0, 1.0, nz))
+    xg, zg = (torch.from_numpy(g.astype(np.float32)) for g in (xg, zg))
+    angles = np.sort(rng.uniform(-30.0, 30.0, A)).astype(np.float32)
+    ex = torch.from_numpy(((np.arange(E) - (E - 1) / 2) * 3e-4).astype(np.float32))
+    ez = torch.from_numpy((2e-4 * rng.random(E)).astype(np.float32))
+    t_offset = float(rng.uniform(-2e-6, 4e-6))
+    fs_t, inv_c = torch.tensor(fs, dtype=torch.float32), 1.0 / torch.tensor(c, dtype=torch.float32)
+    plan = tb.das_plan(A, T, xg, zg, fs_t, inv_c)
+    assert plan.tile_z * plan.tile_x == tb.DAS_WARPS * tb.DAS_PIX * 32
+    assert plan.capacity % 2 == 0 and 2 * 8 * plan.capacity <= tb.DAS_RING_BYTES
+    true, bound = _stage_entries(plan, A, E, T, xg, zg, ex, ez, angles, fs_t, inv_c, t_offset)
+    assert 0 < true <= bound
+    if plan.split:
+        assert plan.capacity == tb.DAS_RING_BYTES // (8 * tb.DAS_STAGES) // 2 * 2
+    else:
+        assert bound <= plan.capacity
+
+
+@pytest.mark.parametrize("shape", ["picmus", "usmain"])
+def test_das_plan_splits_nothing_at_picmus_and_usmain(shape):
+    """At the two deployments' shapes (``portbench``'s PICMUS cell: 75
+    angles of 4 167 samples at 20.832 MHz on the 1 083 x 664 lambda / 4
+    grid; USMain: 5 angles of 10 000 samples at 50 MHz on its 1 040 x 638
+    grid) the planner splits no stage."""
+    A, T, fs, f0 = {"picmus": (75, 4167, 20.832e6, 5.208e6), "usmain": (5, 10000, 50e6, 5e6)}[shape]
+    step = float(np.float32(1540.0) / np.float32(f0) / 4.0)
+    xg, zg = tb.grid_scan(-0.04, 0.04, 0.001, 0.05, step, step)
+    plan = tb.das_plan(A, T, xg, zg, torch.tensor(fs), 1.0 / torch.tensor(1540.0))
+    assert not plan.split and 2 * 8 * plan.capacity <= tb.DAS_RING_BYTES
+
+
 def _pairs(st, rpp):
     """The pair rays [7, A * E] and, independently of the kernel's wrapper,
     the lanes [7, N] and each lane's angle."""

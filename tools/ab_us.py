@@ -5,6 +5,7 @@ acquisition in each variant's form.
 
     python tools/ab_us.py --variant NAME=DIR[:CONST=VALUE ...] [...]
                           [--out build/ab_us.json] [--reps 7] [--das-only]
+                          [--picmus-only] [--probe NAME ...]
 
 Each DIR holds a ``us_acq.cu`` and the ``common.cuh`` it includes, and
 may hold a ``us_das.cu``: the package's own (``tpu_rt_torch/ops/csrc``)
@@ -12,17 +13,22 @@ or an earlier commit's (``git show COMMIT:tpu_rt_torch/ops/csrc/us_acq.cu``
 and ``common.cuh`` into an ignored directory such as ``build/ab/parent``).
 ``:CONST=VALUE`` builds a copy with the ``constexpr int CONST = ...;`` of
 ``us_acq.cu`` or ``us_das.cu`` set to VALUE (``kGroup=4``: four threads a
-lane; ``kUnroll=1``: the DAS's element loop not unrolled; ``kTileZ=32``:
-a warp of the DAS on one column of pixels; ``kAdjTileZ=64``: the
-adjoint's pixel tiles 64 high; ``kAdjMinBlocks=4``: its registers capped
-for 4 blocks an SM), as ``tools/ab_common.py`` sets out.  Every variant
+lane; ``kPix=2``: two pixels a thread of the DAS, whose planner is then
+run with it, as with ``kWarps`` and ``kStages`` (``LAYOUT``);
+``kMinBlocks=3``: its registers capped for 3 blocks an SM;
+``kAdjTileZ=64``: the adjoint's pixel tiles 64 high; ``kAdjMinBlocks=4``:
+its registers capped for 4 blocks an SM), as ``tools/ab_common.py`` sets
+out.  Every variant
 is compiled by its own nvcc, all started together, with the package's
 flags, into ``build/ab_us/NAME/``; ptxas's registers and spills are
 printed.  A build whose launch takes no ``rays_per_pair`` (one thread a
 lane, records only: the kernel before its deposit mode) is driven with
 the lanes' rays, in records mode, and its acquisition is the records and
 ``deposit_rf`` (``parent_acquisition``, that form's
-``simulate_acquisition``).
+``simulate_acquisition``).  ``--probe NAME`` builds besides a copy of
+variant NAME whose DAS reads no memory for its taps (each ``const float2 v
+= load(address);`` of its ``us_das.cu`` replaced by a value made from the
+address): against NAME it says how much of the DAS's time its loads take.
 
 Timed, each variant in turn within a round, two warm-ups each, the median
 of ``--reps`` rounds, CUDA events around 20 calls and the kernel's own
@@ -40,13 +46,23 @@ idle share of the window, the top operations by device time and the
 host's operator counts.  ``--das-only`` skips these (the RF is still made by the first
 variant's K10).
 
-For the variants with a DAS kernel: the DAS on the USMain and cone-box
+For the variants with a DAS kernel, first the DAS at PICMUS's size
+(``PICMUS``: 75 plane waves x 128 elements x 4 167 samples of seeded
+noise on the 1 084 x 664 grid of ``portbench``'s ``picmus.bmode.rpp64``
+cell), CUDA events around 5 calls and the DAS kernel's device time, every
+image ``torch.equal`` to the first variant's, then each probe against its
+variant (no check: a probe's image is wrong by design);
+``--tiles WZ,...`` times the staged variants' DAS besides with each tile
+of ``das_plans`` named by its ``tile_wz`` forced (here and on the frames
+below).  ``--picmus-only`` stops there.  Then the DAS on the USMain and cone-box
 frames (the first deposit variant's RF; the 1040 x 638 and 723 x 650
 grids), CUDA events around 5 calls and the DAS kernel's device time,
 every image equal to the first variant's: ``das_beamform``'s launch (the
 packing kernel, whose device time is printed too, then the DAS kernel)
-for a build with ``us_das_pack_launch``, else the unpacked RF handed to
-the build's ``us_das_launch`` as that build's wrapper did.  Then the
+for a build whose ``us_das_launch`` takes the planner's launch
+(``tile_wz``: the staged kernel), else that build's packing and
+its ``us_das_launch`` on the packed RF, or for a build without
+``us_das_pack_launch`` the unpacked RF, as that build's wrapper did.  Then the
 whole frame on each of these scenes, the main path (``us_render`` at rpp
 64, seed 3: K10, the DAS, envelope and log) with each variant's DAS, CUDA
 events around 5 frames (the median, least and most of ``--reps`` rounds;
@@ -65,10 +81,13 @@ import argparse
 import ctypes
 import json
 import os
+import re
+import shutil
 import sys
 import time
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,6 +112,16 @@ DAS_GRIDS = {"USMain": ((-0.04, 0.04), (0.001, 0.05)),
              "cone box": ((-0.04, 0.04), (0.001, 0.09))}
 RPP = 64
 SOURCES = ("us_acq.cu", "us_das.cu")
+# PICMUS's sequence as portbench/configs/picmus-l11.json runs it: the
+# L11-4v's 128 elements at 0.3 mm, 75 plane waves over +-16 degrees, 4 167
+# samples at 20.832 MHz, c 1540, on the lambda / 4 grid of x +-4 cm, z 1-50 mm
+PICMUS = {"A": 75, "E": 128, "T": 4167, "fs": 20.832e6, "f0": 5.208e6, "c": 1540.0,
+          "pitch": 3e-4, "x": (-0.04, 0.04), "z": (0.001, 0.05)}
+# a tap's load in us_das.cu (a call on its address), and what a probe puts
+# in its place: a value made from the address, so that it is still computed
+TAP_LOAD = re.compile(r"const float2 v = \w+\(([^;]+)\);")
+NO_LOAD = (r"const float2 v = make_float2(__int_as_float((int)(size_t)(\1)), "
+           r"__int_as_float((int)(size_t)(\1) + 1));")
 
 
 class Variant:
@@ -115,10 +144,47 @@ class Variant:
         return getattr(self.lib, name)
 
 
-def build(specs):
-    dirs = {name: ab_common.variant_dir(name, spec, SOURCES,
-                                        os.path.join(ROOT, "build", "ab_us", "src"))
+def probe_dir(name, d, out_root):
+    """A copy of source directory d in out_root/NAME whose DAS reads no
+    memory for its taps (TAP_LOAD replaced by NO_LOAD)."""
+    out = os.path.join(out_root, name)
+    os.makedirs(out, exist_ok=True)
+    for f in ("common.cuh",) + SOURCES:
+        shutil.copy(os.path.join(d, f), out)
+    with open(os.path.join(out, "us_das.cu")) as fh:
+        src, n = TAP_LOAD.subn(NO_LOAD, fh.read())
+    if n == 0:
+        raise ValueError(f"probe {name}: no tap load in {d}/us_das.cu")
+    with open(os.path.join(out, "us_das.cu"), "w") as fh:
+        fh.write(src)
+    return out
+
+
+# constants of us_das.cu that the package's planner mirrors
+# (us/beamform.py's DAS_*): a variant that sets one is planned with it
+LAYOUT = {"kPix": "DAS_PIX", "kWarps": "DAS_WARPS", "kStages": "DAS_STAGES",
+          "kMaxStageElems": "DAS_MAX_STAGE_ELEMS", "kRingBytes": "DAS_RING_BYTES"}
+
+
+@contextmanager
+def planned_as(v):
+    """The planner's mirrors of us_das.cu's constants set to variant v's."""
+    saved = {k: getattr(bf, k) for k in v.layout}
+    for k, val in v.layout.items():
+        setattr(bf, k, val)
+    try:
+        yield
+    finally:
+        for k, val in saved.items():
+            setattr(bf, k, val)
+
+
+def build(specs, probes=()):
+    src_root = os.path.join(ROOT, "build", "ab_us", "src")
+    dirs = {name: ab_common.variant_dir(name, spec, SOURCES, src_root)
             for name, spec in specs.items()}
+    for name in probes:
+        dirs[f"{name}-noload"] = probe_dir(f"{name}-noload", dirs[name], src_root)
     jobs = {}
     for name, d in dirs.items():
         out = os.path.join(ROOT, "build", "ab_us", name)
@@ -139,15 +205,19 @@ def build(specs):
         lib.us_acq_error_string.argtypes = [i]
         lib.us_acq_error_string.restype = ctypes.c_char_p
         v = variants[name] = Variant(name, lib, pairs)
+        consts = dict(c.split("=", 1) for c in specs.get(name.removesuffix("-noload"), "")
+                      .split(":")[1:])
+        v.layout = {LAYOUT[k]: int(val) for k, val in consts.items() if k in LAYOUT}
         v.das = os.path.exists(os.path.join(dirs[name], "us_das.cu"))
-        v.pack = v.adjoint = False
+        v.pack = v.adjoint = v.staged = False
         if v.das:
             with open(os.path.join(dirs[name], "us_das.cu")) as fh:
                 src = fh.read()
             v.pack, v.adjoint = "us_das_pack_launch" in src, "us_das_adjoint_launch" in src
+            v.staged = "int tile_wz" in src
             f = ctypes.c_float
-            lib.us_das_launch.argtypes = [vp, i, i, i, vp, i, vp, i, vp, vp, vp, vp, f, f, f, vp,
-                                          vp]
+            lib.us_das_launch.argtypes = ([vp, i, i, i, vp, i, vp, i, vp, vp, vp, vp, f, f, f]
+                                          + ([i, i, i] if v.staged else []) + [vp, vp])
             lib.us_das_launch.restype = i
             lib.us_das_error_string.argtypes = [i]
             lib.us_das_error_string.restype = ctypes.c_char_p
@@ -189,13 +259,17 @@ def das_inputs(rf, us, pos, xg, zg):
 
 def das_call(v, inputs, t_offset=0.0):
     """The DAS image of ``inputs`` through variant v: ``das_beamform``'s
-    launch (packing, then the DAS kernel) for a build that packs; else the
-    RF itself handed to the build's ``us_das_launch``, as its wrapper did."""
-    if v.pack:
-        with use(v):
+    launch (packing, the planner, the DAS kernel) for a staged build; else
+    that build's packing, if it has one, and its ``us_das_launch`` on the
+    packed or the plain RF, as its wrapper did."""
+    if v.staged:
+        with use(v), planned_as(v):
             return bf._das_launch(*inputs, t_offset)
     rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg = inputs
     A, E, T = rf.shape
+    if v.pack:
+        with use(v):
+            rf = bf.das_pack(rf)  # held by name until the launch is queued
     out = torch.empty((xg.shape[0], zg.shape[0]), dtype=torch.float32, device=rf.device)
     err = v.lib.us_das_launch(rf.data_ptr(), A, E, T, xg.data_ptr(), xg.shape[0], zg.data_ptr(),
                               zg.shape[0], ex.data_ptr(), ez.data_ptr(), sin_a.data_ptr(),
@@ -210,12 +284,12 @@ def das_call(v, inputs, t_offset=0.0):
 @contextmanager
 def das_route(v):
     """``das_beamform`` launching variant v's DAS: the package's own launch
-    for a build that packs, else ``das_call``'s (the RF unpacked)."""
+    for a staged build, else ``das_call``'s (that build's own form)."""
     saved = bf._das_launch
-    if not v.pack:
-        bf._das_launch = lambda *args: das_call(v, args[:9], args[9])
+    if not v.staged:
+        bf._das_launch = lambda *args, **kw: das_call(v, args[:9], args[9])
     try:
-        with use(v):
+        with use(v), planned_as(v):
             yield
     finally:
         bf._das_launch = saved
@@ -308,7 +382,67 @@ def k10_timings(res, prof, label, scene, variants, tables, rays, lanes, angle_id
               f"{[(k, c) for k, c in p['top_host_calls']]}", flush=True)
 
 
-def das_timings(res, label, variants, scene, tables, rays, reps, dev):
+def picmus_inputs(dev):
+    """``das_beamform``'s inputs to its launch at PICMUS's size (as
+    ``das_inputs`` makes them), the RF seeded noise."""
+    p = PICMUS
+    rng = np.random.default_rng(0)
+    rf = torch.from_numpy(rng.standard_normal((p["A"], p["E"], p["T"]), dtype=np.float32))
+    step = p["c"] / p["f0"] / 4.0
+    xg, zg = bf.grid_scan(*p["x"], *p["z"], step, step)
+    ex = (np.arange(p["E"]) - (p["E"] - 1) / 2) * p["pitch"]
+    pos = torch.stack([torch.from_numpy(ex).float(), torch.zeros(p["E"]),
+                       torch.zeros(p["E"])], 1).to(dev)
+    us = argparse.Namespace(angles=np.linspace(-16.0, 16.0, p["A"]), sampling_rate=p["fs"],
+                            sound_speed=p["c"])
+    return das_inputs(rf.to(dev), us, pos, xg.to(dev), zg.to(dev))
+
+
+@contextmanager
+def forced_tile(tile_wz):
+    """``das_beamform``'s planner held to the tile of ``tile_wz`` warp tiles
+    along z (of ``das_plans``), not its own choice."""
+    saved = bf.das_plan
+    bf.das_plan = lambda *a: next(p for p in bf.das_plans(*a) if p.tile_wz == tile_wz)
+    try:
+        yield
+    finally:
+        bf.das_plan = saved
+
+
+def tile_timings(res, name, variants, inputs, tiles, reps):
+    """The staged variants' DAS on ``inputs`` with each tile of ``tiles``
+    forced, in turns, every image equal to the first's."""
+    fns = {}
+    for n, v in variants.items():
+        for wz in tiles if v.staged else ():
+            def fn(v=v, wz=wz):
+                with forced_tile(wz):
+                    return das_call(v, inputs)
+            fns[f"{n} tile_wz {wz}"] = fn
+    if fns:
+        timed(res, f"{name}, forced tiles", fns, reps, CALLS, equal, kernel="us_das_kernel")
+
+
+def picmus_timings(res, variants, probes, reps, dev, tiles=()):
+    """The DAS at PICMUS's size, the variants in turns, every image equal
+    to the first's; then each probe ({variant's name: probe}) against its
+    variant, unchecked."""
+    inputs = picmus_inputs(dev)
+    nx, nz = inputs[7].numel(), inputs[8].numel()
+    das_vs = {n: v for n, v in variants.items() if v.das}
+    name = f"DAS kernel, PICMUS {nx} x {nz}"
+    timed(res, name, {n: (lambda v=v: das_call(v, inputs)) for n, v in das_vs.items()}, reps,
+          CALLS, equal, kernel="us_das_kernel")
+    tile_timings(res, name, das_vs, inputs, tiles, reps)
+    for n, probe in probes.items():
+        pair = {n: variants[n], probe.name: probe}
+        timed(res, f"DAS kernel and its probe without loads, PICMUS {nx} x {nz}",
+              {k: (lambda v=v: das_call(v, inputs)) for k, v in pair.items()}, reps, CALLS,
+              lambda *_: None, kernel="us_das_kernel")
+
+
+def das_timings(res, label, variants, scene, tables, rays, reps, dev, tiles=()):
     """The DAS on a scene's frame (its grid from DAS_GRIDS) and, on
     USMain's, its adjoint, the variants in turns."""
     us = scene.ultrasound
@@ -327,6 +461,7 @@ def das_timings(res, label, variants, scene, tables, rays, reps, dev):
     img = timed(res, name,
                 {n: (lambda v=v: das_call(v, inputs)) for n, v in das_vs.items()}, reps,
                 CALLS, equal, kernel="us_das_kernel")
+    tile_timings(res, name, das_vs, inputs, tiles, reps)
     smoke = ab_common.chip_smoke()
     for n, v in das_vs.items():
         if v.pack:
@@ -378,6 +513,12 @@ def main():
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--das-only", action="store_true",
                     help="skip K10's timings and profiles: the DAS and its adjoint alone")
+    ap.add_argument("--picmus-only", action="store_true",
+                    help="the DAS at PICMUS's size alone (and the probes)")
+    ap.add_argument("--probe", action="append", default=[],
+                    help="NAME: also time variant NAME with its taps' loads taken out")
+    ap.add_argument("--tiles", type=lambda t: [int(v) for v in t.split(",")], default=[],
+                    help="WZ,...: also time the staged variants' DAS with each tile forced")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_us: needs an NVIDIA GPU", file=sys.stderr)
@@ -385,12 +526,17 @@ def main():
     smi = ab_common.card()
     print(f"card: {smi}", flush=True)
     specs = dict(v.split("=", 1) for v in args.variant)
-    variants, ptxas = build(specs)
+    variants, ptxas = build(specs, args.probe)
+    probes = {n: variants.pop(f"{n}-noload") for n in args.probe}
     dev = torch.device("cuda")
     res, prof = {}, {}
+    if any(v.das for v in variants.values()):
+        picmus_timings(res, variants, probes, args.reps, dev, args.tiles)
     st = tt.ScalarTransform4f
     for label, desc in (("USMain", usmain_desc), ("cone box", cone_box_desc),
                         ("scatterers", usmain_scatterers_desc)):
+        if args.picmus_only:
+            break
         if args.das_only and label not in DAS_GRIDS:
             continue
         scene = tt.load_dict(desc(st))
@@ -404,7 +550,7 @@ def main():
             k10_timings(res, prof, label, scene, variants, tables, rays, lanes, angle_idx,
                         args.reps, dev)
         if label in DAS_GRIDS and any(v.das for v in variants.values()):
-            das_timings(res, label, variants, scene, tables, rays, args.reps, dev)
+            das_timings(res, label, variants, scene, tables, rays, args.reps, dev, args.tiles)
     out = {"card": smi, "variants": specs, "ptxas": ptxas, "launches": res, "profiles": prof}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -131,9 +131,10 @@ def load_library():
     lib.us_das_pack_launch.argtypes = [p, i, i, p, p]
     lib.us_das_pack_launch.restype = i
     # rf2 (packed), A, E, T, x grid, Nx, z grid, Nz, elem x, elem z, sin,
-    # cos, 1 / c, t_offset, fs, out, stream
+    # cos, 1 / c, t_offset, fs, the plan's tile_wz, stage_elems and
+    # capacity, out, stream
     f = ctypes.c_float
-    lib.us_das_launch.argtypes = [p, i, i, i, p, i, p, i, p, p, p, p, f, f, f, p, p]
+    lib.us_das_launch.argtypes = [p, i, i, i, p, i, p, i, p, p, p, p, f, f, f, i, i, i, p, p]
     lib.us_das_launch.restype = i
     # the same with rf not packed, then the cotangent g, d rf, the
     # geometric cotangents (or NULL), stream

@@ -5,9 +5,12 @@ maths, in PyTorch on the device of the RF data.  None of these is a
 kernel of the JAX package (no Pallas).  ``das_beamform`` (the gather form)
 is a wrapper: on a CPU tensor it runs ``das_beamform_plain``, on a CUDA
 tensor it launches the hand-written kernels of ``ops/csrc/us_das.cu``
-(``das_pack``, which lays each trace out as pairs of taps, then one thread
-a pixel, the same taps, the sums in another order) or raises;
-``das_beamform.launches`` and ``das_pack.launches`` count their launches.
+(``das_pack``, which lays each trace out as pairs of taps, then a block a
+tile of pixels, which reads each tap from its windows of the packed traces
+staged in shared memory: the same taps, the sums in another order) or
+raises; ``das_beamform.launches`` and ``das_pack.launches`` count their
+launches, ``das_beamform.split_launches`` those whose plan (``das_plan``)
+takes a stage's windows in pieces.
 It is differentiable as tpu_rt's (jax.grad) is, in the RF and in the
 geometry: on the CPU torch's autograd differentiates the plain version;
 on CUDA its backward is the adjoint kernel of the same file
@@ -32,6 +35,8 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -144,8 +149,9 @@ def das_pack(rf):
     """The DAS kernel's input: ``das_pack_plain``'s function.  On a CPU
     tensor this runs ``das_pack_plain``; on a CUDA tensor (float32 [A, E,
     T], contiguous) it launches ``csrc/us_das.cu``'s packing kernel into a
-    tensor from ``torch.empty``, or raises.  ``das_pack.launches`` counts
-    its launches: one a forward DAS call."""
+    tensor from ``torch.empty`` with 16 bytes to spare past its end, or
+    raises.  ``das_pack.launches`` counts its launches: one a forward DAS
+    call."""
     dev = rf.device
     if dev.type == "cpu":
         return das_pack_plain(rf)
@@ -156,7 +162,9 @@ def das_pack(rf):
     from tpu_rt_torch.ops import _build
 
     A, E, T = rf.shape
-    out = torch.empty((A, E, T + 3, 2), dtype=torch.float32, device=dev)
+    # 16 bytes past the end: the DAS kernel's copies are widened to 16-byte bounds
+    n = A * E * (T + 3) * 2
+    out = torch.empty(n + 4, dtype=torch.float32, device=dev)[:n].view(A, E, T + 3, 2)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -171,13 +179,121 @@ def das_pack(rf):
 das_pack.launches = 0
 
 
-def _das_launch(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset):
+# us_das.cu's forward: consumer warps a block, pixels a thread, a warp's
+# pixels along z and x, angles a pass, elements a stage, the ring's stages
+# and bytes, each at most
+DAS_WARPS, DAS_PIX, DAS_WARP_Z, DAS_WARP_X = 8, 2, 4, 8
+DAS_MAX_ANGLES, DAS_MAX_STAGE_ELEMS, DAS_STAGES, DAS_RING_BYTES = 8, 2, 4, 64 * 1024
+
+
+class DasPlan(NamedTuple):
+    """The DAS kernel's launch: a block's pixel tile (``tile_wz`` warp tiles
+    along z: ``tile_z`` x ``tile_x`` pixels; ``n_tiles`` of them cover the
+    grid), the elements a stage of its ring holds (``stage_elems``), the
+    entries of rf2 a slot holds (``capacity``), and whether a stage's
+    windows may exceed a slot (``split``: the kernel then takes them in
+    pieces)."""
+    tile_wz: int
+    tile_z: int
+    tile_x: int
+    n_tiles: int
+    stage_elems: int
+    capacity: int
+    split: bool
+
+
+_HOST_GRIDS = {}
+
+
+def _host_grid(g):
+    """A grid's values as float64 on the host, with the largest extent of
+    its tiles of each size as they are asked for ({tile size: extent}).  A
+    CUDA tensor's are kept while it lives unchanged (keyed as
+    ``ops/us_kernel.py::per_scene`` keys scenes), so a frame's planning
+    waits on nothing but the first."""
+    if not isinstance(g, torch.Tensor) or g.device.type == "cpu":
+        return np.asarray(torch.as_tensor(g).detach(), np.float64).reshape(-1), {}
+    k = id(g)
+    hit = _HOST_GRIDS.get(k)
+    if hit is not None and hit[0]() is g and hit[1] == g._version:
+        return hit[2]
+    value = (g.detach().to("cpu", torch.float64).numpy().reshape(-1), {})
+    _HOST_GRIDS[k] = (weakref.ref(g, lambda _, k=k: _HOST_GRIDS.pop(k, None)), g._version, value)
+    return value
+
+
+def _extent(grid, size):
+    """The largest max - min of the grid's tiles of ``size`` values (the
+    kernel's tiles start at multiples of it); inf if a value is not finite."""
+    values, extents = grid
+    if size not in extents:
+        starts = np.arange(0, values.shape[0], size)
+        ext = np.maximum.reduceat(values, starts) - np.minimum.reduceat(values, starts)
+        extents[size] = float(ext.max()) if np.isfinite(values).all() else math.inf
+    return extents[size]
+
+
+def das_plans(n_a, n_t, x_grid, z_grid, fs, inv_c):
+    """Each pixel tile the DAS kernel lays out (``DasPlan``s) for ``n_a``
+    angles of ``n_t`` samples on these grids, with its stage capacity.
+
+    A stage holds, for each of its elements and each angle of a pass, the
+    window of rf2's entries (``das_pack``) that a tile's taps read from
+    that element's trace.  Over a tile of extents W_x, W_z the delay x sin
+    a + z cos a + r spans at most W_x + W_z + hypot(W_x, W_z) (r from one
+    element changes by at most the box's diagonal), |fs / c| samples a
+    metre; the floors of a span d take ceil(d) + 1 entries (+ 1 for
+    rounding), the 16-byte bounds of the copy 2 more.  A stage holds
+    ``DAS_MAX_STAGE_ELEMS`` elements where two slots of it fit the ring (a
+    wait and a release of the ring a stage, spread over more taps), else
+    one.  The kernel's ring holds as many slots as fit, up to
+    ``DAS_STAGES``; where two of one element do not fit, ``split``, and a
+    slot is a ``DAS_STAGES``-th of the ring."""
+    xs, zs = _host_grid(x_grid), _host_grid(z_grid)
+    k_a = min(n_a, DAS_MAX_ANGLES)
+    n_wt = DAS_WARPS * DAS_PIX  # warp tiles a block
+    per_m = abs(float(fs) * float(inv_c))  # samples a metre of delay
+    plans = []
+    for tile_wz in (w for w in range(1, n_wt + 1) if n_wt % w == 0):
+        tile_z, tile_x = DAS_WARP_Z * tile_wz, DAS_WARP_X * (n_wt // tile_wz)
+        wx, wz = _extent(xs, tile_x), _extent(zs, tile_z)
+        span = (wx + wz + math.hypot(wx, wz)) * per_m
+        entries = math.ceil(span) + 4 if span < n_t else n_t + 5  # a whole row at most
+        per_elem = k_a * (entries + entries % 2)
+        n_tiles = -(-xs[0].shape[0] // tile_x) * -(-zs[0].shape[0] // tile_z)
+        two_fit = 2 * 8 * DAS_MAX_STAGE_ELEMS * per_elem <= DAS_RING_BYTES
+        elems = DAS_MAX_STAGE_ELEMS if two_fit else 1
+        cap = elems * per_elem
+        split = 2 * 8 * cap > DAS_RING_BYTES
+        if split:
+            cap = DAS_RING_BYTES // (8 * DAS_STAGES) // 2 * 2
+        plans.append(DasPlan(tile_wz, tile_z, tile_x, n_tiles, elems, cap, split))
+    return plans
+
+
+def das_plan(n_a, n_t, x_grid, z_grid, fs, inv_c):
+    """The DAS kernel's launch for these shapes: of ``das_plans``, those
+    that split no stage if any does; of them, those within 2% of the fewest
+    tiles (each pixel a block computes, a ragged tile's repeats too, costs
+    the same); of them, the most elements a stage, then the shortest
+    windows (the bytes each stage copies), then the fewest tiles."""
+    plans = das_plans(n_a, n_t, x_grid, z_grid, fs, inv_c)
+    plans = [p for p in plans if p.split == min(q.split for q in plans)]
+    fewest = min(p.n_tiles for p in plans)
+    return min((p for p in plans if p.n_tiles <= 1.02 * fewest),
+               key=lambda p: (-p.stage_elems, p.capacity // p.stage_elems, p.n_tiles))
+
+
+def _das_launch(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset, plan=None):
     """``csrc/us_das.cu`` on CUDA tensors (``inv_c``, ``fs`` 0-d on any
-    device): the packing kernel, then the DAS kernel; the image [Nx, Nz]."""
+    device): the packing kernel, then the DAS kernel with ``plan`` (from
+    ``das_plan`` on xg and zg unless given); the image [Nx, Nz]."""
     from tpu_rt_torch.ops import _build
 
     dev = rf.device
     A, E, T = rf.shape
+    if plan is None:
+        plan = das_plan(A, T, xg, zg, fs, inv_c)
     rf2 = das_pack(rf)  # held by name until the DAS kernel is queued
     out = torch.empty((xg.shape[0], zg.shape[0]), dtype=torch.float32, device=dev)
     lib = _build.load_library()
@@ -186,11 +302,13 @@ def _das_launch(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset):
         err = lib.us_das_launch(
             rf2.data_ptr(), A, E, T, xg.data_ptr(), xg.shape[0], zg.data_ptr(), zg.shape[0],
             ex.data_ptr(), ez.data_ptr(), sin_a.data_ptr(), cos_a.data_ptr(), float(inv_c),
-            float(t_offset), float(fs), out.data_ptr(), stream)
+            float(t_offset), float(fs), plan.tile_wz, plan.stage_elems, plan.capacity,
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("us_das kernel launch failed: "
                            + lib.us_das_error_string(err).decode())
     das_beamform.launches += 1
+    das_beamform.split_launches += plan.split
     return out
 
 
@@ -198,17 +316,17 @@ class _DAS(torch.autograd.Function):
     """The DAS kernel with the adjoint kernel as its backward."""
 
     @staticmethod
-    def forward(ctx, rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset):
+    def forward(ctx, rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset, plan):
         ctx.save_for_backward(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg)
         ctx.t_offset = t_offset
-        return _das_launch(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset)
+        return _das_launch(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, t_offset, plan)
 
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad
         grads = das_adjoint(*ctx.saved_tensors, g, t_offset=ctx.t_offset,
                             geometry=any(need[1:7]))
-        return tuple(x if n else None for x, n in zip(grads, need[:7])) + (None, None, None)
+        return tuple(x if n else None for x, n in zip(grads, need[:7])) + (None,) * 4
 
 
 def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
@@ -218,13 +336,16 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
 
     On a CPU tensor this runs ``das_beamform_plain``, which autograd
     differentiates.  On a CUDA tensor it launches ``csrc/us_das.cu`` (built
-    at first use: ``das_pack``'s kernel, then the DAS kernel) or raises:
-    each tap is the plain version's arithmetic, the sums over angles and
-    elements are taken in another order.  Its
+    at first use: ``das_pack``'s kernel, then the DAS kernel with the launch
+    ``das_plan`` makes from the grids' host values, which are kept for a
+    CUDA grid while it lives unchanged) or raises: each tap is the plain
+    version's arithmetic, the sums over angles and elements are taken in
+    another order.  Its
     backward is the adjoint kernel of the same file (``das_adjoint``), in
     the RF and in the geometry (``elem_x``, ``elem_z``, the angles through
     their sines and cosines, ``c`` through 1 / c, and ``fs``), never the
-    plain version.  ``das_beamform.launches`` counts forward launches."""
+    plain version.  ``das_beamform.launches`` counts forward launches,
+    ``das_beamform.split_launches`` those whose plan splits a stage."""
     with span("tpu_rt_torch.das_beamform"):
         channel_data = _f32(channel_data)
         dev = channel_data.device
@@ -248,10 +369,13 @@ def das_beamform(channel_data, angles_deg, elem_x, fs, c, x_grid, z_grid,
         ex, ez = elem_x.contiguous(), elem_z.contiguous()
         sin_a, cos_a = torch.sin(angles), torch.cos(angles)
         inv_c = 1.0 / c  # as das_beamform_plain computes it
-        return _DAS.apply(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, float(t_offset))
+        # planned from the caller's grids, whose host values are kept
+        plan = das_plan(A, T, x_grid, z_grid, fs, inv_c)
+        return _DAS.apply(rf, ex, ez, sin_a, cos_a, inv_c, fs, xg, zg, float(t_offset), plan)
 
 
 das_beamform.launches = 0
+das_beamform.split_launches = 0
 
 
 def das_adjoint_plain(rf, ex, ez, sin_a, cos_a, inv_c, fs, x_grid, z_grid, g, t_offset=0.0,
