@@ -5,7 +5,9 @@ file, one image a seed, ``spp`` samples a pixel in launches of
 ``Entry`` builds what the program needs once and runs one call of the
 timed path (``call``); ``check`` compares kept images with the
 configuration's plain reference.  ``Control`` puts that reference,
-computed in bfloat16, in the program's place.
+computed in bfloat16, in the program's place.  ``TINY`` holds the traffic
+keys that the benchmark's CPU tests override, to a size they hold; a run
+never reads it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 import torch
 
 import yardstick
+
+TINY = dict(spp=8, spp_per_pass=4, overrides={"res": 16})
 
 
 class Entry:

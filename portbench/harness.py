@@ -6,14 +6,17 @@ metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 
 * ``configs/<config>.json``: the configuration as it is run (``kind``,
   the scene or its file under ``configs/``);
-* ``reference/<config>.py``: its plain reference;
+* ``reference/<config>.py``: its plain reference (with ``tiny_config``,
+  the configuration's cut for the benchmark's CPU tests, where it needs
+  one);
 * ``traffic/<traffic>.json``: the mix (``kind``: the entry it drives; its
   sizes; ``check_outputs``, how many completed calls are checked;
   ``limits`` of the compared numbers);
 * ``drivers/<kind>.py``: a traffic kind's ``Entry`` (the program's set-up,
   one call of the timed path, the check of kept outputs against the
   reference) and its ``Control`` (the reference in bfloat16 in the
-  program's place); the program (``tpu_rt_torch``) is imported there and
+  program's place), and ``TINY``, the traffic keys that the benchmark's
+  CPU tests cut; the program (``tpu_rt_torch``) is imported there and
   nowhere else in a run;
 * ``metrics/<metric>.py``: a per-layer metric's reader, ``read(ctx)``,
   which returns a number or None where the cell has nothing to read.

@@ -122,6 +122,14 @@ class Setup:
         return x, torch.zeros_like(x), torch.from_numpy(self.angles)
 
 
+def tiny_config(cfg):
+    """A copy of the configuration cut to a size that the benchmark's CPU
+    tests hold: 3 of the plane waves and 16 elements.  The widths (pitch,
+    frequency, sampling) stay as published.  A run never calls it."""
+    it = dict(cfg["scene"]["integrator"], angles=[-16.0, 0.0, 16.0], n_elements=16)
+    return dict(cfg, scene=dict(cfg["scene"], integrator=it))
+
+
 # ---------------------------------------------------------------------------
 # the acquisition, flat (N,) tensors a component
 # ---------------------------------------------------------------------------

@@ -1,5 +1,8 @@
 """Paths of the benchmark and a copy of it cut to tiny sizes, for its CPU
-tests."""
+tests.  The cuts belong to the benchmark's files: each traffic kind's
+driver declares the traffic keys it overrides (``TINY``), and a
+configuration that needs a cut declares it in its plain reference
+(``tiny_config``), so a new kind or configuration brings its own."""
 
 import json
 import os
@@ -12,13 +15,7 @@ for p in (ROOT, BENCH_DIR):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# each traffic kind cut to a size a CPU test holds; the configuration's
-# widths (pitch, frequency, sampling) stay as published
-TINY_TRAFFIC = {
-    "image": dict(spp=8, spp_per_pass=4, overrides={"res": 16}),
-    "us_frame": dict(rays_per_pair=4, x_bounds=[-0.004, 0.004], z_bounds=[0.046, 0.054]),
-}
-TINY_US = dict(angles=[-16.0, 0.0, 16.0], n_elements=16)
+import harness  # noqa: E402
 
 
 def bench_cells():
@@ -27,25 +24,35 @@ def bench_cells():
         return [w["name"] for w in json.load(f)["workloads"]]
 
 
-def make_tiny(dst):
-    """A copy of BENCHMARK.json and portbench/ under ``dst`` with every
-    traffic mix and the ultrasound configuration cut to tiny sizes.
-    Returns (bench_dir, root)."""
+def _rewrite(path, cut):
+    with open(path) as f:
+        d = json.load(f)
+    with open(path, "w") as f:
+        json.dump(cut(d), f)
+
+
+def copy_bench(dst, src=ROOT):
+    """A copy of ``src``'s BENCHMARK.json and portbench/ (its tests left
+    out) under ``dst``.  Returns (bench_dir, root)."""
     bench_dir = os.path.join(dst, "portbench")
-    shutil.copytree(BENCH_DIR, bench_dir, ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst)
-    tdir = os.path.join(bench_dir, "traffic")
-    for name in os.listdir(tdir):
-        path = os.path.join(tdir, name)
-        with open(path) as f:
-            t = json.load(f)
-        t.update(TINY_TRAFFIC[t["kind"]])
-        with open(path, "w") as f:
-            json.dump(t, f)
-    cpath = os.path.join(bench_dir, "configs", "picmus-l11.json")
-    with open(cpath) as f:
-        c = json.load(f)
-    c["scene"]["integrator"].update(TINY_US)
-    with open(cpath, "w") as f:
-        json.dump(c, f)
+    shutil.copytree(os.path.join(src, "portbench"), bench_dir,
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    shutil.copy(os.path.join(src, "BENCHMARK.json"), dst)
+    return bench_dir, dst
+
+
+def make_tiny(dst, src=ROOT):
+    """``copy_bench`` of ``src`` with each cell's traffic mix cut by its
+    kind's ``TINY`` and each configuration by its reference's
+    ``tiny_config``, where it has one.  Returns (bench_dir, root)."""
+    bench_dir, _ = copy_bench(dst, src)
+    bench = harness.load_bench(dst)
+    for name in sorted({w["traffic"] for w in bench["workloads"]}):
+        _rewrite(os.path.join(bench_dir, "traffic", name + ".json"),
+                 lambda t: dict(t, **harness.driver(t["kind"], bench_dir).TINY))
+    for c in bench["configs"]:
+        ref = harness.load_module(os.path.join(bench_dir, "reference", c["name"] + ".py"),
+                                  "tiny_reference")
+        if hasattr(ref, "tiny_config"):
+            _rewrite(os.path.join(bench_dir, "configs", c["name"] + ".json"), ref.tiny_config)
     return bench_dir, dst

@@ -11,7 +11,7 @@ import types
 import pytest
 import torch
 
-from portbench_tiny import BENCH_DIR, bench_cells, TINY_US
+from portbench_tiny import BENCH_DIR, bench_cells
 
 import harness
 
@@ -24,9 +24,7 @@ def _ref(name):
 
 def _picmus():
     with open(os.path.join(BENCH_DIR, "configs", "picmus-l11.json")) as f:
-        cfg = json.load(f)
-    cfg["scene"]["integrator"].update(TINY_US)
-    return cfg
+        return _ref("picmus-l11").tiny_config(json.load(f))
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -1,8 +1,9 @@
-"""The program's spans in a traced window (``portbench/spans.py``): the
-split of the device's idle time between the calls and the loop, on a
-hand-made Chrome trace; on the card, each cell's window with every launch
-of the port's kernels inside a call's span and each kernel after its
-launch call.
+"""The program's spans in a traced window (``devtrace.Context``'s spans,
+``devtrace.split`` and ``anchor``, ``portbench/spans.py``): the split of
+the device's idle time between the calls and the loop, and the per-layer
+metrics that read it, on a hand-made Chrome trace; on the card, each
+cell's window with every launch of the port's kernels inside a call's span
+and each kernel after its launch call.
 
     python -m pytest portbench/tests/test_portbench_spans.py -q
 
@@ -18,7 +19,9 @@ import pytest
 from portbench_tiny import BENCH_DIR, ROOT, bench_cells
 
 import devtrace
+import harness
 import spans as sp
+import yardstick
 
 
 def _x(cat, name, ts, dur, corr=None):
@@ -55,7 +58,7 @@ def _trace():
 
 def _split(events, calls=2):
     ctx = devtrace.Context(events, calls, {}, None)
-    return sp.split(ctx, sp.trace_spans(events, ctx.w0, ctx.w1)), ctx
+    return devtrace.split(ctx), ctx
 
 
 def test_idle_inside_outside_and_straddling_a_call():
@@ -81,9 +84,10 @@ def test_the_outermost_span_is_the_call():
     nested = [(0, 100, "tpu_rt_torch.render"), (0, 90, "tpu_rt_torch.us_render"),
               (10, 40, "tpu_rt_torch.das_beamform"), (100, 150, "tpu_rt_torch.render"),
               (120, 130, "tpu_rt_torch.develop"), (200, 210, "portbench.other")]
-    assert sp.outermost(nested) == [(0, 100, "tpu_rt_torch.render"),
-                                    (100, 150, "tpu_rt_torch.render")]
-    assert sp.overlap([(0, 10), (20, 30)], [(5, 25)]) == 10
+    assert devtrace.outermost(nested) == [(0, 100, "tpu_rt_torch.render"),
+                                          (100, 150, "tpu_rt_torch.render")]
+    assert yardstick.overlap([(0, 10), (20, 30)], [(5, 25)]) == 10
+    assert yardstick.disjoint([(5, 25), (0, 10), (30, 40)]) == [(0, 25), (30, 40)]
 
 
 def test_no_program_span_reads_nothing():
@@ -99,7 +103,7 @@ def test_a_call_without_its_span_is_a_broken_trace():
 def test_launches_inside_a_call_and_kernels_after_their_launch():
     evs = _trace()
     ctx = devtrace.Context(evs, 2, {}, None)
-    spans = sp.trace_spans(evs, ctx.w0, ctx.w1)
+    spans = ctx.spans
     assert sp.launch_check(evs, spans, ctx.w0, ctx.w1) == {
         "port_launches": 2, "inside_a_call": 2, "kernel_after_launch": 2, "max_lead_us": 0.0}
     late = [dict(e, ts=500) if e.get("args", {}).get("correlation") == 2
@@ -132,9 +136,8 @@ def test_anchoring_undoes_a_drift_of_the_device_clock():
     got = {}
     for name, trace in (("even", evs), ("drift", drift)):
         ctx = devtrace.Context(trace, 2, {}, None)
-        spans = sp.trace_spans(trace, ctx.w0, ctx.w1)
-        dev, shift = sp.anchor(trace, spans, ctx.w0, ctx.w1)
-        got[name] = sp.split(ctx, spans, dev), shift, sp.split(ctx, spans)
+        dev, shift = devtrace.anchor(ctx)
+        got[name] = devtrace.split(ctx, dev), shift, devtrace.split(ctx)
     assert got["even"][1] == [30, 30] and got["drift"][1] == [30, -270]
     assert _flat(got["drift"][0]) == pytest.approx(_flat(got["even"][0]))
     # on the trace's own times call 2's kernel, [400, 700], hides under
@@ -148,14 +151,51 @@ def test_anchoring_undoes_a_drift_of_the_device_clock():
 
 def test_anchoring_needs_every_device_event_in_a_call():
     evs = _trace()
-    ctx = devtrace.Context(evs, 2, {}, None)
     outside = [dict(e, ts=450) if e.get("args", {}).get("correlation") == 3
                and e["cat"] == "cuda_runtime" else e for e in evs]
     with pytest.raises(RuntimeError, match="outside every call"):
-        sp.anchor(outside, sp.trace_spans(evs, ctx.w0, ctx.w1), ctx.w0, ctx.w1)
+        devtrace.anchor(devtrace.Context(outside, 2, {}, None))
     idle_call = evs + [_x("user_annotation", "tpu_rt_torch.render", 1010, 50)]
     with pytest.raises(RuntimeError, match="no device event"):
-        sp.anchor(idle_call, sp.trace_spans(idle_call, ctx.w0, ctx.w1), ctx.w0, ctx.w1)
+        devtrace.anchor(devtrace.Context(idle_call, 3, {}, None))
+
+
+# the per-layer metrics that read the anchored split, and their values on
+# _trace() by hand: anchored, each call's events sit 30 us after their
+# launch calls, so the device is idle in [150, 220] and [600, 670] inside
+# the calls (70 us each); the calls' spans last 250 and 300 us
+SPAN_METRICS = {"glue_idle.image": (70 + 70) / 2 / 1e3, "host_ms.image": (250 + 300) / 2 / 1e3,
+                "glue_idle.frame": (70 + 70) / 2 / 1e3, "host_ms.frame": (250 + 300) / 2 / 1e3}
+
+
+@pytest.mark.parametrize("metric", sorted(SPAN_METRICS))
+def test_span_metric_by_hand(metric):
+    ctx = devtrace.Context(_trace(), 2, {}, None)
+    v = harness.metric_reader(metric).read(ctx)
+    assert v == pytest.approx(SPAN_METRICS[metric])
+    if metric.startswith("glue_idle."):
+        # a part of the window's idle a call (device_idle.* of the window)
+        assert 0 < v <= (ctx.window_s - ctx.busy_s) * 1e3 / ctx.calls
+
+
+@pytest.mark.parametrize("metric", sorted(SPAN_METRICS))
+def test_span_metric_without_program_spans_reads_nothing(metric):
+    evs = [e for e in _trace() if not e["name"].startswith("tpu_rt_torch.")]
+    assert harness.metric_reader(metric).read(devtrace.Context(evs, 2, {}, None)) is None
+
+
+@pytest.mark.parametrize("metric", sorted(SPAN_METRICS))
+def test_span_metric_fails_a_broken_window(metric):
+    """A window whose spans do not number its calls, or that cannot be
+    anchored, raises in the reader, which fails the traced run: it is
+    never read as a number."""
+    read = harness.metric_reader(metric).read
+    with pytest.raises(RuntimeError, match="2 outermost program spans in a window of 3"):
+        read(devtrace.Context(_trace(), 3, {}, None))
+    outside = [dict(e, ts=450) if e.get("args", {}).get("correlation") == 3
+               and e["cat"] == "cuda_runtime" else e for e in _trace()]
+    with pytest.raises(RuntimeError, match="outside every call"):
+        read(devtrace.Context(outside, 2, {}, None))
 
 
 # each cell's stages and their count a call

@@ -1,7 +1,7 @@
 """The benchmark's arithmetic: the card's published peaks, least-time
 bounds, the layers' least work from the cells' shapes, the union of device
-intervals, the percentiles of latencies and the comparison with the
-reference.
+intervals, their gaps and overlaps, the percentiles of latencies and the
+comparison with the reference.
 
 The operation counts a test (a prim test, a DAS tap, a filter weight) are
 read off the port's CUDA sources and fixed here, so the yardstick reads the
@@ -106,6 +106,33 @@ def gaps(intervals, start, end):
     if cur < end:
         out.append((cur, end))
     return [(s_, e_) for s_, e_ in out if e_ > s_]
+
+
+def overlap(a, b):
+    """The length of the intersection of two sets of (start, end, ...)
+    intervals, each set disjoint within itself."""
+    a, b = sorted(iv[:2] for iv in a), sorted(iv[:2] for iv in b)
+    tot, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            tot += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+def disjoint(intervals):
+    """The union of (start, end, ...) intervals as disjoint (start, end)."""
+    out = []
+    for s, e in sorted(iv[:2] for iv in intervals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
 
 
 def percentile(values, q):
