@@ -1,7 +1,8 @@
 """The port's profiling utilities (``tpu_rt_torch/utils/profiling.py``) and
 warm-up (``tpu_rt_torch/warmup.py``) on the CPU: the named spans of
-``render`` and ``us_render`` in a Chrome trace, nested in the call and
-counted a stage each, and no ``record_function`` when no profiler records;
+``render`` (its film and Stokes routes) and ``us_render`` in a Chrome
+trace, nested in the call and counted a stage each, and no
+``record_function`` when no profiler records;
 ``trace`` writing a Chrome trace, ``measure_device_trace`` refusing a
 trace without device events (there is no card here), the warm-up refusing
 to run without a card and naming only fixtures that exist, and the launch
@@ -69,6 +70,31 @@ def test_cbox_render_spans(tmp_path):
                       "tpu_rt_torch.deposit": 2, "tpu_rt_torch.develop": 1}
     (outer,) = [s for s in spans if s[0] == "tpu_rt_torch.render"]
     assert all(_inside(s, outer) for s in spans)
+
+
+def test_stokes_render_spans(tmp_path):
+    """The Stokes film route: ``render_stokes`` once a call inside
+    ``render``'s span, its stages inside it, ``stokes_film_trace`` once a
+    chunk of ``spp_per_pass`` samples; the image the one rendered with no
+    profiler."""
+    sc = tpu_rt_torch.load_file(str(warmup.FIXTURES["cbox_pol"]), res=16, spp=8)
+
+    def run():
+        return tpu_rt_torch.render(sc, device="cpu", spp_per_pass=4, tile_rows=16)
+
+    want = run()
+    got = []
+    spans = _spans(tmp_path, lambda: got.append(run()))
+    counts = collections.Counter(s[0] for s in spans)
+    assert counts == {"tpu_rt_torch.render": 1, "tpu_rt_torch.render_stokes": 1,
+                      "tpu_rt_torch.bake_scene": 1, "tpu_rt_torch.pack_tables": 1,
+                      "tpu_rt_torch.stokes_film_trace": 2, "tpu_rt_torch.deposit": 2,
+                      "tpu_rt_torch.develop": 1}
+    (outer,) = [s for s in spans if s[0] == "tpu_rt_torch.render"]
+    (stokes,) = [s for s in spans if s[0] == "tpu_rt_torch.render_stokes"]
+    assert _inside(stokes, outer)
+    assert all(_inside(s, stokes) for s in spans if s not in (outer, stokes))
+    assert got[0].shape == (16, 16, 4, 3) and torch.equal(got[0], want)
 
 
 def test_us_render_spans(tmp_path):

@@ -61,6 +61,7 @@ from tpu_rt_torch.scene.types import (
 )
 from tpu_rt_torch.sensor import camera as cam
 from tpu_rt_torch.sensor import film as film_mod
+from tpu_rt_torch.utils.profiling import span
 
 _MAX_DEPTH_CAP = 16
 
@@ -297,40 +298,41 @@ def render_stokes(scene, spp=None, seed=0, max_depth=None, device="cuda", spp_pe
     left out) and developed."""
     from tpu_rt_torch.ops import path_kernel
 
-    device = torch.device(device)
-    if max_depth is None and not grad_tensors(scene):
-        baked = path_kernel.bake_scene(scene)
-        if path_kernel.stokes_in_scope(baked):
-            S, n_rays = path_kernel.render_stokes_film(
-                scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
-                tile_rows=tile_rows, baked=baked, regen=regen)
-            render_stokes.last_ray_count = n_rays
-            return S
-    scene = scene.to(device)
-    c = scene.camera
-    H, W = c.height, c.width
-    spp = c.spp if spp is None else spp
-    has_polarizer = bool((scene.bsdf_type == BSDF_POLARIZER).any())
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    ys, xs = torch.meshgrid(torch.arange(H, device=device), torch.arange(W, device=device),
-                            indexing="ij")
-    xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
-    fv = torch.zeros((H, W, 12), dtype=torch.float32, device=device)
-    fw = torch.zeros((H, W), dtype=torch.float32, device=device)
-    n_rays = torch.zeros((), dtype=torch.int64, device=device)
-    for _ in range(spp):
-        jitter = torch.rand((H * W, 2), generator=gen, device=device)
-        o, d, t0, t1 = cam.sample_ray_extents(c, xy + jitter)
-        S, n = stokes_trace(scene, o, d, gen=gen, max_depth=max_depth,
-                            has_polarizer=has_polarizer, tmin0=t0, tmax0=t1)
-        ok = torch.isfinite(S).all(-1).all(-1)
-        S = torch.where(ok[:, None, None], S, 0.0).reshape(1, H, W, 12)
-        fv, fw = film_mod.splat_aligned(fv, fw, jitter.reshape(1, H, W, 2), S,
-                                        ok.reshape(1, H, W), c.filter_type)
-        n_rays = n_rays + n
-    render_stokes.last_ray_count = n_rays
-    return film_mod.develop(fv, fw).reshape(H, W, 4, 3)
+    with span("tpu_rt_torch.render_stokes"):
+        device = torch.device(device)
+        if max_depth is None and not grad_tensors(scene):
+            baked = path_kernel.bake_scene(scene)
+            if path_kernel.stokes_in_scope(baked):
+                S, n_rays = path_kernel.render_stokes_film(
+                    scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
+                    tile_rows=tile_rows, baked=baked, regen=regen)
+                render_stokes.last_ray_count = n_rays
+                return S
+        scene = scene.to(device)
+        c = scene.camera
+        H, W = c.height, c.width
+        spp = c.spp if spp is None else spp
+        has_polarizer = bool((scene.bsdf_type == BSDF_POLARIZER).any())
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        ys, xs = torch.meshgrid(torch.arange(H, device=device), torch.arange(W, device=device),
+                                indexing="ij")
+        xy = torch.stack([xs, ys], -1).reshape(-1, 2).to(torch.float32)
+        fv = torch.zeros((H, W, 12), dtype=torch.float32, device=device)
+        fw = torch.zeros((H, W), dtype=torch.float32, device=device)
+        n_rays = torch.zeros((), dtype=torch.int64, device=device)
+        for _ in range(spp):
+            jitter = torch.rand((H * W, 2), generator=gen, device=device)
+            o, d, t0, t1 = cam.sample_ray_extents(c, xy + jitter)
+            S, n = stokes_trace(scene, o, d, gen=gen, max_depth=max_depth,
+                                has_polarizer=has_polarizer, tmin0=t0, tmax0=t1)
+            ok = torch.isfinite(S).all(-1).all(-1)
+            S = torch.where(ok[:, None, None], S, 0.0).reshape(1, H, W, 12)
+            fv, fw = film_mod.splat_aligned(fv, fw, jitter.reshape(1, H, W, 2), S,
+                                            ok.reshape(1, H, W), c.filter_type)
+            n_rays = n_rays + n
+        render_stokes.last_ray_count = n_rays
+        return film_mod.develop(fv, fw).reshape(H, W, 4, 3)
 
 
 render_stokes.last_ray_count = None

@@ -1813,11 +1813,12 @@ def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None)
     on a CPU tensor; on a CUDA tensor the kernels (as ``film_trace``) or
     raise.  ``stokes_film_trace.launches`` / ``regen_launches`` count K3's
     launches."""
-    _check_kind(tables, True, "stokes_film_trace")
-    if tables.tab.device.type == "cpu":
-        return stokes_film_trace_plain(tables, seed, n_samples)
-    return split_film(tables, seed, n_samples,
-                      lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
+    with span("tpu_rt_torch.stokes_film_trace"):
+        _check_kind(tables, True, "stokes_film_trace")
+        if tables.tab.device.type == "cpu":
+            return stokes_film_trace_plain(tables, seed, n_samples)
+        return split_film(tables, seed, n_samples,
+                          lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
 
 
 def _sample_launch(tables: FilmTables, seed: int, n_samples, mode: int, n_out: int,
