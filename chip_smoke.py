@@ -86,14 +86,16 @@ Phases (any failure raises and the script exits non-zero):
      three mesh_big_gi renders under torch.profiler: the mesh kernel's
      share of the device time, the rest (the PyTorch glue), the idle
      share;
- 17. the Stokes film kernel K3, K2's regeneration loop and the per-sample
-     Stokes kernel K6 against their plain versions on the card, bit for
-     bit: tests/assets/cbox_pol/cbox_pol.xml at 32x32, 4 spp, depth 16 in
-     both loop forms; the raw planes of one 128x128 x 16-sample launch and
-     of one main-path launch (256x256 x 64 samples, the kernels line's
-     numbers), kernel ms in both forms and plain ms; K1 at depth 16 on the cbox
-     fixture in both forms; K6 at 32x32 and 256x256, one sample; K6 on a
-     chunk of samples (one launch): 4 samples at 32x32 against the plain
+ 17. the Stokes film kernel K3 (one thread a (pixel, sample), K6's
+     kernel), K2's regeneration loop around K1 and the per-sample Stokes
+     kernel K6 against their plain versions on the card, bit for bit:
+     tests/assets/cbox_pol/cbox_pol.xml at 32x32, 4 spp, depth 16; the
+     raw planes of one 128x128 x
+     16-sample launch and of one main-path launch (256x256 x 64 samples, the
+     kernels line's numbers), kernel ms and plain ms; K1 at depth 16 on the
+     cbox fixture in both forms, K2's loop timed against its plain
+     version; K6 at 32x32 and 256x256, one sample; K6 on a chunk of
+     samples (one launch): 4 samples at 32x32 against the plain
      chunk, the per-sample route's 64 at 256x256 against 64 one-sample
      launches, every plane equal; the per-sample route (K6 +
      splat_in_order) against K3 with spp_per_pass 1, and in one 4-sample
@@ -107,9 +109,9 @@ Phases (any failure raises and the script exits non-zero):
      within 0.04); Stokes-I of cbox_pol against the scalar render within
      5% of the mean, Q and U RMS > 0.01;
  19. the polarized main path at full width: render(cbox_pol.xml) at
-     256x256, 512 spp, gaussian, depth 16 (K3 in K2's loop) — one warm-up,
-     five timed renders, launch counts; the same with the per-sample loop
-     forced, and both forms at max_depth 6; three renders under
+     256x256, 512 spp, gaussian, depth 16 (K3, a thread a sample) — one
+     warm-up, five timed renders, launch counts; the same at max_depth 6;
+     three renders under
      torch.profiler (the trace kernel's share, film_splat's, the
      deposit's, idle); the per-sample route (K6 in 64-sample chunks +
      splat_in_order) at the same size, three renders, 8 K6 launches each,
@@ -130,7 +132,7 @@ Phases (any failure raises and the script exits non-zero):
      bound;
  22. the lanes: K1's film planes on polarizers_const.xml as a path scene
      (the pass-through lane) at 64x64 x 4 samples, and K3 with a null BSDF
-     on cbox_pol at 32x32 x 4 samples in both loop forms, bit for bit; K1's
+     on cbox_pol at 32x32 x 4 samples, bit for bit; K1's
      cbox and K3's cbox_pol launches re-timed;
  23. the gates: render(polarizers.xml) at 32x32, 16 spp, seed 0, tile_rows
      8 and render(polarizers_const.xml) (path) at 32x32, 4 spp against
@@ -147,10 +149,10 @@ Phases (any failure raises and the script exits non-zero):
      versions on the card, bit for bit: K1 on tests/assets/cbox/
      cbox_rough.xml (the rough sphere and the cone) at 64x64 x 4 samples
      and on one main-path launch (512x512 x 64 samples), that launch timed
-     beside its cone alone and the cbox's rough lane alone; K3 in both loop
-     forms and K6 on tests/assets/cbox_pol/cbox_pol_rough.xml at 64x64
-     (depth 16, the NEE Mueller chain), and K3 in both loop forms on one
-     main-path launch (256x256 x 64 samples); K6's chunk at 32x32 x 4
+     beside its cone alone and the cbox's rough lane alone; K3 and K6 on
+     tests/assets/cbox_pol/cbox_pol_rough.xml at 64x64
+     (depth 16, the NEE Mueller chain), and K3 on one main-path launch
+     (256x256 x 64 samples); K6's chunk at 32x32 x 4
      against the plain chunk and at 256x256 x 64 against one-sample
      launches; K5 and K4 on
      tests/torch_port_scenes.py::envmap_rough_cone_desc at 128x128, one
@@ -172,7 +174,7 @@ Phases (any failure raises and the script exits non-zero):
      reading; the largest block difference over the mean is printed);
  27. the new routes at full width: render(cbox_rough.xml) at 512x512, 256
      spp (K1 only: no wavefront render), render(cbox_pol_rough.xml) at
-     256x256, 512 spp (K3 in K2's loop), and us_render of cone_box_desc at
+     256x256, 512 spp (K3, a thread a sample), and us_render of cone_box_desc at
      64 rays per pair as in phase 9, with the DAS kernel's phase on its
      frame — each one warm-up, five timed runs, launch counts;
  28. USMain through the acoustic wavefront (us_render(use_kernel=False),
@@ -271,7 +273,7 @@ Phases (any failure raises and the script exits non-zero):
      acoustic wavefront on tpu_rt's dry-run plate; K10 at USMain, 64 rays
      per pair; K1 on the cbox at 512x512, 256 spp; K9 on simple.xml at
      256x256, 256 spp; cbox_pol at 256x256, 512 spp, depth 16 through K6
-     (gaussian) and through K3 in K2's loop (tent); each within 1e-6 of
+     (gaussian) and through K3 (tent); each within 1e-6 of
      the sum (the RF: the mean) of its ranks' single-process runs at
      their seeds (rank 0 runs them), the same on both ranks, timed on
      each rank beside one process's whole run, with its all-reduce's ms
@@ -352,10 +354,13 @@ def busy_ms(prof):
     """The device's busy time in a torch.profiler window, ms: the device
     events' own time (kernels, copies, memsets).  A host operator's device
     time is that of the kernels it launched, which the window also holds
-    as events of their own, so host rows are left out."""
+    as events of their own, so host rows are left out; so are the device
+    mirrors of the port's spans (``tpu_rt_torch.<function>``), which cover
+    the kernels launched inside them."""
     from torch.autograd import DeviceType
 
-    return sum(dev_us(e) for e in prof.key_averages() if e.device_type != DeviceType.CPU) / 1e3
+    return sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and not e.key.startswith("tpu_rt_torch.")) / 1e3
 
 
 def queued_ms(fn, n=20):
@@ -686,12 +691,10 @@ def main():
                     "plate_roughness_loop": gr["plate_loop"]["counts"]["us_das_adjoint"],
                     "us_mesh_phantom_grad": gr["mesh"]["counts"]["us_das_adjoint"]}
 
-    # film_splat's figures are those of cbox_pol's main-path launch (K3 in
-    # K2's loop), the path that launches it most; each film launch's beside
-    splat_parts = {"cbox_pol": pol["k2_parts"], "cbox_pol_per_sample": pol["k3_parts"],
-                   "cbox": cbox_parts, "mesh_gi": mesh["gi"]["parts"],
-                   "cbox_rough": rc["k1"]["parts"], "cbox_pol_rough": rc["k2"]["parts"],
-                   "cbox_pol_rough_per_sample": rc["k3"]["parts"]}
+    # film_splat's figures are those of cbox_pol's main-path launch (K3),
+    # the path that launches it most; each film launch's beside
+    splat_parts = {"cbox_pol": pol["k3_parts"], "cbox": cbox_parts, "mesh_gi": mesh["gi"]["parts"],
+                   "cbox_rough": rc["k1"]["parts"], "cbox_pol_rough": rc["k3"]["parts"]}
     main_splat = splat_parts["cbox_pol"]
     splat_by_path = {"cbox": cbox_splats, "mesh_gi": mesh["gi_splat_launches"],
                      "cbox_pol": pol["splat_launches"], "cbox_rough": rc["k1_splat_launches"],
@@ -827,19 +830,22 @@ def main():
         "ms_trace": pol["k3_parts"]["trace_ms"], "ms_splat": pol["k3_parts"]["splat_ms"],
         "bound_ms": pol["bound_ms"], "bound_by": pol["bound_by"], "library_ms": None,
         "launch_128": pol["launch_128"], "rough": rc["k3"],
+        "trace_kernel": "stokes_sample_kernel (K6's): film_splat adds the first 13 of its "
+                        "15 planes a sample",
     }, {
         "name": "regen_loop", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:1890",
-        "launches": (pol["k2_launches"] + rc["k2_launches"]
-                     + sum(sharded_launches(par, "regen").values())),
-        "launches_by_path": {"cbox_pol": pol["k2_launches"], "cbox_pol_rough": rc["k2_launches"],
-                             **sharded_launches(par, "regen")},
-        "max_abs_err": max(pol["k2_err"], rc["k2"]["max_abs_err"]),
-        "ms": pol["k2_ms"], "plain_ms": pol["plain_ms"],
-        "ms_trace": pol["k2_parts"]["trace_ms"], "ms_splat": pol["k2_parts"]["splat_ms"],
-        "bound_ms": pol["bound_ms"], "bound_by": pol["bound_by"], "library_ms": None,
-        "k1_depth16": pol["k1_depth16"], "rough": rc["k2"],
+        "replaces_note": "on no main path: cbox, cbox_rough and mesh_gi run at max_depth 6, "
+                         "below REGEN_AUTO_DEPTH, and K3 has no loop form; each main path's "
+                         "check_counts holds regen at 0; phase 17's bit-equality and timing "
+                         "on the cbox fixture at 128x128 x 16, depth 16, are under "
+                         "'fixture_depth16', no main path's shape",
+        "launches": sum(sharded_launches(par, "regen").values()),
+        "launches_by_path": sharded_launches(par, "regen"),
+        "max_abs_err": pol["k1_depth16"]["max_abs_err"],
+        "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None, "fixture_depth16": pol["k1_depth16"],
     }, {
         "name": "stokes_sample", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
@@ -1724,7 +1730,7 @@ def stokes_bound(tables, planes, n_samples):
     return bound(ops, nbytes)
 
 
-def film_parts(tables, seed, n_samples, regen=None, reps=3):
+def film_parts(tables, seed, n_samples, reps=3):
     """A film launch's two kernels apart: the trace kernel (film_records)
     and film_splat on its records, each the median of ``reps`` CUDA-event
     timings after a warm-up; film_splat held to film_splat_plain on the
@@ -1732,9 +1738,9 @@ def film_parts(tables, seed, n_samples, regen=None, reps=3):
     splat_plain_ms, splat_err, the splat's bound)."""
     from tpu_rt_torch.ops import path_kernel as pk
 
-    recs = pk.film_records(tables, seed, n_samples, regen=regen)
+    recs = pk.film_records(tables, seed, n_samples)
     trace_ms = statistics.median(
-        cuda_ms(lambda: pk.film_records(tables, seed, n_samples, regen=regen))[0]
+        cuda_ms(lambda: pk.film_records(tables, seed, n_samples))[0]
         for _ in range(reps))
     planes = torch.zeros((tables.n_acc + 1, tables.n_pix), dtype=torch.float32,
                          device=recs.device)
@@ -1775,71 +1781,65 @@ def stokes_phases(tt, dev):
     # ---- 17. K3, K2 and K6 against their plain versions, bit for bit --------
     pol32 = tt.load_file(cbox_pol, res=32, spp=4)
     t32 = pk.pack_tables(pk.bake_scene(pol32), pol32.camera, 16, dev, stokes=True)
-    assert t32.regen and t32.radius == 2 and t32.hdr_list[pk.HDR_MAX_DEPTH] == 16
+    assert not t32.regen and t32.radius == 2 and t32.hdr_list[pk.HDR_MAX_DEPTH] == 16
     plain32 = pk.stokes_film_trace_plain(t32, 0, 4)
-    errs = {}
-    for regen in (True, False):
-        got = pk.stokes_film_trace(t32, 0, 4, regen=regen)
-        share, errs[regen] = equal_stats(got, plain32)
-        print(f"stokes_film ({'K2 loop' if regen else 'per-sample loop'}) vs plain, cbox_pol "
-              f"32x32 x 4 samples, depth 16, gaussian: bit-equal share {share:.6f}, max |d| "
-              f"{errs[regen]:.3e}")
-        assert torch.equal(got, plain32), "the Stokes kernel differs from its plain version"
+    got = pk.stokes_film_trace(t32, 0, 4)
+    share, k3_32_err = equal_stats(got, plain32)
+    print(f"stokes_film (K3) vs plain, cbox_pol 32x32 x 4 samples, depth 16, gaussian: "
+          f"bit-equal share {share:.6f}, max |d| {k3_32_err:.3e}")
+    assert torch.equal(got, plain32), "the Stokes kernel differs from its plain version"
 
     pol128 = tt.load_file(cbox_pol, res=128, spp=16)
     t128 = pk.pack_tables(pk.bake_scene(pol128), pol128.camera, 16, dev, stokes=True)
     seed1 = 100003  # the first chunk seed of render(seed=1)
     pk.stokes_film_trace(t128, seed1, 16)  # warm-up
-    k2_ms, planes_k = cuda_ms(lambda: pk.stokes_film_trace(t128, seed1, 16, regen=True), reps=3)
-    k3_ms, planes_u = cuda_ms(lambda: pk.stokes_film_trace(t128, seed1, 16, regen=False), reps=3)
+    k3_ms, planes_u = cuda_ms(lambda: pk.stokes_film_trace(t128, seed1, 16), reps=3)
     plain_ms, planes_p = cuda_ms(lambda: pk.stokes_film_trace_plain(t128, seed1, 16))
-    share, k2_err = equal_stats(planes_k, planes_p)
-    share_u, k3_err = equal_stats(planes_u, planes_p)
-    b_ms, b_by = stokes_bound(t128, planes_k, 16)
+    share, k3_err = equal_stats(planes_u, planes_p)
+    b_ms, b_by = stokes_bound(t128, planes_u, 16)
     print(f"stokes_film vs plain, cbox_pol 128x128 x 16 samples (one launch, 326 planes): "
-          f"bit-equal share K2 loop {share:.6f} / per-sample loop {share_u:.6f}, max |d| "
-          f"{max(k2_err, k3_err):.3e}; kernel {k2_ms:.3f} ms (K2 loop), {k3_ms:.3f} ms "
-          f"(per-sample loop), plain {plain_ms:.1f} ms; bound {b_ms:.5f} ms ({b_by}); rays "
-          f"{planes_k[-1].sum().item():.0f}")
-    assert torch.equal(planes_k, planes_p) and torch.equal(planes_u, planes_p)
+          f"bit-equal share {share:.6f}, max |d| {k3_err:.3e}; kernel {k3_ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms; bound {b_ms:.5f} ms ({b_by}); rays "
+          f"{planes_u[-1].sum().item():.0f}")
+    assert torch.equal(planes_u, planes_p)
 
     # one launch at the main path's own shape: render(seed=0)'s first chunk
     pol256 = tt.load_file(cbox_pol)  # 256x256, 512 spp, gaussian, depth 16
     t256 = pk.pack_tables(pk.bake_scene(pol256), pol256.camera, 16, dev, stokes=True)
-    assert t256.regen and t256.radius == 2 and t256.n_pix == 256 * 256
+    assert not t256.regen and t256.radius == 2 and t256.n_pix == 256 * 256
     pk.stokes_film_trace(t256, 0, 64)  # warm-up
-    m2_ms, main_k = cuda_ms(lambda: pk.stokes_film_trace(t256, 0, 64, regen=True), reps=3)
-    m3_ms, main_u = cuda_ms(lambda: pk.stokes_film_trace(t256, 0, 64, regen=False), reps=3)
+    m3_ms, main_u = cuda_ms(lambda: pk.stokes_film_trace(t256, 0, 64), reps=3)
     m_plain_ms, main_p = cuda_ms(lambda: pk.stokes_film_trace_plain(t256, 0, 64))
-    m_share, m2_err = equal_stats(main_k, main_p)
-    m_share_u, m3_err = equal_stats(main_u, main_p)
-    m_b_ms, m_b_by = stokes_bound(t256, main_k, 64)
+    m_share, m3_err = equal_stats(main_u, main_p)
+    m_b_ms, m_b_by = stokes_bound(t256, main_u, 64)
     print(f"stokes_film vs plain, cbox_pol 256x256 x 64 samples (one main-path launch): "
-          f"bit-equal share K2 loop {m_share:.6f} / per-sample loop {m_share_u:.6f} (128x128: "
-          f"{share:.6f} / {share_u:.6f}), max |d| {max(m2_err, m3_err):.3e}; kernel "
-          f"{m2_ms:.3f} ms (K2 loop), {m3_ms:.3f} ms (per-sample loop), plain "
-          f"{m_plain_ms:.1f} ms; bound {m_b_ms:.5f} ms ({m_b_by}); rays "
-          f"{main_k[-1].sum().item():.0f}")
-    assert torch.equal(main_k, main_p) and torch.equal(main_u, main_p), \
+          f"bit-equal share {m_share:.6f} (128x128: {share:.6f}), max |d| {m3_err:.3e}; kernel "
+          f"{m3_ms:.3f} ms, plain {m_plain_ms:.1f} ms; bound {m_b_ms:.5f} ms ({m_b_by}); rays "
+          f"{main_u[-1].sum().item():.0f}")
+    assert torch.equal(main_u, main_p), \
         "the Stokes kernel differs from its plain version on a main-path launch"
-    del main_k, main_u, main_p
-    m2_parts = film_parts(t256, 0, 64, regen=True)
-    m3_parts = film_parts(t256, 0, 64, regen=False)
-    print(f"stokes_film cbox_pol 256x256 x 64 samples apart: K2 loop {parts_line(m2_parts)}; "
-          f"per-sample loop {parts_line(m3_parts)}")
+    del main_u, main_p
+    m3_parts = film_parts(t256, 0, 64)
+    print(f"stokes_film cbox_pol 256x256 x 64 samples apart: {parts_line(m3_parts)}")
 
     cb = tt.load_file(FIXTURE, res=128, spp=16).replace(max_depth=16)
     tcb = pk.pack_tables(pk.bake_scene(cb), cb.camera, 16, dev)
     assert tcb.regen and not tcb.stokes
+    k2_before = pk.film_trace.regen_launches
     a = pk.film_trace(tcb, 7, 16, regen=True)
+    k2_fixture = pk.film_trace.regen_launches - k2_before
     b = pk.film_trace(tcb, 7, 16, regen=False)
-    p1 = pk.film_trace_plain(tcb, 7, 16)
+    p1_ms, p1 = cuda_ms(lambda: pk.film_trace_plain(tcb, 7, 16))
     r1_ms, _ = cuda_ms(lambda: pk.film_trace(tcb, 7, 16, regen=True), reps=3)
     u1_ms, _ = cuda_ms(lambda: pk.film_trace(tcb, 7, 16, regen=False), reps=3)
+    _, r1_err = equal_stats(a, p1)
+    r1_b = film_trace_bound(tcb, a, n_samples=16)
     print(f"path_film at depth 16, cbox 128x128 x 16 samples, tent: K2 loop bit-equal to the "
           f"per-sample loop {bool(torch.equal(a, b))}, to the plain version "
-          f"{bool(torch.equal(a, p1))}; {r1_ms:.3f} ms (K2 loop) vs {u1_ms:.3f} ms")
+          f"{bool(torch.equal(a, p1))}; {r1_ms:.3f} ms (K2 loop) vs {u1_ms:.3f} ms, plain "
+          f"{p1_ms:.1f} ms; bound {r1_b[0]:.5f} ms ({r1_b[1]})")
     assert torch.equal(a, b) and torch.equal(a, p1), "K1 in K2's loop differs"
+    assert k2_fixture == 1, "K1 with regen=True did not take K2's loop"
 
     s_k, s_p = pk.stokes_sample_trace(t32, 5), pk.stokes_sample_trace_plain(t32, 5)
     assert torch.equal(s_k, s_p), "K6 differs from its plain version"
@@ -1933,10 +1933,10 @@ def stokes_phases(tt, dev):
     # ---- 19. the main path: render(cbox_pol.xml) 256x256, 512 spp, depth 16 ------
     med, lo, hi, nr, counts, S = timed_main_path(tt, pol256, 512)
     print(f"launch counts over the cbox_pol main path: {counts}")
-    print(f"cbox_pol main path 256x256 512 spp gaussian depth 16 (K3 in K2's loop): median "
-          f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
+    print(f"cbox_pol main path 256x256 512 spp gaussian depth 16 (K3, a thread a sample): "
+          f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    check_counts(counts, stokes_film=5 * 8, regen=5 * 8, film_splat=5 * 8)
+    check_counts(counts, stokes_film=5 * 8, film_splat=5 * 8)
     assert S.shape == (256, 256, 4, 3) and bool(torch.isfinite(S).all())
     assert S[..., 0, :].mean().item() > 0
     main_counts = counts
@@ -1948,15 +1948,9 @@ def stokes_phases(tt, dev):
                  for rep in range(n)]
         return statistics.median(times), min(times), max(times)
 
-    modes = {}
-    for depth in (16, 6):
-        sc = pol256 if depth == 16 else pol256.replace(max_depth=6)
-        for regen in (True, False):
-            modes[(depth, regen)] = timed(sc, 512, 5 if depth == 16 else 3, regen=regen)
-        r, u = modes[(depth, True)][0], modes[(depth, False)][0]
-        print(f"cbox_pol 256x256 512 spp at max_depth {depth}: K2 loop median {r:.3f} ms, "
-              f"per-sample loop {u:.3f} ms (per-sample / K2 = {u / r:.3f}; the auto rule takes "
-              f"K2's loop {'from' if depth >= pk.REGEN_AUTO_DEPTH else 'below'} depth 8)")
+    d6 = timed(pol256.replace(max_depth=6), 512, 3)
+    print(f"cbox_pol 256x256 512 spp at max_depth 6: median {d6[0]:.3f} ms (min {d6[1]:.3f}, "
+          f"max {d6[2]:.3f}, n 3); at 16 {med:.3f} ms")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1967,11 +1961,12 @@ def stokes_phases(tt, dev):
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     busy = busy_ms(prof)
-    kern = sum(dev_us(e) for e in prof.key_averages() if "path_film_kernel" in e.key) / 1e3
+    kern = sum(dev_us(e) for e in prof.key_averages() if "stokes_sample_kernel" in e.key) / 1e3
     splat = sum(dev_us(e) for e in prof.key_averages() if "film_splat_kernel" in e.key) / 1e3
     rest = busy - kern - splat
     print(f"profile of 3 cbox_pol renders: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
-          f"path_film_kernel {kern:.3f} ms ({kern / max(busy, 1e-9):.4f} of busy), "
+          f"K3's trace (stokes_sample_kernel) {kern:.3f} ms ({kern / max(busy, 1e-9):.4f} of "
+          f"busy), "
           f"film_splat_kernel {splat:.3f} ms ({splat / max(busy, 1e-9):.4f}), the rest "
           f"(deposit, develop) {rest:.3f} ms ({rest / max(busy, 1e-9):.4f}), "
           f"idle share {1.0 - busy / wall_ms:.4f}")
@@ -2019,15 +2014,15 @@ def stokes_phases(tt, dev):
     assert Sz.shape == (128, 128, 4, 3) and bool(torch.isfinite(Sz).all())
     assert Sz[..., 0, :].mean().item() > 0.01
 
-    return dict(k3_launches=main_counts["stokes_film"], k2_launches=main_counts["regen"],
+    return dict(k3_launches=main_counts["stokes_film"],
                 splat_launches=main_counts["film_splat"],
                 k6_launches=ps_counts["stokes_sample"],
-                k3_err=max(errs[False], k3_err, m3_err), k2_err=max(errs[True], k2_err, m2_err),
-                k3_parts=m3_parts, k2_parts=m2_parts, main_ms=med,
-                k6_err=k6_err, k3_ms=m3_ms, k2_ms=m2_ms, plain_ms=m_plain_ms, bound_ms=m_b_ms,
-                bound_by=m_b_by,
-                launch_128=dict(k3_ms=k3_ms, k2_ms=k2_ms, plain_ms=plain_ms, bound_ms=b_ms),
-                k1_depth16=dict(regen_ms=r1_ms, unrolled_ms=u1_ms),
+                k3_err=max(k3_32_err, k3_err, m3_err), k3_parts=m3_parts, main_ms=med,
+                k6_err=k6_err, k3_ms=m3_ms, plain_ms=m_plain_ms, bound_ms=m_b_ms,
+                bound_by=m_b_by, depth6_ms=d6[0],
+                launch_128=dict(k3_ms=k3_ms, plain_ms=plain_ms, bound_ms=b_ms),
+                k1_depth16=dict(regen_ms=r1_ms, unrolled_ms=u1_ms, plain_ms=p1_ms,
+                                max_abs_err=r1_err, bound_ms=r1_b[0], bound_by=r1_b[1]),
                 k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_bound_ms=k6_b[0], k6_bound_by=k6_b[1],
                 k6_chunk=k6_chunk)
 
@@ -2160,15 +2155,13 @@ def envmap_phases(tt, dev, k1_ms, k3_ms):
     assert pk.stokes_in_scope(bs)
     tcp = pk.pack_tables(bs, cp.camera, 16, dev, stokes=True)
     want = pk.stokes_film_trace_plain(tcp, 5, 4)
-    for regen in (True, False):
-        got = pk.stokes_film_trace(tcp, 5, 4, regen=regen)
-        share, null_err = equal_stats(got, want)
-        print(f"stokes_film (K3, {'K2 loop' if regen else 'per-sample loop'}) with a null BSDF "
-              f"vs plain, cbox_pol 32x32 x 4 samples, depth 16: bit-equal share {share:.6f}, "
-              f"max |d| {null_err:.3e}")
-        assert torch.equal(got, want), "K3 with a null BSDF differs from its plain version"
+    got = pk.stokes_film_trace(tcp, 5, 4)
+    share, null_err = equal_stats(got, want)
+    print(f"stokes_film (K3) with a null BSDF vs plain, cbox_pol 32x32 x 4 samples, depth 16: "
+          f"bit-equal share {share:.6f}, max |d| {null_err:.3e}")
+    assert torch.equal(got, want), "K3 with a null BSDF differs from its plain version"
     print(f"K1 cbox launch (512x512 x 64 samples, tent) {k1_ms:.3f} ms; K3 cbox_pol launch "
-          f"(256x256 x 64 samples, per-sample loop) {k3_ms:.3f} ms (registers and spills in "
+          f"(256x256 x 64 samples, a thread a sample) {k3_ms:.3f} ms (registers and spills in "
           f"phase 2)")
 
     # ---- 23. the gates against tpu_rt's interpret-mode renders ---------------
@@ -2318,16 +2311,12 @@ def rough_cone_phases(tt, dev):
 
     p64 = tt.load_file(os.path.join(POL_DIR, "cbox_pol_rough.xml"), res=64, spp=4)
     tp = pk.pack_tables(pk.bake_scene(p64), p64.camera, 16, dev, stokes=True)
-    assert tp.rough_cone and tp.regen and tp.radius == 2
-    for regen in (True, False):
-        key = "k2" if regen else "k3"
-        out[key], got = kernel_vs_plain(
-            f"stokes_film ({'K3 in K2 loop' if regen else 'K3 per-sample loop'}) rough vs "
-            f"plain, cbox_pol_rough 64x64 x 4 samples, depth 16, gaussian",
-            lambda: pk.stokes_film_trace(tp, 0, 4, regen=regen),
-            lambda: pk.stokes_film_trace_plain(tp, 0, 4))
-        assert got[1:12].abs().max().item() > 1e-4
-        out[key]["bound_ms"], out[key]["bound_by"] = stokes_bound(tp, got, 4)
+    assert tp.rough_cone and not tp.regen and tp.radius == 2
+    out["k3"], got = kernel_vs_plain(
+        "stokes_film (K3) rough vs plain, cbox_pol_rough 64x64 x 4 samples, depth 16, gaussian",
+        lambda: pk.stokes_film_trace(tp, 0, 4), lambda: pk.stokes_film_trace_plain(tp, 0, 4))
+    assert got[1:12].abs().max().item() > 1e-4
+    out["k3"]["bound_ms"], out["k3"]["bound_by"] = stokes_bound(tp, got, 4)
     out["k6"], s64 = kernel_vs_plain("stokes_sample (K6) rough vs plain, cbox_pol_rough 64x64",
                                      lambda: pk.stokes_sample_trace(tp, 5),
                                      lambda: pk.stokes_sample_trace_plain(tp, 5))
@@ -2341,28 +2330,23 @@ def rough_cone_phases(tt, dev):
     p256 = tt.load_file(os.path.join(POL_DIR, "cbox_pol_rough.xml"))  # 256x256, 512 spp
     t256 = pk.pack_tables(pk.bake_scene(p256), p256.camera, 16, dev, stokes=True)
     pk.stokes_film_trace(t256, 0, 64)  # warm-up
-    m2_ms, main_k = cuda_ms(lambda: pk.stokes_film_trace(t256, 0, 64, regen=True), reps=3)
-    m3_ms, main_u = cuda_ms(lambda: pk.stokes_film_trace(t256, 0, 64, regen=False), reps=3)
+    m3_ms, main_u = cuda_ms(lambda: pk.stokes_film_trace(t256, 0, 64), reps=3)
     m_plain_ms, main_p = cuda_ms(lambda: pk.stokes_film_trace_plain(t256, 0, 64))
-    m_share, m2_err = equal_stats(main_k, main_p)
-    m_share_u, m3_err = equal_stats(main_u, main_p)
-    mb = stokes_bound(t256, main_k, 64)
+    m_share, m3_err = equal_stats(main_u, main_p)
+    mb = stokes_bound(t256, main_u, 64)
     print(f"stokes_film rough vs plain, cbox_pol_rough 256x256 x 64 samples (one main-path "
-          f"launch): bit-equal share K2 loop {m_share:.6f} / per-sample loop {m_share_u:.6f}, "
-          f"max |d| {max(m2_err, m3_err):.3e}; kernel {m2_ms:.3f} ms (K2 loop), {m3_ms:.3f} ms "
-          f"(per-sample loop), plain {m_plain_ms:.1f} ms; bound {mb[0]:.5f} ms ({mb[1]}); rays "
-          f"{main_k[-1].sum().item():.0f}")
-    assert torch.equal(main_k, main_p) and torch.equal(main_u, main_p), \
+          f"launch): bit-equal share {m_share:.6f}, max |d| {m3_err:.3e}; kernel {m3_ms:.3f} ms, "
+          f"plain {m_plain_ms:.1f} ms; bound {mb[0]:.5f} ms ({mb[1]}); rays "
+          f"{main_u[-1].sum().item():.0f}")
+    assert torch.equal(main_u, main_p), \
         "the Stokes kernel's rough lane differs from its plain version on a main-path launch"
-    rparts = {key: film_parts(t256, 0, 64, regen=regen) for key, regen in (("k2", True),
-                                                                          ("k3", False))}
-    print(f"stokes_film rough cbox_pol_rough 256x256 x 64 samples apart: K2 loop "
-          f"{parts_line(rparts['k2'])}; per-sample loop {parts_line(rparts['k3'])}")
+    rparts = film_parts(t256, 0, 64)
+    print(f"stokes_film rough cbox_pol_rough 256x256 x 64 samples apart: {parts_line(rparts)}")
     # the JSON numbers are the main-path launch's; the 64x64 check's beside them
-    for key, ms, err in (("k2", m2_ms, m2_err), ("k3", m3_ms, m3_err)):
-        out[key] = dict(ms=ms, plain_ms=m_plain_ms, max_abs_err=max(err, out[key]["max_abs_err"]),
-                        bound_ms=mb[0], bound_by=mb[1], launch_64=out[key], parts=rparts[key])
-    del main_k, main_u, main_p
+    out["k3"] = dict(ms=m3_ms, plain_ms=m_plain_ms, max_abs_err=max(m3_err,
+                                                                    out["k3"]["max_abs_err"]),
+                     bound_ms=mb[0], bound_by=mb[1], launch_64=out["k3"], parts=rparts)
+    del main_u, main_p
     out["k6"]["chunk"], _ = chunk_vs_singles(
         "stokes_sample (K6) rough, cbox_pol_rough 256x256",
         lambda s, n=None: pk.stokes_sample_trace(t256, s, n), 0, 64)
@@ -2477,14 +2461,14 @@ def rough_cone_phases(tt, dev):
 
     med, lo, hi, nr, counts, S = timed_main_path(tt, p256, 512)
     print(f"launch counts over the cbox_pol_rough main path: {counts}")
-    print(f"cbox_pol_rough main path 256x256 512 spp gaussian depth 16 (K3 in K2's loop): "
-          f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
-          f"{nr / (med / 1e3):.4e}")
-    check_counts(counts, stokes_film=5 * 8, regen=5 * 8, film_splat=5 * 8)
+    print(f"cbox_pol_rough main path 256x256 512 spp gaussian depth 16 (K3, a thread a "
+          f"sample): median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, "
+          f"rays/s {nr / (med / 1e3):.4e}")
+    check_counts(counts, stokes_film=5 * 8, film_splat=5 * 8)
     assert S.shape == (256, 256, 4, 3) and bool(torch.isfinite(S).all())
-    out["k3_launches"], out["k2_launches"] = counts["stokes_film"], counts["regen"]
+    out["k3_launches"] = counts["stokes_film"]
     out["k3_splat_launches"] = counts["film_splat"]
-    out["k2"]["main_ms"] = med
+    out["k3"]["main_ms"] = med
 
     fr = us_frame("cone_box", tt, cone, dev, 64, gu.X_BOUNDS, gu.Z_BOUNDS)
     out["das"] = das_check("cone_box", fr["ch"], cone.ultrasound, fr["xg"], fr["zg"], fr["pos"],
@@ -3704,7 +3688,7 @@ def sharded_world(tt, usmain, n=2, backend="gloo"):
               "k1": ("K1, cbox 512x512 256 spp", "img"),
               "k9": ("K9, simple.xml 256x256 256 spp", "img"),
               "stokes_None": ("K6, cbox_pol 256x256 512 spp gaussian depth 16", "img"),
-              f"stokes_{FILTER_TENT}": ("K3 in K2's loop, cbox_pol 256x256 512 spp tent depth 16",
+              f"stokes_{FILTER_TENT}": ("K3, cbox_pol 256x256 512 spp tent depth 16",
                                         "img")}
     out = {"counts": [r["counts"] for r in res], "routes": {}}
     for name, (label, key) in routes.items():
@@ -3744,7 +3728,8 @@ def sharded_world(tt, usmain, n=2, backend="gloo"):
     k3 = -(-512 // n // 64)
     for name, count in (("k1", dict(path_film=chunks, film_splat=chunks)),
                         ("k9", dict(mesh_direct=chunks)),
-                        (f"stokes_{FILTER_TENT}", dict(stokes_film=k3, regen=k3, film_splat=k3)),
+                        (f"stokes_{FILTER_TENT}",
+                         dict(stokes_film=k3, film_splat=k3)),
                         ("stokes_None", dict(stokes_sample=1)), ("acq_kernel", dict(us_acq=1))):
         for r in res:
             check_counts(r["counts"][name], **count)

@@ -33,7 +33,8 @@ mesh-intersect kernel bit-equal (t, prim, u, v), also with dead lanes
 duplicated triangles, and its one call bit-equal to the chained segments;
 the
 Stokes kernels K3 and K6 and K2's loop bit-equal to their plain versions,
-and K2's loop bit-equal to the per-sample loop for K1 and K3; K5 and K4
+K2's loop bit-equal to the per-sample loop for K1, K3's records also on a
+grid with a ragged edge; K5 and K4
 under a textured environment, K1 with polarizer / null pass-through and
 K3 with a null BSDF bit-equal to their plain versions; the rough
 conductor's lane and cone prims in K1, K2's loop, K3, K6, K5 and K4, and
@@ -446,19 +447,16 @@ def _film_tables(path, res, depth, filter_type, stokes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("filter_type", [0, 1, 2], ids=["box", "tent", "gaussian"])
-@pytest.mark.parametrize("depth,regen", [(3, False), (None, True), (None, False)],
-                         ids=["depth3", "depth16_regen", "depth16_unrolled"])
-def test_stokes_kernel_is_bit_equal_to_plain_version(filter_type, depth, regen):
-    """K3, and K2's loop around it, on cbox_pol (depth 16 is its own)."""
+@pytest.mark.parametrize("depth", [3, None], ids=["depth3", "depth16"])
+def test_stokes_kernel_is_bit_equal_to_plain_version(filter_type, depth):
+    """K3 on cbox_pol (depth 16 is its own), one thread a (pixel,
+    sample)."""
     _need_cuda()
     tables = _film_tables(CBOX_POL, 24, depth, filter_type, True)
-    before = (path_kernel.stokes_film_trace.launches,
-              path_kernel.stokes_film_trace.regen_launches)
-    got = path_kernel.stokes_film_trace(tables, 5, 3, regen=regen)
+    before = path_kernel.stokes_film_trace.launches
+    got = path_kernel.stokes_film_trace(tables, 5, 3)
     torch.cuda.synchronize()
-    assert (path_kernel.stokes_film_trace.launches,
-            path_kernel.stokes_film_trace.regen_launches) == (before[0] + 1,
-                                                              before[1] + int(regen))
+    assert path_kernel.stokes_film_trace.launches == before + 1
     want = path_kernel.stokes_film_trace_plain(tables, 5, 3)
     assert got.shape == want.shape == (tables.n_acc + 1, 24 * 24)
     assert torch.equal(got, want)
@@ -467,17 +465,36 @@ def test_stokes_kernel_is_bit_equal_to_plain_version(filter_type, depth, regen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("filter_type", [0, 1, 2], ids=["box", "tent", "gaussian"])
-@pytest.mark.parametrize("stokes", [False, True], ids=["K1", "K3"])
-def test_regen_loop_is_bit_equal_to_the_per_sample_loop(filter_type, stokes):
+def test_regen_loop_is_bit_equal_to_the_per_sample_loop(filter_type):
     """K2's loop and the per-sample loop give the same planes, bit for bit,
-    at depth 16 (K1 on the cbox fixture, K3 on cbox_pol)."""
+    at depth 16 (K1 on the cbox fixture; K3 has no loop form)."""
     _need_cuda()
-    tables = _film_tables(CBOX_POL if stokes else CBOX, 48, 16, filter_type, stokes)
-    trace_fn = path_kernel.stokes_film_trace if stokes else path_kernel.film_trace
-    a = trace_fn(tables, -7, 4, regen=True)
-    b = trace_fn(tables, -7, 4, regen=False)
+    tables = _film_tables(CBOX, 48, 16, filter_type, False)
+    a = path_kernel.film_trace(tables, -7, 4, regen=True)
+    b = path_kernel.film_trace(tables, -7, 4, regen=False)
     assert torch.equal(a, b)
     assert a[-1].sum().item() > 4 * 48 * 48
+
+
+@pytest.mark.cuda
+def test_stokes_records_on_a_ragged_grid_equal_plain_records():
+    """K3's records on a grid whose last block of each sample row is cut
+    (23 x 23 = 529 pixels, 4 blocks of 128 and 17 pixels), a 3-sample
+    chunk at gaussian radius 2 and depth 16: every (pixel, sample) record
+    written once, at blockIdx.y's stride, bit for bit the plain version's.
+    More samples than the grid holds raise before a launch."""
+    _need_cuda()
+    tables = _film_tables(CBOX_POL, 23, 16, 2, True)
+    assert tables.n_pix % 128 != 0 and tables.radius == 2
+    before = path_kernel.stokes_film_trace.launches
+    got = path_kernel.film_records(tables, 41, 3)
+    torch.cuda.synchronize()
+    assert path_kernel.stokes_film_trace.launches == before + 1
+    want = path_kernel.film_records_plain(tables, 41, 3)
+    assert got.shape == want.shape == (13, 3, 529)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="at most"):
+        path_kernel.film_records(tables, 0, path_kernel.MAX_SAMPLE_CHUNK + 1)
 
 
 @pytest.mark.cuda
@@ -512,10 +529,10 @@ def test_render_stokes_on_cuda_goes_through_the_stokes_kernel():
     _need_cuda()
     st = tpu_rt_torch.load_file(CBOX_POL, res=32, spp=10)
     k3 = path_kernel.stokes_film_trace
-    before = (k3.launches, k3.regen_launches, path_kernel.film_trace.launches)
+    before = (k3.launches, path_kernel.film_trace.launches)
     S = tpu_rt_torch.render(st, seed=1, spp_per_pass=4)
-    assert (k3.launches, k3.regen_launches, path_kernel.film_trace.launches) == (
-        before[0] + 3, before[1] + 3, before[2])  # 4 + 4 + 2 samples, K2's loop
+    assert (k3.launches, path_kernel.film_trace.launches) == (
+        before[0] + 3, before[1])  # 4 + 4 + 2 samples
     assert S.device.type == "cuda" and S.shape == (32, 32, 4, 3)
     assert bool(torch.isfinite(S).all()) and S[..., 0, :].mean().item() > 0
     rays = tpu_rt_torch.render.last_ray_count
@@ -630,8 +647,7 @@ def test_film_kernel_with_pass_through_is_bit_equal_to_plain_version(path, filte
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("regen", [True, False], ids=["K2_loop", "per_sample_loop"])
-def test_stokes_kernel_with_a_null_bsdf_is_bit_equal_to_plain_version(regen):
+def test_stokes_kernel_with_a_null_bsdf_is_bit_equal_to_plain_version():
     """K3's neutral attenuator: cbox_pol with its low glass sphere turned
     into a null BSDF, depth 16."""
     _need_cuda()
@@ -642,7 +658,7 @@ def test_stokes_kernel_with_a_null_bsdf_is_bit_equal_to_plain_version(regen):
     bs = path_kernel.bake_scene(st)
     assert path_kernel.stokes_in_scope(bs)
     tables = path_kernel.pack_tables(bs, st.camera, 16, "cuda", stokes=True)
-    got = path_kernel.stokes_film_trace(tables, 8, 3, regen=regen)
+    got = path_kernel.stokes_film_trace(tables, 8, 3)
     assert torch.equal(got, path_kernel.stokes_film_trace_plain(tables, 8, 3))
     assert got[1:12].abs().max().item() > 1e-4
 
@@ -686,14 +702,13 @@ def test_film_kernel_rough_cone_is_bit_equal_to_plain_version(filter_type, depth
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("filter_type", [0, 2], ids=["box", "gaussian"])
-@pytest.mark.parametrize("regen", [True, False], ids=["K2_loop", "per_sample_loop"])
-def test_stokes_kernel_rough_is_bit_equal_to_plain_version(filter_type, regen):
+def test_stokes_kernel_rough_is_bit_equal_to_plain_version(filter_type):
     """K3's rough lane, with the NEE Mueller chain, on cbox_pol_rough.xml at
-    depth 16, in both loop forms; and K6 on the same tables."""
+    depth 16; and K6 on the same tables."""
     _need_cuda()
     tables = _film_tables(POL_ROUGH, 24, None, filter_type, True)
-    assert tables.rough_cone and tables.regen
-    got = path_kernel.stokes_film_trace(tables, 4, 3, regen=regen)
+    assert tables.rough_cone and not tables.regen
+    got = path_kernel.stokes_film_trace(tables, 4, 3)
     assert torch.equal(got, path_kernel.stokes_film_trace_plain(tables, 4, 3))
     assert got[1:12].abs().max().item() > 1e-4
     one = path_kernel.stokes_sample_trace(tables, 77)
@@ -788,20 +803,22 @@ def test_film_splat_kernel_is_bit_equal_to_plain_splat(filter_type, stokes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("filter_type", [0, 1, 2], ids=["box", "tent", "gaussian"])
 @pytest.mark.parametrize("path,stokes,regen", [
-    (CBOX, False, False), (CBOX, False, True), (CBOX_POL, True, True), (CBOX_POL, True, False),
-    (POL_ROUGH, True, True), (CBOX_ROUGH, False, False), (MESH_GI, False, False)],
-    ids=["K1", "K1_K2_loop", "K3_K2_loop", "K3", "K3_rough_K2_loop", "K1_rough", "K1_mesh"])
+    (CBOX, False, False), (CBOX, False, True), (CBOX_POL, True, None),
+    (POL_ROUGH, True, None), (CBOX_ROUGH, False, False), (MESH_GI, False, False)],
+    ids=["K1", "K1_K2_loop", "K3", "K3_rough", "K1_rough", "K1_mesh"])
 def test_trace_kernel_records_equal_plain_records(path, stokes, regen, filter_type):
     """The trace kernel writes the plain version's records, bit for bit, at
     depth 16 ([value][sample][pixel]), in every form: K1's clustered-mesh
-    mode on mesh_gi.xml too."""
+    mode on mesh_gi.xml too; K3's are the first 13 of K6's planes."""
     _need_cuda()
     tables = _film_tables(path, 24, 16, filter_type, stokes)
-    counter = path_kernel.stokes_film_trace if stokes else path_kernel.film_trace
-    before = (counter.launches, counter.regen_launches)
+    before = (path_kernel.stokes_film_trace.launches, path_kernel.film_trace.launches,
+              path_kernel.film_trace.regen_launches)
     got = path_kernel.film_records(tables, 3, 4, regen=regen)
     torch.cuda.synchronize()
-    assert (counter.launches, counter.regen_launches) == (before[0] + 1, before[1] + int(regen))
+    assert (path_kernel.stokes_film_trace.launches, path_kernel.film_trace.launches,
+            path_kernel.film_trace.regen_launches) == (
+        before[0] + int(stokes), before[1] + int(not stokes), before[2] + int(bool(regen)))
     want = path_kernel.film_records_plain(tables, 3, 4)
     assert got.shape == want.shape == (tables.n_val, 4, 24 * 24)
     assert torch.equal(got, want)

@@ -158,7 +158,7 @@ def test_cbox_pol_is_in_the_kernel_scope_of_both_packages():
     t1 = path_kernel.pack_tables(bt, st.camera, 8, "cpu", stokes=True)
     t2 = path_kernel.pack_tables(pallas_bake_as_port(sj), st.camera, 8, "cpu", stokes=True)
     assert t1.tab_list == t2.tab_list and t1.hdr_list == t2.hdr_list
-    assert t1.regen and t1.stokes and t1.radius == 2
+    assert not t1.regen and t1.stokes and t1.radius == 2  # K3 has no loop form
     em = np.asarray(sj.emitters.area_radiance)
     assert em.tolist() == [[25.0, 25.0, 25.0]]
     cond = st.bsdf_params[st.bsdf_type == TT.BSDF_CONDUCTOR]

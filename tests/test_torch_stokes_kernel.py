@@ -76,9 +76,10 @@ def test_stokes_film_plain_matches_pallas_interpret(golden, filt):
 
 
 def test_regen_depth_16_plain_matches_pallas_interpret_stokes(golden):
-    """K2 around K3: cbox_pol at its own depth 16, gaussian."""
+    """K3 at cbox_pol's own depth 16, gaussian, against tpu_rt's K2 around
+    K3 (the port's K3 has no loop form: its tables' regen word is 0)."""
     t = _tables()
-    assert t.hdr_list[pk.HDR_MAX_DEPTH] == 16 and t.regen and t.radius == 2
+    assert t.hdr_list[pk.HDR_MAX_DEPTH] == 16 and not t.regen and t.radius == 2
     _check(pk.stokes_film_trace_plain(t, SEED, K).numpy(), golden["regen_stokes"])
 
 
@@ -155,9 +156,14 @@ def test_tables_carry_the_stokes_fields():
         np.asarray(t.tab_list[pk.G_CAM_X:pk.G_CAM_X + 3], np.float32),
         sc.camera.to_world.numpy()[:3, 0])
     assert (t.stokes, t.regen, t.n_val, t.n_acc) == (True, False, 13, 117)
-    # the regen word is the auto form: on from max_depth 8
+    # the regen word is K1's auto form, on from max_depth 8; 0 on Stokes
+    # tables, whose K3 has no loop form and takes no regen
     for depth in (pk.REGEN_AUTO_DEPTH - 1, pk.REGEN_AUTO_DEPTH, 16):
-        assert _tables(filt="tent", depth=depth).regen == (depth >= pk.REGEN_AUTO_DEPTH)
+        assert _tables(filt="tent", depth=depth, stokes=False).regen == (
+            depth >= pk.REGEN_AUTO_DEPTH)
+        assert not _tables(filt="tent", depth=depth).regen
+    with pytest.raises(ValueError, match="no loop form"):
+        pk.film_records(t, 0, 1, regen=True)
     scalar = _tables(filt="tent", depth=DEPTH, stokes=False)
     assert scalar.tab_list[pk.G_CAM_X:pk.G_CAM_X + 3] == [0.0, 0.0, 0.0]
     with pytest.raises(ValueError, match="stokes=True"):
@@ -168,9 +174,8 @@ def test_tables_carry_the_stokes_fields():
 
 def test_wrappers_on_the_cpu_launch_nothing():
     t = _tables(filt="box", depth=DEPTH)
-    before = (pk.stokes_film_trace.launches, pk.stokes_film_trace.regen_launches,
-              pk.stokes_sample_trace.launches)
-    pk.stokes_film_trace(t, 0, 1, regen=True)
+    before = (pk.stokes_film_trace.launches, pk.stokes_sample_trace.launches)
+    pk.stokes_film_trace(t, 0, 1)
+    pk.film_records(t, 0, 1)
     pk.stokes_sample_trace(t, 0)
-    assert before == (pk.stokes_film_trace.launches, pk.stokes_film_trace.regen_launches,
-                      pk.stokes_sample_trace.launches)
+    assert before == (pk.stokes_film_trace.launches, pk.stokes_sample_trace.launches)

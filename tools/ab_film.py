@@ -23,7 +23,9 @@ run one sample a pass (``spp_per_pass`` 1), as that build's routes did.
 
 Then, on the main paths' launches (K1: cbox 512^2 x 64 tent, mesh_gi
 256^2 x 64 box, cbox_rough 512^2 x 64 tent; K3: cbox_pol and
-cbox_pol_rough 256^2 x 64 at filter radius 0, 1 and 2 in both loop forms;
+cbox_pol_rough 256^2 x 64 at filter radius 0, 1 and 2, each in the
+tables' loop form (the port's K3 has none: its Stokes tables' regen word
+is 0, which a build with K2's loop around K3 reads as its per-sample loop);
 K6, K5 and K4 one sample, and their routes' chunks: K6 cbox_pol and
 cbox_pol_rough 256^2 x 64, K5 polarizers and envmap_rough_cone 128^2 x 10,
 K4 16 384 rays x 10 seeds, and the 64-sample chunks of a render at the
@@ -142,28 +144,26 @@ def tables_of(path, res=None, filter_type=None, stokes=False):
 
 
 def cases():
-    """(name, tables, samples, regen) of the main paths' film launches."""
-    out = [("K1 cbox 512x512x64 tent", tables_of(CBOX), 64, None),
-           ("K1 mesh_gi 256x256x64 box", tables_of(MESH_GI), 64, None),
-           ("K1 cbox_rough 512x512x64 tent", tables_of(CBOX_ROUGH), 64, None)]
+    """(name, tables, samples) of the main paths' film launches."""
+    out = [("K1 cbox 512x512x64 tent", tables_of(CBOX), 64),
+           ("K1 mesh_gi 256x256x64 box", tables_of(MESH_GI), 64),
+           ("K1 cbox_rough 512x512x64 tent", tables_of(CBOX_ROUGH), 64)]
     for path in (CBOX_POL, CBOX_POL_ROUGH):
         for ft in (2, 1, 0):
             t = tables_of(path, filter_type=ft, stokes=True)
-            for regen in (True, False):
-                out.append((f"K3 {os.path.basename(path)[:-4]} 256x256x64 radius {t.radius} "
-                            f"{'K2 loop' if regen else 'per-sample loop'}", t, 64, regen))
+            out.append((f"K3 {os.path.basename(path)[:-4]} 256x256x64 radius {t.radius}", t, 64))
     return out
 
 
 def ab_launches(libs, reps, unchecked=(), unchunked=()):
     res = {}
-    for name, tables, n, regen in cases():
+    for name, tables, n in cases():
         fns = {}
         for v, lib in libs.items():
             def full(lib=lib):
                 with use(lib):
                     trace = pk.stokes_film_trace if tables.stokes else pk.film_trace
-                    return trace(tables, SEED, n, regen=regen)
+                    return trace(tables, SEED, n)
             fns[v] = full
         times = {v: [] for v in libs}
         parts = {v: ([], []) for v in libs if is_split(libs[v])}
@@ -184,7 +184,7 @@ def ab_launches(libs, reps, unchecked=(), unchunked=()):
                 times[v].append(event_ms(fn)[0])
                 if v in parts:
                     with use(libs[v]):
-                        ms_t, rec = event_ms(lambda: pk.film_records(tables, SEED, n, regen))
+                        ms_t, rec = event_ms(lambda: pk.film_records(tables, SEED, n))
                         planes = torch.zeros((tables.n_acc + 1, tables.n_pix), device="cuda")
                         ms_s, _ = event_ms(lambda: pk.film_splat(rec, planes, tables, SEED))
                         parts[v][0].append(ms_t)

@@ -285,14 +285,14 @@ def stokes_trace(scene, o, d, gen=None, uniforms=None, max_depth=None, has_polar
 
 
 def render_stokes(scene, spp=None, seed=0, max_depth=None, device="cuda", spp_per_pass=64,
-                  tile_rows=16, regen=None):
+                  tile_rows=16):
     """Full polarized render on ``device``: the (H, W, 4, 3) Stokes image
     (I, Q, U, V by rgb); sets ``render_stokes.last_ray_count`` (0-d int64).
 
     With ``max_depth`` None a scene in the Stokes kernel's scope, with no
     tensor that requires grad, renders through the forward-only
-    ``path_kernel.render_stokes_film`` (``spp_per_pass``,
-    ``tile_rows`` and ``regen`` go there).  Every other scene, notably a
+    ``path_kernel.render_stokes_film`` (``spp_per_pass`` and
+    ``tile_rows`` go there).  Every other scene, notably a
     polarizer, renders through the wavefront: ``spp`` waves of one sample
     a pixel, each splatted at its pixels (a sample with a non-finite value
     left out) and developed."""
@@ -305,7 +305,7 @@ def render_stokes(scene, spp=None, seed=0, max_depth=None, device="cuda", spp_pe
             if path_kernel.stokes_in_scope(baked):
                 S, n_rays = path_kernel.render_stokes_film(
                     scene, spp=spp, seed=seed, device=device, spp_per_pass=spp_per_pass,
-                    tile_rows=tile_rows, baked=baked, regen=regen)
+                    tile_rows=tile_rows, baked=baked)
                 render_stokes.last_ray_count = n_rays
                 return S
         scene = scene.to(device)

@@ -116,7 +116,7 @@ def load_library():
     p, i = ctypes.c_void_p, ctypes.c_int
     # hdr, n_hdr, tab, n_tab, mesh, n_mesh, rays (K4's, else NULL), out,
     # n_pix, seed, n_samples, radius, mode (K1 / K3 / K6 / K5 / K4), regen
-    # (K2's loop), rough_cone (the rough conductor's lane and cones), stream
+    # (K2's loop around K1), rough_cone (the rough conductor's lane and cones), stream
     lib.path_film_launch.argtypes = [p, i, p, i, p, i, p, p, i, i, i, i, i, i, i, p]
     lib.path_film_launch.restype = i
     # records, tab, n_tab, planes, n_pix, n_samples, nv, radius, seed,

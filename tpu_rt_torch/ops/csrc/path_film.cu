@@ -10,10 +10,13 @@
 //       reconstruction-filter planes (r, g, b, w per filter offset) plus a
 //       ray count;
 //   K3  the same call with stokes=...: full Mueller transport, 13 planes
-//       per offset (12 Stokes values and the weight);
-//   K2  the same call with regen=True (_regen_loop): K1 or K3 with the
+//       per offset (12 Stokes values and the weight); here K6's kernel
+//       traces its samples and film_splat adds the first 13 of K6's 15
+//       planes a sample, which are K3's records;
+//   K2  the same call with regen=True (_regen_loop): K1 (or K3) with the
 //       sample and depth loops flattened into one loop, a lane restarting
-//       on its next sample as soon as its path ends;
+//       on its next sample as soon as its path ends; here K1's alone (K3
+//       traces a thread a sample, below);
 //   K6  pallas_stokes_trace: one polarized sample a pixel, its 12 Stokes
 //       values, ray count and jitter; here a chunk of such samples a launch;
 //   K5  pallas_raygen_trace: one scalar camera sample a pixel, its
@@ -49,14 +52,26 @@
 // picks the instantiation at launch, so a scene with neither runs the code
 // it ran before the two lanes existed.
 //
-// Design.  One thread per pixel index.  The per-sample form runs a depth
-// loop that breaks once the path is dead; that equals the TPU's unrolled
-// form, where dead lanes add exact zeros and their later random draws are
-// never read.  K2's form steps one bounce an iteration at the lane's own
-// depth and, when the path ends (dead, roulette, depth cap), finishes the
-// sample, re-keys the RNG to seed + (sample index) and starts the next
-// one: a warp then waits for its longest per-lane total instead of, at
-// every sample, its longest path.
+// Design.  K1 runs one thread per pixel index over the launch's samples;
+// K3 one thread per (pixel, sample), the sample in blockIdx.y: K6's kernel.
+// Each sample runs a depth loop that breaks once the path is dead; that
+// equals the TPU's unrolled form, where dead lanes add exact zeros and
+// their later random draws are never read.  K2's form of K1 steps one
+// bounce an iteration at the lane's own depth and, when the path ends
+// (dead, roulette, depth cap), finishes the sample, re-keys the RNG to
+// seed + (sample index) and starts the next one: a warp then waits for its
+// longest per-lane total instead of, at every sample, its longest path.
+// K3 ran so too, a thread a pixel in K2's loop, and starved the H100: at
+// cbox_pol's 256^2 a launch was 512 blocks of 128 threads, 4 blocks a
+// multiprocessor at its 128 registers, so less than one wave on 132
+// multiprocessors and at most 16 warps on each, every lane a serial chain
+// of 64 samples of up to 16 bounces with the Mueller chain: 14.7 ms a
+// 64-sample launch, where K6, the same bounce with a thread a sample, took
+// 9.9 ms.  K6's planes are a sample's S row-major, its ray count and its
+// jitter, laid out [plane][sample][pixel] as the film records are, keyed on
+// the same streams (seed + sample, tile, lane): their first 13 are K3's
+// records bit for bit, so K3 launches K6 and film_splat reads those 13
+// (two more floats a sample written, about 0.01 ms a 64-sample launch).
 //
 // Two launches.  The TPU kernel splats each sample into filter planes it
 // holds in VMEM.  A thread here would hold them in registers, 4, 36 or 100
@@ -70,9 +85,10 @@
 // arithmetic, so the planes are bit-equal to the plain version's and K2's
 // to the per-sample form's; the wrapper streams a launch in chunks of at
 // most 64 samples, each continuing the stored sums exactly.  Without the
-// accumulators each form takes the register cap that ran fastest
-// (kFilmMinBlocks); K3's Stokes state stays in registers, which ran as fast
-// as a shared-memory slab on cbox_pol and faster on cbox_pol_rough.
+// accumulators each trace kernel takes the register cap that ran fastest
+// (kFilmMinBlocks, kStokesSampleMinBlocks); the Stokes state stays in
+// registers, which ran as fast as a shared-memory slab on cbox_pol and
+// faster on cbox_pol_rough.
 //
 // The scene is not compiled into the code as the TPU's Python-float
 // constants were: the host packs prims, BSDFs, emitters, point lights,
@@ -110,17 +126,20 @@
 // collapsed bounds for dead lanes have no counterpart.
 //
 // What bounds them.  Per ray the trace kernels read a few KB of tables
-// from shared memory and write a record of 4 (K1) or 13 (K3) floats a
+// from shared memory and write a record of 4 (K1) or 15 (K3 / K6) floats a
 // sample, so they are bound by FP32 ALU work (the prim sweep, shading, the
 // special functions), by warp divergence (neighbouring pixels take
 // different BSDF branches and die at different depths) and by how many
 // warps their registers let a multiprocessor hold to hide the latency.
-// K3 adds the Mueller chain (about 266 operations a bounce) and its
-// 63-float Stokes state.  K2 removes the per-sample wait at the depth loop;
-// it does nothing about divergence inside a bounce.  film_splat is bound by
-// the records' bytes.  K6 writes 15 planes a sample.  K6, K5 and K4 trace
-// a chunk of samples a launch (at the kernels, below).  A wavefront or
-// persistent-thread design across pixels is left to later work.
+// K3 / K6 add the Mueller chain (about 266 operations a bounce) and its
+// 63-float Stokes state.  K2 removes K1's per-sample wait at the depth
+// loop; a thread a sample (K3 / K6, K5, K4) has no such wait, and fills
+// the card with independent samples.  Neither does anything about
+// divergence inside a bounce.  film_splat is bound by the records' bytes.
+// K6 writes 15 planes a sample.  K6, K5 and K4 trace a chunk of samples a
+// launch (at the kernels, below).  K1 with a thread a sample, and a
+// wavefront or persistent-thread design across pixels, are left to later
+// work.
 //
 // Arithmetic follows the plain PyTorch version operation by operation
 // (same association order, IEEE division and square root, no fast math);
@@ -149,14 +168,16 @@ enum { BSDF_STRIDE = 16, EM_STRIDE = 32, PT_STRIDE = 8 };
 enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2, BSDF_ROUGH_CONDUCTOR = 3,
        BSDF_POLARIZER = 4, BSDF_NULL = 6 };
 enum { B_ALPHA = 15 };  // a rough conductor's GGX alpha in its BSDF record
-// launch modes (path_kernel.py _MODE_*)
+// launch modes (path_kernel.py _MODE_*); MODE_STOKES_FILM launches K6's
+// kernel as MODE_STOKES_SAMPLE does, and keeps its own number so that
+// tools/ab_film.py launches an older build's own K3 through it
 enum {
   MODE_FILM = 0, MODE_STOKES_FILM = 1, MODE_STOKES_SAMPLE = 2, MODE_RAYGEN_SAMPLE = 3,
   MODE_RAYS_SAMPLE = 4
 };
 constexpr int kMaxTableFloats = 12 * 1024;
 constexpr int kThreads = 128;
-constexpr int kMaxChunk = 65535;  // a per-sample launch's samples: gridDim.y
+constexpr int kMaxChunk = 65535;  // a launch's samples in the grid: gridDim.y
 
 constexpr float kInvPi = (float)(1.0 / kPi);
 constexpr float kPiF = (float)kPi;
@@ -820,29 +841,13 @@ __device__ __forceinline__ float film_w1d(int dd, float j, float gauss_tail) {
   return fabsf(x) <= 2.0f ? fmaxf(0.0f, gw) : 0.0f;
 }
 
-// The values a sample records: L (K1) or S row-major, (I, Q, U, V) x rgb.
-template <bool kStokes>
-__device__ __forceinline__ void sample_values(const Path& p, const Pol& q, float* v) {
-  if constexpr (kStokes) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) v[i * 3 + ch] = q.S[i][ch];
-    }
-  } else {
-    v[0] = p.L.x;
-    v[1] = p.L.y;
-    v[2] = p.L.z;
-  }
-}
-
-// A finished sample's record: its NV values and its ray count, stride
+// A finished K1 sample's record: its radiance and its ray count, stride
 // floats apart.
-template <int NV>
-__device__ __forceinline__ void record(float* r, size_t stride, const float* v, float rc) {
-#pragma unroll
-  for (int k = 0; k < NV; ++k) r[k * stride] = v[k];
-  r[NV * stride] = rc;
+__device__ __forceinline__ void record(float* r, size_t stride, const Path& p) {
+  r[0] = p.L.x;
+  r[stride] = p.L.y;
+  r[2 * stride] = p.L.z;
+  r[3 * stride] = p.ray_count;
 }
 
 __device__ __forceinline__ Scene load_scene(const int* hdr, const float* tab,
@@ -885,34 +890,31 @@ __device__ __forceinline__ Scene load_scene(const int* hdr, const float* tab,
   uint32_t tile = (uint32_t)(idx / sc.tile_lanes);                              \
   uint32_t lane = (uint32_t)(idx % sc.tile_lanes);
 
-// The blocks of kThreads a multiprocessor must hold for a film form,
-// so at most 65536 / (kThreads kFilmMinBlocks) registers a thread, from
-// the A/B on the H100 in PERF.md §6: without the accumulators K3 runs best
-// at 4 (128 registers), K1 at 8 (64) with a tent or gaussian film and at 4
-// with a box (kBox, which K3 ignores); more warps to hide the sweep's
-// latency outweigh the spills the caps bring.
-template <bool kBox, bool kStokes>
-constexpr int kFilmMinBlocks = kStokes ? 4 : (kBox ? 4 : 8);
+// The blocks of kThreads a multiprocessor must hold for K1, so at most
+// 65536 / (kThreads kFilmMinBlocks) registers a thread, from the A/B on the
+// H100 in PERF.md §6: without the accumulators K1 runs best at 8 (64
+// registers) with a tent or gaussian film and at 4 with a box (kBox); more
+// warps to hide the sweep's latency outweigh the spills the caps bring.
+template <bool kBox>
+constexpr int kFilmMinBlocks = kBox ? 4 : 8;
 
-// K1 (kStokes false) and K3 (true), with K2's loop when kRegen: n_samples
-// samples of pixel idx, each recorded when it finishes: sample si's NV
-// values and its ray count go to rec[(k * n_samples + si) * n_pix + idx]
-// (k = 0 .. NV), laid out [value][sample][pixel] so that a warp's stores
-// and film_splat's loads are coalesced.  Every lane below n_pix finishes
-// each of its n_samples samples once, so every record is written.  The
-// jitter is not recorded: film_splat draws it again from the sample's
-// keys.  kRoughCone compiles the rough conductor's lane and cones in.
-template <bool kBox, bool kStokes, bool kRegen, bool kRoughCone>
-__global__ void __launch_bounds__(kThreads, (kFilmMinBlocks<kBox, kStokes>))
+// K1, in K2's loop when kRegen: the n_samples samples of pixel idx, each
+// recorded when it finishes: sample si's radiance and its ray count go to
+// rec[(k * n_samples + si) * n_pix + idx] (k = 0 .. 3), laid out
+// [value][sample][pixel] so that a warp's stores and film_splat's loads are
+// coalesced.  Every lane below n_pix finishes each of its n_samples samples
+// once, so every record is written.  The jitter is not recorded:
+// film_splat draws it again from the sample's keys.  kRoughCone compiles
+// the rough conductor's lane and cones in.
+template <bool kBox, bool kRegen, bool kRoughCone>
+__global__ void __launch_bounds__(kThreads, kFilmMinBlocks<kBox>)
 path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
                  int n_tab, const float* __restrict__ mesh, float* __restrict__ rec,
                  int n_pix, int seed, int n_samples) {
   STAGE_TABLES()
-  constexpr int NV = kStokes ? 12 : 3;
   const size_t stride = (size_t)n_samples * n_pix;  // between a record's values
   Path p;
   Pol q;
-  float v[NV];
   // sample i of a launch seeded s draws the stream of seed s + i
   if constexpr (kRegen) {
     // one bounce an iteration at the lane's own depth; a finished sample
@@ -920,19 +922,18 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
     uint32_t rng = rng_init((uint32_t)seed, tile, lane);
     float jx = rng_next(rng);
     float jy = rng_next(rng);
-    start_sample<kStokes>(sc, idx, jx, jy, p, q);
+    start_sample<false>(sc, idx, jx, jy, p, q);
     int si = 0, depth = 0;
     while (true) {
-      bool alive = bounce<kStokes, false, kRoughCone>(sc, depth, rng, p, q);
+      bool alive = bounce<false, false, kRoughCone>(sc, depth, rng, p, q);
       ++depth;
       if (alive && depth < sc.max_depth) continue;
-      sample_values<kStokes>(p, q, v);
-      record<NV>(rec + (size_t)si * n_pix + idx, stride, v, p.ray_count);
+      record(rec + (size_t)si * n_pix + idx, stride, p);
       if (++si >= n_samples) break;
       rng = rng_init((uint32_t)seed + (uint32_t)si, tile, lane);
       jx = rng_next(rng);
       jy = rng_next(rng);
-      start_sample<kStokes>(sc, idx, jx, jy, p, q);
+      start_sample<false>(sc, idx, jx, jy, p, q);
       depth = 0;
     }
   } else {
@@ -940,11 +941,10 @@ path_film_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
       uint32_t rng = rng_init((uint32_t)seed + (uint32_t)i, tile, lane);
       float jx = rng_next(rng);
       float jy = rng_next(rng);
-      start_sample<kStokes>(sc, idx, jx, jy, p, q);
+      start_sample<false>(sc, idx, jx, jy, p, q);
       for (int depth = 0; depth < sc.max_depth; ++depth)
-        if (!bounce<kStokes, false, kRoughCone>(sc, depth, rng, p, q)) break;
-      sample_values<kStokes>(p, q, v);
-      record<NV>(rec + (size_t)i * n_pix + idx, stride, v, p.ray_count);
+        if (!bounce<false, false, kRoughCone>(sc, depth, rng, p, q)) break;
+      record(rec + (size_t)i * n_pix + idx, stride, p);
     }
   }
 }
@@ -1028,9 +1028,9 @@ film_splat_kernel(const float* __restrict__ rec, const float* __restrict__ tab,
   if (has_rc) *rc_slot = acc_rc;
 }
 
-// The per-sample kernels K6, K5 and K4 trace a chunk of n_samples samples
-// in one launch: a block holds kThreads consecutive pixels (or rays) of one
-// sample, blockIdx.y, so a warp's primary rays stay coherent, and sample s
+// The per-sample kernels K6 (K3's too), K5 and K4 trace a chunk of
+// n_samples samples in one launch: a block holds kThreads consecutive
+// pixels (or rays) of one sample, blockIdx.y, so a warp's primary rays stay coherent, and sample s
 // of a launch seeded seed draws the stream of seed + s, as the film
 // kernel's per-sample loop does.  Plane k of sample s goes to
 // out[(k * n_samples + s) * n_pix + idx], the film records' [value][sample]
@@ -1052,15 +1052,22 @@ film_splat_kernel(const float* __restrict__ rec, const float* __restrict__ tab,
 // of spill) 0.174.  K5 / K4 at 6 blocks (80 registers, about 130 B of
 // spill) ran the 64-sample chunks of a render 2-10% faster than at 4 (125
 // registers) and 18-26% faster than at 8; the 10-sample chunks are within
-// their noise.  As for K3 (kFilmMinBlocks), more warps to hide the
-// bounce's latency outweigh the spills.
+// their noise.  K6 with the rough lane and cones takes 8 blocks (64
+// registers, 1 072 B of spill): the same body in K3's form (without
+// the jitter's two stores) traced a cbox_pol_rough 256^2 x 64 gaussian
+// chunk at 4, 5, 6 and 8 blocks in 16.259, 15.570, 15.363 and 14.646 ms,
+// and a cbox_pol one in 10.661, 10.129, 9.899 and 11.236 ms.  As for K1
+// (kFilmMinBlocks), more warps to hide the bounce's latency outweigh the
+// spills.
 constexpr int kStokesSampleMinBlocks = 6;
+constexpr int kStokesRoughSampleMinBlocks = 8;
 constexpr int kSampleMinBlocks = 6;
 
-// K6: polarized samples, as 15 planes a sample: S row-major, the ray
-// count, the jitter jx, jy.
+// K6 and K3: polarized samples, as 15 planes a sample: S row-major, the
+// ray count, the jitter jx, jy.  The first 13 are K3's film records.
 template <bool kRoughCone>
-__global__ void __launch_bounds__(kThreads, kStokesSampleMinBlocks)
+__global__ void __launch_bounds__(kThreads, kRoughCone ? kStokesRoughSampleMinBlocks
+                                                       : kStokesSampleMinBlocks)
 stokes_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_g,
                      int n_tab, const float* __restrict__ mesh, float* __restrict__ out,
                      int n_pix, int seed, int n_samples) {
@@ -1138,39 +1145,35 @@ path_sample_kernel(const int* __restrict__ hdr_g, const float* __restrict__ tab_
   }
 }
 
-template <bool kBox, bool kStokes, bool kRegen, bool kRoughCone>
+template <bool kBox, bool kRegen, bool kRoughCone>
 void launch_film(dim3 grid, size_t smem, cudaStream_t s, const int* h, const float* t,
                  int n_tab, const float* m, float* o, int n_pix, int seed, int n_samples) {
-  path_film_kernel<kBox, kStokes, kRegen, kRoughCone><<<grid, kThreads, smem, s>>>(
+  path_film_kernel<kBox, kRegen, kRoughCone><<<grid, kThreads, smem, s>>>(
       h, t, n_tab, m, o, n_pix, seed, n_samples);
 }
 
-// The trace kernel of a film mode: the filter's radius (0, 1 or 2) picks
-// only K1's register cap, since the film is splatted by film_splat.
-template <bool kStokes, bool kRegen, bool kRoughCone>
-int launch_trace(int radius, dim3 grid, size_t smem, cudaStream_t s, const int* h,
-                 const float* t, int n_tab, const float* m, float* o, int n_pix, int seed,
-                 int n_samples) {
+// K1's trace kernel: the filter's radius (0, 1 or 2) picks only its
+// register cap, since the film is splatted by film_splat.
+template <bool kRegen, bool kRoughCone>
+int launch_k1(int radius, dim3 grid, size_t smem, cudaStream_t s, const int* h, const float* t,
+              int n_tab, const float* m, float* o, int n_pix, int seed, int n_samples) {
   if (radius < 0 || radius > 2) return (int)cudaErrorInvalidValue;
-  if constexpr (kStokes)
-    launch_film<false, true, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
-                                                 n_samples);
-  else if (radius == 0)
-    launch_film<true, false, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
-                                                 n_samples);
+  if (radius == 0)
+    launch_film<true, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                          n_samples);
   else
-    launch_film<false, false, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix,
-                                                  seed, n_samples);
+    launch_film<false, kRegen, kRoughCone>(grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                           n_samples);
   return 0;
 }
 
 // The launch of one mode, with or without the rough conductor's lane and
-// cones.
+// cones.  K3 and K6 are one kernel; regen is K1's alone.
 template <bool kRC>
 int launch_mode(int mode, int regen, int radius, dim3 grid, size_t smem, cudaStream_t s,
                 const int* h, const float* t, int n_tab, const float* m, const float* r,
                 float* o, int n_pix, int seed, int n_samples) {
-  if (mode == MODE_STOKES_SAMPLE) {
+  if (mode == MODE_STOKES_FILM || mode == MODE_STOKES_SAMPLE) {
     stokes_sample_kernel<kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
                                                            n_samples);
   } else if (mode == MODE_RAYGEN_SAMPLE) {
@@ -1179,16 +1182,11 @@ int launch_mode(int mode, int regen, int radius, dim3 grid, size_t smem, cudaStr
   } else if (mode == MODE_RAYS_SAMPLE) {
     path_sample_kernel<true, kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, r, o, n_pix,
                                                                seed, n_samples);
-  } else if (mode == MODE_STOKES_FILM) {
-    return regen ? launch_trace<true, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                                 n_pix, seed, n_samples)
-                 : launch_trace<true, false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                                  n_pix, seed, n_samples);
   } else {
-    return regen ? launch_trace<false, true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                                  n_pix, seed, n_samples)
-                 : launch_trace<false, false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o,
-                                                   n_pix, seed, n_samples);
+    return regen ? launch_k1<true, kRC>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                        n_samples)
+                 : launch_k1<false, kRC>(radius, grid, smem, s, h, t, n_tab, m, o, n_pix, seed,
+                                         n_samples);
   }
   return 0;
 }
@@ -1204,26 +1202,27 @@ void launch_splat(const float* rec, const float* tab, float* planes, int n_pix, 
 
 }  // namespace
 
-// mode: MODE_FILM (K1), MODE_STOKES_FILM (K3), MODE_STOKES_SAMPLE (K6),
-// MODE_RAYGEN_SAMPLE (K5), MODE_RAYS_SAMPLE (K4, on the (6, n_pix) rays;
-// NULL for every other mode); regen: K2's loop for the film modes;
-// rough_cone: the header's rough-cone flag, the kernels with the rough
-// conductor's lane and cones.  A film mode writes its sample records, (nv +
-// 1, n_samples, n_pix) with nv 3 (K1) or 12 (K3), to out; a per-sample mode
-// its planes (15 for K6; 6 for K5 and 4 for K4, each 6 more on a textured
-// environment), (planes, n_samples, n_pix), for at most kMaxChunk samples,
-// and ignores radius.
+// mode: MODE_FILM (K1), MODE_STOKES_FILM (K3) and MODE_STOKES_SAMPLE (K6),
+// one launch, MODE_RAYGEN_SAMPLE (K5), MODE_RAYS_SAMPLE (K4, on the (6,
+// n_pix) rays; NULL for every other mode); regen: K2's loop for K1, no
+// effect on any other mode; rough_cone: the header's rough-cone flag, the
+// kernels with the rough conductor's lane and cones.  K1 writes its sample
+// records, (4, n_samples, n_pix), to out; every other mode its planes (15
+// for K3 / K6, the first 13 K3's records; 6 for K5 and 4 for K4, each 6
+// more on a textured environment), (planes, n_samples, n_pix), and ignores
+// radius.  Every mode but K1 takes the sample in the grid, at most
+// kMaxChunk samples a launch.
 extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
                                 int n_tab, const void* mesh, int n_mesh, const void* rays,
                                 void* out, int n_pix, int seed, int n_samples, int radius,
                                 int mode, int regen, int rough_cone, void* stream) {
-  const bool per_sample = mode >= MODE_STOKES_SAMPLE;
+  const bool sample_grid = mode != MODE_FILM;  // a thread a (pixel, sample)
   if (n_hdr < HDR_LEN || n_tab <= 0 || n_tab > kMaxTableFloats || n_pix <= 0 ||
-      n_samples < 1 || (per_sample && n_samples > kMaxChunk) || n_mesh < 0 ||
+      n_samples < 1 || (sample_grid && n_samples > kMaxChunk) || n_mesh < 0 ||
       (n_mesh > 0 && mesh == nullptr) || mode < 0 || mode > MODE_RAYS_SAMPLE ||
       ((mode == MODE_RAYS_SAMPLE) != (rays != nullptr)))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((n_pix + kThreads - 1) / kThreads, per_sample ? n_samples : 1);
+  dim3 grid((n_pix + kThreads - 1) / kThreads, sample_grid ? n_samples : 1);
   size_t smem = (size_t)n_tab * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   const int* h = (const int*)hdr;

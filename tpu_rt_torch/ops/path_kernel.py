@@ -2,7 +2,7 @@
 
 Counterpart of ``tpu_rt/ops/pallas_path.py`` for the film megakernel
 (``pallas_film_trace`` / ``_build_kernel(film=...)``: K1; its Stokes form
-K3; K2, the regeneration loop ``_regen_loop`` around either), the
+K3; K2, the regeneration loop ``_regen_loop``, around K1), the
 per-sample kernels (``pallas_raygen_trace``: K5; ``pallas_path_trace``,
 its rays-in form: K4; ``pallas_stokes_trace``: K6) and the render loops
 around them (``render_pallas``, ``render_stokes_pallas``).
@@ -33,18 +33,19 @@ around them (``render_pallas``, ``render_stokes_pallas``).
   the kernel.
 * ``pack_tables(..., stokes=True)`` packs the Stokes kernels' tables
   (the camera's x axis, the header's Stokes flag).  The header's regen
-  flag records the auto loop form (K2's loop from max_depth 8, as
-  ``_use_regen``); a launch takes it unless the wrapper's ``regen=`` names
-  the other form.
+  flag records K1's auto loop form (K2's loop from max_depth 8, as
+  ``_use_regen``; 0 on Stokes tables, since K3 has no loop form); a K1
+  launch takes it unless the wrapper's ``regen=`` names the other form.
 * ``film_trace`` (K1), ``stokes_film_trace`` (K3), ``raygen_trace``
   (K5), ``path_trace`` (K4) and ``stokes_sample_trace`` (K6) are the
   wrappers: on a CPU tensor they run the plain PyTorch versions below, on
   a CUDA tensor they launch the hand-written kernels of
   ``csrc/path_film.cu`` or raise.  K2 needs no
-  plain version of its own: it computes K1's and K3's function, each lane
-  meeting its samples in order.  K6, K5 and K4 take ``n_samples`` for a
-  chunk of samples in one launch, sample i seeded seed + i.
-* On the card K1 and K3 (either loop form) run as two kernels: the
+  plain version of its own: it computes K1's function, each lane meeting
+  its samples in order.  K3, K6, K5 and K4 take the sample in the grid:
+  ``n_samples`` samples in one launch, sample i seeded seed + i; K3's
+  trace kernel is K6's, whose first 13 planes are K3's records.
+* On the card K1 (either loop form) and K3 run as two kernels: the
   trace kernel (``film_records``) writes one record per finished sample,
   its values and ray count laid out [value][sample][pixel], and
   ``film_splat`` adds the records onto the planes in sample order;
@@ -340,9 +341,9 @@ HDR_N_PRIMS, HDR_N_AREA, HDR_N_LIGHTS, HDR_MAX_DEPTH, HDR_RR_DEPTH = 0, 1, 2, 3,
 HDR_HIDE_EMITTERS, HDR_HAS_ENV, HDR_HAS_FAR, HDR_W, HDR_H = 5, 6, 7, 8, 9
 HDR_TILE_LANES, HDR_OFF_PRIM, HDR_OFF_BSDF, HDR_OFF_EM, HDR_OFF_PT = 10, 11, 12, 13, 14
 HDR_MESH_C = 15  # clusters of the mesh tables; 0 without a mesh
-# Stokes tables (K3 / K6: 12 Stokes values a sample); the auto loop form,
-# 1 for K2's regeneration loop.  Host-side words: the kernel takes its mode
-# and loop form as launch arguments and reads neither.
+# Stokes tables (K3 / K6: 12 Stokes values a sample); K1's auto loop form,
+# 1 for K2's regeneration loop (0 on Stokes tables: K3 has none).  Host-side words: the
+# kernel takes its mode and loop form as launch arguments and reads neither.
 HDR_STOKES, HDR_REGEN = 16, 17
 HDR_ENV_TEXTURED = 18  # 1: a textured environment, K4 / K5 write escape records
 # 1: the scene has a rough conductor (tpu_rt's static ``has_rough``) or a
@@ -357,8 +358,9 @@ G_R, G_ORG, G_TFX, G_TFY, G_INVW, G_INVH = 8, 17, 20, 21, 22, 23
 G_NEAR, G_FAR_NEAR, G_GAUSS_TAIL, G_MESH_BSDF = 24, 25, 26, 27
 G_CAM_X = 28  # the camera's x axis (Stokes tables only)
 G_LEN = 32
-# tpu_rt's _REGEN_AUTO_DEPTH: from this max_depth on, K1 and K3 run in
-# K2's loop (a lane restarts on its next sample as soon as its path ends)
+# tpu_rt's _REGEN_AUTO_DEPTH: from this max_depth on, K1 runs in K2's
+# loop (a lane restarts on its next sample as soon as its path ends); so
+# do tpu_rt's K1 and K3
 REGEN_AUTO_DEPTH = 8
 PRIM_STRIDE, BSDF_STRIDE, EM_STRIDE, PT_STRIDE = 20, 16, 32, 8
 KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_CONE = 0, 1, 2, 3
@@ -464,7 +466,8 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device,
     """Pack a baked scene and its camera for the film kernel on ``device``.
     ``tile_rows`` keys the RNG: tile = pixel // (tile_rows * 128).
     ``stokes`` packs the tables of the Stokes kernel (K3, K6), with the
-    camera's x axis.  The header's regen flag is ``use_regen``."""
+    camera's x axis.  The header's regen flag is ``use_regen``, 0 on Stokes
+    tables."""
     with span("tpu_rt_torch.pack_tables"):
         H, W = camera.height, camera.width
         n_pix = H * W
@@ -561,7 +564,7 @@ def pack_tables(bs: BakedScene, camera: Camera, tile_rows: int, device,
         hdr[HDR_OFF_EM], hdr[HDR_OFF_PT] = off_em, off_pt
         hdr[HDR_MESH_C] = 0 if bs.mesh is None else bs.mesh["bounds"].shape[0]
         hdr[HDR_STOKES] = int(bool(stokes))
-        hdr[HDR_REGEN] = int(use_regen(bs))
+        hdr[HDR_REGEN] = int(use_regen(bs) and not stokes)
         hdr[HDR_ENV_TEXTURED] = int(bs.env_textured)
         hdr[HDR_ROUGH_CONE] = int(any(bt == BSDF_ROUGH_CONDUCTOR for bt, _ in bs.bsdfs)
                                   or any(p.kind == "cone" for p in bs.prims))
@@ -1492,8 +1495,9 @@ def _sample_vals(st):
 def _trace_samples(tables: FilmTables, seed: int, n_samples: int):
     """Yield (state, jx, jy) of each of ``n_samples`` traced samples per
     pixel, in order.  Sample i of a launch seeded s draws the stream of
-    seed s + i; a lane's samples come out in order whatever the loop form,
-    so the plain version serves K1 / K3 and K2's regeneration loop."""
+    seed s + i; a lane's samples come out in order whatever the loop form
+    or the thread that traced them, so the plain version serves K1, K2's
+    regeneration loop around it and K3's thread a sample."""
     C = _Consts(tables)
     dev = tables.tab.device
     idx = torch.arange(tables.n_pix, dtype=torch.int64, device=dev)
@@ -1516,8 +1520,8 @@ def _film_plain(tables: FilmTables, seed: int, n_samples: int):
 
 
 def film_records_plain(tables: FilmTables, seed: int, n_samples: int):
-    """The plain version of K1's and K3's trace kernel (by the tables,
-    either loop form): (n_val, n_samples, H*W) sample records
+    """The plain version of K1's (either loop form) and K3's trace kernel,
+    by the tables: (n_val, n_samples, H*W) sample records
     laid out [value][sample][pixel], per sample its values (r, g, b, or the
     12 Stokes values) and its ray count.  No jitter: ``film_splat_plain``
     draws it again from the sample's keys."""
@@ -1577,7 +1581,7 @@ def film_trace_plain(tables: FilmTables, seed: int, n_samples: int):
 
 
 def stokes_film_trace_plain(tables: FilmTables, seed: int, n_samples: int):
-    """The plain PyTorch version of K3 (and of K2's loop around it):
+    """The plain PyTorch version of K3 (and of tpu_rt's K2 loop around it):
     (13 * offsets + 1, H*W) planes, per filter offset the 12 weighted
     Stokes values (I, Q, U, V, each r, g, b) and the weight, then the ray
     count."""
@@ -1679,8 +1683,8 @@ def _wrap_i32(x: int) -> int:
 # what the launch computes: K1's planes, K3's planes, K6's sample planes,
 # K5's sample planes or K4's planes on rays passed in
 _MODE_FILM, _MODE_STOKES_FILM, _MODE_STOKES_SAMPLE, _MODE_RAYGEN_SAMPLE, _MODE_RAYS_SAMPLE = range(5)
-# the most samples a per-sample launch traces (path_film.cu kMaxChunk,
-# gridDim.y)
+# the most samples a launch with the sample in the grid (K3, K6, K5, K4)
+# traces (path_film.cu kMaxChunk, gridDim.y)
 MAX_SAMPLE_CHUNK = 65535
 
 
@@ -1688,17 +1692,18 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
             name: str, rays=None):
     """Launch ``csrc/path_film.cu`` (built at first use) in ``mode`` on the
     tables' CUDA device, one lane a pixel, or one a ray of ``rays`` (6, N)
-    for K4, and a per-sample mode's lanes once for each of ``n_samples``
+    for K4, and every mode but K1's lanes once for each of ``n_samples``
     samples; the header's rough-cone flag picks the kernels with the rough
-    conductor's lane and cones.  ``n_out``: a per-sample mode's planes, the
-    output (n_out, n_samples, N); a film mode's records shape.  Returns
-    (output, whether K2's loop ran)."""
+    conductor's lane and cones.  ``n_out``: every mode but K1's planes, the
+    output (n_out, n_samples, N); K1's records shape.  ``regen``: K1's loop
+    form (None: the tables'), False for every other mode.  Returns (output,
+    whether K2's loop ran)."""
     dev = tables.tab.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
     if tables.radius not in (0, 1, 2) or n_samples < 1:
         raise ValueError(f"{name} needs a box/tent/gaussian film and n_samples >= 1")
-    per_sample = mode in (_MODE_STOKES_SAMPLE, _MODE_RAYGEN_SAMPLE, _MODE_RAYS_SAMPLE)
+    per_sample = mode != _MODE_FILM
     if per_sample and n_samples > MAX_SAMPLE_CHUNK:
         raise ValueError(f"{name} traces at most {MAX_SAMPLE_CHUNK} samples a launch")
     C = tables.hdr_list[HDR_MESH_C]
@@ -1734,19 +1739,25 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
 
 
 def film_records(tables: FilmTables, seed: int, n_samples: int, regen=None):
-    """The trace kernel of K1 or K3 (by the tables; in K2's loop by
-    ``regen`` as in ``film_trace``): (n_val, n_samples, H*W) sample
-    records, ``film_records_plain``'s.  Plain version on a CPU tensor; on a
-    CUDA tensor the kernel, counted in ``film_trace.launches`` or
-    ``stokes_film_trace.launches`` (and ``regen_launches``), or raise."""
+    """The trace kernel of K1 or K3 (by the tables): (n_val, n_samples,
+    H*W) sample records, ``film_records_plain``'s.  ``regen``: K1's loop
+    form, as in ``film_trace``; Stokes tables take none (K3 traces one
+    thread a (pixel, sample), K6's kernel, and its records are the first 13
+    of K6's 15 planes).  Plain version on a CPU tensor; on a CUDA tensor
+    the kernel, or raise.  K1's launches count in ``film_trace.launches``
+    (and ``regen_launches``), K3's in ``stokes_film_trace.launches``."""
+    if tables.stokes and regen is not None:
+        raise ValueError("film_records: K3 has no loop form, so Stokes tables take no regen")
     if tables.tab.device.type == "cpu":
         return film_records_plain(tables, seed, n_samples)
-    out, regen = _launch(tables, seed, n_samples,
-                         _MODE_STOKES_FILM if tables.stokes else _MODE_FILM, regen,
+    if tables.stokes:
+        out, _ = _launch(tables, seed, n_samples, _MODE_STOKES_FILM, False, 15, "film_records")
+        stokes_film_trace.launches += 1
+        return out[:tables.n_val]
+    out, regen = _launch(tables, seed, n_samples, _MODE_FILM, regen,
                          (tables.n_val, n_samples, tables.n_pix), "film_records")
-    counter = stokes_film_trace if tables.stokes else film_trace
-    counter.launches += 1
-    counter.regen_launches += int(regen)
+    film_trace.launches += 1
+    film_trace.regen_launches += int(regen)
     return out
 
 
@@ -1805,20 +1816,19 @@ def film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
                           lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
 
 
-def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int, regen=None):
+def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int):
     """K3: ``film_trace`` with full Mueller transport on Stokes tables
     (``pack_tables(..., stokes=True)``): (13 * offsets + 1, H*W) planes,
     per offset the 12 weighted Stokes values and the weight, then the ray
-    count.  ``regen`` as in ``film_trace`` (K2 around K3).  Plain version
-    on a CPU tensor; on a CUDA tensor the kernels (as ``film_trace``) or
-    raise.  ``stokes_film_trace.launches`` / ``regen_launches`` count K3's
-    launches."""
+    count.  It has no loop form: the trace kernel runs one thread a
+    (pixel, sample).  Plain version on a CPU tensor; on a CUDA tensor the
+    kernels (as ``film_trace``) or raise.  ``stokes_film_trace.launches``
+    counts K3's trace launches."""
     with span("tpu_rt_torch.stokes_film_trace"):
         _check_kind(tables, True, "stokes_film_trace")
         if tables.tab.device.type == "cpu":
             return stokes_film_trace_plain(tables, seed, n_samples)
-        return split_film(tables, seed, n_samples,
-                          lambda t, s, k: film_records(t, s, k, regen=regen), film_splat)
+        return split_film(tables, seed, n_samples, film_records, film_splat)
 
 
 def _sample_launch(tables: FilmTables, seed: int, n_samples, mode: int, n_out: int,
@@ -1886,8 +1896,7 @@ def path_trace(tables: FilmTables, o, d, seed: int, n_samples=None):
 
 
 film_trace.launches = film_trace.regen_launches = film_splat.launches = 0
-stokes_film_trace.launches = stokes_film_trace.regen_launches = 0
-stokes_sample_trace.launches = raygen_trace.launches = path_trace.launches = 0
+stokes_film_trace.launches = stokes_sample_trace.launches = raygen_trace.launches = path_trace.launches = 0
 
 
 def deposit(film, planes, tables: FilmTables):
@@ -1907,9 +1916,9 @@ def deposit(film, planes, tables: FilmTables):
         return film
 
 
-def _render_chunks(tables: FilmTables, trace, spp, seed, spp_per_pass, regen):
-    """``spp_per_pass``-sample launches of ``trace``, each deposited into
-    the film.  Returns the (n_val, H, W) film and the ray count (0-d
+def _render_chunks(tables: FilmTables, trace, spp, seed, spp_per_pass):
+    """``spp_per_pass``-sample launches of ``trace`` (tables, seed,
+    n_samples), each deposited into the film.  Returns the (n_val, H, W) film and the ray count (0-d
     int64)."""
     dev = tables.tab.device
     k = max(1, min(spp_per_pass, spp))
@@ -1921,7 +1930,7 @@ def _render_chunks(tables: FilmTables, trace, spp, seed, spp_per_pass, regen):
     if rem:
         chunks.append((seed0 + n_full * k, rem))
     for s, n in chunks:
-        planes = trace(tables, _wrap_i32(s), n, regen=regen)
+        planes = trace(tables, _wrap_i32(s), n)
         deposit(film, planes, tables)
         n_rays += planes[-1].to(torch.int64).sum()
     return film, n_rays
@@ -1942,8 +1951,8 @@ def render_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     the ray count (a 0-d int64 tensor), both on ``device``."""
     c = scene.camera
     tables = pack_tables(_baked(scene, baked), c, tile_rows, device)
-    film, n_rays = _render_chunks(tables, film_trace, c.spp if spp is None else spp, seed,
-                                  spp_per_pass, regen)
+    film, n_rays = _render_chunks(tables, lambda t, s, n: film_trace(t, s, n, regen=regen),
+                                  c.spp if spp is None else spp, seed, spp_per_pass)
     img = _film.develop(film[:3].permute(1, 2, 0), film[3])
     return img.contiguous(), n_rays
 
@@ -2002,20 +2011,20 @@ def stokes_in_scope(bs: Optional[BakedScene]) -> bool:
 
 
 def render_stokes_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
-                       tile_rows=16, baked=None, regen=None):
+                       tile_rows=16, baked=None):
     """Full polarized render through K3 (``render_stokes_pallas``): the
     film render of ``render_film`` with 13 planes per filter offset, then
-    S = film / weight.  ``regen`` as in ``render_film``.  Returns the
-    (H, W, 4, 3) Stokes image (I, Q, U, V by rgb) and the ray count (0-d
-    int64), both on ``device``.  Every filter the loader makes (box, tent,
-    gaussian) has a film footprint, so this route never needs K6."""
+    S = film / weight.  Returns the (H, W, 4, 3) Stokes image (I, Q, U, V
+    by rgb) and the ray count (0-d int64), both on ``device``.  Every
+    filter the loader makes (box, tent, gaussian) has a film footprint, so
+    this route needs no splat of K6's own."""
     bs = _baked(scene, baked)
     if not stokes_in_scope(bs):
         raise ValueError("scene is outside the Stokes kernel's scope")
     c = scene.camera
     spp = c.spp if spp is None else spp
     tables = pack_tables(bs, c, tile_rows, device, stokes=True)
-    film, n_rays = _render_chunks(tables, stokes_film_trace, spp, seed, spp_per_pass, regen)
+    film, n_rays = _render_chunks(tables, stokes_film_trace, spp, seed, spp_per_pass)
     S = _film.develop(film[:12].permute(1, 2, 0), film[12])
     return S.reshape(c.height, c.width, 4, 3).contiguous(), n_rays
 

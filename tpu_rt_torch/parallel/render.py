@@ -243,7 +243,7 @@ def render_stokes_pallas_sharded(scene: Scene, spp=None, seed=0, group=None, til
     (tpu_rt's ``render_stokes_pallas_sharded``); spp must be a multiple of
     the ranks, k = spp / n.
 
-    Box / tent: K3 (in K2's loop where the tables pick it), rank r one
+    Box / tent: K3 (one thread a (pixel, sample)), rank r one
     launch of k samples seeded int32(seed) * 100003 + r * k, its 13
     planes deposited and summed: the image is ``render_stokes_film(spp,
     spp_per_pass=k)``'s up to the order of the adds.  Any other filter:

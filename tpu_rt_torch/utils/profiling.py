@@ -185,8 +185,7 @@ def launch_counters():
     ``.launches``: K1 and K3 (their trace kernels), film_splat, K6, K5, K4,
     K10 (its deposit mode, the acquisition's, and its records mode), the
     DAS kernel, its packing pass and its adjoint, K9, K7.  K2's loop,
-    around K1 or K3, is counted by the two film wrappers'
-    ``regen_launches``."""
+    around K1, is counted by ``film_trace.regen_launches``."""
     from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
     from tpu_rt_torch.us import beamform
 
@@ -212,14 +211,13 @@ def reset_launch_counts():
     for fn in launch_counters().values():
         fn.launches = 0
     path_kernel.film_trace.regen_launches = 0
-    path_kernel.stokes_film_trace.regen_launches = 0
 
 
 def launch_counts():
-    """Every kernel wrapper's launch count, and ``regen``: K2's loop's."""
+    """Every kernel wrapper's launch count, and ``regen``: K2's loop's
+    (around K1)."""
     from tpu_rt_torch.ops import path_kernel
 
     counts = {k: fn.launches for k, fn in launch_counters().items()}
-    counts["regen"] = (path_kernel.film_trace.regen_launches
-                       + path_kernel.stokes_film_trace.regen_launches)
+    counts["regen"] = path_kernel.film_trace.regen_launches
     return counts
