@@ -289,8 +289,8 @@ Phases (any failure raises and the script exits non-zero):
 Each main path (phases 5, 9, 13, 16, 19, 20, 24, 27, 28, 29, 30, 32 (each
 loop), 33, 34, 35, 36, 38 and 39) runs with
 every launch count set to 0 just before it and read just after; a film
-launch counts one trace-kernel launch (path_film or stokes_film) and one
-film_splat, a per-sample kernel's chunk one launch, and an ultrasound frame
+launch counts one trace-kernel launch (path_film, or K3's stokes_sample)
+and one film_splat, a per-sample kernel's chunk one launch, and an ultrasound frame
 one us_acq (K10's deposit mode) and one us_das, or through the wavefront one
 us_das and, on a mesh, two mesh_isect a bounce (each us_das with one
 us_das_pack, its packing pass); a backward through an ultrasound frame
@@ -822,9 +822,11 @@ def main():
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:2091",
         "launches": (pol["k3_launches"] + rc["k3_launches"]
-                     + sum(sharded_launches(par, "stokes_film").values())),
+                     + sum(sharded_launches(par, "stokes_sample", K3_SHARDED).values())),
         "launches_by_path": {"cbox_pol": pol["k3_launches"], "cbox_pol_rough": rc["k3_launches"],
-                             **sharded_launches(par, "stokes_film")},
+                             **sharded_launches(par, "stokes_sample", K3_SHARDED)},
+        "launches_note": "K3's trace launches count as stokes_sample's, K3 and K6 being one "
+                         "kernel; each entry reads K3's own routes",
         "max_abs_err": max(pol["k3_err"], rc["k3"]["max_abs_err"]),
         "ms": pol["k3_ms"], "plain_ms": pol["plain_ms"],
         "ms_trace": pol["k3_parts"]["trace_ms"], "ms_splat": pol["k3_parts"]["splat_ms"],
@@ -850,9 +852,10 @@ def main():
         "name": "stokes_sample", "route": "cuda",
         "source": "tpu_rt_torch/ops/csrc/path_film.cu",
         "replaces": "tpu_rt/ops/pallas_path.py:2161",
-        "launches": pol["k6_launches"] + sum(sharded_launches(par, "stokes_sample").values()),
+        "launches": (pol["k6_launches"]
+                     + sum(sharded_launches(par, "stokes_sample", K6_SHARDED).values())),
         "launches_by_path": {"cbox_pol_per_sample_route": pol["k6_launches"],
-                             **sharded_launches(par, "stokes_sample")},
+                             **sharded_launches(par, "stokes_sample", K6_SHARDED)},
         "max_abs_err": max(pol["k6_err"], rc["k6"]["max_abs_err"]),
         "ms": pol["k6_ms"], "plain_ms": pol["k6_plain_ms"],
         "bound_ms": pol["k6_bound_ms"], "bound_by": pol["k6_bound_by"], "library_ms": None,
@@ -1731,17 +1734,22 @@ def stokes_bound(tables, planes, n_samples):
 
 
 def film_parts(tables, seed, n_samples, reps=3):
-    """A film launch's two kernels apart: the trace kernel (film_records)
-    and film_splat on its records, each the median of ``reps`` CUDA-event
-    timings after a warm-up; film_splat held to film_splat_plain on the
-    same records, bit for bit.  Returns dict(trace_ms, splat_ms,
-    splat_plain_ms, splat_err, the splat's bound)."""
+    """A film launch's two kernels apart: the trace kernel (K1's
+    film_records, K3's stokes_sample_trace, its first 13 planes the
+    records) and film_splat on its records, each the median of ``reps``
+    CUDA-event timings after a warm-up; film_splat held to
+    film_splat_plain on the same records, bit for bit.  Returns
+    dict(trace_ms, splat_ms, splat_plain_ms, splat_err, the splat's
+    bound)."""
     from tpu_rt_torch.ops import path_kernel as pk
 
-    recs = pk.film_records(tables, seed, n_samples)
-    trace_ms = statistics.median(
-        cuda_ms(lambda: pk.film_records(tables, seed, n_samples))[0]
-        for _ in range(reps))
+    def records():
+        if tables.stokes:
+            return pk.stokes_sample_trace(tables, seed, n_samples)[:tables.n_val]
+        return pk.film_records(tables, seed, n_samples)
+
+    recs = records()
+    trace_ms = statistics.median(cuda_ms(records)[0] for _ in range(reps))
     planes = torch.zeros((tables.n_acc + 1, tables.n_pix), dtype=torch.float32,
                          device=recs.device)
     got = pk.film_splat(recs, planes.clone(), tables, seed)
@@ -1936,7 +1944,7 @@ def stokes_phases(tt, dev):
     print(f"cbox_pol main path 256x256 512 spp gaussian depth 16 (K3, a thread a sample): "
           f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, rays/s "
           f"{nr / (med / 1e3):.4e}")
-    check_counts(counts, stokes_film=5 * 8, film_splat=5 * 8)
+    check_counts(counts, stokes_sample=5 * 8, film_splat=5 * 8)
     assert S.shape == (256, 256, 4, 3) and bool(torch.isfinite(S).all())
     assert S[..., 0, :].mean().item() > 0
     main_counts = counts
@@ -2014,7 +2022,7 @@ def stokes_phases(tt, dev):
     assert Sz.shape == (128, 128, 4, 3) and bool(torch.isfinite(Sz).all())
     assert Sz[..., 0, :].mean().item() > 0.01
 
-    return dict(k3_launches=main_counts["stokes_film"],
+    return dict(k3_launches=main_counts["stokes_sample"],
                 splat_launches=main_counts["film_splat"],
                 k6_launches=ps_counts["stokes_sample"],
                 k3_err=max(k3_32_err, k3_err, m3_err), k3_parts=m3_parts, main_ms=med,
@@ -2464,9 +2472,9 @@ def rough_cone_phases(tt, dev):
     print(f"cbox_pol_rough main path 256x256 512 spp gaussian depth 16 (K3, a thread a "
           f"sample): median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, n 5), rays/render {nr}, "
           f"rays/s {nr / (med / 1e3):.4e}")
-    check_counts(counts, stokes_film=5 * 8, film_splat=5 * 8)
+    check_counts(counts, stokes_sample=5 * 8, film_splat=5 * 8)
     assert S.shape == (256, 256, 4, 3) and bool(torch.isfinite(S).all())
-    out["k3_launches"] = counts["stokes_film"]
+    out["k3_launches"] = counts["stokes_sample"]
     out["k3_splat_launches"] = counts["film_splat"]
     out["k3"]["main_ms"] = med
 
@@ -3532,6 +3540,9 @@ def projective_phases(tt, dev):
 SIMPLE = os.path.join(MESH_DIR, "simple.xml")
 CBOX_POL = os.path.join(POL_DIR, "cbox_pol.xml")
 FILTER_TENT = 1  # tpu_rt_torch.scene.types.FILTER_TENT
+# phase 39's sharded Stokes routes: K3's film route (tent) and K6's
+# per-sample route (the scene's gaussian)
+K3_SHARDED, K6_SHARDED = f"stokes_{FILTER_TENT}", "stokes_None"
 RF_TOL = 1e-6  # K10's deposit: atomics and index_add_ add in a run-dependent order
 
 
@@ -3687,9 +3698,8 @@ def sharded_world(tt, usmain, n=2, backend="gloo"):
               "acq_kernel": ("K10, USMain rpp 64", "ch"),
               "k1": ("K1, cbox 512x512 256 spp", "img"),
               "k9": ("K9, simple.xml 256x256 256 spp", "img"),
-              "stokes_None": ("K6, cbox_pol 256x256 512 spp gaussian depth 16", "img"),
-              f"stokes_{FILTER_TENT}": ("K3, cbox_pol 256x256 512 spp tent depth 16",
-                                        "img")}
+              K6_SHARDED: ("K6, cbox_pol 256x256 512 spp gaussian depth 16", "img"),
+              K3_SHARDED: ("K3, cbox_pol 256x256 512 spp tent depth 16", "img")}
     out = {"counts": [r["counts"] for r in res], "routes": {}}
     for name, (label, key) in routes.items():
         d = r0[name]
@@ -3728,9 +3738,8 @@ def sharded_world(tt, usmain, n=2, backend="gloo"):
     k3 = -(-512 // n // 64)
     for name, count in (("k1", dict(path_film=chunks, film_splat=chunks)),
                         ("k9", dict(mesh_direct=chunks)),
-                        (f"stokes_{FILTER_TENT}",
-                         dict(stokes_film=k3, film_splat=k3)),
-                        ("stokes_None", dict(stokes_sample=1)), ("acq_kernel", dict(us_acq=1))):
+                        (K3_SHARDED, dict(stokes_sample=k3, film_splat=k3)),
+                        (K6_SHARDED, dict(stokes_sample=1)), ("acq_kernel", dict(us_acq=1))):
         for r in res:
             check_counts(r["counts"][name], **count)
     for r in res:
@@ -3776,16 +3785,19 @@ def tooling_phase(main_ms):
     return dict(trace=m, warmup_lines=lines)
 
 
-def sharded_launches(par, kernel):
+def sharded_launches(par, kernel, route=None):
     """A kernel's launches on the sharded routes of phases 38 and 39, by
-    world and rank."""
-    w1 = sum(c[kernel] for c in (par["w1"]["k1"]["counts"], par["w1"]["acq"]["counts"],
-                                 par["w1"]["das"]["counts"]))
+    world and rank; ``route``: phase 39's route of that name alone (K3 and
+    K6 launch one kernel, told apart by their route)."""
+    w1 = 0 if route else sum(c[kernel] for c in (par["w1"]["k1"]["counts"],
+                                                 par["w1"]["acq"]["counts"],
+                                                 par["w1"]["das"]["counts"]))
     out = {"sharded_world1": w1}
     for rank, counts in enumerate(par["w2"]["counts"]):
+        dicts = ([counts[route]] if route
+                 else list(counts.values()) + list(counts["das"].values()))
         out[f"sharded_world2_rank{rank}"] = sum(
-            c[kernel] for c in list(counts.values()) + list(counts["das"].values())
-            if isinstance(c, dict) and kernel in c)
+            c[kernel] for c in dicts if isinstance(c, dict) and kernel in c)
     return out
 
 

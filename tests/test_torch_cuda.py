@@ -450,13 +450,14 @@ def _film_tables(path, res, depth, filter_type, stokes):
 @pytest.mark.parametrize("depth", [3, None], ids=["depth3", "depth16"])
 def test_stokes_kernel_is_bit_equal_to_plain_version(filter_type, depth):
     """K3 on cbox_pol (depth 16 is its own), one thread a (pixel,
-    sample)."""
+    sample): one K6 launch and one film_splat."""
     _need_cuda()
     tables = _film_tables(CBOX_POL, 24, depth, filter_type, True)
-    before = path_kernel.stokes_film_trace.launches
+    before = (path_kernel.stokes_sample_trace.launches, path_kernel.film_splat.launches)
     got = path_kernel.stokes_film_trace(tables, 5, 3)
     torch.cuda.synchronize()
-    assert path_kernel.stokes_film_trace.launches == before + 1
+    assert (path_kernel.stokes_sample_trace.launches,
+            path_kernel.film_splat.launches) == (before[0] + 1, before[1] + 1)
     want = path_kernel.stokes_film_trace_plain(tables, 5, 3)
     assert got.shape == want.shape == (tables.n_acc + 1, 24 * 24)
     assert torch.equal(got, want)
@@ -478,23 +479,24 @@ def test_regen_loop_is_bit_equal_to_the_per_sample_loop(filter_type):
 
 @pytest.mark.cuda
 def test_stokes_records_on_a_ragged_grid_equal_plain_records():
-    """K3's records on a grid whose last block of each sample row is cut
-    (23 x 23 = 529 pixels, 4 blocks of 128 and 17 pixels), a 3-sample
-    chunk at gaussian radius 2 and depth 16: every (pixel, sample) record
-    written once, at blockIdx.y's stride, bit for bit the plain version's.
-    More samples than the grid holds raise before a launch."""
+    """K3's records (the first 13 planes of a K6 launch) on a grid whose
+    last block of each sample row is cut (23 x 23 = 529 pixels, 4 blocks
+    of 128 and 17 pixels), a 3-sample chunk at gaussian radius 2 and depth
+    16: every (pixel, sample) record written once, at blockIdx.y's stride,
+    bit for bit the plain version's.  More samples than the grid holds
+    raise before a launch."""
     _need_cuda()
     tables = _film_tables(CBOX_POL, 23, 16, 2, True)
     assert tables.n_pix % 128 != 0 and tables.radius == 2
-    before = path_kernel.stokes_film_trace.launches
-    got = path_kernel.film_records(tables, 41, 3)
+    before = path_kernel.stokes_sample_trace.launches
+    got = path_kernel.stokes_sample_trace(tables, 41, 3)[:tables.n_val]
     torch.cuda.synchronize()
-    assert path_kernel.stokes_film_trace.launches == before + 1
+    assert path_kernel.stokes_sample_trace.launches == before + 1
     want = path_kernel.film_records_plain(tables, 41, 3)
     assert got.shape == want.shape == (13, 3, 529)
-    assert torch.equal(got, want)
+    assert got.is_contiguous() and torch.equal(got, want)
     with pytest.raises(ValueError, match="at most"):
-        path_kernel.film_records(tables, 0, path_kernel.MAX_SAMPLE_CHUNK + 1)
+        path_kernel.stokes_sample_trace(tables, 0, path_kernel.MAX_SAMPLE_CHUNK + 1)
 
 
 @pytest.mark.cuda
@@ -528,7 +530,7 @@ def test_stokes_sample_kernel_is_bit_equal_to_plain_version(depth):
 def test_render_stokes_on_cuda_goes_through_the_stokes_kernel():
     _need_cuda()
     st = tpu_rt_torch.load_file(CBOX_POL, res=32, spp=10)
-    k3 = path_kernel.stokes_film_trace
+    k3 = path_kernel.stokes_sample_trace  # K3's trace kernel is K6's
     before = (k3.launches, path_kernel.film_trace.launches)
     S = tpu_rt_torch.render(st, seed=1, spp_per_pass=4)
     assert (k3.launches, path_kernel.film_trace.launches) == (
@@ -545,9 +547,9 @@ def test_polarizer_wavefront_on_cuda_follows_malus(delta):
     _need_cuda()
     st = tpu_rt_torch.load_dict(polarizer_desc(tpu_rt_torch.ScalarTransform4f, [0.0, delta],
                                                [0.5, 0.0]))
-    before = path_kernel.stokes_film_trace.launches
+    before = path_kernel.stokes_sample_trace.launches
     S = tpu_rt_torch.render(st, spp=16, seed=0)
-    assert path_kernel.stokes_film_trace.launches == before
+    assert path_kernel.stokes_sample_trace.launches == before
     assert S.device.type == "cuda" and S.shape == (16, 16, 4, 3)
     I = S[6:10, 6:10, 0, :].mean().item()
     assert abs(I - 0.5 * np.cos(np.deg2rad(delta)) ** 2) <= 0.04
@@ -812,11 +814,14 @@ def test_trace_kernel_records_equal_plain_records(path, stokes, regen, filter_ty
     mode on mesh_gi.xml too; K3's are the first 13 of K6's planes."""
     _need_cuda()
     tables = _film_tables(path, 24, 16, filter_type, stokes)
-    before = (path_kernel.stokes_film_trace.launches, path_kernel.film_trace.launches,
+    before = (path_kernel.stokes_sample_trace.launches, path_kernel.film_trace.launches,
               path_kernel.film_trace.regen_launches)
-    got = path_kernel.film_records(tables, 3, 4, regen=regen)
+    if stokes:
+        got = path_kernel.stokes_sample_trace(tables, 3, 4)[:tables.n_val]
+    else:
+        got = path_kernel.film_records(tables, 3, 4, regen=regen)
     torch.cuda.synchronize()
-    assert (path_kernel.stokes_film_trace.launches, path_kernel.film_trace.launches,
+    assert (path_kernel.stokes_sample_trace.launches, path_kernel.film_trace.launches,
             path_kernel.film_trace.regen_launches) == (
         before[0] + int(stokes), before[1] + int(not stokes), before[2] + int(bool(regen)))
     want = path_kernel.film_records_plain(tables, 3, 4)
@@ -835,13 +840,13 @@ def test_film_launch_across_a_chunk_boundary_is_bit_equal(stokes, monkeypatch):
     trace_fn = path_kernel.stokes_film_trace if stokes else path_kernel.film_trace
     plain_fn = path_kernel.stokes_film_trace_plain if stokes else path_kernel.film_trace_plain
     n = path_kernel.RECORD_CHUNK + 6
-    before = (trace_fn.launches, path_kernel.film_splat.launches)
+    counter = path_kernel.stokes_sample_trace if stokes else path_kernel.film_trace
+    before = (counter.launches, path_kernel.film_splat.launches)
     got = trace_fn(tables, -2, n)
-    assert (trace_fn.launches, path_kernel.film_splat.launches) == (before[0] + 2, before[1] + 2)
+    assert (counter.launches, path_kernel.film_splat.launches) == (before[0] + 2, before[1] + 2)
     assert torch.equal(got, plain_fn(tables, -2, n))
     monkeypatch.setattr(path_kernel, "RECORD_CHUNK", 3)
-    small = path_kernel.split_film(tables, 8, 7, path_kernel.film_records,
-                                   path_kernel.film_splat)
+    small = trace_fn(tables, 8, 7)
     assert torch.equal(small, plain_fn(tables, 8, 7))
 
 
@@ -1598,7 +1603,8 @@ def test_sharded_film_kernel_in_a_world_of_one_under_nccl(tmp_path):
     try:
         img = pr.render_pallas_sharded(st, spp=8, seed=4, device="cuda")
         tables = path_kernel.pack_tables(path_kernel.bake_scene(st), st.camera, 16, "cuda")
-        film, rays = pr.film_partial(tables, path_kernel.film_trace, pr.film_seed(4, 0), 8)
+        film, rays = path_kernel.film_chunks(tables, path_kernel.film_trace,
+                                             [(pr.film_seed(4, 0), 8)])
         assert torch.equal(pr.psum(film), film)
         assert int(pr.render_pallas_sharded.last_ray_count) == int(rays)
     finally:

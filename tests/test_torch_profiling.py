@@ -167,9 +167,10 @@ def test_kernel_names_are_the_ports_kernels():
 def test_launch_counts_reset_and_read():
     path_kernel.film_trace.launches = 3
     path_kernel.film_trace.regen_launches = 1
-    path_kernel.stokes_film_trace.launches = 2
+    path_kernel.stokes_sample_trace.launches = 2
     counts = prof_t.launch_counts()
-    assert counts["path_film"] == 3 and counts["regen"] == 1 and counts["stokes_film"] == 2
+    assert counts["path_film"] == 3 and counts["regen"] == 1 and counts["stokes_sample"] == 2
+    assert "stokes_film" not in counts  # K3's trace launches count as K6's, one kernel
     prof_t.reset_launch_counts()
     assert set(prof_t.launch_counts().values()) == {0}
 

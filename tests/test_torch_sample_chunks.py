@@ -14,7 +14,7 @@ their images are bit-equal to the one-sample-a-pass loop:
 ``render(polarizers.xml)`` (K5's route; and within ``CPU_LIMIT`` of
 tpu_rt's interpret-mode render, as tests/test_torch_polarizers.py holds the
 2-spp render) and ``tests/torch_port_scenes.py::render_stokes_per_sample``
-(K6's route).  No JAX is imported.
+(K6's route), also splatted in pieces of one sample.  No JAX is imported.
 """
 
 import os
@@ -130,6 +130,33 @@ def test_stokes_per_sample_route_in_chunks_is_bit_equal():
     assert S2.shape == (16, 16, 4, 3) and bool(torch.isfinite(S2).all())
     assert torch.equal(S2, S1) and int(r2) == int(r1) > 3 * 16 * 16
     assert S2[..., 1:3, :].abs().max().item() > 1e-4  # polarized
+
+
+@pytest.mark.parametrize("route", ["K5", "K6"])
+def test_routes_splat_in_pieces_bit_equal(route, monkeypatch):
+    """``sample_film`` splats a chunk in pieces of at most SPLAT_CHUNK
+    samples: with pieces of one sample, K5's route (polarizers.xml, 8x8)
+    and K6's (cbox_pol, 8x8, gaussian) give their unpieced images and ray
+    counts bit for bit."""
+    if route == "K5":
+        sc = tpu_rt_torch.load_file(G.POLARIZERS, res=RES, spp=3)
+
+        def run():
+            img = tpu_rt_torch.render(sc, spp=3, seed=2, device="cpu", tile_rows=8,
+                                      spp_per_pass=3)
+            return img, int(tpu_rt_torch.render.last_ray_count)
+    else:
+        sc = tpu_rt_torch.load_file(CBOX_POL, res=RES, spp=3)
+
+        def run():
+            S, rays = render_stokes_per_sample(sc, 3, 2, "cpu", tile_rows=8, spp_per_pass=3)
+            return S, int(rays)
+
+    whole, rays = run()
+    monkeypatch.setattr(pk, "SPLAT_CHUNK", 1)
+    pieces, rays1 = run()
+    assert torch.equal(pieces, whole) and rays1 == rays > 3 * RES * RES
+    assert bool(torch.isfinite(whole).all()) and whole.abs().sum().item() > 0
 
 
 @pytest.mark.parametrize("filter_type", [TT.FILTER_BOX, TT.FILTER_TENT, TT.FILTER_GAUSSIAN],

@@ -157,12 +157,13 @@ def test_tables_carry_the_stokes_fields():
         sc.camera.to_world.numpy()[:3, 0])
     assert (t.stokes, t.regen, t.n_val, t.n_acc) == (True, False, 13, 117)
     # the regen word is K1's auto form, on from max_depth 8; 0 on Stokes
-    # tables, whose K3 has no loop form and takes no regen
+    # tables, whose K3 has no loop form: film_records, K1's trace kernel,
+    # takes no Stokes tables
     for depth in (pk.REGEN_AUTO_DEPTH - 1, pk.REGEN_AUTO_DEPTH, 16):
         assert _tables(filt="tent", depth=depth, stokes=False).regen == (
             depth >= pk.REGEN_AUTO_DEPTH)
         assert not _tables(filt="tent", depth=depth).regen
-    with pytest.raises(ValueError, match="no loop form"):
+    with pytest.raises(ValueError, match="stokes=False"):
         pk.film_records(t, 0, 1, regen=True)
     scalar = _tables(filt="tent", depth=DEPTH, stokes=False)
     assert scalar.tab_list[pk.G_CAM_X:pk.G_CAM_X + 3] == [0.0, 0.0, 0.0]
@@ -174,8 +175,7 @@ def test_tables_carry_the_stokes_fields():
 
 def test_wrappers_on_the_cpu_launch_nothing():
     t = _tables(filt="box", depth=DEPTH)
-    before = (pk.stokes_film_trace.launches, pk.stokes_sample_trace.launches)
+    before = (pk.stokes_sample_trace.launches, pk.film_splat.launches)
     pk.stokes_film_trace(t, 0, 1)
-    pk.film_records(t, 0, 1)
     pk.stokes_sample_trace(t, 0)
-    assert before == (pk.stokes_film_trace.launches, pk.stokes_sample_trace.launches)
+    assert before == (pk.stokes_sample_trace.launches, pk.film_splat.launches)

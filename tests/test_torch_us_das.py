@@ -34,6 +34,7 @@ from tpu_rt_torch.ops import us_kernel
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
 from tpu_rt_torch.us import beamform as tb
 from tpu_rt_torch.us import pipeline
+from tpu_rt_torch.utils import memo
 from torch_port_scenes import usmain_desc, usmain_scatterers_desc, usmain_twin_desc
 
 torch.set_num_threads(1)
@@ -372,7 +373,8 @@ def test_coincident_prims_tie_to_the_lower_prim():
 def test_per_scene_keeps_a_value_while_the_scene_lives():
     """What us_render keeps per scene (the kernel's tables, the rays, the
     grid on the device) is made once a scene object, made again for
-    another, and let go with the scene."""
+    another, and let go with the scene; a value kept at a tensor's
+    version is made again once the tensor changes."""
     made = []
 
     def make():
@@ -380,11 +382,16 @@ def test_per_scene_keeps_a_value_while_the_scene_lives():
         return len(made)
 
     a = tpu_rt_torch.load_dict(usmain_desc(tpu_rt_torch.ScalarTransform4f))
-    assert us_kernel.per_scene(a, "k", make) == 1 and us_kernel.per_scene(a, "k", make) == 1
-    assert us_kernel.per_scene(a, "other", make) == 2
+    assert memo.per_object(a, "k", make) == 1 and memo.per_object(a, "k", make) == 1
+    assert memo.per_object(a, "other", make) == 2
     b = a.replace(max_depth=a.max_depth)  # an equal scene, another object
-    assert us_kernel.per_scene(b, "k", make) == 3
-    keys = [k for k in us_kernel._PER_SCENE if k[0] == id(a)]
+    assert memo.per_object(b, "k", make) == 3
+    keys = [k for k in memo._KEPT if k[0] == id(a)]
     assert len(keys) == 2
     del a
-    assert not any(k in us_kernel._PER_SCENE for k in keys)
+    assert not any(k in memo._KEPT for k in keys)
+    g = torch.zeros(3)
+    assert memo.per_object(g, "k", make, version=g._version) == 4
+    assert memo.per_object(g, "k", make, version=g._version) == 4
+    g.add_(1.0)
+    assert memo.per_object(g, "k", make, version=g._version) == 5

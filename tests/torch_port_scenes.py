@@ -352,36 +352,19 @@ def cone_box_desc(st, box=True):
 
 def render_stokes_per_sample(scene, spp, seed, device, tile_rows=16, spp_per_pass=64):
     """The JAX package's per-sample Stokes route (render_stokes_pallas:
-    2257-2295), the reference that K3's film planes are held to: K6
-    traces ``spp_per_pass`` samples a launch (the last chunk what is
-    left), their values splatted by ``sensor/film.py::splat_in_order``,
+    2257-2295), the reference that K3's film planes are held to:
+    ``path_kernel.sample_film`` on K6, ``spp_per_pass`` samples a launch,
     then developed.  Sample j draws the stream of seed * 100003 + j, as in
-    the film route; the image is bit-equal whatever the chunk (the glue is
-    elementwise and the samples land in order).  Returns the (H, W, 4, 3)
-    Stokes image and the ray count (0-d int64)."""
-    import torch
-
+    the film route; the image is bit-equal whatever the chunk.  Returns
+    the (H, W, 4, 3) Stokes image and the ray count (0-d int64)."""
     from tpu_rt_torch.ops import path_kernel as pk
     from tpu_rt_torch.sensor import film
 
     c = scene.camera
-    H, W = c.height, c.width
     tables = pk.pack_tables(pk.bake_scene(scene), c, tile_rows, device, stokes=True)
-    fv = torch.zeros((H, W, 12), dtype=torch.float32, device=device)
-    fw = torch.zeros((H, W), dtype=torch.float32, device=device)
-    n_rays = torch.zeros((), dtype=torch.int64, device=device)
-    seed0 = pk._wrap_i32(seed * 100003)
-    for j in range(0, spp, spp_per_pass):
-        k = min(spp_per_pass, spp - j)
-        planes = pk.stokes_sample_trace(tables, pk._wrap_i32(seed0 + j), k)
-        S, jitter, n = pk.sample_planes_split(planes)
-        S = S.reshape(k, -1, 12)
-        ok = torch.isfinite(S).all(-1)
-        fv, fw = film.splat_in_order(fv, fw, jitter.reshape(k, H, W, 2),
-                                     torch.where(ok[..., None], S, 0.0).reshape(k, H, W, 12),
-                                     ok.reshape(k, H, W), c.filter_type)
-        n_rays += n
-    return film.develop(fv, fw).reshape(H, W, 4, 3), n_rays
+    fv, fw, n_rays = pk.sample_film(tables, pk.stokes_sample_trace, pk.sample_planes_split, spp,
+                                    pk._wrap_i32(seed * 100003), spp_per_pass, c.filter_type)
+    return film.develop(fv, fw).reshape(c.height, c.width, 4, 3), n_rays
 
 
 def tie_fixture():

@@ -14,7 +14,12 @@ example ``kStokesSampleMinBlocks=4`` or ``kSampleMinBlocks=8``; the tool
 fails if a constant is not found).  Every variant is compiled by its own
 nvcc, all started together, with the package's flags
 (``_build.NVCC_FLAGS``) into ``DIR/ab_film.so``; ptxas's registers and
-spills are printed per kernel.  A variant built before the film kernels
+spills are printed per kernel.  Each variant is launched with its own
+build's launch-mode numbers, read by name from the enum of its
+``path_film.cu``; its K3 trace is its K6 launch, or, for a build whose K3
+had a launch mode of its own, the one mode of its enum that the program
+lacks (the first 13 planes a sample are K3's records either way).  A
+variant built before the film kernels
 were split (no ``film_splat_launch``) is launched as one kernel writing
 the planes; a variant named by ``--unchunked`` (built before the
 per-sample kernels took a chunk of samples a launch) has its per-sample
@@ -51,6 +56,7 @@ import ctypes
 import importlib.util
 import json
 import os
+import re
 import statistics
 import sys
 from contextlib import contextmanager
@@ -78,8 +84,40 @@ POLARIZERS = os.path.join(ASSETS, "polarizers", "polarizers.xml")
 SEED = 100003  # the first chunk seed of render(seed=1)
 
 
+def launch_modes(d):
+    """{mode name: number} of the launch-mode enum of DIR's path_film.cu."""
+    with open(os.path.join(d, "path_film.cu")) as f:
+        enum = re.search(r"enum \{\s*(MODE_FILM = 0[^}]*)\}", f.read()).group(1)
+    return {m: int(n) for m, n in re.findall(r"(MODE_\w+) = (\d+)", enum)}
+
+
+class Build:
+    """A variant's library, its build's launch-mode numbers and its K3
+    trace's mode: the one mode the program lacks (a build whose K3 had a
+    mode of its own), else its K6 mode."""
+
+    def __init__(self, lib, modes):
+        self.lib, self.modes = lib, modes
+        # more than one mode the program lacks raises: none of them is known to be K3's
+        self.k3_mode, = ([n for m, n in modes.items() if not hasattr(pk, "_" + m)]
+                         or [modes["MODE_STOKES_SAMPLE"]])
+
+    def launch(self, tables, seed, n, mode, n_out, name, rays=None, regen=False):
+        """The package's ``_launch`` in the program's ``mode``, given to
+        this build by the name of that mode."""
+        own = next(m for m in self.modes if getattr(pk, "_" + m, None) == mode)
+        return ORIG_LAUNCH(tables, seed, n, self.modes[own], n_out, name, rays=rays, regen=regen)
+
+    def k3_records(self, tables, seed, n):
+        """This build's own K3 trace: its first 13 planes a sample."""
+        return ORIG_LAUNCH(tables, seed, n, self.k3_mode, 15, "K3")[:tables.n_val]
+
+
+ORIG_LAUNCH = pk._launch
+
+
 def build(variants):
-    """nvcc every variant's path_film.cu at once; returns {name: ctypes lib}
+    """nvcc every variant's path_film.cu at once; returns {name: Build}
     and prints ptxas's registers and spills."""
     logs = ab_common.nvcc_all({name: (os.path.join(d, "ab_film.so"),
                                       ["-shared", os.path.join(d, "path_film.cu")])
@@ -95,45 +133,50 @@ def build(variants):
         if hasattr(lib, "film_splat_launch"):
             lib.film_splat_launch.argtypes = [vp, vp, i, vp, i, i, i, i, i, i, vp]
             lib.film_splat_launch.restype = i
-        libs[name] = lib
+        libs[name] = Build(lib, launch_modes(variants[name]))
         ptxas[name] = ab_common.ptxas(name, log)
     return libs, ptxas
 
 
-def is_split(lib):
-    return hasattr(lib, "film_splat_launch")
+def is_split(b):
+    return hasattr(b.lib, "film_splat_launch")
 
 
-def old_film(lib):
+def old_film(b):
     """A film wrapper for a build whose film kernels write the planes."""
     def trace(tables, seed, n_samples, regen=None):
         regen = tables.regen if regen is None else bool(regen)
         out = torch.empty((tables.n_acc + 1, tables.n_pix), dtype=torch.float32,
                           device=tables.tab.device)
-        err = lib.path_film_launch(
+        err = b.lib.path_film_launch(
             tables.hdr.data_ptr(), tables.hdr.numel(), tables.tab.data_ptr(),
             tables.tab.numel(), tables.mesh.data_ptr() if tables.mesh is not None else None,
             tables.mesh.numel() if tables.mesh is not None else 0, None, out.data_ptr(),
             tables.n_pix, pk._wrap_i32(seed), n_samples, tables.radius,
-            pk._MODE_STOKES_FILM if tables.stokes else pk._MODE_FILM, int(regen),
+            b.k3_mode if tables.stokes else b.modes["MODE_FILM"], int(regen),
             int(tables.rough_cone), torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(lib.path_film_error_string(err).decode())
+            raise RuntimeError(b.lib.path_film_error_string(err).decode())
         return out
     return trace
 
 
 @contextmanager
-def use(lib):
-    """The package's wrappers launching ``lib``'s kernels."""
-    saved = (pk.film_trace, pk.stokes_film_trace)
-    if not is_split(lib):
-        pk.film_trace = pk.stokes_film_trace = old_film(lib)
+def use(b):
+    """The package's wrappers launching build ``b``'s kernels, each mode by
+    its number in that build, K3's trace by the build's own."""
+    saved = (pk._launch, pk.film_trace, pk.stokes_film_trace)
+    pk._launch = b.launch
+    if not is_split(b):
+        pk.film_trace = pk.stokes_film_trace = old_film(b)
+    else:
+        pk.stokes_film_trace = lambda t, s, n: pk.split_film(t, s, n, b.k3_records,
+                                                             pk.film_splat)
     try:
-        with ab_common.use(lib):
+        with ab_common.use(b.lib):
             yield
     finally:
-        pk.film_trace, pk.stokes_film_trace = saved
+        pk._launch, pk.film_trace, pk.stokes_film_trace = saved
 
 
 def tables_of(path, res=None, filter_type=None, stokes=False):
@@ -183,8 +226,9 @@ def ab_launches(libs, reps, unchecked=(), unchunked=()):
             for v, fn in fns.items():
                 times[v].append(event_ms(fn)[0])
                 if v in parts:
+                    records = libs[v].k3_records if tables.stokes else pk.film_records
                     with use(libs[v]):
-                        ms_t, rec = event_ms(lambda: pk.film_records(tables, SEED, n))
+                        ms_t, rec = event_ms(lambda: records(tables, SEED, n))
                         planes = torch.zeros((tables.n_acc + 1, tables.n_pix), device="cuda")
                         ms_s, _ = event_ms(lambda: pk.film_splat(rec, planes, tables, SEED))
                         parts[v][0].append(ms_t)
@@ -255,9 +299,9 @@ def ab_sample_launches(libs, reps, unchecked=(), unchunked=()):
         def one(lib, v):
             with use(lib):
                 if k == 1 or v not in unchunked:
-                    return pk._launch(tables, 3, k, mode, False, n_out, name, rays=rays)[0]
-                return torch.cat([pk._launch(tables, pk._wrap_i32(3 + i), 1, mode, False, n_out,
-                                             name, rays=rays)[0] for i in range(k)], 1)
+                    return lib.launch(tables, 3, k, mode, n_out, name, rays=rays)
+                return torch.cat([lib.launch(tables, pk._wrap_i32(3 + i), 1, mode, n_out, name,
+                                             rays=rays) for i in range(k)], 1)
         want = one(next(iter(libs.values())), next(iter(libs)))
         for v, lib in libs.items():
             assert v in unchecked or torch.equal(one(lib, v), want), f"{name}: variant {v} differs"

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import weakref
 from dataclasses import dataclass
 
 import torch
@@ -45,6 +44,7 @@ import torch
 from tpu_rt_torch.core.math import cross, normalize, transform_point, transform_vector, vec3
 from tpu_rt_torch.geometry import intersect as isect
 from tpu_rt_torch.scene.types import CONE, CURVE, CYLINDER, DISK, RECTANGLE, SPHERE
+from tpu_rt_torch.utils.memo import per_object
 
 INF = isect.INF
 BRUTE_FORCE_MAX_PRIMS = 192
@@ -348,30 +348,25 @@ def _bvh_steps(geom, tab, s, k):
         s["sp"].copy_(torch.where(push, sp + 2, sp))
 
 
-_BVH_GRAPHS = {}
-
-
 def _bvh_graph(geom, n, device):
     """A CUDA graph of STEPS_PER_CHECK steps of the walk of n rays on ``geom``,
-    with its state and tables, kept while the geometry lives: a step is
-    some 270 small operations, and launching them one by one from the
-    host, not running them on the card, sets a walk's time."""
-    key = (id(geom), n, str(device))
-    hit = _BVH_GRAPHS.get(key)
-    if hit is not None and hit[0]() is geom:
-        return hit[1]
-    tab, s = _bvh_tables(geom), _bvh_state(n, device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):  # a warm-up off the capture, as torch.cuda.graph asks
-        _bvh_steps(geom, tab, s, STEPS_PER_CHECK)
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _bvh_steps(geom, tab, s, STEPS_PER_CHECK)
-    value = (graph, s, tab)
-    _BVH_GRAPHS[key] = (weakref.ref(geom, lambda _, key=key: _BVH_GRAPHS.pop(key, None)), value)
-    return value
+    with its state and tables, kept while the geometry lives
+    (``utils/memo.py::per_object``): a step is some 270 small operations,
+    and launching them one by one from the host, not running them on the
+    card, sets a walk's time."""
+    def capture():
+        tab, s = _bvh_tables(geom), _bvh_state(n, device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):  # a warm-up off the capture, as torch.cuda.graph asks
+            _bvh_steps(geom, tab, s, STEPS_PER_CHECK)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _bvh_steps(geom, tab, s, STEPS_PER_CHECK)
+        return graph, s, tab
+
+    return per_object(geom, ("bvh graph", n, str(device)), capture)
 
 
 def _trace_bvh(geom, o, d, tmin, tmax, graph=True) -> Hit:

@@ -7,7 +7,7 @@ wrapping ``path`` (cbox_pol-class scenes) and the ``polarizer`` BSDF.
 ``ops/path_kernel.py``: rough conductors, with their Mueller chain through
 the NEE scattering plane, and cones included; no polarizer, no textured
 environment, no explicit ``max_depth``) to
-``path_kernel.render_stokes_film`` (K3, in K2's loop from depth 8).
+``path_kernel.render_stokes_film`` (K3, one thread a (pixel, sample)).
 Everything else, above all true polarizer transport, renders through the
 wavefront tracer below, one PyTorch pass a bounce over the scalar
 renderer's modules (``geometry/trace.py`` with the clustered

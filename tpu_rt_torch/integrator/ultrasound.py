@@ -56,9 +56,9 @@ from tpu_rt_torch.core.math import (
     transform_point,
 )
 from tpu_rt_torch.geometry import trace
-from tpu_rt_torch.ops.us_kernel import per_scene
 from tpu_rt_torch.scene.types import grad_tensors, with_tensors
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
+from tpu_rt_torch.utils.memo import per_object
 
 
 def _rays(us, device):
@@ -70,9 +70,9 @@ def _inputs(scene, device):
     ``device``: the scene and the pair rays, kept per scene detached (so
     no later frame is handed an earlier frame's graph).  The tensors that
     require grad are taken anew each call, and the rays made from them."""
-    sc, base = per_scene(scene, ("wavefront", str(device)),
-                         lambda: (scene.detach().to(device), _rays(scene.ultrasound.detach(),
-                                                                   device)))
+    sc, base = per_object(scene, ("wavefront", str(device)),
+                          lambda: (scene.detach().to(device), _rays(scene.ultrasound.detach(),
+                                                                    device)))
     live = grad_tensors(scene)
     if live:
         sc = with_tensors(sc, [(path, t.to(device)) for path, t in live])

@@ -168,13 +168,9 @@ enum { BSDF_STRIDE = 16, EM_STRIDE = 32, PT_STRIDE = 8 };
 enum { BSDF_DIFFUSE = 0, BSDF_DIELECTRIC = 1, BSDF_CONDUCTOR = 2, BSDF_ROUGH_CONDUCTOR = 3,
        BSDF_POLARIZER = 4, BSDF_NULL = 6 };
 enum { B_ALPHA = 15 };  // a rough conductor's GGX alpha in its BSDF record
-// launch modes (path_kernel.py _MODE_*); MODE_STOKES_FILM launches K6's
-// kernel as MODE_STOKES_SAMPLE does, and keeps its own number so that
-// tools/ab_film.py launches an older build's own K3 through it
-enum {
-  MODE_FILM = 0, MODE_STOKES_FILM = 1, MODE_STOKES_SAMPLE = 2, MODE_RAYGEN_SAMPLE = 3,
-  MODE_RAYS_SAMPLE = 4
-};
+// launch modes (path_kernel.py _MODE_*); K3's trace is a MODE_STOKES_SAMPLE
+// launch
+enum { MODE_FILM = 0, MODE_STOKES_SAMPLE = 1, MODE_RAYGEN_SAMPLE = 2, MODE_RAYS_SAMPLE = 3 };
 constexpr int kMaxTableFloats = 12 * 1024;
 constexpr int kThreads = 128;
 constexpr int kMaxChunk = 65535;  // a launch's samples in the grid: gridDim.y
@@ -1173,7 +1169,7 @@ template <bool kRC>
 int launch_mode(int mode, int regen, int radius, dim3 grid, size_t smem, cudaStream_t s,
                 const int* h, const float* t, int n_tab, const float* m, const float* r,
                 float* o, int n_pix, int seed, int n_samples) {
-  if (mode == MODE_STOKES_FILM || mode == MODE_STOKES_SAMPLE) {
+  if (mode == MODE_STOKES_SAMPLE) {
     stokes_sample_kernel<kRC><<<grid, kThreads, smem, s>>>(h, t, n_tab, m, o, n_pix, seed,
                                                            n_samples);
   } else if (mode == MODE_RAYGEN_SAMPLE) {
@@ -1202,16 +1198,16 @@ void launch_splat(const float* rec, const float* tab, float* planes, int n_pix, 
 
 }  // namespace
 
-// mode: MODE_FILM (K1), MODE_STOKES_FILM (K3) and MODE_STOKES_SAMPLE (K6),
-// one launch, MODE_RAYGEN_SAMPLE (K5), MODE_RAYS_SAMPLE (K4, on the (6,
-// n_pix) rays; NULL for every other mode); regen: K2's loop for K1, no
-// effect on any other mode; rough_cone: the header's rough-cone flag, the
-// kernels with the rough conductor's lane and cones.  K1 writes its sample
-// records, (4, n_samples, n_pix), to out; every other mode its planes (15
-// for K3 / K6, the first 13 K3's records; 6 for K5 and 4 for K4, each 6
-// more on a textured environment), (planes, n_samples, n_pix), and ignores
-// radius.  Every mode but K1 takes the sample in the grid, at most
-// kMaxChunk samples a launch.
+// mode: MODE_FILM (K1), MODE_STOKES_SAMPLE (K6, and K3's trace),
+// MODE_RAYGEN_SAMPLE (K5), MODE_RAYS_SAMPLE (K4, on the (6, n_pix) rays;
+// NULL for every other mode); regen: K2's loop for K1, no effect on any
+// other mode; rough_cone: the header's rough-cone flag, the kernels with
+// the rough conductor's lane and cones.  K1 writes its sample records, (4,
+// n_samples, n_pix), to out; every other mode its planes (15 for K6, the
+// first 13 K3's records; 6 for K5 and 4 for K4, each 6 more on a textured
+// environment), (planes, n_samples, n_pix), and ignores radius.  Every
+// mode but K1 takes the sample in the grid, at most kMaxChunk samples a
+// launch.
 extern "C" int path_film_launch(const void* hdr, int n_hdr, const void* tab,
                                 int n_tab, const void* mesh, int n_mesh, const void* rays,
                                 void* out, int n_pix, int seed, int n_samples, int radius,

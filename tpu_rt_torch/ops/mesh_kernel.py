@@ -59,10 +59,10 @@ versions' bits (``tests/test_torch_cluster_tree.py`` emulates that walk).
 
 from __future__ import annotations
 
-import weakref
-
 import numpy as np
 import torch
+
+from tpu_rt_torch.utils.memo import per_object
 
 CLUSTER = 128  # triangles per cluster (the TPU's lane width; kept for the table layout)
 CHUNK_C = 16  # cluster-count padding granularity of the tables
@@ -781,18 +781,14 @@ def mesh_intersect(clusters, o, d, tmin=_TMIN, tmax=None, c0=0, c1=None):
 mesh_intersect.launches = 0
 
 
-_TREES_READ = weakref.WeakValueDictionary()  # id -> a tree tensor whose header was checked
-
-
 def _mesh_intersect_cuda(bounds, trisw, tree, o, d, tmax, tmin, c0, c1):
     dev = o.device
     n = o.shape[0]
     if tree is None:
         raise ValueError("mesh_intersect on CUDA needs the clusters' tree "
                          "(build_cluster_tree)")
-    if _TREES_READ.get(id(tree)) is not tree:  # its header, read once a tensor
-        tree_levels(tree[:TREE_HEADER_ROWS].cpu())
-        _TREES_READ[id(tree)] = tree
+    # its header checked once a tensor
+    per_object(tree, "tree levels", lambda: tree_levels(tree[:TREE_HEADER_ROWS].cpu()))
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("tmax", tmax, (n,)),
                            ("bounds", bounds, (bounds.shape[0], 32)),
                            ("trisw", trisw, (bounds.shape[0], 12, CLUSTER)),

@@ -42,28 +42,30 @@ around them (``render_pallas``, ``render_stokes_pallas``).
   a CUDA tensor they launch the hand-written kernels of
   ``csrc/path_film.cu`` or raise.  K2 needs no
   plain version of its own: it computes K1's function, each lane meeting
-  its samples in order.  K3, K6, K5 and K4 take the sample in the grid:
-  ``n_samples`` samples in one launch, sample i seeded seed + i; K3's
-  trace kernel is K6's, whose first 13 planes are K3's records.
-* On the card K1 (either loop form) and K3 run as two kernels: the
-  trace kernel (``film_records``) writes one record per finished sample,
-  its values and ray count laid out [value][sample][pixel], and
-  ``film_splat`` adds the records onto the planes in sample order;
-  ``split_film`` streams a launch in chunks of at most ``RECORD_CHUNK``
-  samples.  Their plain versions, ``film_records_plain`` and
-  ``film_splat_plain``, give ``film_trace_plain``'s planes bit for bit.
+  its samples in order.  K6, K5 and K4 take the sample in the grid:
+  ``n_samples`` samples in one launch, sample i seeded seed + i.
+* On the card K1 (either loop form) and K3 run as two kernels: a trace
+  kernel writes one record per finished sample, its values and ray count
+  laid out [value][sample][pixel], and ``film_splat`` adds the records
+  onto the planes in sample order; ``split_film`` streams a launch in
+  chunks of at most ``RECORD_CHUNK`` samples.  K1's trace kernel is
+  ``film_records``; K3's is a ``stokes_sample_trace`` launch, whose first
+  13 planes are K3's records.  Their plain version,
+  ``film_records_plain``, and ``film_splat_plain`` give
+  ``film_trace_plain``'s planes bit for bit.
 * The plain version keeps the JAX kernel's math in its order, over flat
   ``(N,)`` tensors, one per component, with ``torch.where`` masks.  Its
   SplitMix32 RNG emulates uint32 arithmetic in int64 (CPU torch has no
   uint32 shifts), so it reproduces the JAX package's random streams bit
   for bit.
 * ``render_film`` and ``render_stokes_film`` loop over
-  ``spp_per_pass``-sample chunks, deposit each chunk's filter planes into
-  the film and develop the image (H, W, 3) or the Stokes image
-  (H, W, 4, 3).  ``render_sample_film``, the route of a textured
-  environment, launches K5 once a chunk of ``spp_per_pass`` samples, adds
-  the environment seen at each path's escape, splats the chunk's samples
-  in order and develops.
+  ``spp_per_pass``-sample chunks (``film_chunks``), deposit each chunk's
+  filter planes into the film and develop the image (H, W, 3) or the
+  Stokes image (H, W, 4, 3).  ``sample_film`` is the per-sample routes'
+  film: a per-sample kernel launched once a chunk, the samples splatted in
+  order.  ``render_sample_film``, the route of a textured environment,
+  runs it on K5, adding the environment seen at each path's escape, and
+  develops.
 """
 
 from __future__ import annotations
@@ -108,6 +110,9 @@ _FILTER_FOOT = {"box": 0, "tent": 1, "gaussian": 2}
 # The most samples a film launch on the card traces into one record buffer
 # before film_splat adds them: (n_val, 64, H*W) floats, 218 MB for K3 at 256^2.
 RECORD_CHUNK = 64
+# The most samples a per-sample route splats at once: ``splat_in_order``
+# holds a piece's filter terms whole.
+SPLAT_CHUNK = 64
 
 
 # ---------------------------------------------------------------------------
@@ -1680,24 +1685,24 @@ def _wrap_i32(x: int) -> int:
     return ((x + (1 << 31)) & _M32) - (1 << 31)
 
 
-# what the launch computes: K1's planes, K3's planes, K6's sample planes,
-# K5's sample planes or K4's planes on rays passed in
-_MODE_FILM, _MODE_STOKES_FILM, _MODE_STOKES_SAMPLE, _MODE_RAYGEN_SAMPLE, _MODE_RAYS_SAMPLE = range(5)
-# the most samples a launch with the sample in the grid (K3, K6, K5, K4)
+# what the launch computes (path_film.cu's launch modes): K1's records,
+# K6's sample planes (K3's records their first 13), K5's sample planes or
+# K4's planes on rays passed in
+_MODE_FILM, _MODE_STOKES_SAMPLE, _MODE_RAYGEN_SAMPLE, _MODE_RAYS_SAMPLE = range(4)
+# the most samples a launch with the sample in the grid (K6, K5, K4)
 # traces (path_film.cu kMaxChunk, gridDim.y)
 MAX_SAMPLE_CHUNK = 65535
 
 
-def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_out,
-            name: str, rays=None):
+def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, n_out, name: str,
+            rays=None, regen=False):
     """Launch ``csrc/path_film.cu`` (built at first use) in ``mode`` on the
     tables' CUDA device, one lane a pixel, or one a ray of ``rays`` (6, N)
     for K4, and every mode but K1's lanes once for each of ``n_samples``
     samples; the header's rough-cone flag picks the kernels with the rough
     conductor's lane and cones.  ``n_out``: every mode but K1's planes, the
     output (n_out, n_samples, N); K1's records shape.  ``regen``: K1's loop
-    form (None: the tables'), False for every other mode.  Returns (output,
-    whether K2's loop ran)."""
+    form, K2's loop where true.  Returns the output."""
     dev = tables.tab.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
@@ -1717,7 +1722,6 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
                 or rays.shape[0] != 6 or not rays.is_contiguous() or rays.shape[1] < 1):
             raise ValueError(f"{name} needs rays as a contiguous (6, N) float32 tensor on {dev}")
         n = rays.shape[1]
-    regen = tables.regen if regen is None else bool(regen)
     from tpu_rt_torch.ops import _build
 
     lib = _build.load_library()
@@ -1735,27 +1739,22 @@ def _launch(tables: FilmTables, seed: int, n_samples: int, mode: int, regen, n_o
     if err != 0:
         raise RuntimeError("path_film kernel launch failed: "
                            + lib.path_film_error_string(err).decode())
-    return out, regen
+    return out
 
 
 def film_records(tables: FilmTables, seed: int, n_samples: int, regen=None):
-    """The trace kernel of K1 or K3 (by the tables): (n_val, n_samples,
-    H*W) sample records, ``film_records_plain``'s.  ``regen``: K1's loop
-    form, as in ``film_trace``; Stokes tables take none (K3 traces one
-    thread a (pixel, sample), K6's kernel, and its records are the first 13
-    of K6's 15 planes).  Plain version on a CPU tensor; on a CUDA tensor
-    the kernel, or raise.  K1's launches count in ``film_trace.launches``
-    (and ``regen_launches``), K3's in ``stokes_film_trace.launches``."""
-    if tables.stokes and regen is not None:
-        raise ValueError("film_records: K3 has no loop form, so Stokes tables take no regen")
+    """K1's trace kernel: (n_val, n_samples, H*W) sample records,
+    ``film_records_plain``'s.  ``regen``: the loop form, as in
+    ``film_trace``.  Plain version on a CPU tensor; on a CUDA tensor the
+    kernel, or raise.  Launches count in ``film_trace.launches``, those in
+    K2's loop also in ``regen_launches``.  K3's records are the first 13
+    planes of a ``stokes_sample_trace`` launch."""
+    _check_kind(tables, False, "film_records")
     if tables.tab.device.type == "cpu":
         return film_records_plain(tables, seed, n_samples)
-    if tables.stokes:
-        out, _ = _launch(tables, seed, n_samples, _MODE_STOKES_FILM, False, 15, "film_records")
-        stokes_film_trace.launches += 1
-        return out[:tables.n_val]
-    out, regen = _launch(tables, seed, n_samples, _MODE_FILM, regen,
-                         (tables.n_val, n_samples, tables.n_pix), "film_records")
+    regen = tables.regen if regen is None else bool(regen)
+    out = _launch(tables, seed, n_samples, _MODE_FILM, (tables.n_val, n_samples, tables.n_pix),
+                  "film_records", regen=regen)
     film_trace.launches += 1
     film_trace.regen_launches += int(regen)
     return out
@@ -1820,22 +1819,24 @@ def stokes_film_trace(tables: FilmTables, seed: int, n_samples: int):
     """K3: ``film_trace`` with full Mueller transport on Stokes tables
     (``pack_tables(..., stokes=True)``): (13 * offsets + 1, H*W) planes,
     per offset the 12 weighted Stokes values and the weight, then the ray
-    count.  It has no loop form: the trace kernel runs one thread a
-    (pixel, sample).  Plain version on a CPU tensor; on a CUDA tensor the
-    kernels (as ``film_trace``) or raise.  ``stokes_film_trace.launches``
-    counts K3's trace launches."""
+    count.  It has no loop form.  Plain version on a CPU tensor; on a CUDA
+    tensor the two kernels (as ``film_trace``), the trace one a
+    ``stokes_sample_trace`` launch (one thread a (pixel, sample), counted
+    in ``stokes_sample_trace.launches``) whose first 13 planes are the
+    records, or raise."""
     with span("tpu_rt_torch.stokes_film_trace"):
         _check_kind(tables, True, "stokes_film_trace")
         if tables.tab.device.type == "cpu":
             return stokes_film_trace_plain(tables, seed, n_samples)
-        return split_film(tables, seed, n_samples, film_records, film_splat)
+        return split_film(tables, seed, n_samples,
+                          lambda t, s, k: stokes_sample_trace(t, s, k)[:t.n_val], film_splat)
 
 
 def _sample_launch(tables: FilmTables, seed: int, n_samples, mode: int, n_out: int,
                    name: str, rays=None):
     """A per-sample kernel's launch on a chunk of ``n_samples`` samples
     (None: one, as (P, N) planes)."""
-    out, _ = _launch(tables, seed, _chunk(n_samples), mode, False, n_out, name, rays=rays)
+    out = _launch(tables, seed, _chunk(n_samples), mode, n_out, name, rays=rays)
     return out[:, 0] if n_samples is None else out
 
 
@@ -1845,8 +1846,8 @@ def stokes_sample_trace(tables: FilmTables, seed: int, n_samples=None):
     them into S, jitter and rays); with an int ``n_samples`` a chunk of
     that many samples in one launch, (15, n, H*W), sample i seeded seed +
     i.  Plain version on a CPU tensor; on a CUDA tensor the kernel or
-    raise.  ``stokes_sample_trace.launches`` counts launches, one a
-    chunk."""
+    raise.  ``stokes_sample_trace.launches`` counts launches, one a chunk,
+    K3's trace launches among them."""
     _check_kind(tables, True, "stokes_sample_trace")
     if tables.tab.device.type == "cpu":
         return stokes_sample_trace_plain(tables, seed, n_samples)
@@ -1896,7 +1897,7 @@ def path_trace(tables: FilmTables, o, d, seed: int, n_samples=None):
 
 
 film_trace.launches = film_trace.regen_launches = film_splat.launches = 0
-stokes_film_trace.launches = stokes_sample_trace.launches = raygen_trace.launches = path_trace.launches = 0
+stokes_sample_trace.launches = raygen_trace.launches = path_trace.launches = 0
 
 
 def deposit(film, planes, tables: FilmTables):
@@ -1916,24 +1917,26 @@ def deposit(film, planes, tables: FilmTables):
         return film
 
 
-def _render_chunks(tables: FilmTables, trace, spp, seed, spp_per_pass):
-    """``spp_per_pass``-sample launches of ``trace`` (tables, seed,
-    n_samples), each deposited into the film.  Returns the (n_val, H, W) film and the ray count (0-d
-    int64)."""
+def film_chunks(tables: FilmTables, trace, chunks):
+    """A launch of ``trace`` (tables, seed, n_samples) for each (seed,
+    n_samples) of ``chunks``, each deposited into the film.  Returns the
+    (n_val, H, W) film and the ray count (0-d int64)."""
     dev = tables.tab.device
-    k = max(1, min(spp_per_pass, spp))
-    n_full, rem = divmod(spp, k)
     film = torch.zeros((tables.n_val, tables.H, tables.W), dtype=torch.float32, device=dev)
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
-    seed0 = _wrap_i32(seed * 100003)
-    chunks = [(seed0 + j * k, k) for j in range(n_full)]
-    if rem:
-        chunks.append((seed0 + n_full * k, rem))
     for s, n in chunks:
         planes = trace(tables, _wrap_i32(s), n)
         deposit(film, planes, tables)
         n_rays += planes[-1].to(torch.int64).sum()
     return film, n_rays
+
+
+def _render_chunks(tables: FilmTables, trace, spp, seed, spp_per_pass):
+    """``film_chunks`` of ``spp_per_pass``-sample launches (the last what
+    is left), sample j seeded seed * 100003 + j."""
+    k = max(1, min(spp_per_pass, spp))
+    seed0 = _wrap_i32(seed * 100003)
+    return film_chunks(tables, trace, [(seed0 + j, min(k, spp - j)) for j in range(0, spp, k)])
 
 
 def _baked(scene: Scene, baked):
@@ -1957,45 +1960,61 @@ def render_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
     return img.contiguous(), n_rays
 
 
+def sample_film(tables: FilmTables, trace, split, spp, seed0, k, filter_type):
+    """The film of a per-sample route: ``trace`` (tables, seed,
+    n_samples) launched on chunks of at most ``k`` samples (sample j
+    seeded seed0 + j), ``split`` turning a chunk's planes into (values [n,
+    H*W, ...], jitter [n, H*W, 2], the rays cast), the samples with a
+    non-finite value left out and the rest splatted at their jitter by
+    ``sensor/film.py::splat_in_order`` with ``filter_type``, in pieces of
+    at most SPLAT_CHUNK samples.  The glue runs once a chunk, and the film
+    is bit-equal whatever the chunk and the piece: each element's
+    arithmetic is the per-sample loop's, and the samples land on the film
+    in order.  Returns (film values [H, W, n_val - 1], film weights [H,
+    W], the rays cast as a 0-d int64 tensor)."""
+    H, W, dev = tables.H, tables.W, tables.tab.device
+    fv = torch.zeros((H, W, tables.n_val - 1), dtype=torch.float32, device=dev)
+    fw = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(0, spp, k):
+        n = min(k, spp - j)
+        vals, jitter, rays = split(trace(tables, _wrap_i32(seed0 + j), n))
+        vals, jitter = vals.reshape(n, H, W, -1), jitter.reshape(n, H, W, 2)
+        for p in range(0, n, SPLAT_CHUNK):
+            v = vals[p:p + SPLAT_CHUNK]
+            fv, fw = _film.splat_in_order(fv, fw, jitter[p:p + SPLAT_CHUNK], v,
+                                          torch.isfinite(v).all(-1), filter_type)
+        n_rays += rays
+    return fv, fw, n_rays
+
+
 def render_sample_film(scene: Scene, spp=None, seed=0, device="cuda", spp_per_pass=64,
                        tile_rows=16, baked=None):
     """Full render through the per-sample kernel K5, the route of a scene
     with a textured environment (render_pallas :2600-2612, _get_render_fn
-    :2353-2383): sample j draws the stream of seed * 100003 + j; K5 traces
-    ``spp_per_pass`` samples a launch (the last chunk what is left); each
-    sample's radiance gets the environment seen at its path's escape, L +
-    esc_thr * eval_env(esc_d) (zero throughput where the path never
-    escaped); samples with a non-finite value are left out; the samples
-    are splatted at their jitter by ``sensor/film.py::splat_in_order``
-    with the camera's filter, then developed.  The glue runs once a chunk,
-    and the image is bit-equal whatever the chunk: each element's
-    arithmetic is the per-sample loop's, and the samples land on the film
-    in order.  Returns the (H, W, 3) image and the ray count (0-d int64),
+    :2353-2383): ``sample_film`` on K5, ``spp_per_pass`` samples a launch,
+    sample j drawing the stream of seed * 100003 + j; each sample's
+    radiance gets the environment seen at its path's escape, L + esc_thr *
+    eval_env(esc_d) (zero throughput where the path never escaped); then
+    developed.  Returns the (H, W, 3) image and the ray count (0-d int64),
     both on ``device``."""
     from tpu_rt_torch.emitter import sample as _em
 
     bs = _baked(scene, baked)
     c = scene.camera
-    spp = c.spp if spp is None else spp
-    H, W = c.height, c.width
     tables = pack_tables(bs, c, tile_rows, device)
     lookup = scene.to(device) if bs.env_textured else None
-    fv = torch.zeros((H, W, 3), dtype=torch.float32, device=device)
-    fw = torch.zeros((H, W), dtype=torch.float32, device=device)
-    n_rays = torch.zeros((), dtype=torch.int64, device=device)
-    seed0 = _wrap_i32(seed * 100003)
-    k = max(1, min(spp_per_pass, MAX_SAMPLE_CHUNK))
-    for j in range(0, spp, k):
-        n = min(k, spp - j)
-        planes = raygen_trace(tables, _wrap_i32(seed0 + j), n).movedim(0, -1)  # (n, H*W, P)
-        L = planes[..., 0:3]
+
+    def split(planes):
+        p = planes.movedim(0, -1)  # (n, H*W, P)
+        L = p[..., 0:3]
         if lookup is not None:
-            L = L + planes[..., 9:12] * _em.eval_env(lookup, planes[..., 6:9])
-        ok = torch.isfinite(L).all(-1)
-        fv, fw = _film.splat_in_order(fv, fw, planes[..., 4:6].reshape(n, H, W, 2),
-                                      L.reshape(n, H, W, 3), ok.reshape(n, H, W),
-                                      c.filter_type)
-        n_rays += planes[..., 3].to(torch.int64).sum()
+            L = L + p[..., 9:12] * _em.eval_env(lookup, p[..., 6:9])
+        return L, p[..., 4:6], p[..., 3].to(torch.int64).sum()
+
+    fv, fw, n_rays = sample_film(tables, raygen_trace, split, c.spp if spp is None else spp,
+                                 _wrap_i32(seed * 100003),
+                                 max(1, min(spp_per_pass, MAX_SAMPLE_CHUNK)), c.filter_type)
     return _film.develop(fv, fw), n_rays
 
 

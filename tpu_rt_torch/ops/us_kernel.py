@@ -33,7 +33,8 @@ Counterpart of ``tpu_rt/ops/pallas_us.py`` (``bake_us_scene``,
   ``rays_per_pair`` consecutive lanes per (angle, element) pair, the
   kernel with its deposit.  The packed tables and the pair rays depend on
   the scene alone, so they are built and copied to the device once a
-  scene (``per_scene``), not once a frame, from its values detached.
+  scene (``utils/memo.py::per_object``), not once a frame, from its
+  values detached.
 * ``simulate_acquisition_fastgrad`` is the differentiable acquisition:
   the kernel's primal, and as its backward the acoustic wavefront
   (``integrator/ultrasound.py``) replayed under autograd, as tpu_rt's
@@ -49,7 +50,6 @@ lane % tile_lanes) with tile_lanes = tile_rows * 128.
 from __future__ import annotations
 
 import math
-import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -79,6 +79,7 @@ from tpu_rt_torch.ops.path_kernel import (
 )
 from tpu_rt_torch.scene.types import BSDF_ULTRASOUND, Scene, grad_tensors, with_tensors
 from tpu_rt_torch.sensor.transducer import plane_wave_rays
+from tpu_rt_torch.utils.memo import per_object
 from tpu_rt_torch.utils.profiling import span
 
 _MAX_PRIMS = 64
@@ -532,24 +533,6 @@ def us_trace_rf(tables: USTables, rays, seed: int, n_angles, time_samples, rays_
 us_trace_rf.launches = 0
 
 
-_PER_SCENE = {}
-
-
-def per_scene(scene, key, make):
-    """``make()``, kept for this scene object and ``key`` while the scene
-    lives: what a frame needs that depends on the scene alone (the packed
-    tables, the rays, the image grid on the device) is built and copied
-    to the device once, not every frame.  Scenes are immutable
-    (``replace`` makes a new one), so what is kept stays right."""
-    k = (id(scene), key)
-    hit = _PER_SCENE.get(k)
-    if hit is not None and hit[0]() is scene:
-        return hit[1]
-    value = make()
-    _PER_SCENE[k] = (weakref.ref(scene, lambda _, k=k: _PER_SCENE.pop(k, None)), value)
-    return value
-
-
 def simulate_acquisition(scene: Scene, seed=0, rays_per_pair=1, device="cuda",
                          tile_rows=8):
     """The acquisition through the kernel.  Returns (channel_buf [A, E, T],
@@ -567,7 +550,7 @@ def simulate_acquisition(scene: Scene, seed=0, rays_per_pair=1, device="cuda",
             rays = torch.cat([base["o"].T, base["d"].T, base["tx_delay"][None]]).to(device)
             return pack_us_tables(bs, tile_rows, device), rays
 
-        tables, rays = per_scene(scene, ("acquisition", tile_rows, str(device)), inputs)
+        tables, rays = per_object(scene, ("acquisition", tile_rows, str(device)), inputs)
         us = scene.ultrasound
         A, E, T = us.n_angles, us.n_elements, us.time_samples
         channel = us_trace_rf(tables, rays, seed, A, T, rays_per_pair)

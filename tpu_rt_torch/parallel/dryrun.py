@@ -371,7 +371,7 @@ def _step_k1(tt, cfg, n, rank, dev, seed, tile_rows, timing):
     out = {"img": img, "rays": pr.render_pallas_sharded.last_ray_count, "counts": counts}
     tables = pk.pack_tables(pk.bake_scene(scene), scene.camera, tile_rows, dev)
     if rank == 0:
-        film = sum(pr.film_partial(tables, pk.film_trace, pr.film_seed(seed, r), spp // n)[0]
+        film = sum(pk.film_chunks(tables, pk.film_trace, [(pr.film_seed(seed, r), spp // n)])[0]
                    for r in range(n))
         out["ref"] = develop(film[:3].permute(1, 2, 0), film[3])
     if timing:
@@ -415,7 +415,7 @@ def _step_k9(tt, cfg, n, rank, dev, seed, timing):
 def _step_stokes(tt, cfg, n, rank, dev, seed, tile_rows, timing, filter_type):
     """The sharded Stokes render with the scene's filter (``filter_type``
     None) or another; rank 0's reference: the ranks' partial films
-    summed (K3: ``film_partial``, K6: ``stokes_sample_partial``), and for
+    summed (K3: ``path_kernel.film_chunks``, K6: ``path_kernel.sample_film``), and for
     box / tent ``render_stokes_film(spp, spp_per_pass=k)``."""
     from tpu_rt_torch.ops import path_kernel as pk
     from tpu_rt_torch.parallel import render as pr
@@ -438,14 +438,15 @@ def _step_stokes(tt, cfg, n, rank, dev, seed, tile_rows, timing, filter_type):
     film_route = c.filter_type in (FILTER_BOX, FILTER_TENT)
     if rank == 0:
         if film_route:
-            film = sum(pr.film_partial(tables, pk.stokes_film_trace,
-                                       pr.film_seed(seed, r, k), k)[0] for r in range(n))
+            film = sum(pk.film_chunks(tables, pk.stokes_film_trace,
+                                      [(pr.film_seed(seed, r, k), k)])[0] for r in range(n))
             S_ref = develop(film[:12].permute(1, 2, 0), film[12])
             out["ref_film"] = pk.render_stokes_film(scene, spp=spp, seed=seed, device=dev,
                                                     spp_per_pass=k, tile_rows=tile_rows)[0]
         else:
-            parts = [pr.stokes_sample_partial(tables, pr.sample_seed(seed, r, k), k,
-                                              c.filter_type) for r in range(n)]
+            parts = [pk.sample_film(tables, pk.stokes_sample_trace, pk.sample_planes_split, k,
+                                    pr.sample_seed(seed, r, k), k, c.filter_type)
+                     for r in range(n)]
             S_ref = develop(sum(p[0] for p in parts), sum(p[1] for p in parts))
         out["ref"] = S_ref.reshape(c.height, c.width, 4, 3)
     if timing:
@@ -453,8 +454,8 @@ def _step_stokes(tt, cfg, n, rank, dev, seed, tile_rows, timing, filter_type):
             if film_route:
                 return pk.render_stokes_film(scene, spp=spp, seed=seed, device=dev,
                                              spp_per_pass=k, tile_rows=tile_rows)
-            return pr.stokes_sample_partial(tables, pr.sample_seed(seed, 0, spp), spp,
-                                            c.filter_type)
+            return pk.sample_film(tables, pk.stokes_sample_trace, pk.sample_planes_split, spp,
+                                  pr.sample_seed(seed, 0, spp), spp, c.filter_type)
 
         out.update(_timed(route, single, dev, timing, rank))
         planes = tables.n_val if film_route else 13

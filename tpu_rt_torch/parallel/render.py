@@ -43,9 +43,6 @@ from tpu_rt_torch.sensor import film as film_mod
 _wrap_i32 = pk._wrap_i32
 # the per-rank seed stride of tpu_rt's sharded routes
 RANK_SEED_STRIDE = 7919
-# the most samples the K6 route splats at once (``splat_in_order``'s
-# filter terms of a chunk are held whole)
-SPLAT_CHUNK = 64
 
 
 def default_group():
@@ -123,39 +120,6 @@ def sample_seed(seed, rank, k):
     return _wrap_i32(_wrap_i32(seed * 100003) + rank * k)
 
 
-def film_partial(tables, trace, seed, k):
-    """One rank's part of a film-kernel render: one launch of ``trace``
-    (``film_trace`` or ``stokes_film_trace``) of k samples a pixel seeded
-    ``seed``, deposited into a film.  Returns (the (n_val, H, W) film, the
-    rays cast as a 0-d int64 tensor)."""
-    planes = trace(tables, seed, k)
-    film = torch.zeros((tables.n_val, tables.H, tables.W), dtype=torch.float32,
-                       device=planes.device)
-    pk.deposit(film, planes, tables)
-    return film, planes[-1].to(torch.int64).sum()
-
-
-def stokes_sample_partial(tables, seed, k, filter_type):
-    """One rank's part of the K6 route: one ``stokes_sample_trace`` launch
-    of k samples (sample i seeded seed + i), each sample's non-finite
-    values left out, splatted in order (``splat_in_order``, SPLAT_CHUNK
-    samples at a time).  Returns (film_vals [H, W, 12], film_wts [H, W],
-    rays cast)."""
-    H, W = tables.H, tables.W
-    planes = pk.stokes_sample_trace(tables, seed, k)
-    S_all, jitter, n_rays = pk.sample_planes_split(planes)
-    S_all = S_all.reshape(k, H, W, 12)
-    jitter = jitter.reshape(k, H, W, 2)
-    fv = torch.zeros((H, W, 12), dtype=torch.float32, device=planes.device)
-    fw = torch.zeros((H, W), dtype=torch.float32, device=planes.device)
-    for j in range(0, k, SPLAT_CHUNK):
-        s = S_all[j:j + SPLAT_CHUNK]
-        ok = torch.isfinite(s).all(-1)
-        fv, fw = film_mod.splat_in_order(fv, fw, jitter[j:j + SPLAT_CHUNK],
-                                         torch.where(ok[..., None], s, 0.0), ok, filter_type)
-    return fv, fw, n_rays
-
-
 def tile_pixels(H, W, n, rank, device):
     """Rank ``rank``'s contiguous tile of the H*W pixels padded to a
     multiple of ``n``: (integer pixel xy [m, 2] float32, valid [m]);
@@ -228,7 +192,7 @@ def render_pallas_sharded(scene: Scene, spp=None, seed=0, group=None, tile_rows=
     if spp % n:
         raise ValueError(f"spp {spp} must divide over {n} ranks")
     tables = pk.pack_tables(bs, c, tile_rows, torch.device(device))
-    film, n_rays = film_partial(tables, pk.film_trace, film_seed(seed, rank), spp // n)
+    film, n_rays = pk.film_chunks(tables, pk.film_trace, [(film_seed(seed, rank), spp // n)])
     film = psum(film, group)
     render_pallas_sharded.last_ray_count = psum(n_rays, group)
     return film_mod.develop(film[:3].permute(1, 2, 0), film[3]).contiguous()
@@ -249,7 +213,7 @@ def render_stokes_pallas_sharded(scene: Scene, spp=None, seed=0, group=None, til
     spp_per_pass=k)``'s up to the order of the adds.  Any other filter:
     rank r traces its k contiguous seeds of seed * 100003 + [0, spp)
     through K6 in one launch, splats them in order
-    (``splat_in_order``, SPLAT_CHUNK samples at a time) and the 12 + 1
+    (``path_kernel.sample_film``) and the 12 + 1
     planes are summed.  Raises ValueError outside the Stokes kernels'
     scope.  Returns the (H, W, 4, 3) Stokes image on ``device`` and sets
     ``render_stokes_pallas_sharded.last_ray_count`` (0-d int64)."""
@@ -265,12 +229,13 @@ def render_stokes_pallas_sharded(scene: Scene, spp=None, seed=0, group=None, til
     k = spp // n
     tables = pk.pack_tables(bs, c, tile_rows, torch.device(device), stokes=True)
     if c.filter_type in (FILTER_BOX, FILTER_TENT):
-        film, n_rays = film_partial(tables, pk.stokes_film_trace, film_seed(seed, rank, k), k)
+        film, n_rays = pk.film_chunks(tables, pk.stokes_film_trace,
+                                      [(film_seed(seed, rank, k), k)])
         film, n_rays = psum(film, group), psum(n_rays, group)
         S = film_mod.develop(film[:12].permute(1, 2, 0), film[12])
     else:
-        fv, fw, n_rays = stokes_sample_partial(tables, sample_seed(seed, rank, k), k,
-                                               c.filter_type)
+        fv, fw, n_rays = pk.sample_film(tables, pk.stokes_sample_trace, pk.sample_planes_split,
+                                        k, sample_seed(seed, rank, k), k, c.filter_type)
         fv, fw, n_rays = psum(fv, group), psum(fw, group), psum(n_rays, group)
         S = film_mod.develop(fv, fw)
     render_stokes_pallas_sharded.last_ray_count = n_rays

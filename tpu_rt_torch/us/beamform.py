@@ -35,12 +35,12 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tpu_rt_torch.utils.memo import per_object
 from tpu_rt_torch.utils.profiling import span
 
 
@@ -202,24 +202,17 @@ class DasPlan(NamedTuple):
     split: bool
 
 
-_HOST_GRIDS = {}
-
-
 def _host_grid(g):
     """A grid's values as float64 on the host, with the largest extent of
     its tiles of each size as they are asked for ({tile size: extent}).  A
-    CUDA tensor's are kept while it lives unchanged (keyed as
-    ``ops/us_kernel.py::per_scene`` keys scenes), so a frame's planning
-    waits on nothing but the first."""
+    CUDA tensor's are kept while it lives unchanged
+    (``utils/memo.py::per_object`` at its ``_version``), so a frame's
+    planning waits on nothing but the first."""
     if not isinstance(g, torch.Tensor) or g.device.type == "cpu":
         return np.asarray(torch.as_tensor(g).detach(), np.float64).reshape(-1), {}
-    k = id(g)
-    hit = _HOST_GRIDS.get(k)
-    if hit is not None and hit[0]() is g and hit[1] == g._version:
-        return hit[2]
-    value = (g.detach().to("cpu", torch.float64).numpy().reshape(-1), {})
-    _HOST_GRIDS[k] = (weakref.ref(g, lambda _, k=k: _HOST_GRIDS.pop(k, None)), g._version, value)
-    return value
+    return per_object(g, "host grid",
+                      lambda: (g.detach().to("cpu", torch.float64).numpy().reshape(-1), {}),
+                      version=g._version)
 
 
 def _extent(grid, size):

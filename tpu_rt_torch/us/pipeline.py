@@ -24,7 +24,7 @@ version on the CPU); tpu_rt's route takes its MXU form,
 package's cache of jitted closures has no counterpart; what a frame needs
 that depends on the scene alone (the kernel's tables or the scene on the
 device, the rays, the grid and element positions on the device, the
-route) is kept per scene object (``ops/us_kernel.py::per_scene``), so a
+route) is kept per scene object (``utils/memo.py::per_object``), so a
 frame on the card copies nothing from the host.  What is kept is
 detached; a tensor that requires grad, and what is made from it, is taken
 anew each call, so no frame is handed another frame's graph.
@@ -42,16 +42,16 @@ import torch
 
 from tpu_rt_torch.integrator import ultrasound as wavefront
 from tpu_rt_torch.ops import us_kernel
-from tpu_rt_torch.ops.us_kernel import per_scene
 from tpu_rt_torch.scene.types import Scene, grad_tensors
 from tpu_rt_torch.sensor.transducer import element_geometry
 from tpu_rt_torch.us.beamform import bmode_pipeline, grid_scan
+from tpu_rt_torch.utils.memo import per_object
 from tpu_rt_torch.utils.profiling import span
 
 
 def in_kernel_scope(scene: Scene) -> bool:
     """True when the acquisition kernel takes the scene (kept per scene)."""
-    return per_scene(scene, ("in_scope",), lambda: us_kernel.bake_us_scene(scene) is not None)
+    return per_object(scene, ("in_scope",), lambda: us_kernel.bake_us_scene(scene) is not None)
 
 
 def _das_geometry(scene, device):
@@ -65,7 +65,7 @@ def _das_geometry(scene, device):
     us = scene.ultrasound
     if grad_tensors(us):
         return make(us)
-    return per_scene(scene, ("das geometry", str(device)), lambda: make(us.detach()))
+    return per_object(scene, ("das geometry", str(device)), lambda: make(us.detach()))
 
 
 def us_render(scene: Scene, seed=0, rays_per_pair=1, x_bounds=(-0.04, 0.04),
@@ -104,8 +104,8 @@ def us_render(scene: Scene, seed=0, rays_per_pair=1, x_bounds=(-0.04, 0.04),
                                        step)
             return x_grid.to(device), z_grid.to(device)
 
-        x_grid, z_grid = per_scene(scene, ("grid", tuple(x_bounds), tuple(z_bounds), str(device)),
-                                   grid)
+        x_grid, z_grid = per_object(scene, ("grid", tuple(x_bounds), tuple(z_bounds), str(device)),
+                                    grid)
         elem_x, elem_z, angles = _das_geometry(scene, device)
         img = bmode_pipeline(channel_buf, angles, elem_x, us.sampling_rate, us.sound_speed,
                              x_grid, z_grid, dynamic_range, method="gather", elem_z=elem_z)

@@ -1,1 +1,2 @@
-"""Utilities: profiling and tracing (``profiling.py``)."""
+"""Utilities: profiling and tracing (``profiling.py``), values kept for an
+object while it lives (``memo.py``)."""

@@ -182,15 +182,15 @@ def measure_device_trace(fn, log_dir=None):
 
 def launch_counters():
     """The port's kernel wrappers by name, each counting its launches in
-    ``.launches``: K1 and K3 (their trace kernels), film_splat, K6, K5, K4,
-    K10 (its deposit mode, the acquisition's, and its records mode), the
-    DAS kernel, its packing pass and its adjoint, K9, K7.  K2's loop,
-    around K1, is counted by ``film_trace.regen_launches``."""
+    ``.launches``: K1 (its trace kernel), film_splat, K6 (K3's trace kernel
+    too), K5, K4, K10 (its deposit mode, the acquisition's, and its
+    records mode), the DAS kernel, its packing pass and its adjoint, K9,
+    K7.  K2's loop, around K1, is counted by
+    ``film_trace.regen_launches``."""
     from tpu_rt_torch.ops import mesh_kernel, path_kernel, us_kernel
     from tpu_rt_torch.us import beamform
 
     return {"path_film": path_kernel.film_trace,
-            "stokes_film": path_kernel.stokes_film_trace,
             "film_splat": path_kernel.film_splat,
             "stokes_sample": path_kernel.stokes_sample_trace,
             "raygen_sample": path_kernel.raygen_trace,
